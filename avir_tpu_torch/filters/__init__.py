@@ -1,0 +1,27 @@
+"""Host-side filter design (float64 NumPy).
+
+Everything downstream (planner, device kernels) consumes plain arrays
+produced here.  Mirrors the math of the reference's filter-design layer
+(avir.h:996-2100) with direct vectorized evaluation in place of the
+reference's recurrence oscillators.
+"""
+
+from .design import (
+    peaked_cosine_window,
+    peaked_cosine_lpf,
+    lpf_geometry,
+    calc_fir_response,
+    normalize_fir,
+    FirEq,
+    FracFilterBank,
+)
+
+__all__ = [
+    "peaked_cosine_window",
+    "peaked_cosine_lpf",
+    "lpf_geometry",
+    "calc_fir_response",
+    "normalize_fir",
+    "FirEq",
+    "FracFilterBank",
+]

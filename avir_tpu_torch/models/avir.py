@@ -1,0 +1,116 @@
+"""AVIR pipeline driver: the public resize API.
+
+Counterpart of the JAX package's ``models/avir.py``
+(``ImageResizer.resize`` and the module-level ``resize``): the
+constructor fixes bit depths and the quality preset; ``resize`` plans on
+the host (NumPy), builds an executor once per geometry (cached), and runs
+it on ``device``.  Arrays go in and come out as NumPy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..params import PARAMS_DEF, Params
+from ..plan.plan import build_resize_plan
+from ..utils.excache import ExecutorCache
+from .runtime import make_avir_executor, resolve_device
+
+
+class ImageResizer:
+    """Image resizer with a fixed quality preset and output bit depth
+    (avir.h:4630-4639): ``res_bit_depth`` is the significant output bit
+    depth, ``src_bit_depth`` defaults to it."""
+
+    def __init__(
+        self,
+        res_bit_depth: int = 8,
+        src_bit_depth: int = 0,
+        params: Params = PARAMS_DEF,
+    ):
+        self.res_bit_depth = res_bit_depth
+        self.src_bit_depth = src_bit_depth
+        self.params = params
+        self._cache = ExecutorCache(maxsize=64)
+
+    def resize(
+        self,
+        src: np.ndarray,
+        new_w: int,
+        new_h: int,
+        k: float = 0.0,
+        ox: float = 0.0,
+        oy: float = 0.0,
+        out_dtype=None,
+        use_srgb_gamma: bool = False,
+        alpha_index: int = -1,
+        dither: str = "default",
+        build_mode: int = -1,
+        precision: str = "auto",
+        device=None,
+    ) -> np.ndarray:
+        """Resize ``src`` ([H, W, C] or [H, W]) to new_w x new_h.
+
+        ``k``: 0 = auto per-axis scale with centering; >0 = uniform scale
+        with centering; <0 = |k| without centering (avir.h:4709-4736).
+        ``ox``/``oy``: sub-pixel shift in source pixels.  ``device``:
+        None means the CUDA card (an error without one); ``"cpu"`` runs
+        the kernels' plain versions.  Configurations this port does not
+        carry yet raise NotImplementedError.
+        """
+        if dither != "default":
+            raise NotImplementedError(
+                f"not ported yet: dither={dither!r} "
+                "(ROADMAP.md Queue 1 item 8)"
+            )
+        device = resolve_device(device)
+        src = np.asarray(src)
+        squeeze = src.ndim == 2
+        if squeeze:
+            src = src[:, :, None]
+        sh, sw, ch = src.shape
+        out_dtype = np.dtype(src.dtype if out_dtype is None else out_dtype)
+        if new_w <= 0 or new_h <= 0:
+            raise ValueError("target size must be positive")
+        if sw == 0 or sh == 0:
+            out = np.zeros((new_h, new_w, ch), dtype=out_dtype)
+            return out[:, :, 0] if squeeze else out
+
+        key = (
+            sw, sh, new_w, new_h, ch, src.dtype.str, out_dtype.str,
+            k, ox, oy, use_srgb_gamma, alpha_index, build_mode, precision,
+            str(device),
+        )
+
+        def build():
+            plan = build_resize_plan(
+                src_w=sw, src_h=sh, new_w=new_w, new_h=new_h,
+                el_count=ch, in_dtype=src.dtype, out_dtype=out_dtype,
+                k=k, ox=ox, oy=oy, params=self.params,
+                res_bit_depth=self.res_bit_depth,
+                src_bit_depth=self.src_bit_depth,
+                use_srgb_gamma=use_srgb_gamma,
+                alpha_index=alpha_index,
+                build_mode=build_mode,
+            )
+            return make_avir_executor(plan, precision=precision, device=device)
+
+        fn = self._cache.get_or_build(key, build)
+        x = torch.from_numpy(np.ascontiguousarray(src.reshape(sh, sw * ch)))
+        res = fn(x.to(device)).cpu().numpy().reshape(new_h, new_w, ch)
+        return res[:, :, 0] if squeeze else res
+
+
+def resize(src: np.ndarray, new_w: int, new_h: int, **kwargs) -> np.ndarray:
+    """One-shot resize with the default preset (see ImageResizer.resize).
+
+    Extra keyword arguments ``params``, ``res_bit_depth`` and
+    ``src_bit_depth`` configure the resizer itself.
+    """
+    rz = ImageResizer(
+        res_bit_depth=kwargs.pop("res_bit_depth", 8),
+        src_bit_depth=kwargs.pop("src_bit_depth", 0),
+        params=kwargs.pop("params", PARAMS_DEF),
+    )
+    return rz.resize(src, new_w, new_h, **kwargs)

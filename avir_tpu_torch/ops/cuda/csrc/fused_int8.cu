@@ -1,0 +1,420 @@
+// Fused two-pass int8 resize (K1, int8 mode) for NVIDIA Hopper (sm_90a).
+//
+// Replaces the JAX package's Pallas kernel
+// avir_tpu/ops/pallas/fused_kernel.py: apply_fused_pallas -> _kernel ->
+// _int8_passes -> _finish, in its int8 mode with the default (biased)
+// rounding epilogue.  One launch computes the whole separable resize
+// [rows_in, lanes_in] u8 -> [rows_out, lanes_out] u8 from radix-128
+// two-limb s8 taps; the 15-bit inter-pass intermediate lives only in
+// shared memory.
+//
+// Arithmetic (bit-exact with the TPU kernel): every product and sum
+// before the float recombination is an exact s32 integer, and each
+// output's recombination uses only that output's full sums, so the
+// result does not depend on the tiling.  Float steps use the _rn
+// intrinsics so that no FMA contraction can move a rounding.
+//
+//   input       xs = s8(x ^ 0x80) = x - 128; reads past the edge see 0.
+//   vh (downsize), per output row r and lane l:
+//     fq  = 128*sum q1v*xs + sum q0v*xs + v_comp[r]   (v_comp: row sums)
+//     x15 = (fq + 2^(sh-1)) >> sh ; x1 = (x15+64)>>7 ; x0 = x15 - 128*x1
+//     pa  = sum x1*h1 ; pb = sum x0*h1 + sum x1*h0     (over the chunk)
+//   hv (upsize):
+//     fq  = 128*sum xs*h1 + sum xs*h0 + h_comp[l]      (h_comp: col sums)
+//     x15, x1, x0 as above
+//     pa  = sum q1v*x1 ; pb = sum q1v*x0 + sum q0v*x1
+//   epilogue    acc = (f32(pa)*16384 + f32(pb)*128) * scale
+//               out = u8(clamp(floor(acc + 0.5), 0, 255))
+//
+// Design.  A thread block owns 32 output rows (a slice of one V block)
+// and one 128-lane output chunk of one lane block; 256 threads each own
+// 4 rows x 4 lanes.  Products are dp4a (4 s8 MACs into s32) from shared
+// memory.  Operands are staged "packed along the contraction": a 32-bit
+// word holds 4 consecutive contraction elements, so V taps (row-major)
+// and the horizontal taps (packed on the host, [win_c/4][128] words)
+// load as they are, and the image tile is transposed into that form as
+// it is stored.
+//   vh: for each 128-lane segment of the chunk's win_c-lane window, the
+//       first pass computes x15 for the 32 rows x 128 lanes over the
+//       slice's nonzero V-tap rows, then the second pass adds that
+//       segment's share of pa/pb.  The first pass is thus recomputed by
+//       every chunk whose window covers a lane (about win_c / (128 * s)
+//       chunks for a downsize by s: 2 at 7680x4320 -> 1920x1080, where
+//       win_c = 1024 and s = 4) and by every slice whose 32-aligned row
+//       range covers a row (1.5 there): each input byte is read ~3
+//       times.
+//   hv: for each 32-row segment of the slice's nonzero V-tap rows, the
+//       first pass computes x15 for those window rows x 128 chunk lanes
+//       over the win_c window lanes, then the second pass adds the
+//       segment's share.  Window rows shared by neighbouring slices are
+//       recomputed by each (4x at 1920x1080 -> 3840x2160), and window
+//       lanes by every chunk that covers them (8x there): each input
+//       byte is read ~32 times.
+//   chip_smoke.py prints these factors ("first_pass_reads_per_input").
+//
+// What bounds it on this card.  The image bytes read once plus the
+// output written once bound the kernel at tens of microseconds at the
+// main-path sizes (memory-bound by the data sheet's 3.35 TB/s; the band
+// MACs are ~1e10 int8 operations, a few microseconds at the tensor
+// cores' rate).  This first version runs its products on the CUDA
+// cores (dp4a) over dense tap blocks (a 128-lane chunk's window is
+// win_c lanes however narrow its band) and recomputes the first pass as
+// above, so it is bound by dp4a issue, far above that bound.  Tensor
+// core products (mma/wgmma), TMA staging and a first-pass intermediate
+// shared across chunks are the planned ways down.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 32;    // output rows per block
+constexpr int kLanes = 128;  // output lanes per block (one chunk)
+constexpr int kDepth = 32;   // contraction elements staged per step
+constexpr int kDepth4 = kDepth / 4;
+
+struct Args {
+  const uint8_t* x;
+  int rows_in, lanes_in;
+  uint8_t* out;
+  int rows_out, lanes_out;
+  const int8_t* v1;        // [Bv, Tv, Wv]
+  const int8_t* v0;
+  const int32_t* v_comp;   // [Bv, Tv] (vh only)
+  const int32_t* offs_v;   // [Bv]
+  int tv, wv;
+  const uint32_t* h1p;     // [Bh, n_ch, win_c/4, 128] packed along win_c
+  const uint32_t* h0p;
+  const int32_t* h_comp;   // [Bh, n_ch, 128] (hv only)
+  const int32_t* offs_l;   // [Bh]
+  const int32_t* rel;      // [n_ch]
+  int n_ch, win_c, tc;
+  const int32_t* k_range;  // [Bv, n_slices, 2] nonzero V-tap rows, 32-aligned
+  int n_slices;
+  int sh;                  // first-pass requantizing shift (>= 1)
+  float scale;             // 2^-(x_shift + second-pass q_shift)
+};
+
+// Image byte as s8 (x - 128), zero past the edge.
+__device__ __forceinline__ uint8_t load_xs(const Args& a, int r, int l) {
+  uint8_t v = 0;
+  if (r < a.rows_in && l < a.lanes_in) {
+    v = __ldg(a.x + static_cast<size_t>(r) * a.lanes_in + l);
+  }
+  return v ^ 0x80u;
+}
+
+__device__ __forceinline__ int32_t requant(int32_t fq, int sh) {
+  return (fq + (1 << (sh - 1))) >> sh;
+}
+
+__device__ __forceinline__ uint32_t byte_of(int32_t v, int i) {
+  return (static_cast<uint32_t>(v) & 0xffu) << (8 * i);
+}
+
+__device__ __forceinline__ uint8_t finish(int32_t pa, int32_t pb, float scale) {
+  float acc = __fadd_rn(__fmul_rn(__int2float_rn(pa), 16384.0f),
+                        __fmul_rn(__int2float_rn(pb), 128.0f));
+  acc = __fmul_rn(acc, scale);
+  float v = floorf(__fadd_rn(acc, 0.5f));
+  v = fminf(fmaxf(v, 0.0f), 255.0f);
+  return static_cast<uint8_t>(static_cast<int>(v));
+}
+
+// V tap limbs of the block's 32 rows over contraction rows k0..k0+31:
+// one word (4 taps) per thread and limb; rows past the V block are 0.
+__device__ __forceinline__ void stage_v_taps(
+    const Args& a, int vb, int r0, int k0,
+    uint32_t (*s1)[kDepth4], uint32_t (*s0)[kDepth4]) {
+  const int r = threadIdx.x / kDepth4, w = threadIdx.x % kDepth4;
+  const int tr = r0 + r;
+  uint32_t q1 = 0, q0 = 0;
+  if (tr < a.tv) {
+    const size_t off = (static_cast<size_t>(vb) * a.tv + tr) * a.wv + k0 + 4 * w;
+    q1 = __ldg(reinterpret_cast<const uint32_t*>(a.v1 + off));
+    q0 = __ldg(reinterpret_cast<const uint32_t*>(a.v0 + off));
+  }
+  s1[r][w] = q1;
+  s0[r][w] = q0;
+}
+
+__device__ __forceinline__ void store_out(
+    const Args& a, int vb, int r0, int hb, int j,
+    const int32_t (&pa)[4][4], const int32_t (&pb)[4][4]) {
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int tr = r0 + 4 * ty + i;
+    const int orow = vb * a.tv + tr;
+    if (tr >= a.tv || orow >= a.rows_out) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int cl = j * kLanes + 4 * tx + jj;
+      const int olane = hb * a.tc + cl;
+      if (cl < a.tc && olane < a.lanes_out) {
+        a.out[static_cast<size_t>(orow) * a.lanes_out + olane] =
+            finish(pa[i][jj], pb[i][jj], a.scale);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
+  const int chunk = blockIdx.x;
+  const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
+  const int vb = blockIdx.y / a.n_slices, sl = blockIdx.y % a.n_slices;
+  const int r0 = sl * kRows;
+  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
+
+  __shared__ uint32_t sv1[kRows][kDepth4];       // V tap limbs
+  __shared__ uint32_t sv0[kRows][kDepth4];
+  __shared__ __align__(16) uint32_t sx[kDepth4][kLanes];    // xs, packed along rows
+  __shared__ uint32_t sl1[kRows][kLanes / 4];    // x1/x0 limbs, packed along lanes
+  __shared__ uint32_t sl0[kRows][kLanes / 4];
+  __shared__ __align__(16) uint32_t sh1[kLanes / 4][kLanes];  // H taps, packed
+  __shared__ __align__(16) uint32_t sh0[kLanes / 4][kLanes];
+
+  const int k_lo = a.k_range[2 * blockIdx.y];
+  const int k_hi = a.k_range[2 * blockIdx.y + 1];
+  const int row0 = a.offs_v[vb];
+  const int lane0 = a.offs_l[hb] + a.rel[j];
+  int32_t comp[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int tr = r0 + 4 * ty + i;
+    comp[i] = tr < a.tv ? a.v_comp[vb * a.tv + tr] : 0;
+  }
+
+  int32_t pa[4][4] = {}, pb[4][4] = {};
+  for (int seg = 0; seg < a.win_c; seg += kLanes) {
+    // ---- first (vertical) pass over this 128-lane segment ----------
+    int32_t m1[4][4] = {}, m0[4][4] = {};
+    for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
+      __syncthreads();
+      stage_v_taps(a, vb, r0, k0, sv1, sv0);
+      for (int e = tid; e < kDepth * kLanes; e += kThreads) {
+        const int k = e / kLanes, l = e % kLanes;
+        reinterpret_cast<uint8_t*>(&sx[k / 4][l])[k % 4] =
+            load_xs(a, row0 + k0 + k, lane0 + seg + l);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k4 = 0; k4 < kDepth4; ++k4) {
+        const uint4 xb = *reinterpret_cast<const uint4*>(&sx[k4][4 * tx]);
+        const int xv[4] = {static_cast<int>(xb.x), static_cast<int>(xb.y),
+                           static_cast<int>(xb.z), static_cast<int>(xb.w)};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q1 = static_cast<int>(sv1[4 * ty + i][k4]);
+          const int q0 = static_cast<int>(sv0[4 * ty + i][k4]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            m1[i][jj] = __dp4a(q1, xv[jj], m1[i][jj]);
+            m0[i][jj] = __dp4a(q0, xv[jj], m0[i][jj]);
+          }
+        }
+      }
+    }
+    // ---- requantize to two s8 limbs, kept in shared memory ---------
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t w1 = 0, w0 = 0;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int32_t x15 = requant(m1[i][jj] * 128 + m0[i][jj] + comp[i], a.sh);
+        const int32_t x1 = (x15 + 64) >> 7;
+        w1 |= byte_of(x1, jj);
+        w0 |= byte_of(x15 - x1 * 128, jj);
+      }
+      sl1[4 * ty + i][tx] = w1;
+      sl0[4 * ty + i][tx] = w0;
+    }
+    {
+      const size_t base =
+          (static_cast<size_t>(chunk) * (a.win_c / 4) + seg / 4) * kLanes / 4;
+      const uint4* g1 = reinterpret_cast<const uint4*>(a.h1p) + base;
+      const uint4* g0 = reinterpret_cast<const uint4*>(a.h0p) + base;
+      for (int e = tid; e < (kLanes / 4) * kLanes / 4; e += kThreads) {
+        reinterpret_cast<uint4*>(&sh1[0][0])[e] = __ldg(g1 + e);
+        reinterpret_cast<uint4*>(&sh0[0][0])[e] = __ldg(g0 + e);
+      }
+    }
+    __syncthreads();
+    // ---- second (horizontal) pass: this segment's share ------------
+#pragma unroll 4
+    for (int k4 = 0; k4 < kLanes / 4; ++k4) {
+      const uint4 t1 = *reinterpret_cast<const uint4*>(&sh1[k4][4 * tx]);
+      const uint4 t0 = *reinterpret_cast<const uint4*>(&sh0[k4][4 * tx]);
+      const int h1[4] = {static_cast<int>(t1.x), static_cast<int>(t1.y),
+                         static_cast<int>(t1.z), static_cast<int>(t1.w)};
+      const int h0[4] = {static_cast<int>(t0.x), static_cast<int>(t0.y),
+                         static_cast<int>(t0.z), static_cast<int>(t0.w)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int x1 = static_cast<int>(sl1[4 * ty + i][k4]);
+        const int x0 = static_cast<int>(sl0[4 * ty + i][k4]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          pa[i][jj] = __dp4a(x1, h1[jj], pa[i][jj]);
+          pb[i][jj] = __dp4a(x0, h1[jj], pb[i][jj]);
+          pb[i][jj] = __dp4a(x1, h0[jj], pb[i][jj]);
+        }
+      }
+    }
+  }
+  store_out(a, vb, r0, hb, j, pa, pb);
+}
+
+__global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
+  const int chunk = blockIdx.x;
+  const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
+  const int vb = blockIdx.y / a.n_slices, sl = blockIdx.y % a.n_slices;
+  const int r0 = sl * kRows;
+  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
+
+  __shared__ uint32_t sxa[kRows][kDepth4];                   // xs, packed along lanes
+  __shared__ __align__(16) uint32_t st1[kDepth4][kLanes];    // H taps, packed
+  __shared__ __align__(16) uint32_t st0[kDepth4][kLanes];
+  __shared__ __align__(16) uint32_t sl1[kDepth4][kLanes];    // x1/x0, packed along rows
+  __shared__ __align__(16) uint32_t sl0[kDepth4][kLanes];
+  __shared__ uint32_t sv1[kRows][kDepth4];                   // V tap limbs
+  __shared__ uint32_t sv0[kRows][kDepth4];
+
+  const int k_lo = a.k_range[2 * blockIdx.y];
+  const int k_hi = a.k_range[2 * blockIdx.y + 1];
+  const int row0 = a.offs_v[vb];
+  const int lane0 = a.offs_l[hb] + a.rel[j];
+  int32_t comp[4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) comp[jj] = a.h_comp[chunk * kLanes + 4 * tx + jj];
+  const size_t tap_base = static_cast<size_t>(chunk) * (a.win_c / 4) * kLanes / 4;
+
+  int32_t pa[4][4] = {}, pb[4][4] = {};
+  for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
+    // ---- first (horizontal) pass for window rows k0..k0+31 ---------
+    int32_t f1[4][4] = {}, f0[4][4] = {};
+    for (int m0 = 0; m0 < a.win_c; m0 += kDepth) {
+      __syncthreads();
+      for (int e = tid; e < kRows * kDepth; e += kThreads) {
+        const int r = e / kDepth, l = e % kDepth;
+        reinterpret_cast<uint8_t*>(&sxa[r][l / 4])[l % 4] =
+            load_xs(a, row0 + k0 + r, lane0 + m0 + l);
+      }
+      {
+        const uint4* g1 = reinterpret_cast<const uint4*>(a.h1p) + tap_base + m0 / 4 * kLanes / 4;
+        const uint4* g0 = reinterpret_cast<const uint4*>(a.h0p) + tap_base + m0 / 4 * kLanes / 4;
+        reinterpret_cast<uint4*>(&st1[0][0])[tid] = __ldg(g1 + tid);
+        reinterpret_cast<uint4*>(&st0[0][0])[tid] = __ldg(g0 + tid);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int m4 = 0; m4 < kDepth4; ++m4) {
+        const uint4 t1 = *reinterpret_cast<const uint4*>(&st1[m4][4 * tx]);
+        const uint4 t0 = *reinterpret_cast<const uint4*>(&st0[m4][4 * tx]);
+        const int h1[4] = {static_cast<int>(t1.x), static_cast<int>(t1.y),
+                           static_cast<int>(t1.z), static_cast<int>(t1.w)};
+        const int h0[4] = {static_cast<int>(t0.x), static_cast<int>(t0.y),
+                           static_cast<int>(t0.z), static_cast<int>(t0.w)};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int xv = static_cast<int>(sxa[4 * ty + i][m4]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            f1[i][jj] = __dp4a(xv, h1[jj], f1[i][jj]);
+            f0[i][jj] = __dp4a(xv, h0[jj], f0[i][jj]);
+          }
+        }
+      }
+    }
+    // ---- requantize; pack each lane's 4 rows into one word ---------
+    __syncthreads();
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      uint32_t w1 = 0, w0 = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int32_t x15 = requant(f1[i][jj] * 128 + f0[i][jj] + comp[jj], a.sh);
+        const int32_t x1 = (x15 + 64) >> 7;
+        w1 |= byte_of(x1, i);
+        w0 |= byte_of(x15 - x1 * 128, i);
+      }
+      sl1[ty][4 * tx + jj] = w1;
+      sl0[ty][4 * tx + jj] = w0;
+    }
+    stage_v_taps(a, vb, r0, k0, sv1, sv0);
+    __syncthreads();
+    // ---- second (vertical) pass: this segment's share --------------
+#pragma unroll
+    for (int k4 = 0; k4 < kDepth4; ++k4) {
+      const uint4 l1 = *reinterpret_cast<const uint4*>(&sl1[k4][4 * tx]);
+      const uint4 l0 = *reinterpret_cast<const uint4*>(&sl0[k4][4 * tx]);
+      const int x1[4] = {static_cast<int>(l1.x), static_cast<int>(l1.y),
+                         static_cast<int>(l1.z), static_cast<int>(l1.w)};
+      const int x0[4] = {static_cast<int>(l0.x), static_cast<int>(l0.y),
+                         static_cast<int>(l0.z), static_cast<int>(l0.w)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q1 = static_cast<int>(sv1[4 * ty + i][k4]);
+        const int q0 = static_cast<int>(sv0[4 * ty + i][k4]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          pa[i][jj] = __dp4a(q1, x1[jj], pa[i][jj]);
+          pb[i][jj] = __dp4a(q1, x0[jj], pb[i][jj]);
+          pb[i][jj] = __dp4a(q0, x1[jj], pb[i][jj]);
+        }
+      }
+    }
+  }
+  store_out(a, vb, r0, hb, j, pa, pb);
+}
+
+}  // namespace
+
+extern "C" int avir_fused_int8(
+    int hv,
+    const void* x, int rows_in, int lanes_in,
+    void* out, int rows_out, int lanes_out,
+    const void* v1, const void* v0, const void* v_comp, const void* offs_v,
+    int bv, int tv, int wv,
+    const void* h1p, const void* h0p, const void* h_comp,
+    const void* offs_l, const void* rel,
+    int bh, int n_ch, int win_c, int tc,
+    const void* k_range, int n_slices,
+    int sh, float scale,
+    void* stream) {
+  Args a;
+  a.x = static_cast<const uint8_t*>(x);
+  a.rows_in = rows_in;
+  a.lanes_in = lanes_in;
+  a.out = static_cast<uint8_t*>(out);
+  a.rows_out = rows_out;
+  a.lanes_out = lanes_out;
+  a.v1 = static_cast<const int8_t*>(v1);
+  a.v0 = static_cast<const int8_t*>(v0);
+  a.v_comp = static_cast<const int32_t*>(v_comp);
+  a.offs_v = static_cast<const int32_t*>(offs_v);
+  a.tv = tv;
+  a.wv = wv;
+  a.h1p = static_cast<const uint32_t*>(h1p);
+  a.h0p = static_cast<const uint32_t*>(h0p);
+  a.h_comp = static_cast<const int32_t*>(h_comp);
+  a.offs_l = static_cast<const int32_t*>(offs_l);
+  a.rel = static_cast<const int32_t*>(rel);
+  a.n_ch = n_ch;
+  a.win_c = win_c;
+  a.tc = tc;
+  a.k_range = static_cast<const int32_t*>(k_range);
+  a.n_slices = n_slices;
+  a.sh = sh;
+  a.scale = scale;
+  const dim3 grid(bh * n_ch, bv * n_slices);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hv) {
+    fused_int8_hv<<<grid, kThreads, 0, s>>>(a);
+  } else {
+    fused_int8_vh<<<grid, kThreads, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,351 @@
+"""K1 in int8 mode: the fused two-pass resize, its wrapper and its plain
+PyTorch version.
+
+Counterpart of the JAX package's ``ops/pallas/fused_kernel.py``
+(``apply_fused_pallas`` -> ``_kernel`` -> ``_int8_passes`` -> ``_finish``,
+int8 mode, biased rounding).  The kernel (``csrc/fused_int8.cu``) does the
+whole separable resize of a u8 image in one launch from the radix-128
+two-limb s8 taps of a blocked V operator (ops/banded.py) and a lane
+operator (ops/lanes.py), keeping the 15-bit intermediate on chip.
+
+``prepare_fused_int8`` turns the two operators into device tensors once
+per executor: the chunked lane taps (the unchunked form becomes
+``ceil(TC/128)`` chunks at offset 0 over the whole window), the same taps
+packed four-along-the-contraction for the kernel, the row/column sums
+that undo the input's -128 shift, and each 32-row slice's range of
+nonzero V taps.
+
+``apply_fused_int8`` launches the kernel on a CUDA tensor and runs
+``apply_fused_int8_reference`` on a CPU tensor.  The reference does the
+same integer arithmetic with float64 products of the limb tensors
+(exact: every sum stays below 2^31), then the same float32
+recombination, so kernel and reference agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..banded import BlockedBandedOp
+from ..lanes import LaneBlockedOp
+
+# Launches of each kernel of this module, counted by the wrapper.
+launches = {"fused_int8_vh": 0, "fused_int8_hv": 0}
+
+_ROWS = 32    # output rows per thread block (csrc: kRows)
+_LANES = 128  # output lanes per thread block (csrc: kLanes)
+
+
+def _int8_x_shift(first_l1_max: float, first_bits: int) -> int:
+    """Inter-pass 15-bit quantization scale: the high limb (x15+64)>>7
+    must fit s8 for |y| <= 255 * l1_max of the first pass, and the
+    re-quantizing right shift (first_bits - x_shift) must be positive."""
+    if first_l1_max <= 0.0:
+        return 0
+    x_shift = int(math.floor(math.log2(16319.0 / (255.0 * first_l1_max))))
+    return min(x_shift, first_bits - 1)
+
+
+def int8_feasible(
+    vop: BlockedBandedOp, lop: LaneBlockedOp, order: str = "vh"
+) -> bool:
+    """Limb taps exist and the 15-bit intermediate scale is positive."""
+    if vop.taps_q1 is None or lop.taps_q1 is None:
+        return False
+    if vop.q_shift <= 0 or lop.q_shift <= 0:
+        return False
+    first, first_shift = (
+        (vop, vop.q_shift) if order == "vh" else (lop, lop.q_shift)
+    )
+    return _int8_x_shift(first.l1_max, first_shift) >= 1
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedInt8Operands:
+    """Device-resident operands of one fused int8 resize."""
+
+    order: str            # "vh" (V pass first) or "hv"
+    rows_in: int          # input image [rows_in, lanes_in] u8
+    lanes_in: int
+    rows_out: int         # output image [rows_out, lanes_out] u8
+    lanes_out: int
+    rows_pad: int         # zero-padded extent the windows reach
+    lanes_pad: int
+    tc: int               # output lanes per lane block
+    sh: int               # first-pass requantizing shift
+    out_exp: int          # recombination scale 2^out_exp
+    offs_v_host: tuple[int, ...]
+    offs_v: torch.Tensor   # int32 [Bv]
+    v1: torch.Tensor       # int8 [Bv, Tv, Wv]
+    v0: torch.Tensor
+    v_comp: torch.Tensor   # int32 [Bv, Tv]: 128 * (128*rowsum(v1) + rowsum(v0))
+    offs_l: torch.Tensor   # int32 [Bh]
+    rel: torch.Tensor      # int32 [n_ch]
+    h1: torch.Tensor       # int8 [Bh, n_ch, win_c, 128]
+    h0: torch.Tensor
+    h1p: torch.Tensor      # int32 [Bh, n_ch, win_c/4, 128], 4 taps per word
+    h0p: torch.Tensor
+    h_comp: torch.Tensor   # int32 [Bh, n_ch, 128]: 128*128*colsum(h1) + 128*colsum(h0)
+    k_range: torch.Tensor  # int32 [Bv, n_slices, 2] nonzero V-tap rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.v1.device
+
+
+def _chunked_lane_taps(lop: LaneBlockedOp):
+    """(h1, h0, rel, win_c): the lane limbs as [Bh, n_ch, win_c, 128]."""
+    if lop.ctaps_q1 is not None:
+        return lop.ctaps_q1, lop.ctaps_q0, lop.chunk_rel, lop.win_c
+    bh, wc, tc = lop.taps_q1.shape
+    n_ch = -(-tc // _LANES)
+    pad = ((0, 0), (0, 0), (0, n_ch * _LANES - tc))
+
+    def chunk(q):
+        q = np.pad(q, pad).reshape(bh, wc, n_ch, _LANES)
+        return np.ascontiguousarray(q.transpose(0, 2, 1, 3))
+
+    return chunk(lop.taps_q1), chunk(lop.taps_q0), (0,) * n_ch, wc
+
+
+def _pack4(q: np.ndarray) -> np.ndarray:
+    """[..., K, 128] s8 -> [..., K/4, 128] int32 whose byte i holds
+    q[..., 4*k4 + i, :] (little-endian)."""
+    *lead, k, n = q.shape
+    q = q.reshape(*lead, k // 4, 4, n).swapaxes(-1, -2)
+    return np.ascontiguousarray(q).view(np.int32)[..., 0]
+
+
+def _k_ranges(v1: np.ndarray, v0: np.ndarray) -> np.ndarray:
+    """[Bv, n_slices, 2]: per 32-row slice of each V block, the window
+    rows [lo, hi) holding its nonzero taps, rounded out to 32."""
+    bv, tv, wv = v1.shape
+    n_sl = -(-tv // _ROWS)
+    nz = np.zeros((bv, n_sl * _ROWS, wv), dtype=bool)
+    nz[:, :tv] = (v1 != 0) | (v0 != 0)
+    nz = nz.reshape(bv, n_sl, _ROWS, wv).any(axis=2)
+    any_nz = nz.any(axis=2)
+    first = np.argmax(nz, axis=2)
+    last = wv - 1 - np.argmax(nz[:, :, ::-1], axis=2)
+    lo = first // 32 * 32
+    hi = np.minimum(-(-(last + 1) // 32) * 32, wv)
+    out = np.stack([lo, hi], axis=2)
+    out[~any_nz] = 0
+    return out.astype(np.int32)
+
+
+def prepare_fused_int8(
+    vop: BlockedBandedOp,
+    lop: LaneBlockedOp,
+    order: str,
+    device: torch.device | str,
+) -> FusedInt8Operands:
+    """Operands of the fused int8 resize by ``vop`` (rows) and ``lop``
+    (interleaved lanes) in pass order ``order``, on ``device``."""
+    if order not in ("vh", "hv"):
+        raise ValueError(f"unknown order {order!r}")
+    if not int8_feasible(vop, lop, order):
+        raise ValueError("int8 mode infeasible for these taps")
+    if lop.out_idx is not None:
+        raise ValueError("lane-subset operators are not supported")
+    qv, qh = vop.q_shift, lop.q_shift
+    first_shift, second_shift = (qv, qh) if order == "vh" else (qh, qv)
+    first = vop if order == "vh" else lop
+    x_shift = _int8_x_shift(first.l1_max, first_shift)
+
+    v1, v0 = vop.taps_q1, vop.taps_q0
+    rs = v1.astype(np.int64).sum(axis=2) * 128 + v0.astype(np.int64).sum(axis=2)
+    h1, h0, rel, win_c = _chunked_lane_taps(lop)
+    cs = (
+        h1.astype(np.int64).sum(axis=2) * 128
+        + h0.astype(np.int64).sum(axis=2)
+    )
+
+    def dev(a, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(device=device, dtype=dtype)
+
+    return FusedInt8Operands(
+        order=order,
+        rows_in=vop.n_in,
+        lanes_in=lop.n_in * lop.c,
+        rows_out=vop.n_out,
+        lanes_out=lop.n_out * lop.c,
+        rows_pad=vop.n_in_pad,
+        lanes_pad=lop.lanes_pad,
+        tc=lop.tile * lop.c,
+        sh=first_shift - x_shift,
+        out_exp=-(x_shift + second_shift),
+        offs_v_host=tuple(int(o) for o in vop.offs),
+        offs_v=dev(vop.offs, torch.int32),
+        v1=dev(v1),
+        v0=dev(v0),
+        v_comp=dev(rs * 128, torch.int32),
+        offs_l=dev(lop.offs_l, torch.int32),
+        rel=dev(np.asarray(rel), torch.int32),
+        h1=dev(h1),
+        h0=dev(h0),
+        h1p=dev(_pack4(h1)),
+        h0p=dev(_pack4(h0)),
+        h_comp=dev(cs * 128, torch.int32),
+        k_range=dev(_k_ranges(v1, v0)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+def _limbs(fq: torch.Tensor, sh: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact-integer float64 first-pass sums -> (x1, x0) float64 limbs of
+    x15 = (fq + 2^(sh-1)) >> sh (arithmetic shifts)."""
+    x15 = (fq.to(torch.int64) + (1 << (sh - 1))) >> sh
+    x1 = (x15 + 64) >> 7
+    return x1.to(torch.float64), (x15 - (x1 << 7)).to(torch.float64)
+
+
+def _finish(pa: torch.Tensor, pb: torch.Tensor, out_exp: int) -> torch.Tensor:
+    """Float32 recombination and biased rounding (``_finish`` there)."""
+    acc = pa.to(torch.float32) * 16384.0 + pb.to(torch.float32) * 128.0
+    acc = acc * (2.0 ** out_exp)
+    return torch.floor(acc + 0.5).clamp_(0.0, 255.0).to(torch.uint8)
+
+
+def apply_fused_int8_reference(
+    ops: FusedInt8Operands, x: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch fused int8 resize: u8 [rows_in, lanes_in] ->
+    u8 [rows_out, lanes_out], on the device of ``x``."""
+    dev = x.device
+    xs = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float64, device=dev)
+    xs[: ops.rows_in, : ops.lanes_in] = x
+    xs -= 128.0  # s8(x ^ 0x80) == x - 128; padding reads 0 -> -128
+
+    v1, v0 = ops.v1.to(torch.float64), ops.v0.to(torch.float64)
+    h1, h0 = ops.h1.to(torch.float64), ops.h0.to(torch.float64)
+    bv, tv, wv = ops.v1.shape
+    bh, n_ch, win_c, _ = ops.h1.shape
+    lane_idx = (
+        ops.offs_l.long()[:, None, None]
+        + ops.rel.long()[None, :, None]
+        + torch.arange(win_c, device=dev)
+    )  # [Bh, n_ch, win_c]
+    out = torch.empty((bv, tv, bh, n_ch * _LANES), dtype=torch.uint8, device=dev)
+
+    if ops.order == "vh":
+        v_comp = ops.v_comp.to(torch.float64)
+        for b, o in enumerate(ops.offs_v_host):
+            xw = xs[o : o + wv]
+            fq = (v1[b] @ xw) * 128.0 + v0[b] @ xw + v_comp[b][:, None]
+            x1, x0 = _limbs(fq, ops.sh)
+            g1, g0 = x1[:, lane_idx], x0[:, lane_idx]  # [Tv, Bh, n_ch, win_c]
+            pa = torch.einsum("tbjw,bjwc->tbjc", g1, h1)
+            pb = torch.einsum("tbjw,bjwc->tbjc", g0, h1) + torch.einsum(
+                "tbjw,bjwc->tbjc", g1, h0
+            )
+            out[b] = _finish(pa, pb, ops.out_exp).reshape(tv, bh, -1)
+    else:
+        h_comp = ops.h_comp.to(torch.float64)
+        x1 = torch.empty((ops.rows_pad, bh, n_ch, _LANES), dtype=torch.float64, device=dev)
+        x0 = torch.empty_like(x1)
+        for j in range(n_ch):
+            g = xs[:, lane_idx[:, j]]  # [rows, Bh, win_c]
+            fq = (
+                torch.einsum("rbw,bwc->rbc", g, h1[:, j]) * 128.0
+                + torch.einsum("rbw,bwc->rbc", g, h0[:, j])
+                + h_comp[:, j]
+            )
+            x1[:, :, j], x0[:, :, j] = _limbs(fq, ops.sh)
+        x1 = x1.reshape(ops.rows_pad, -1)
+        x0 = x0.reshape(ops.rows_pad, -1)
+        for b, o in enumerate(ops.offs_v_host):
+            w1, w0 = x1[o : o + wv], x0[o : o + wv]
+            pa = v1[b] @ w1
+            pb = v1[b] @ w0 + v0[b] @ w1
+            out[b] = _finish(pa, pb, ops.out_exp).reshape(tv, bh, -1)
+
+    out = out[:, :, :, : ops.tc].reshape(bv * tv, bh * ops.tc)
+    return out[: ops.rows_out, : ops.lanes_out].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [
+    _I,                    # hv
+    _P, _I, _I,            # x, rows_in, lanes_in
+    _P, _I, _I,            # out, rows_out, lanes_out
+    _P, _P, _P, _P,        # v1, v0, v_comp, offs_v
+    _I, _I, _I,            # bv, tv, wv
+    _P, _P, _P, _P, _P,    # h1p, h0p, h_comp, offs_l, rel
+    _I, _I, _I, _I,        # bh, n_ch, win_c, tc
+    _P, _I,                # k_range, n_slices
+    _I, ctypes.c_float,    # sh, scale
+    _P,                    # stream
+]
+
+
+def _library():
+    from .build import load_library
+
+    lib = load_library("fused_int8")
+    fn = lib.avir_fused_int8
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor) -> torch.Tensor:
+    """Fused int8 resize of the u8 image ``x`` [rows_in, lanes_in] ->
+    u8 [rows_out, lanes_out].  A CUDA tensor launches the kernel; a CPU
+    tensor runs the plain version."""
+    if x.device.type == "cpu" and ops.device.type == "cpu":
+        return apply_fused_int8_reference(ops, x)
+    if x.device.type != "cuda" or x.device != ops.device:
+        raise ValueError(
+            f"image on {x.device}, operands on {ops.device}: both must be "
+            "on one CUDA device (or both on the CPU)"
+        )
+    if x.dtype != torch.uint8 or x.shape != (ops.rows_in, ops.lanes_in):
+        raise ValueError(
+            f"expected u8 [{ops.rows_in}, {ops.lanes_in}], got "
+            f"{x.dtype} {tuple(x.shape)}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("image must be contiguous")
+    bv, tv, wv = ops.v1.shape
+    bh, n_ch, win_c, _ = ops.h1.shape
+    n_slices = ops.k_range.shape[1]
+    if bv * n_slices > 65535:
+        raise ValueError("too many output row blocks for one launch")
+    out = torch.empty((ops.rows_out, ops.lanes_out), dtype=torch.uint8, device=x.device)
+    fn = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(
+            1 if ops.order == "hv" else 0,
+            x.data_ptr(), ops.rows_in, ops.lanes_in,
+            out.data_ptr(), ops.rows_out, ops.lanes_out,
+            ops.v1.data_ptr(), ops.v0.data_ptr(), ops.v_comp.data_ptr(),
+            ops.offs_v.data_ptr(),
+            bv, tv, wv,
+            ops.h1p.data_ptr(), ops.h0p.data_ptr(), ops.h_comp.data_ptr(),
+            ops.offs_l.data_ptr(), ops.rel.data_ptr(),
+            bh, n_ch, win_c, ops.tc,
+            ops.k_range.data_ptr(), n_slices,
+            ops.sh, 2.0 ** ops.out_exp,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_int8 launch failed: CUDA error {err}")
+    launches[f"fused_int8_{ops.order}"] += 1
+    return out
