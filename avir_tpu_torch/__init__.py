@@ -6,10 +6,13 @@ operator per axis) is a NumPy copy of the JAX package's; the device
 side runs on PyTorch tensors, and each TPU kernel on the ported path is
 a kernel written by hand for the NVIDIA Hopper card (``ops/cuda``).
 
-This slice carries the AVIR main path: u8 in, 8-bit out, no gamma,
-default dither, on the fused int8 two-pass kernel.  Entry points take
-``device=None``, meaning ``"cuda"``; pass ``device="cpu"`` to run the
-kernel's plain PyTorch version on the CPU.
+It carries the AVIR resize without gamma: u8, u16, float32 or float64 in
+and out, 1 to 4 channels, any output bit depth, the "auto", "fast" and
+"exact" precision tiers and the default or error-diffusion dither, on
+the fused two-pass kernel (int8 or split-bf16 modes) and the wavefront
+error-diffusion kernel.  Entry points take ``device=None``, meaning
+``"cuda"``; pass ``device="cpu"`` to run the kernels' plain PyTorch
+versions on the CPU.
 """
 
 from .params import (

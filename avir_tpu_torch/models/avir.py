@@ -3,8 +3,8 @@
 Counterpart of the JAX package's ``models/avir.py``
 (``ImageResizer.resize`` and the module-level ``resize``): the
 constructor fixes bit depths and the quality preset; ``resize`` plans on
-the host (NumPy), builds an executor once per geometry (cached), and runs
-it on ``device``.  Arrays go in and come out as NumPy arrays.
+the host (NumPy), builds an executor once per configuration (cached),
+and runs it on ``device``.  Arrays go in and come out as NumPy arrays.
 """
 
 from __future__ import annotations
@@ -17,11 +17,14 @@ from ..plan.plan import build_resize_plan
 from ..utils.excache import ExecutorCache
 from .runtime import make_avir_executor, resolve_device
 
+DITHERS = ("default", "errdiff", "errdiff-wavefront")
+
 
 class ImageResizer:
     """Image resizer with a fixed quality preset and output bit depth
     (avir.h:4630-4639): ``res_bit_depth`` is the significant output bit
-    depth, ``src_bit_depth`` defaults to it."""
+    depth (8 or 16, or lower for dithered low-bit output),
+    ``src_bit_depth`` defaults to it."""
 
     def __init__(
         self,
@@ -48,22 +51,51 @@ class ImageResizer:
         dither: str = "default",
         build_mode: int = -1,
         precision: str = "auto",
+        engine: str = "auto",
         device=None,
     ) -> np.ndarray:
-        """Resize ``src`` ([H, W, C] or [H, W]) to new_w x new_h.
+        """Resize ``src`` ([H, W, C] or [H, W]; u8, u16, float32 or
+        float64) to new_w x new_h, in ``out_dtype`` (default: the input's).
 
         ``k``: 0 = auto per-axis scale with centering; >0 = uniform scale
         with centering; <0 = |k| without centering (avir.h:4709-4736).
-        ``ox``/``oy``: sub-pixel shift in source pixels.  ``device``:
-        None means the CUDA card (an error without one); ``"cpu"`` runs
-        the kernels' plain versions.  Configurations this port does not
-        carry yet raise NotImplementedError.
+        ``ox``/``oy``: sub-pixel shift in source pixels.
+        ``dither``: "default" (round + clamp, with the ``res_bit_depth``
+        truncation) or "errdiff" (error diffusion by the wavefront scan,
+        kernel K4; "errdiff-wavefront" is the same); float output ignores
+        it.  Error diffusion reads a full-precision pre-dither image, so
+        it never takes K1's int8 mode (see models/runtime.py).
+        ``precision``: "auto" (K1 int8 mode for u8 in / 8-bit out /
+        default dither, else split-bf16: split2 for a first pass over u8
+        input, split3 otherwise), "fast" (split2 for both passes) or
+        "exact" (full-float32 products, no kernel).  Device compute is
+        float32: float64 input is cast to float32 on the host, and float64
+        output is float32 cast back.  ``device``: None means the CUDA card
+        (an error without one); ``"cpu"`` runs the kernels' plain versions.
+
+        Still raising NotImplementedError, with their ROADMAP.md item:
+        sRGB gamma, ``dither="errdiff-device"``, a callable ditherer,
+        ``precision="f64"``, ``engine="host"`` and more than 4 channels.
         """
-        if dither != "default":
+        if callable(dither):
             raise NotImplementedError(
-                f"not ported yet: dither={dither!r} "
-                "(ROADMAP.md Queue 1 item 8)"
+                "not ported yet: custom ditherer callable (ROADMAP.md Queue 1 "
+                "item 4)"
             )
+        if dither == "errdiff-device":
+            raise NotImplementedError(
+                "not ported yet: dither='errdiff-device', the sequential "
+                "nested scan (ROADMAP.md Queue 1 item 8)"
+            )
+        if dither not in DITHERS:
+            raise ValueError(f"unknown dither {dither!r}")
+        if engine == "host":
+            raise NotImplementedError(
+                "not ported yet: engine='host', the float64 host oracle "
+                "route (ROADMAP.md Queue 1 items 4 and 10)"
+            )
+        if engine != "auto":
+            raise ValueError(f"unknown engine {engine!r}")
         device = resolve_device(device)
         src = np.asarray(src)
         squeeze = src.ndim == 2
@@ -77,10 +109,11 @@ class ImageResizer:
             out = np.zeros((new_h, new_w, ch), dtype=out_dtype)
             return out[:, :, 0] if squeeze else out
 
+        errdiff = dither != "default"
         key = (
             sw, sh, new_w, new_h, ch, src.dtype.str, out_dtype.str,
             k, ox, oy, use_srgb_gamma, alpha_index, build_mode, precision,
-            str(device),
+            errdiff, self.res_bit_depth, self.src_bit_depth, str(device),
         )
 
         def build():
@@ -94,11 +127,18 @@ class ImageResizer:
                 alpha_index=alpha_index,
                 build_mode=build_mode,
             )
-            return make_avir_executor(plan, precision=precision, device=device)
+            return make_avir_executor(
+                plan, errdiff=errdiff, precision=precision, device=device
+            )
 
         fn = self._cache.get_or_build(key, build)
-        x = torch.from_numpy(np.ascontiguousarray(src.reshape(sh, sw * ch)))
+        flat = src.reshape(sh, sw * ch)
+        if flat.dtype == np.float64:
+            flat = flat.astype(np.float32)  # device compute is float32
+        x = torch.from_numpy(np.ascontiguousarray(flat))
         res = fn(x.to(device)).cpu().numpy().reshape(new_h, new_w, ch)
+        if res.dtype != out_dtype:
+            res = res.astype(out_dtype)  # float64 round trip
         return res[:, :, 0] if squeeze else res
 
 

@@ -1,14 +1,36 @@
 """Execution of resize plans on PyTorch tensors.
 
-Counterpart of the JAX package's ``models/runtime.py:make_avir_executor``
-for this port's slice: u8 in, 8-bit out (``res_bit_depth=8``), no gamma,
-default dither, ``precision="auto"``.  That configuration runs, in the
-JAX package, the int8 mode of the fused two-pass kernel; here it runs
-the same arithmetic in ``ops/cuda/fused_kernel.py``, one launch per
-resize, V pass first for a downsize and H pass first for an upsize.
+Counterpart of the JAX package's ``models/runtime.py:make_avir_executor``.
+An executor takes the image [H, W*C] (u8, u16 or float32) on ``device``
+and returns [new_h, new_w*C] in the plan's output type (u8, u16, or
+float32 for float output).  Routing:
 
-Every other configuration raises NotImplementedError naming the
-ROADMAP.md item that will bring it; none is computed by another route.
+  - ``precision="exact"``: both passes as full-float32 batched products
+    (``ops/banded.py:apply_blocked``, the JAX package's
+    ``_separable_pass``), then the dither stage;
+  - otherwise the fused two-pass kernel K1, one launch per resize, V pass
+    first for a downsize and H pass first for an upsize:
+      * int8 mode (``ops/cuda/fused_kernel.py``) for u8 in, 8-bit out,
+        ``trunc_bits == 0``, ``precision="auto"`` and no error diffusion,
+        when the operators' int8 limbs are feasible;
+      * else the split-bf16 modes (``ops/cuda/fused_split.py``) from
+        ``resolve_modes``: "auto" is split2 for a first pass over u8
+        input (exact in bf16) and split3 otherwise, "fast" split2 for both.
+    K1 quantizes in its epilogue (default dither, ``trunc_bits``), or
+    writes float32 for float output and for error diffusion;
+  - error diffusion runs the wavefront scan K4
+    (``ops/cuda/wavefront.py``) on the float32 pre-dither image.
+
+Error diffusion excludes the int8 mode, as in the JAX package
+(``avir_tpu/models/runtime.py:344-347``): the recursive quantizer feeds
+its residual back, which turns the int8 route's ~2^-14 tap noise into
+extra +-1 flips, so the pre-dither image must be full precision.
+
+The JAX package's fused/unfused choice (``choose_fused``,
+``fused_viable``) is calibrated for the TPU's VMEM and is not carried
+over.  Configurations this port does not carry yet raise
+NotImplementedError naming the ROADMAP.md item that will bring them;
+none is computed by another route.
 """
 
 from __future__ import annotations
@@ -17,12 +39,19 @@ from typing import Callable
 
 import torch
 
-from ..ops.banded import block_banded
+from ..ops.banded import apply_blocked, block_banded
 from ..ops.cuda.fused_kernel import (
     apply_fused_int8,
     int8_feasible,
     prepare_fused_int8,
 )
+from ..ops.cuda.fused_split import (
+    apply_fused_split,
+    prepare_fused_split,
+    to_float32,
+)
+from ..ops.cuda.wavefront import errdiff_wavefront
+from ..ops.dither import default_dither
 from ..ops.lanes import lane_block_banded
 from ..plan.plan import ResizePlan
 
@@ -39,51 +68,151 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def out_dtype_of(plan: ResizePlan) -> torch.dtype:
+    """Device output type (``_out_dtype`` there): float32 for float
+    output, else u8 or u16."""
+    if plan.is_out_float:
+        return torch.float32
+    return torch.uint8 if plan.out_type_max == 255.0 else torch.uint16
+
+
+def resolve_modes(
+    precision: str, first_input_exact_bf16: bool
+) -> tuple[str, str]:
+    """(first_pass_mode, second_pass_mode) for a precision tier."""
+    if precision == "exact":
+        return "exact", "exact"
+    if precision == "fast":
+        return "split2", "split2"
+    if precision == "auto":
+        first = "split2" if first_input_exact_bf16 else "split3"
+        return first, "split3"
+    raise ValueError(f"unknown precision {precision!r}")
+
+
 def unsupported_reason(plan: ResizePlan, precision: str) -> str | None:
     """Why the port cannot run this plan yet (with its ROADMAP.md
     item), or None when it can."""
-    if precision != "auto":
-        return f"precision={precision!r} (ROADMAP.md Queue 1 item 5)"
-    if plan.is_in_float or plan.in_type_max != 255.0:
-        return "non-u8 input (ROADMAP.md Queue 1 item 5)"
-    if plan.is_out_float or plan.out_type_max != 255.0:
-        return "non-u8 output (ROADMAP.md Queue 1 item 5)"
+    if precision == "f64":
+        return "precision='f64', the host oracle route (ROADMAP.md Queue 1 items 4 and 10)"
     if plan.use_srgb_gamma:
         return "sRGB gamma (ROADMAP.md Queue 1 item 7)"
-    if plan.res_bit_depth != 8:
-        return (
-            f"res_bit_depth={plan.res_bit_depth} (ROADMAP.md Queue 1 item 5)"
-        )
     if not 1 <= plan.el_count <= 4:
         return f"{plan.el_count} channels (ROADMAP.md Queue 1 item 4)"
     return None
 
 
+def _order(vop, lop) -> str:
+    return "vh" if vop.n_out * lop.n_out <= vop.n_in * lop.n_in else "hv"
+
+
+def separable_pass_exact(
+    x: torch.Tensor, hop, vop, h: int, w: int, c: int,
+    h_taps: torch.Tensor | None = None, v_taps: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """[H, W*C] float32 -> [new_h, new_w*C], both passes in full float32
+    (``_separable_pass`` there, "exact" mode): the pass that shrinks the
+    image runs first, so the one transpose moves the smaller image.
+    ``h_taps``/``v_taps``: the operators' tap blocks already on the
+    device."""
+    new_w, new_h = hop.n_out, vop.n_out
+    if new_h * w <= h * new_w:
+        x = apply_blocked(vop, x, v_taps)  # [new_h, W*C]
+        x = x.reshape(new_h, w, c).transpose(0, 1).reshape(w, new_h * c)
+        x = apply_blocked(hop, x, h_taps)  # [new_w, new_h*C]
+        return x.reshape(new_w, new_h, c).transpose(0, 1).reshape(new_h, -1)
+    x = x.reshape(h, w, c).transpose(0, 1).reshape(w, h * c)
+    x = apply_blocked(hop, x, h_taps)  # [new_w, H*C]
+    x = x.reshape(new_w, h, c).transpose(0, 1).reshape(h, new_w * c)
+    return apply_blocked(vop, x, v_taps)  # [new_h, new_w*C]
+
+
 def make_avir_executor(
     plan: ResizePlan,
+    errdiff: bool = False,
     precision: str = "auto",
     device=None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Build a resize function u8 [H, W*C] -> u8 [new_h, new_w*C] on
-    ``device`` for ``plan``.  The returned function carries the kernel
-    operands as ``run.ops``."""
+    """Build a resize function [H, W*C] -> [new_h, new_w*C] on ``device``
+    for ``plan`` (see the module docstring for the routing).  ``errdiff``
+    selects error diffusion for integer output.  The returned function
+    carries its route as ``run.route`` ("int8", "split" or "exact"), the
+    pass order as ``run.order`` and the K1 operands (None for "exact") as
+    ``run.ops``."""
     reason = unsupported_reason(plan, precision)
     if reason is not None:
         raise NotImplementedError(f"not ported yet: {reason}")
     device = resolve_device(device)
-    vop = block_banded(plan.v.op)
-    lop = lane_block_banded(plan.h.op, plan.el_count)
-    downsize = vop.n_out * lop.n_out <= vop.n_in * lop.n_in
-    order = "vh" if downsize else "hv"
-    if not int8_feasible(vop, lop, order):
-        raise NotImplementedError(
-            "not ported yet: int8-infeasible taps need the split-bf16 "
-            "modes (ROADMAP.md Queue 1 item 5)"
-        )
-    ops = prepare_fused_int8(vop, lop, order, device)
+    in_bytes = 4 if plan.is_in_float else (1 if plan.in_type_max == 255.0 else 2)
+    c = plan.el_count
+    vop = block_banded(plan.v.op, in_bytes=in_bytes)
+    lop = lane_block_banded(plan.h.op, c, in_bytes=in_bytes)
+    out_dt = out_dtype_of(plan)
+    out_bits = 8 if plan.out_type_max == 255.0 else 16
+    trunc_bits = 0 if plan.is_out_float else out_bits - plan.res_bit_depth
+    errdiff = errdiff and not plan.is_out_float
+    order = _order(vop, lop)
+    mode1, mode2 = resolve_modes(
+        precision, not plan.is_in_float and plan.in_type_max == 255.0
+    )
+    int8_ok = (
+        precision == "auto"
+        and not plan.is_in_float
+        and plan.in_type_max == 255.0
+        and out_dt == torch.uint8
+        and not errdiff
+        and trunc_bits == 0
+    )
+
+    def quantize(x: torch.Tensor) -> torch.Tensor:
+        """The dither stage on the float32 image [new_h, new_w*C]."""
+        if plan.is_out_float:
+            return x
+        if errdiff:
+            x3 = x.reshape(vop.n_out, lop.n_out, c).contiguous()
+            return errdiff_wavefront(
+                x3, trunc_bits, plan.out_type_max, out_dtype=out_dt
+            ).reshape(vop.n_out, -1)
+        return default_dither(x, trunc_bits, plan.out_type_max).to(
+            torch.int32
+        ).to(out_dt)
+
+    if mode1 == "exact":
+        hop = block_banded(plan.h.op, in_bytes=in_bytes)
+        h, w = plan.src_h, plan.src_w
+        h_taps = torch.from_numpy(hop.taps).to(device)
+        v_taps = torch.from_numpy(vop.taps).to(device)
+
+        def run(src: torch.Tensor) -> torch.Tensor:
+            x = separable_pass_exact(
+                to_float32(src), hop, vop, h, w, c, h_taps, v_taps
+            )
+            return quantize(x)
+
+        run.route, run.order, run.ops = "exact", None, None
+        return run
+
+    if int8_ok and int8_feasible(vop, lop, order):
+        ops = prepare_fused_int8(vop, lop, order, device)
+
+        def run(src: torch.Tensor) -> torch.Tensor:
+            return apply_fused_int8(ops, src)
+
+        run.route, run.order, run.ops = "int8", order, ops
+        return run
+
+    mode_v, mode_h = (mode1, mode2) if order == "vh" else (mode2, mode1)
+    fuse_quant = not plan.is_out_float and not errdiff
+    ops = prepare_fused_split(
+        vop, lop, order, mode_v, mode_h, device,
+        out_dtype=out_dt if fuse_quant else torch.float32,
+        out_max=plan.out_type_max,
+        trunc_bits=trunc_bits if fuse_quant else 0,
+    )
 
     def run(src: torch.Tensor) -> torch.Tensor:
-        return apply_fused_int8(ops, src)
+        out = apply_fused_split(ops, src)
+        return out if fuse_quant else quantize(out)
 
-    run.ops = ops
+    run.route, run.order, run.ops = "split", order, ops
     return run

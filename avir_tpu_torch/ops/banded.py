@@ -19,8 +19,11 @@ The blocked operator carries the tap block in three forms:
     consumes.
 
 The tiles (``pick_tile``) are the JAX package's, so both packages build
-identical operators from one plan; the CUDA kernel re-tiles each block
-for the card on its own.
+identical operators from one plan; the CUDA kernels re-tile each block
+for the card on their own.
+
+``apply_blocked`` runs the float32 taps as one batched full-float32
+product: the ``precision="exact"`` route, which has no kernel of its own.
 """
 
 from __future__ import annotations
@@ -169,3 +172,38 @@ def block_banded(
             np.abs(q0.astype(np.int64)).sum(axis=2).max()
         ),
     )
+
+
+def assert_full_f32() -> None:
+    """Raise unless float32 matrix products on the card run in full
+    float32 (TF32 keeps about three decimal digits)."""
+    if (
+        torch.backends.cuda.matmul.allow_tf32
+        or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise RuntimeError(
+            "float32 matmul must run in full float32: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')"
+        )
+
+
+def apply_blocked(
+    bop: BlockedBandedOp, x: torch.Tensor, taps: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Apply the operator along axis 0 of the float32 ``x`` ([n_in, R] ->
+    [n_out, R]) in full float32: the JAX package's ``apply_blocked`` in
+    its "exact" mode (Precision.HIGHEST), as one batched product of the
+    float32 tap blocks with the gathered input windows.  ``taps`` is
+    ``bop.taps`` already on ``x``'s device (moved per call when None)."""
+    if x.device.type == "cuda":
+        assert_full_f32()
+    if bop.n_in_pad > x.shape[0]:
+        x = torch.nn.functional.pad(x, (0, 0, 0, bop.n_in_pad - x.shape[0]))
+    idx = torch.from_numpy(
+        bop.offs.astype(np.int64)[:, None] + np.arange(bop.win)[None, :]
+    ).to(x.device)
+    if taps is None:
+        taps = torch.from_numpy(bop.taps).to(x.device)
+    y = torch.bmm(taps, x[idx])  # [n_blocks, tile, R]
+    return y.reshape(bop.n_blocks * bop.tile, -1)[: bop.n_out]

@@ -20,7 +20,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"fused_int8": "fused_int8.cu"}
+SOURCES = {
+    "fused_int8": "fused_int8.cu",
+    "fused_split": "fused_split.cu",
+    "wavefront": "wavefront.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

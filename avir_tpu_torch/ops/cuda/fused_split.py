@@ -1,0 +1,349 @@
+"""K1 in its split-bf16 modes: the fused two-pass resize, its wrapper and
+its plain PyTorch version.
+
+Counterpart of the JAX package's ``ops/pallas/fused_kernel.py``
+(``apply_fused_pallas`` -> ``_kernel``'s float branch -> ``_rmul`` ->
+``_finish``, biased rounding, no gamma).  The kernel
+(``csrc/fused_split.cu``) does the whole separable resize of a u8, u16 or
+float32 image in one launch from the error-free bf16 hi/lo taps of a
+blocked V operator (ops/banded.py) and a lane operator (ops/lanes.py):
+
+  - the raw input goes to float32 and splits as hi = bf16(x),
+    lo = bf16(x - hi);
+  - a pass in "split2" mode sums taps_hi@x_hi + taps_lo@x_hi, in
+    "split3" mode also taps_hi@x_lo; every product is bf16 x bf16,
+    exact in float32, and sums are float32;
+  - the float32 intermediate is split the same way between the passes;
+  - the epilogue stores float32, or rounds (floor(v + 0.5), or
+    floor(v / tm + 0.5) * tm when ``trunc_bits`` > 0), clamps to
+    [0, out_max] and stores u8/u16.
+
+``prepare_fused_split`` turns the two operators into device tensors once
+per executor, with the lane taps in the chunked form (the unchunked form
+becomes ``ceil(TC/128)`` chunks at offset 0 over the whole window, as
+for the int8 mode) and each 32-row slice's and each chunk's range of
+nonzero taps.
+
+``apply_fused_split`` launches the kernel on a CUDA tensor and runs
+``apply_fused_split_reference`` on a CPU tensor.  The two sum in other
+orders, so they agree to float32 rounding (integer outputs within one
+LSB), not bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..banded import BlockedBandedOp, assert_full_f32
+from ..lanes import LaneBlockedOp
+from .fused_kernel import _LANES, _k_ranges
+
+# Launches of each kernel of this module, counted by the wrapper.
+launches = {"fused_split_vh": 0, "fused_split_hv": 0}
+
+MODES = ("split2", "split3")
+_IN_KINDS = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
+_OUT_KINDS = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedSplitOperands:
+    """Device-resident operands of one fused split-bf16 resize."""
+
+    order: str            # "vh" (V pass first) or "hv"
+    mode_v: str           # "split2" or "split3" for the V pass
+    mode_h: str           # the same for the H pass
+    out_dtype: torch.dtype  # float32, uint8 or uint16
+    out_max: float
+    trunc_bits: int
+    tm: float             # float32 quantization step when trunc_bits > 0
+    rows_in: int          # input image [rows_in, lanes_in]
+    lanes_in: int
+    rows_out: int         # output image [rows_out, lanes_out]
+    lanes_out: int
+    rows_pad: int         # zero-padded extent the windows reach
+    lanes_pad: int
+    tc: int               # output lanes per lane block
+    offs_v_host: tuple[int, ...]
+    offs_v: torch.Tensor   # int32 [Bv]
+    tvh: torch.Tensor      # bf16 [Bv, Tv, Wv]
+    tvl: torch.Tensor
+    offs_l: torch.Tensor   # int32 [Bh]
+    rel: torch.Tensor      # int32 [n_ch]
+    thh: torch.Tensor      # bf16 [Bh, n_ch, win_c, 128]
+    thl: torch.Tensor
+    k_range: torch.Tensor  # int32 [Bv, n_slices, 2] nonzero V-tap rows
+    h_range: torch.Tensor  # int32 [Bh, n_ch, 2] nonzero lane-tap rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.tvh.device
+
+
+def _chunked_lane_taps(lop: LaneBlockedOp):
+    """(hi, lo, rel, win_c): the bf16 lane taps as [Bh, n_ch, win_c, 128]."""
+    if lop.ctaps_hi is not None:
+        return lop.ctaps_hi, lop.ctaps_lo, lop.chunk_rel, lop.win_c
+    bh, wc, tc = lop.taps_hi.shape
+    n_ch = -(-tc // _LANES)
+
+    def chunk(t):
+        t = torch.nn.functional.pad(t.float(), (0, n_ch * _LANES - tc))
+        t = t.reshape(bh, wc, n_ch, _LANES).permute(0, 2, 1, 3)
+        return t.to(torch.bfloat16).contiguous()
+
+    return chunk(lop.taps_hi), chunk(lop.taps_lo), (0,) * n_ch, wc
+
+
+def _h_ranges(hi: torch.Tensor, lo: torch.Tensor) -> np.ndarray:
+    """[Bh, n_ch, 2]: per chunk, the window rows [lo, hi) holding its
+    nonzero taps, rounded out to 32."""
+    nz = ((hi != 0) | (lo != 0)).any(dim=3).numpy()  # [Bh, n_ch, win_c]
+    win_c = nz.shape[2]
+    any_nz = nz.any(axis=2)
+    first = np.argmax(nz, axis=2)
+    last = win_c - 1 - np.argmax(nz[:, :, ::-1], axis=2)
+    out = np.stack(
+        [first // 32 * 32, np.minimum(-(-(last + 1) // 32) * 32, win_c)],
+        axis=2,
+    )
+    out[~any_nz] = 0
+    return out.astype(np.int32)
+
+
+def prepare_fused_split(
+    vop: BlockedBandedOp,
+    lop: LaneBlockedOp,
+    order: str,
+    mode_v: str,
+    mode_h: str,
+    device: torch.device | str,
+    out_dtype: torch.dtype = torch.float32,
+    out_max: float = 255.0,
+    trunc_bits: int = 0,
+) -> FusedSplitOperands:
+    """Operands of the fused split-bf16 resize by ``vop`` (rows) and
+    ``lop`` (interleaved lanes) in pass order ``order`` with the given
+    per-pass modes and epilogue, on ``device``."""
+    if order not in ("vh", "hv"):
+        raise ValueError(f"unknown order {order!r}")
+    if mode_v not in MODES or mode_h not in MODES:
+        raise ValueError(f"modes must be split2/split3, got {mode_v}/{mode_h}")
+    if out_dtype not in _OUT_KINDS:
+        raise ValueError(f"unsupported output dtype {out_dtype}")
+    if lop.out_idx is not None:
+        raise ValueError("lane-subset operators are not supported")
+    tm = 1.0
+    if trunc_bits > 0 and out_dtype != torch.float32:
+        tm = float(np.float32(out_max / (int(out_max) >> trunc_bits)))
+    hi, lo, rel, _ = _chunked_lane_taps(lop)
+    k_range = _k_ranges(
+        (vop.taps_hi != 0).numpy(), (vop.taps_lo != 0).numpy()
+    )
+
+    def dev(a, dtype=None):
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a)
+        )
+        return t.to(device=device, dtype=dtype).contiguous()
+
+    return FusedSplitOperands(
+        order=order,
+        mode_v=mode_v,
+        mode_h=mode_h,
+        out_dtype=out_dtype,
+        out_max=float(out_max),
+        trunc_bits=int(trunc_bits) if out_dtype != torch.float32 else 0,
+        tm=tm,
+        rows_in=vop.n_in,
+        lanes_in=lop.n_in * lop.c,
+        rows_out=vop.n_out,
+        lanes_out=lop.n_out * lop.c,
+        rows_pad=vop.n_in_pad,
+        lanes_pad=lop.lanes_pad,
+        tc=lop.tile * lop.c,
+        offs_v_host=tuple(int(o) for o in vop.offs),
+        offs_v=dev(vop.offs, torch.int32),
+        tvh=dev(vop.taps_hi),
+        tvl=dev(vop.taps_lo),
+        offs_l=dev(lop.offs_l, torch.int32),
+        rel=dev(np.asarray(rel), torch.int32),
+        thh=dev(hi),
+        thl=dev(lo),
+        k_range=dev(k_range),
+        h_range=dev(_h_ranges(hi, lo)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+def _split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Error-free bf16 split of a float32 tensor, as float32 tensors."""
+    hi = a.to(torch.bfloat16).float()
+    return hi, (a - hi).to(torch.bfloat16).float()
+
+
+def to_float32(x: torch.Tensor) -> torch.Tensor:
+    """u8/u16 through int32 to float32; float32 as it is."""
+    if x.dtype in (torch.uint8, torch.uint16):
+        return x.to(torch.int32).float()
+    return x.float()
+
+
+def _finish(acc: torch.Tensor, ops) -> torch.Tensor:
+    """The epilogue (``_finish`` there, biased rounding, scale 1)."""
+    if ops.out_dtype == torch.float32:
+        return acc
+    if ops.trunc_bits > 0:
+        tm = torch.tensor(ops.tm, dtype=torch.float32, device=acc.device)
+        acc = torch.floor(acc / tm + 0.5) * tm
+    else:
+        acc = torch.floor(acc + 0.5)
+    acc = torch.clamp(acc, 0.0, ops.out_max)
+    return acc.to(torch.int32).to(ops.out_dtype)
+
+
+def apply_fused_split_reference(
+    ops: FusedSplitOperands, x: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch fused split-bf16 resize: [rows_in, lanes_in] of u8,
+    u16 or float32 -> [rows_out, lanes_out] of ``ops.out_dtype``, on the
+    device of ``x``: float32 products of bf16-valued tensors."""
+    dev = x.device
+    if dev.type == "cuda":
+        assert_full_f32()
+    xs = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float32, device=dev)
+    xs[: ops.rows_in, : ops.lanes_in] = to_float32(x)
+
+    tvh, tvl = ops.tvh.float(), ops.tvl.float()
+    thh, thl = ops.thh.float(), ops.thl.float()
+    s3v, s3h = ops.mode_v == "split3", ops.mode_h == "split3"
+    bv, tv, wv = ops.tvh.shape
+    bh, n_ch, win_c, _ = ops.thh.shape
+    lane_idx = (
+        ops.offs_l.long()[:, None, None]
+        + ops.rel.long()[None, :, None]
+        + torch.arange(win_c, device=dev)
+    )  # [Bh, n_ch, win_c]
+    out = torch.empty((bv, tv, bh, n_ch * _LANES), dtype=torch.float32, device=dev)
+
+    def vpass(b, wh, wl):
+        acc = tvh[b] @ wh + tvl[b] @ wh
+        return acc + tvh[b] @ wl if s3v else acc
+
+    if ops.order == "vh":
+        for b, o in enumerate(ops.offs_v_host):
+            v = vpass(b, *_split(xs[o : o + wv]))
+            vh, vl = _split(v)
+            gh = vh[:, lane_idx]  # [Tv, Bh, n_ch, win_c]
+            acc = torch.einsum("tbjw,bjwc->tbjc", gh, thh) + torch.einsum(
+                "tbjw,bjwc->tbjc", gh, thl
+            )
+            if s3h:
+                acc = acc + torch.einsum("tbjw,bjwc->tbjc", vl[:, lane_idx], thh)
+            out[b] = acc.reshape(tv, bh, -1)
+    else:
+        xh, xl = _split(xs)
+        hp = torch.empty((ops.rows_pad, bh, n_ch, _LANES), dtype=torch.float32, device=dev)
+        for j in range(n_ch):
+            gh = xh[:, lane_idx[:, j]]  # [rows, Bh, win_c]
+            acc = torch.einsum("rbw,bwc->rbc", gh, thh[:, j]) + torch.einsum(
+                "rbw,bwc->rbc", gh, thl[:, j]
+            )
+            if s3h:
+                acc = acc + torch.einsum(
+                    "rbw,bwc->rbc", xl[:, lane_idx[:, j]], thh[:, j]
+                )
+            hp[:, :, j] = acc
+        hh, hl = _split(hp.reshape(ops.rows_pad, -1))
+        for b, o in enumerate(ops.offs_v_host):
+            out[b] = vpass(b, hh[o : o + wv], hl[o : o + wv]).reshape(tv, bh, -1)
+
+    out = out[:, :, :, : ops.tc].reshape(bv * tv, bh * ops.tc)
+    return _finish(out[: ops.rows_out, : ops.lanes_out], ops).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [
+    _I, _I, _I,            # hv, split3_v, split3_h
+    _I, _I,                # in_kind, out_kind
+    _P, _I, _I,            # x, rows_in, lanes_in
+    _P, _I, _I,            # out, rows_out, lanes_out
+    _P, _P, _P,            # tvh, tvl, offs_v
+    _I, _I, _I,            # bv, tv, wv
+    _P, _P, _P, _P,        # thh, thl, offs_l, rel
+    _I, _I, _I, _I,        # bh, n_ch, win_c, tc
+    _P, _I, _P,            # k_range, n_slices, h_range
+    _F, _F, _I,            # out_max, tm, trunc_bits
+    _P,                    # stream
+]
+
+
+def _library():
+    from .build import load_library
+
+    lib = load_library("fused_split")
+    fn = lib.avir_fused_split
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def apply_fused_split(ops: FusedSplitOperands, x: torch.Tensor) -> torch.Tensor:
+    """Fused split-bf16 resize of ``x`` [rows_in, lanes_in] (u8, u16 or
+    float32) -> [rows_out, lanes_out] of ``ops.out_dtype``.  A CUDA tensor
+    launches the kernel; a CPU tensor runs the plain version."""
+    if x.device.type == "cpu" and ops.device.type == "cpu":
+        return apply_fused_split_reference(ops, x)
+    if x.device.type != "cuda" or x.device != ops.device:
+        raise ValueError(
+            f"image on {x.device}, operands on {ops.device}: both must be "
+            "on one CUDA device (or both on the CPU)"
+        )
+    if x.dtype not in _IN_KINDS or x.shape != (ops.rows_in, ops.lanes_in):
+        raise ValueError(
+            f"expected u8/u16/f32 [{ops.rows_in}, {ops.lanes_in}], got "
+            f"{x.dtype} {tuple(x.shape)}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("image must be contiguous")
+    bv, tv, wv = ops.tvh.shape
+    bh, n_ch, win_c, _ = ops.thh.shape
+    n_slices = ops.k_range.shape[1]
+    if bv * n_slices > 65535:
+        raise ValueError("too many output row blocks for one launch")
+    out = torch.empty((ops.rows_out, ops.lanes_out), dtype=ops.out_dtype, device=x.device)
+    fn = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(
+            1 if ops.order == "hv" else 0,
+            int(ops.mode_v == "split3"), int(ops.mode_h == "split3"),
+            _IN_KINDS[x.dtype], _OUT_KINDS[ops.out_dtype],
+            x.data_ptr(), ops.rows_in, ops.lanes_in,
+            out.data_ptr(), ops.rows_out, ops.lanes_out,
+            ops.tvh.data_ptr(), ops.tvl.data_ptr(), ops.offs_v.data_ptr(),
+            bv, tv, wv,
+            ops.thh.data_ptr(), ops.thl.data_ptr(),
+            ops.offs_l.data_ptr(), ops.rel.data_ptr(),
+            bh, n_ch, win_c, ops.tc,
+            ops.k_range.data_ptr(), n_slices, ops.h_range.data_ptr(),
+            ops.out_max, ops.tm, ops.trunc_bits,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_split launch failed: CUDA error {err}")
+    launches[f"fused_split_{ops.order}"] += 1
+    return out

@@ -1,0 +1,221 @@
+"""K4, the error-diffusion wavefront scan: its wrapper and its plain
+PyTorch version.
+
+Counterpart of the JAX package's ``ops/pallas/wavefront_kernel.py``
+(``wavefront_scan_pallas`` and ``wavefront_scan_pallas_carry``) and of
+the scan it accelerates, ``ops/dither.py:_wavefront_rows``.  Pixel (y, x)
+of channel ch, at diagonal step t = 2y + x, takes
+
+    cur = ((((s + W_CUR_RIGHT*n(y, x-1)) + W_NEXT_LEFT*n(y-1, x+1))
+            + W_NEXT_CENTER*n(y-1, x)) + W_NEXT_RIGHT*n(y-1, x-1))
+    z0 = round_biased(cur * tmi) * tm ;  out = clamp(z0, 0, out_max)
+    n(y, x) = cur - z0   (0 outside 0 <= x < w: noise leaving a row end
+                          is discarded, avir.h:4504-4524)
+
+every product and sum rounded on its own in float32, with
+``tmi = float32(1) / float32(tm)``.  Rows go in blocks; row 0 of a block
+reads the previous block's last-row noise, so blocked and single-block
+runs give the same bits.
+
+``errdiff_wavefront`` launches the kernel (``csrc/wavefront.cu``) once
+per row block on a CUDA tensor, and runs ``errdiff_wavefront_reference``
+on a CPU tensor.  Both do the same float32 operations in the same order,
+so they agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..dither import (
+    W_CUR_RIGHT,
+    W_NEXT_CENTER,
+    W_NEXT_LEFT,
+    W_NEXT_RIGHT,
+    round_biased,
+    trunc_mul,
+)
+
+# Launches of the kernel of this module (one per row block), counted by
+# the wrapper.
+launches = {"wavefront": 0}
+
+_MAX_THREADS = 1024  # csrc: kMaxThreads, one thread per (row, channel)
+_OUT_KINDS = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
+
+
+def quant_steps(trunc_bits: int, out_max: float) -> tuple[float, float]:
+    """(tm, tmi) as float32 values: the step and its float32 reciprocal
+    (a float64 reciprocal flips pixels at half-step boundaries)."""
+    tm = np.float32(trunc_mul(trunc_bits, float(out_max)))
+    return float(tm), float(np.float32(1.0) / tm)
+
+
+def block_rows_for(h: int, c: int, block_rows: int | None) -> int:
+    """Rows per block: at most one thread per (row, channel) of a block."""
+    rb = _MAX_THREADS // c if block_rows is None else block_rows
+    return max(1, min(rb, h))
+
+
+def chain_steps(h: int, w: int, c: int, block_rows: int | None = None) -> int:
+    """Diagonal steps the scan runs in sequence: sum over row blocks of
+    W + 2(R_b - 1)."""
+    rb = block_rows_for(h, c, block_rows)
+    return sum(w + 2 * (min(rb, h - y0) - 1) for y0 in range(0, h, rb))
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+def _wavefront_rows(
+    block: torch.Tensor,
+    n_last: torch.Tensor,
+    tm: torch.Tensor,
+    tmi: torch.Tensor,
+    out_max: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize one row block [R, W, C] (float32) given the previous
+    block's last-row noise ``n_last`` [W, C] (zeros at the top).  Returns
+    (quantized block [R, W, C] float32, its last-row noise [W, C])."""
+    r, w, c = block.shape
+    dev = block.device
+    T = 2 * (r - 1) + w
+    ys = torch.arange(r, device=dev)
+    x_of = torch.arange(T, device=dev)[:, None] - 2 * ys[None, :]  # [T, R]
+    valid = (x_of >= 0) & (x_of < w)
+    # Skewed diagonals: S[t, y] = block[y, t - 2y] (0 off the image).
+    S = torch.where(
+        valid[:, :, None], block[ys[None, :], x_of.clamp(0, w - 1)], 0.0
+    )  # [T, R, C]
+    # Row 0's neighbours in the previous block: nl[x + 1] = n_last[x].
+    nl = torch.zeros((T + 4, c), dtype=torch.float32, device=dev)
+    nl[1 : w + 1] = n_last
+    wr, wl, wc, wn = (
+        torch.tensor(v, dtype=torch.float32, device=dev)
+        for v in (W_CUR_RIGHT, W_NEXT_LEFT, W_NEXT_CENTER, W_NEXT_RIGHT)
+    )
+    zero = torch.zeros((r, c), dtype=torch.float32, device=dev)
+    p1 = p2 = p3 = zero  # noise at steps t-1, t-2, t-3
+    out = torch.empty((T, r, c), dtype=torch.float32, device=dev)
+    last = torch.empty((T, c), dtype=torch.float32, device=dev)
+    for t in range(T):
+        d1 = torch.cat([nl[t + 2][None], p1[:-1]])  # (y-1, x+1)
+        d2 = torch.cat([nl[t + 1][None], p2[:-1]])  # (y-1, x)
+        d3 = torch.cat([nl[t][None], p3[:-1]])      # (y-1, x-1)
+        cur = S[t] + wr * p1                        # (y, x-1)
+        cur = cur + wl * d1
+        cur = cur + wc * d2
+        cur = cur + wn * d3
+        z0 = round_biased(cur * tmi) * tm
+        noise = torch.where(valid[t][:, None], cur - z0, 0.0)
+        out[t] = torch.clamp(z0, 0.0, out_max)
+        last[t] = noise[-1]
+        p1, p2, p3 = noise, p1, p2
+    q = out[2 * ys[:, None] + torch.arange(w, device=dev)[None, :], ys[:, None]]
+    return q, last[2 * (r - 1) : 2 * (r - 1) + w]
+
+
+def errdiff_wavefront_reference(
+    img: torch.Tensor,
+    trunc_bits: int,
+    out_max: float,
+    block_rows: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch wavefront error diffusion of the float32 image
+    ``img`` [H, W, C] -> float32 [H, W, C], on the device of ``img``."""
+    h, w, c = img.shape
+    dev = img.device
+    tm_f, tmi_f = quant_steps(trunc_bits, out_max)
+    tm = torch.tensor(tm_f, dtype=torch.float32, device=dev)
+    tmi = torch.tensor(tmi_f, dtype=torch.float32, device=dev)
+    rb = block_rows_for(h, c, block_rows)
+    n_last = torch.zeros((w, c), dtype=torch.float32, device=dev)
+    outs = []
+    for y0 in range(0, h, rb):
+        q, n_last = _wavefront_rows(
+            img[y0 : y0 + rb].float(), n_last, tm, tmi, float(out_max)
+        )
+        outs.append(q)
+    return torch.cat(outs)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [
+    _P, _P, _I,            # img, out, out_kind
+    _I, _I, _I, _I,        # w, c, row0, rb
+    _P, _P,                # n_in, n_out
+    _F, _F, _F,            # tm, tmi, out_max
+    _F, _F, _F, _F,        # weights: cur right, next left, center, right
+    _P,                    # stream
+]
+
+
+def _library():
+    from .build import load_library
+
+    lib = load_library("wavefront")
+    fn = lib.avir_wavefront_block
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def errdiff_wavefront(
+    img: torch.Tensor,
+    trunc_bits: int,
+    out_max: float,
+    out_dtype: torch.dtype = torch.float32,
+    block_rows: int | None = None,
+) -> torch.Tensor:
+    """Wavefront error diffusion of the float32 image ``img`` [H, W, C]
+    -> [H, W, C] of ``out_dtype`` (float32, uint8 or uint16).  A CUDA
+    tensor launches the kernel once per row block; a CPU tensor runs the
+    plain version."""
+    if out_dtype not in _OUT_KINDS:
+        raise ValueError(f"unsupported output dtype {out_dtype}")
+    if img.device.type == "cpu":
+        out = errdiff_wavefront_reference(img, trunc_bits, out_max, block_rows)
+        return out if out_dtype == torch.float32 else out.to(out_dtype)
+    if img.device.type != "cuda":
+        raise ValueError(f"image on {img.device}: must be a CUDA or CPU tensor")
+    if img.dtype != torch.float32 or img.dim() != 3 or not img.is_contiguous():
+        raise ValueError(
+            f"expected a contiguous float32 [H, W, C] image, got {img.dtype} "
+            f"{tuple(img.shape)}"
+        )
+    h, w, c = img.shape
+    rb = block_rows_for(h, c, block_rows)
+    if rb * c > _MAX_THREADS:
+        raise ValueError(f"{rb} rows x {c} channels exceed {_MAX_THREADS} threads")
+    out = torch.empty((h, w, c), dtype=out_dtype, device=img.device)
+    noise = torch.zeros((2, w * c), dtype=torch.float32, device=img.device)
+    tm, tmi = quant_steps(trunc_bits, out_max)
+    weights = [
+        float(np.float32(v))
+        for v in (W_CUR_RIGHT, W_NEXT_LEFT, W_NEXT_CENTER, W_NEXT_RIGHT)
+    ]
+    fn = _library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        for b, y0 in enumerate(range(0, h, rb)):
+            err = fn(
+                img.data_ptr(), out.data_ptr(), _OUT_KINDS[out_dtype],
+                w, c, y0, min(rb, h - y0),
+                noise[b % 2].data_ptr(), noise[(b + 1) % 2].data_ptr(),
+                tm, tmi, float(out_max), *weights,
+                stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"wavefront launch failed: CUDA error {err}")
+            launches["wavefront"] += 1
+    return out

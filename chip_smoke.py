@@ -7,17 +7,35 @@ Phases (any failure exits non-zero before the last line):
      CUDA kernel from the sources in the checkout (one nvcc per source,
      all started together) and prints the build time;
   2. holds each kernel against its plain PyTorch version on the card, on
-     small cases covering both pass orders, C in {1, 3, 4}, chunked and
-     unchunked lane forms and ragged edges: bit-equal;
-  3. drives the main path through ``avir_tpu_torch.ImageResizer.resize``
-     at 7680x4320 -> 1920x1080 and 1920x1080 -> 3840x2160 u8 RGB, with
-     the launch counts set to 0 just before each first call and read
-     just after; each output must be bit-equal to the plain version and
-     within 1 LSB / >= 60 dB of the float64 host oracle;
+     small cases:
+       - K1 int8: both pass orders, C in {1, 3, 4}, chunked and unchunked
+         lane forms and ragged edges: bit-equal;
+       - K1 split-bf16: both orders, split2/split3 mode pairs, u8/u16/f32
+         in, f32/u8/u16 out with trunc_bits 0, 2 and 4, C in {1, 3, 4},
+         chunked and unchunked lanes: float32 within max|plain| * 1e-4,
+         integers within 1 LSB (one quantization step when trunc_bits > 0);
+       - K4 wavefront: C in {1, 3, 4}, one and several row blocks, 8- and
+         16-bit steps: bit-equal;
+  3. drives the main path through ``avir_tpu_torch.ImageResizer.resize``,
+     with the launch counts set to 0 just before each first call and
+     read just after:
+       - 7680x4320 -> 1920x1080 and 1920x1080 -> 3840x2160 u8 RGB (K1
+         int8): bit-equal to the plain version, within 1 LSB / >= 60 dB
+         of the float64 host oracle;
+       - 8k_to_1080p_errdiff, 7680x4320 -> 1920x1080 u8 RGB with
+         dither="errdiff" (K1 split2/split3 to a float32 pre-dither
+         image, then K4): the pre-dither image within 255 * 1e-4 of the
+         oracle's, K4 bit-equal to its plain version on it, the output
+         within 1 LSB of the oracle's serial error diffusion;
+       - 1080p_to_4k_u16, 1920x1080 -> 3840x2160 u16 RGB,
+         res_bit_depth=16 (K1 split3/split3, u16 epilogue): within 1 LSB
+         of the plain version, within 4 LSB / >= 60 dB of the oracle;
   4. times each kernel at its main-path shape with CUDA events (L2
      flushed before every launch) beside its bound and its plain
      version's time, plus the host wall time of a cached resize and its
-     two copies, and prints one JSON line per shape;
+     two copies (and, for the new shapes, the full-float32
+     ``precision="exact"`` passes as a yardstick), and prints one JSON
+     line per shape;
   5. prints the kernels line and, last, the device line.
 """
 
@@ -31,9 +49,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data sheet (700 W): HBM rate and dense int8 tensor-core rate.
+# H100 SXM data sheet (700 W): HBM rate and dense int8 and bf16
+# tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+BF16_OPS_PER_S = 0.989e15
 SEED = 7
 MAIN_PATH = (
     # (name, src_w, src_h, new_w, new_h, c)
@@ -56,13 +76,63 @@ KERNEL_CASES = (
     (1031, 517, 263, 129, 3, None, "vh"),
     (333, 251, 1001, 777, 3, None, "hv"),
 )
+SPLIT_CASES = (
+    # (src_w, src_h, new_w, new_h, c, lane tile, order, mode_v, mode_h,
+    #  in type, out type, trunc_bits)
+    (200, 150, 80, 60, 3, None, "vh", "split2", "split3", "u8", "f32", 0),
+    (150, 90, 61, 37, 1, None, "vh", "split2", "split3", "u8", "u8", 0),
+    (181, 77, 60, 33, 4, None, "vh", "split3", "split3", "u16", "u16", 4),
+    (120, 80, 70, 50, 3, 50, "vh", "split3", "split3", "f32", "u8", 2),
+    (200, 150, 80, 60, 3, None, "vh", "split2", "split2", "u8", "u8", 0),
+    (45, 31, 97, 70, 1, None, "hv", "split3", "split3", "u16", "u16", 0),
+    (300, 20, 1400, 41, 3, None, "hv", "split3", "split2", "u8", "f32", 0),
+    (29, 21, 71, 45, 4, 48, "hv", "split3", "split3", "f32", "f32", 0),
+    (40, 30, 64, 48, 3, None, "hv", "split2", "split2", "u8", "u16", 2),
+    (500, 20, 1200, 41, 4, None, "hv", "split3", "split3", "u16", "u8", 0),
+    (96, 80, 70, 101, 3, None, "vh", "split3", "split3", "u16", "f32", 0),
+    (96, 80, 70, 101, 1, None, "hv", "split3", "split2", "u8", "u8", 4),
+    (1031, 517, 263, 129, 3, None, "vh", "split2", "split3", "u8", "f32", 0),
+    (333, 251, 1001, 777, 3, None, "hv", "split3", "split3", "u16", "u16", 0),
+)
+WAVEFRONT_CASES = (
+    # (h, w, c, trunc_bits, out_max, block_rows)
+    (24, 40, 1, 0, 255.0, None),
+    (20, 33, 3, 0, 255.0, None),
+    (17, 29, 4, 0, 255.0, None),
+    (90, 70, 3, 0, 255.0, 16),
+    (200, 130, 4, 0, 65535.0, None),
+    (700, 300, 1, 0, 255.0, None),
+    (18, 27, 4, 4, 65535.0, None),
+    (77, 64, 3, 4, 65535.0, 10),
+    (22, 30, 3, 2, 255.0, 7),
+)
+NEW_SHAPES = (
+    # (name, src_w, src_h, new_w, new_h, c, in dtype, res_bit_depth, dither)
+    ("8k_to_1080p_errdiff", 7680, 4320, 1920, 1080, 3, np.uint8, 8, "errdiff"),
+    ("1080p_to_4k_u16", 1920, 1080, 3840, 2160, 3, np.uint16, 16, "default"),
+)
 KERNELS = {
     "fused_int8_vh": "avir_tpu/ops/pallas/fused_kernel.py:191 (_int8_passes, "
     "order vh; entry apply_fused_pallas :422)",
     "fused_int8_hv": "avir_tpu/ops/pallas/fused_kernel.py:268 (_int8_passes, "
     "order hv; entry apply_fused_pallas :422)",
+    "fused_split_vh": "avir_tpu/ops/pallas/fused_kernel.py:344 (_kernel float "
+    "branch, order vh; _rmul :130, _finish :400; entry apply_fused_pallas :422)",
+    "fused_split_hv": "avir_tpu/ops/pallas/fused_kernel.py:362 (_kernel float "
+    "branch, order hv; _rmul :130, _finish :400; entry apply_fused_pallas :422)",
+    "wavefront": "avir_tpu/ops/pallas/wavefront_kernel.py:229 "
+    "(wavefront_scan_pallas_carry, _kernel_carry :139) and :331 "
+    "(wavefront_scan_pallas, _kernel :55)",
 }
-SOURCE = "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu"
+SOURCES = {
+    "fused_int8_vh": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
+    "fused_int8_hv": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
+    "fused_split_vh": "avir_tpu_torch/ops/cuda/csrc/fused_split.cu",
+    "fused_split_hv": "avir_tpu_torch/ops/cuda/csrc/fused_split.cu",
+    "wavefront": "avir_tpu_torch/ops/cuda/csrc/wavefront.cu",
+}
+NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
+TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
 
 
 def _fail(msg: str) -> None:
@@ -70,14 +140,23 @@ def _fail(msg: str) -> None:
     sys.exit(1)
 
 
-def _psnr(a: np.ndarray, b: np.ndarray) -> float:
+def _psnr(a: np.ndarray, b: np.ndarray, peak: float = 255.0) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return float("inf") if mse == 0 else float(10 * np.log10(255.0**2 / mse))
+    return float("inf") if mse == 0 else float(10 * np.log10(peak**2 / mse))
 
 
 def _oracle(plan, src: np.ndarray) -> np.ndarray:
-    """Float64 host oracle: both banded operators applied with
-    apply_banded_numpy, in slabs to bound host memory."""
+    """Float64 host oracle of a u8 resize with the default dither."""
+    from avir_tpu_torch.models.host_reference import default_dither
+
+    out = default_dither(_predither(plan, src), 0, 255.0)
+    return out.astype(np.uint8)
+
+
+def _predither(plan, src: np.ndarray) -> np.ndarray:
+    """Float64 host oracle before the dither stage: both banded operators
+    applied with apply_banded_numpy (models/host_reference.py's
+    execute_plan_numpy), in slabs to bound host memory."""
     from avir_tpu_torch.plan.compose import apply_banded_numpy
 
     h, w, c = src.shape
@@ -95,8 +174,7 @@ def _oracle(plan, src: np.ndarray) -> np.ndarray:
          for i in range(0, x.shape[1], step)],
         axis=1,
     )
-    out = np.clip(np.floor(vx + 0.5), 0, 255).astype(np.uint8)
-    return out.reshape(plan.v.op.n_out, plan.h.op.n_out, c)
+    return vx.reshape(plan.v.op.n_out, plan.h.op.n_out, c)
 
 
 def _time_ms(fn, n: int, flush: torch.Tensor) -> float:
@@ -151,6 +229,218 @@ def _bound(plan, c: int, order: str) -> tuple[float, str, int, int]:
     )
 
 
+def _split_reads(ops) -> dict[str, float]:
+    """Image elements the split kernel's first pass reads per input
+    element: each thread block reads its slice's nonzero V-tap rows over
+    its chunk's nonzero lane-tap window (128-lane segments in vh)."""
+    kr = ops.k_range.cpu()
+    rows = int((kr[..., 1] - kr[..., 0]).sum()) / ops.rows_in
+    hr = ops.h_range.cpu().long()
+    lo, hi = hr[..., 0], hr[..., 1]
+    if ops.order == "vh":
+        lo = lo // 128 * 128
+        hi = torch.where(hi > lo, (hi - lo + 127) // 128 * 128 + lo, lo)
+    lanes = int((hi - lo).sum()) / ops.lanes_in
+    return {"rows": rows, "lanes": lanes, "total": rows * lanes}
+
+
+def _split_bound(plan, c: int, ops, in_bytes: int, out_bytes: int):
+    """(bound_ms, bound_by, bytes, ops) of K1 in split modes: the image
+    read once, the output written once and both banded operators as bf16
+    hi + lo per tap; 2 x band MACs x products per pass (2 for split2,
+    3 for split3) at the bf16 tensor-core rate."""
+    h, v = plan.h.op, plan.v.op
+    lanes_in, lanes_out = h.n_in * c, h.n_out * c
+    nbytes = (
+        v.n_in * lanes_in * in_bytes + v.n_out * lanes_out * out_bytes
+        + 4 * (h.n_out * h.width + v.n_out * v.width)
+    )
+    pv = 3 if ops.mode_v == "split3" else 2
+    ph = 3 if ops.mode_h == "split3" else 2
+    if ops.order == "vh":
+        macs = v.n_out * lanes_in * v.width * pv + v.n_out * lanes_out * h.width * ph
+    else:
+        macs = v.n_in * lanes_out * h.width * ph + v.n_out * lanes_out * v.width * pv
+    nops = 2 * macs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+    return (
+        1e3 * max(t_bytes, t_ops),
+        "bytes" if t_bytes >= t_ops else "operations",
+        nbytes,
+        nops,
+    )
+
+
+def _zero(mods) -> None:
+    for m in mods:
+        for k in m.launches:
+            m.launches[k] = 0
+
+
+def _counts(mods) -> dict[str, int]:
+    return {k: v for m in mods for k, v in m.launches.items()}
+
+
+def _new_shape(name, sw, sh, nw, nh, c, in_dt, bits, dither, gen, dev,
+               flush, smi, mods) -> list[dict]:
+    """Drive one full-precision main-path shape through
+    ImageResizer.resize, check it against the plain versions and the
+    float64 oracle, time its kernels, and return their kernels-line
+    entries."""
+    import avir_tpu_torch
+    from avir_tpu_torch.models import host_reference as hr
+    from avir_tpu_torch.models.runtime import (
+        make_avir_executor,
+        separable_pass_exact,
+    )
+    from avir_tpu_torch.ops.banded import block_banded
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.cuda import wavefront as wf
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    src = gen.integers(0, np.iinfo(in_dt).max + 1, (sh, sw, c), dtype=in_dt)
+    errdiff = dither == "errdiff"
+    resizer = avir_tpu_torch.ImageResizer(res_bit_depth=bits)
+    _zero(mods)
+    t0 = time.perf_counter()
+    out = resizer.resize(src, nw, nh, dither=dither, device=dev)
+    first_s = time.perf_counter() - t0
+    counts = _counts(mods)
+
+    plan = build_resize_plan(sw, sh, nw, nh, c, in_dt, in_dt, res_bit_depth=bits)
+    fn = make_avir_executor(plan, errdiff=errdiff, device=dev)
+    ops, order = fn.ops, fn.order
+    kname = f"fused_split_{order}"
+    print(json.dumps({
+        "main_path": name, "launches": counts, "route": fn.route,
+        "order": order, "mode_v": ops.mode_v, "mode_h": ops.mode_h,
+        "k1_out": str(ops.out_dtype),
+    }))
+    if counts[kname] < 1 or (errdiff and counts["wavefront"] < 1):
+        _fail(f"{name}: the split kernel or K4 was not launched on the main path")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        resizer.resize(src, nw, nh, dither=dither, device=dev)
+        walls.append(1e3 * (time.perf_counter() - t0))
+
+    x = torch.from_numpy(src.reshape(sh, sw * c)).to(dev)
+    got = fs.apply_fused_split(ops, x)
+    torch.cuda.synchronize()
+    want = fs.apply_fused_split_reference(ops, x)
+    torch.cuda.synchronize()
+    k1_err = float((got.double() - want.double()).abs().max())
+    pre64 = _predither(plan, src)
+    out_max = plan.out_type_max
+    report = {"shape": name}
+    if errdiff:
+        pre_err = float(np.abs(got.cpu().numpy().reshape(nh, nw, c) - pre64).max())
+        k1_tol = float(want.abs().max()) * 1e-4
+        pre3 = got.reshape(nh, nw, c)
+        q = wf.errdiff_wavefront(pre3, 0, out_max, out_dtype=torch.uint8)
+        q_plain = wf.errdiff_wavefront_reference(pre3, 0, out_max).to(torch.uint8)
+        torch.cuda.synchronize()
+        k4_err = int((q.int() - q_plain.int()).abs().max())
+        same_as_resize = bool(np.array_equal(q.cpu().numpy().reshape(nh, nw, c), out))
+        dev_out = q
+        t0 = time.perf_counter()
+        oracle = hr.errdiff_dither(pre64, 0, out_max).astype(np.uint8)
+        report["oracle_errdiff_s"] = time.perf_counter() - t0
+        lsb = int(np.abs(out.astype(np.int32) - oracle.astype(np.int32)).max())
+        psnr = _psnr(out, oracle)
+        report.update({
+            "max_abs_err_predither_vs_f64_oracle": pre_err,
+            "predither_tol": 255.0 * 1e-4, "k4_max_abs_err_vs_plain": k4_err,
+            "pixels_off_vs_oracle": int((out != oracle).sum()),
+        })
+        ok = pre_err <= 255.0 * 1e-4 and k1_err <= k1_tol and k4_err == 0 \
+            and lsb <= 1
+    else:
+        k1_tol = 1.0
+        same_as_resize = bool(
+            np.array_equal(got.cpu().numpy().reshape(nh, nw, c), out)
+        )
+        dev_out = got
+        oracle = hr.default_dither(pre64, 0, out_max).astype(out.dtype)
+        lsb = int(np.abs(out.astype(np.int32) - oracle.astype(np.int32)).max())
+        psnr = _psnr(out, oracle, out_max)
+        ok = k1_err <= k1_tol and lsb <= 4 and psnr >= 60.0
+    ok = ok and out.shape == (nh, nw, c) and same_as_resize
+
+    ms = _time_ms(lambda: fs.apply_fused_split(ops, x), 20, flush)
+    plain_ms = _time_ms(lambda: fs.apply_fused_split_reference(ops, x), 2, flush)
+    in_b = np.dtype(in_dt).itemsize
+    out_b = 4 if errdiff else np.dtype(in_dt).itemsize
+    bound_ms, bound_by, nbytes, nops = _split_bound(plan, c, ops, in_b, out_b)
+    vop = block_banded(plan.v.op, in_bytes=in_b)
+    hop = block_banded(plan.h.op, in_bytes=in_b)
+    h_taps = torch.from_numpy(hop.taps).to(dev)
+    v_taps = torch.from_numpy(vop.taps).to(dev)
+    exact_ms = _time_ms(
+        lambda: separable_pass_exact(
+            fs.to_float32(x), hop, vop, sh, sw, c, h_taps, v_taps
+        ),
+        3, flush,
+    )
+    h2d_ms = _time_ms(lambda: torch.from_numpy(src.reshape(sh, -1)).to(dev), 5, flush)
+    d2h_ms = _time_ms(lambda: dev_out.cpu(), 5, flush)
+    report.update({
+        "kernel": kname, "mode_v": ops.mode_v, "mode_h": ops.mode_h,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "bytes": nbytes, "bf16_ops": nops,
+        "max_abs_err_vs_plain": k1_err, "tol_vs_plain": k1_tol,
+        "max_lsb_vs_f64_oracle": lsb, "psnr_vs_f64_oracle_db": psnr,
+        "first_pass_reads_per_input": _split_reads(ops),
+        "launches_per_resize": counts,
+        "exact_route_ms": exact_ms,
+        "exact_route_note": "precision='exact': both passes as float32 "
+        "torch.bmm plus gathers and transposes -- several PyTorch calls, "
+        "so no single library call (library_ms null)",
+        "resize_first_call_s": first_s,
+        "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
+        "h2d_copy_ms": h2d_ms, "d2h_copy_ms": d2h_ms,
+        "card": smi,
+    })
+    entries = [{
+        "name": kname, "route": "cuda", "source": SOURCES[kname],
+        "replaces": KERNELS[kname], "launches": counts[kname],
+        "max_abs_err": k1_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }]
+    if errdiff:
+        k4_ms = _time_ms(
+            lambda: wf.errdiff_wavefront(pre3, 0, out_max, out_dtype=torch.uint8),
+            5, flush,
+        )
+        k4_plain_ms = _time_ms(
+            lambda: wf.errdiff_wavefront_reference(pre3, 0, out_max), 1, flush
+        )
+        k4_bytes = pre3.numel() * (4 + 1)
+        k4_bound = 1e3 * k4_bytes / HBM_BYTES_PER_S
+        chain = wf.chain_steps(nh, nw, c)
+        report.update({
+            "k4_ms": k4_ms, "k4_plain_ms": k4_plain_ms,
+            "k4_bound_ms": k4_bound, "k4_bound_by": "bytes",
+            "k4_bytes": k4_bytes, "k4_chain_steps": chain,
+            "k4_us_per_step": 1e3 * k4_ms / chain,
+            "k4_block_rows": wf.block_rows_for(nh, c, None),
+        })
+        entries.append({
+            "name": "wavefront", "route": "cuda", "source": SOURCES["wavefront"],
+            "replaces": KERNELS["wavefront"], "launches": counts["wavefront"],
+            "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound, "bound_by": "bytes", "library_ms": None,
+        })
+    print(json.dumps(report))
+    if not ok:
+        _fail(
+            f"{name}: shape {out.shape}, K1 vs plain {k1_err} (tol {k1_tol}), "
+            f"same as resize {same_as_resize}, oracle {lsb} LSB / {psnr} dB, "
+            f"report {report}"
+        )
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -161,6 +451,8 @@ def main() -> int:
     from avir_tpu_torch.ops.banded import block_banded
     from avir_tpu_torch.ops.cuda import build
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.cuda import wavefront as wf
     from avir_tpu_torch.ops.lanes import lane_block_banded
     from avir_tpu_torch.plan.plan import build_resize_plan
 
@@ -187,6 +479,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = np.random.default_rng(SEED)
+    # Full float32 products (no TF32) for the plain versions and the
+    # exact route; the port checks this at each call.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mods = (fk, fs, wf)
 
     # ---- 2. kernel vs plain on small cases -----------------------------
     for sw, sh, nw, nh, c, tile, order in KERNEL_CASES:
@@ -209,6 +507,52 @@ def main() -> int:
         if err != 0:
             _fail(f"kernel != plain on {case}")
 
+    for case_t in SPLIT_CASES:
+        sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb = case_t
+        ib = np.dtype(NP_TYPES[tin]).itemsize
+        out_max = 255.0 if tout == "u8" else 65535.0
+        plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout])
+        ops = fs.prepare_fused_split(
+            block_banded(plan.v.op, in_bytes=ib),
+            lane_block_banded(plan.h.op, c, tile=tile, in_bytes=ib),
+            order, mv, mh, dev, out_dtype=TORCH_TYPES[tout],
+            out_max=out_max, trunc_bits=tb,
+        )
+        if tin == "f32":
+            xn = gen.random((sh, sw * c), dtype=np.float32)
+        else:
+            xn = gen.integers(0, int(np.iinfo(NP_TYPES[tin]).max) + 1,
+                              (sh, sw * c), dtype=NP_TYPES[tin])
+        x = torch.from_numpy(xn).to(dev)
+        got = fs.apply_fused_split(ops, x)
+        torch.cuda.synchronize()
+        want = fs.apply_fused_split_reference(ops, x)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        if tout == "f32":
+            tol = float(want.abs().max()) * 1e-4
+        else:
+            tol = out_max / (int(out_max) >> tb) if tb else 1.0
+        case = f"{sw}x{sh}->{nw}x{nh} C={c} tile={tile} {order} {mv}/{mh} {tin}->{tout} tb={tb}"
+        print(json.dumps({"case": case, "max_abs_err": err, "tol": tol}))
+        if not err <= tol:
+            _fail(f"split kernel != plain on {case}")
+
+    for h, w, c, tb, om, rows in WAVEFRONT_CASES:
+        img = torch.from_numpy(
+            (gen.random((h, w, c)) * om).astype(np.float32)
+        ).to(dev)
+        got = wf.errdiff_wavefront(img, tb, om, block_rows=rows)
+        torch.cuda.synchronize()
+        want = wf.errdiff_wavefront_reference(img, tb, om, block_rows=rows)
+        err = float((got - want).abs().max())
+        case = f"wavefront {h}x{w}x{c} tb={tb} max={om} rows={rows}"
+        print(json.dumps({"case": case, "max_abs_err": err}))
+        # Bit-equal expected everywhere (same float32 operations in the
+        # same order); the gate is the reference's own engine tolerance.
+        if not err <= (0.0 if tb == 0 else om / (int(om) >> tb)):
+            _fail(f"wavefront kernel != plain on {case}")
+
     # ---- 3./4. main path, checks and timing ----------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     entries = []
@@ -218,12 +562,11 @@ def main() -> int:
         kname = f"fused_int8_{order}"
 
         resizer = avir_tpu_torch.ImageResizer()
-        for k in fk.launches:
-            fk.launches[k] = 0
+        _zero(mods)
         t0 = time.perf_counter()
         out = resizer.resize(src, nw, nh)
         first_s = time.perf_counter() - t0
-        counts = dict(fk.launches)
+        counts = _counts(mods)
         print(json.dumps({"main_path": name, "launches": counts}))
         if counts[kname] < 1:
             _fail(f"{name}: {kname} was not launched on the main path")
@@ -278,11 +621,17 @@ def main() -> int:
                 f"resize {same_as_resize}, oracle {lsb} LSB / {psnr} dB"
             )
         entries.append({
-            "name": kname, "route": "cuda", "source": SOURCE,
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": KERNELS[kname], "launches": counts[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+
+    for name, sw, sh, nw, nh, c, in_dt, bits, dith in NEW_SHAPES:
+        entries += _new_shape(
+            name, sw, sh, nw, nh, c, in_dt, bits, dith, gen, dev, flush, smi,
+            mods,
+        )
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({

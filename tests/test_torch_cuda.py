@@ -1,0 +1,97 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here carries the ``cuda`` marker and skips without a
+card.  The file imports no JAX, so it runs where only PyTorch and the CUDA
+toolkit are installed:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Tolerances: K1 int8 and K4 are bit-equal (exact integer sums; the same
+float32 operations in the same order).  K1 split-bf16 sums in another
+order than its plain version: float32 within max|plain| * 1e-4, integers
+within 1 LSB, or one quantization step when ``trunc_bits`` > 0."""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_cases import (
+    FUSED_CASES,
+    IN_BYTES,
+    NP_TYPES,
+    SPLIT_CASES,
+    WAVEFRONT_CASES,
+    float_image,
+    order_of,
+    split_source,
+)
+
+from avir_tpu_torch.ops.banded import block_banded
+from avir_tpu_torch.ops.cuda import fused_kernel as fk
+from avir_tpu_torch.ops.cuda import fused_split as fs
+from avir_tpu_torch.ops.cuda import wavefront as wf
+from avir_tpu_torch.ops.lanes import lane_block_banded
+from avir_tpu_torch.plan.plan import build_resize_plan
+
+_TORCH = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FUSED_CASES))
+def test_int8_kernel_matches_plain_on_card(name, cuda_device):
+    sw, sh, nw, nh, c, tile = FUSED_CASES[name]
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8)
+    ops = fk.prepare_fused_int8(
+        block_banded(plan.v.op),
+        lane_block_banded(plan.h.op, c, tile=tile),
+        order_of(sw, sh, nw, nh),
+        cuda_device,
+    )
+    x = torch.randint(
+        0, 256, (sh, sw * c), dtype=torch.uint8,
+        generator=torch.Generator().manual_seed(3),
+    ).to(cuda_device)
+    got = fk.apply_fused_int8(ops, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.apply_fused_int8_reference(ops, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_kernel_matches_plain_on_card(name, cuda_device):
+    sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb = SPLIT_CASES[name]
+    out_max = 255.0 if tout == "u8" else 65535.0
+    ib = IN_BYTES[tin]
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout])
+    ops = fs.prepare_fused_split(
+        block_banded(plan.v.op, in_bytes=ib),
+        lane_block_banded(plan.h.op, c, tile=tile, in_bytes=ib),
+        order, mv, mh, cuda_device, out_dtype=_TORCH[tout],
+        out_max=out_max, trunc_bits=tb,
+    )
+    x = torch.from_numpy(split_source(name, sh, sw, c, tin)).to(cuda_device)
+    got = fs.apply_fused_split(ops, x)
+    torch.cuda.synchronize()
+    want = fs.apply_fused_split_reference(ops, x)
+    diff = (got.double() - want.double()).abs().max().item()
+    if tout == "f32":
+        assert diff <= want.abs().max().item() * 1e-4
+    else:
+        assert diff <= (out_max / (int(out_max) >> tb) if tb else 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, w, c, tb, om", WAVEFRONT_CASES)
+def test_wavefront_kernel_matches_plain_on_card(h, w, c, tb, om, cuda_device):
+    img = torch.from_numpy(float_image(h, w, c, om, h + w)).to(cuda_device)
+    for rows in (None, 5):
+        got = wf.errdiff_wavefront(img, tb, om, block_rows=rows)
+        torch.cuda.synchronize()
+        want = wf.errdiff_wavefront_reference(img, tb, om, block_rows=rows)
+        assert torch.equal(got, want)

@@ -2,7 +2,7 @@
 JAX package's Pallas kernel (interpret mode, on the CPU), on the port's
 own blocked operators and on the JAX package's plans carried across by
 ``avir_tpu_torch.convert``.  The kernel itself is held against the plain
-version on the card only."""
+version on the card only (tests/test_torch_cuda.py)."""
 
 import dataclasses
 
@@ -17,6 +17,8 @@ from avir_tpu.ops.lanes import lane_block_banded as jax_lane_block_banded
 from avir_tpu.ops.pallas.fused_kernel import apply_fused_pallas
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
+from torch_cases import FUSED_CASES as CASES
+
 from avir_tpu_torch.convert import resize_plan_from_numpy
 from avir_tpu_torch.ops.banded import block_banded
 from avir_tpu_torch.ops.cuda import fused_kernel as fk
@@ -30,22 +32,6 @@ torch.set_num_threads(1)
 def _jax_on_cpu():
     with jax.default_device(jax.devices("cpu")[0]):
         yield
-
-
-# (src_w, src_h, new_w, new_h, c, lane tile or None): downsizes run
-# "vh", upsizes "hv"; the lane form is chunked or not as noted.
-CASES = {
-    "down_c1": (150, 90, 61, 37, 1, None),      # unchunked (TC = 128)
-    "down_c3": (200, 150, 80, 60, 3, None),     # chunked
-    "down_c4": (181, 77, 60, 33, 4, None),      # chunked
-    "up_c1": (45, 31, 97, 70, 1, None),         # unchunked
-    "up_c1_wide": (2000, 12, 4100, 25, 1, None),  # chunked (wide tile)
-    "up_c3": (300, 20, 1400, 41, 3, None),      # chunked (wide tile)
-    "up_c3_flat": (40, 30, 64, 48, 3, None),    # unchunked
-    "up_c4": (500, 20, 1200, 41, 4, None),      # chunked (wide tile)
-    "up_c4_tc": (29, 21, 71, 45, 4, 48),        # TC = 192, unchunked
-    "down_c3_tc": (120, 80, 70, 50, 3, 50),     # TC = 150, unchunked
-}
 
 
 def _order(sw, sh, nw, nh):
@@ -158,30 +144,3 @@ def test_pack4_layout():
     for k in range(8):
         got = (p[0, k // 4] >> (8 * (k % 4))) & 0xFF
         np.testing.assert_array_equal(got, q[0, k].view(np.uint8))
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA CUDA card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CASES))
-def test_kernel_matches_plain_on_card(name, cuda_device):
-    sw, sh, nw, nh, c, tile = CASES[name]
-    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8)
-    ops = fk.prepare_fused_int8(
-        block_banded(plan.v.op),
-        lane_block_banded(plan.h.op, c, tile=tile),
-        _order(sw, sh, nw, nh),
-        cuda_device,
-    )
-    x = torch.randint(
-        0, 256, (sh, sw * c), dtype=torch.uint8,
-        generator=torch.Generator().manual_seed(3),
-    ).to(cuda_device)
-    got = fk.apply_fused_int8(ops, x)
-    torch.cuda.synchronize()
-    assert torch.equal(got, fk.apply_fused_int8_reference(ops, x))

@@ -1,0 +1,151 @@
+"""K1 in its split-bf16 modes in the port: the plain PyTorch version
+against the JAX package's Pallas kernel (interpret mode, on the CPU), and
+the port's full-float32 ``apply_blocked`` against the JAX package's
+"exact" mode.  The kernel itself is held against the plain version on the
+card only (tests/test_torch_cuda.py).
+
+Tolerances: the two sum bf16 x bf16 products in other orders.  Where an
+intermediate value sits on a bf16 rounding boundary, the two split it
+into different hi/lo pairs, which moves the result by up to ~2^-16 of
+its size: float32 output agrees within max|ref| * 1e-4 (the JAX
+package's own gate for its fused two-pass kernel,
+tests/test_pallas_kernel.py:134; one split pass alone holds 1e-5 there,
+as ``test_apply_blocked_exact_matches_jax``'s exact mode does here), and
+integer output within one LSB, or one quantization step when
+``trunc_bits`` > 0 (a value on a half-step boundary may round either
+way)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avir_tpu.ops.banded import apply_blocked as jax_apply_blocked
+from avir_tpu.ops.banded import block_banded as jax_block_banded
+from avir_tpu.ops.lanes import lane_block_banded as jax_lane_block_banded
+from avir_tpu.ops.pallas.fused_kernel import apply_fused_pallas
+from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
+
+from torch_cases import IN_BYTES, NP_TYPES, SPLIT_CASES, split_source
+
+from avir_tpu_torch.ops.banded import apply_blocked, block_banded
+from avir_tpu_torch.ops.cuda import fused_split as fs
+from avir_tpu_torch.ops.lanes import lane_block_banded
+from avir_tpu_torch.plan.plan import build_resize_plan
+
+torch.set_num_threads(1)
+
+_TORCH = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
+
+
+@pytest.fixture(autouse=True)
+def _jax_on_cpu():
+    with jax.default_device(jax.devices("cpu")[0]):
+        yield
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_plain_matches_pallas_split(name):
+    sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb = SPLIT_CASES[name]
+    out_max = 255.0 if tout == "u8" else 65535.0
+    x = split_source(name, sh, sw, c, tin)
+    ib = IN_BYTES[tin]
+
+    jplan = jax_build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout])
+    jvop = jax_block_banded(jplan.v.op, in_bytes=ib)
+    jlop = jax_lane_block_banded(jplan.h.op, c, tile=tile, in_bytes=ib)
+    ref = apply_fused_pallas(
+        jvop, jlop, jnp.asarray(x), mv, mh,
+        out_dtype=jnp.dtype(NP_TYPES[tout]), out_max=out_max, trunc_bits=tb,
+        order=order, interpret=True,
+    )
+    ref = np.asarray(ref)[: jvop.n_out, : jlop.n_out * c]
+
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout])
+    vop = block_banded(plan.v.op, in_bytes=ib)
+    lop = lane_block_banded(plan.h.op, c, tile=tile, in_bytes=ib)
+    assert (lop.chunk_rel is None) == (jlop.chunk_rel is None)
+    ops = fs.prepare_fused_split(
+        vop, lop, order, mv, mh, "cpu", out_dtype=_TORCH[tout],
+        out_max=out_max, trunc_bits=tb,
+    )
+    got = fs.apply_fused_split(ops, torch.from_numpy(x)).numpy()
+    assert got.shape == ref.shape == (nh, nw * c)
+    assert got.dtype == ref.dtype
+    diff = np.abs(got.astype(np.float64) - ref.astype(np.float64))
+    if tout == "f32":
+        assert diff.max() <= np.abs(ref).max() * 1e-4
+    else:
+        step = out_max / (int(out_max) >> tb) if tb else 1.0
+        assert diff.max() <= step + 1e-9, diff.max()
+
+
+@pytest.mark.parametrize("tin", ["u8", "u16", "f32"])
+def test_apply_blocked_exact_matches_jax(tin):
+    sw, sh, nw, nh, c = 97, 61, 51, 140, 3
+    x = split_source(tin, sh, sw, c, tin).astype(np.float32)
+    jplan = jax_build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+    for axis, n_in in (("v", sh), ("h", sw)):
+        xa = x if axis == "v" else x.reshape(sh, sw, c).transpose(1, 0, 2).reshape(sw, -1)
+        ib = IN_BYTES[tin]
+        ref = np.asarray(
+            jax_apply_blocked(
+                jax_block_banded(getattr(jplan, axis).op, in_bytes=ib),
+                jnp.asarray(xa), "exact",
+            )
+        )
+        got = apply_blocked(
+            block_banded(getattr(plan, axis).op, in_bytes=ib),
+            torch.from_numpy(np.ascontiguousarray(xa)),
+        ).numpy()
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=0, atol=np.abs(ref).max() * 1e-5)
+
+
+def test_h_ranges_cover_every_nonzero_tap():
+    plan = build_resize_plan(300, 20, 1400, 41, 3, np.uint8, np.uint8)
+    lop = lane_block_banded(plan.h.op, 3)
+    hi, lo, _, win_c = fs._chunked_lane_taps(lop)
+    rng = fs._h_ranges(hi, lo)
+    nz = ((hi != 0) | (lo != 0)).any(dim=3).numpy()
+    rows = np.arange(win_c)
+    inside = (rows >= rng[..., :1]) & (rows < rng[..., 1:])
+    assert not (nz & ~inside).any()
+    assert (rng[..., 0] % 32 == 0).all()
+    assert ((rng[..., 1] % 32 == 0) | (rng[..., 1] == win_c)).all()
+
+
+def test_cpu_tensor_takes_plain_version():
+    plan = build_resize_plan(40, 30, 20, 15, 3, np.uint16, np.uint16)
+    ops = fs.prepare_fused_split(
+        block_banded(plan.v.op, in_bytes=2),
+        lane_block_banded(plan.h.op, 3, in_bytes=2),
+        "vh", "split3", "split3", "cpu", out_dtype=torch.uint16,
+        out_max=65535.0,
+    )
+    x = torch.randint(0, 65536, (30, 120), dtype=torch.int32).to(torch.uint16)
+    before = dict(fs.launches)
+    out = fs.apply_fused_split(ops, x)
+    assert fs.launches == before  # no kernel launch on the CPU
+    assert torch.equal(out, fs.apply_fused_split_reference(ops, x))
+
+
+def test_wrapper_never_falls_back_off_the_cpu():
+    plan = build_resize_plan(40, 30, 20, 15, 3, np.uint8, np.uint8)
+    vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, 3)
+    x = torch.zeros((30, 120), dtype=torch.uint8)
+    ops = fs.prepare_fused_split(vop, lop, "vh", "split2", "split3", "meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        fs.apply_fused_split(ops, x)
+    ops = fs.prepare_fused_split(vop, lop, "vh", "split2", "split3", "cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        fs.apply_fused_split(ops, x.to("meta"))
+
+
+def test_prepare_rejects_unknown_modes():
+    plan = build_resize_plan(40, 30, 20, 15, 3, np.uint8, np.uint8)
+    vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, 3)
+    with pytest.raises(ValueError, match="split2/split3"):
+        fs.prepare_fused_split(vop, lop, "vh", "int8", "int8", "cpu")

@@ -1,0 +1,73 @@
+"""Case tables and inputs shared by the port's CPU parity tests (which also
+import the JAX package) and its card-only tests (test_torch_cuda.py, which
+import no JAX, so that they run where only PyTorch and the CUDA toolkit
+are installed)."""
+
+import numpy as np
+
+# K1 int8: (src_w, src_h, new_w, new_h, c, lane tile or None); downsizes
+# run "vh", upsizes "hv"; the lane form is chunked or not as noted.
+FUSED_CASES = {
+    "down_c1": (150, 90, 61, 37, 1, None),      # unchunked (TC = 128)
+    "down_c3": (200, 150, 80, 60, 3, None),     # chunked
+    "down_c4": (181, 77, 60, 33, 4, None),      # chunked
+    "up_c1": (45, 31, 97, 70, 1, None),         # unchunked
+    "up_c1_wide": (2000, 12, 4100, 25, 1, None),  # chunked (wide tile)
+    "up_c3": (300, 20, 1400, 41, 3, None),      # chunked (wide tile)
+    "up_c3_flat": (40, 30, 64, 48, 3, None),    # unchunked
+    "up_c4": (500, 20, 1200, 41, 4, None),      # chunked (wide tile)
+    "up_c4_tc": (29, 21, 71, 45, 4, 48),        # TC = 192, unchunked
+    "down_c3_tc": (120, 80, 70, 50, 3, 50),     # TC = 150, unchunked
+}
+
+# K1 split-bf16: (src_w, src_h, new_w, new_h, c, lane tile or None,
+# order, mode_v, mode_h, in type, out type, trunc_bits).  Downsizes run
+# "vh", upsizes "hv" (as the port routes them), plus each order on the
+# other direction.
+SPLIT_CASES = {
+    "down_c3_u8_f32": (200, 150, 80, 60, 3, None, "vh", "split2", "split3", "u8", "f32", 0),
+    "down_c1_u8_u8": (150, 90, 61, 37, 1, None, "vh", "split2", "split3", "u8", "u8", 0),
+    "down_c4_u16_u16_tb4": (181, 77, 60, 33, 4, None, "vh", "split3", "split3", "u16", "u16", 4),
+    "down_c3_f32_u8_tb2": (120, 80, 70, 50, 3, 50, "vh", "split3", "split3", "f32", "u8", 2),
+    "down_c3_u8_u8_fast": (200, 150, 80, 60, 3, None, "vh", "split2", "split2", "u8", "u8", 0),
+    "up_c1_u16_u16": (45, 31, 97, 70, 1, None, "hv", "split3", "split3", "u16", "u16", 0),
+    "up_c3_u8_f32": (300, 20, 1400, 41, 3, None, "hv", "split3", "split2", "u8", "f32", 0),
+    "up_c4_f32_f32": (29, 21, 71, 45, 4, 48, "hv", "split3", "split3", "f32", "f32", 0),
+    "up_c3_u8_u16_tb2": (40, 30, 64, 48, 3, None, "hv", "split2", "split2", "u8", "u16", 2),
+    "up_c4_u16_u8": (500, 20, 1200, 41, 4, None, "hv", "split3", "split3", "u16", "u8", 0),
+    "other_vh_c3_u16_f32": (96, 80, 70, 101, 3, None, "vh", "split3", "split3", "u16", "f32", 0),
+    "other_hv_c1_u8_u8_tb4": (96, 80, 70, 101, 1, None, "hv", "split3", "split2", "u8", "u8", 4),
+}
+
+# K4: (h, w, c, trunc_bits, out_max)
+WAVEFRONT_CASES = [
+    (24, 40, 1, 0, 255.0),
+    (20, 33, 3, 0, 255.0),
+    (17, 29, 4, 0, 255.0),
+    (21, 26, 3, 0, 65535.0),
+    (19, 31, 1, 0, 65535.0),
+    (22, 30, 3, 2, 255.0),
+    (18, 27, 4, 4, 65535.0),
+]
+
+NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
+IN_BYTES = {"u8": 1, "u16": 2, "f32": 4}
+
+
+def order_of(sw, sh, nw, nh):
+    return "vh" if nw * nh <= sw * sh else "hv"
+
+
+def split_source(name, sh, sw, c, tin):
+    """The image [sh, sw*c] of a split case, from a seed of its name."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if tin == "f32":
+        return rng.random((sh, sw * c), dtype=np.float32)
+    top = 255 if tin == "u8" else 65535
+    return rng.integers(0, top + 1, (sh, sw * c), dtype=NP_TYPES[tin])
+
+
+def float_image(h, w, c, out_max, seed):
+    """A float32 pre-dither image [h, w, c] in [0, out_max)."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((h, w, c)) * out_max).astype(np.float32)
