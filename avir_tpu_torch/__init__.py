@@ -6,10 +6,13 @@ operator per axis) is a NumPy copy of the JAX package's; the device
 side runs on PyTorch tensors, and each TPU kernel on the ported path is
 a kernel written by hand for the NVIDIA Hopper card (``ops/cuda``).
 
-It carries the AVIR resize without gamma: u8, u16, float32 or float64 in
-and out, 1 to 4 channels, any output bit depth, the "auto", "fast" and
-"exact" precision tiers and the default or error-diffusion dither, on
-the fused two-pass kernel (int8 or split-bf16 modes) and the wavefront
+It carries the AVIR resize (``ImageResizer``, ``resize``) and the LANCIR
+resize (``LancIR``, ``lancir_resize``): u8, u16, float32 or float64 in
+and out, 1 to 4 channels, any output bit depth, sRGB gamma with the
+alpha bypass, the "auto", "fast" and "exact" precision tiers (and
+LANCIR's host "f64"), and the default or error-diffusion dither, on the
+fused two-pass kernel (int8 or split-bf16 modes, biased or
+round-half-even epilogue, in-kernel gamma) and the wavefront
 error-diffusion kernel.  Entry points take ``device=None``, meaning
 ``"cuda"``; pass ``device="cpu"`` to run the kernels' plain PyTorch
 versions on the CPU.
@@ -26,6 +29,7 @@ from .params import (
     preset,
 )
 from .models.avir import ImageResizer, resize
+from .models.lancir import LancIR, lancir_resize
 
 __version__ = "0.1.0"
 
@@ -40,4 +44,6 @@ __all__ = [
     "preset",
     "ImageResizer",
     "resize",
+    "LancIR",
+    "lancir_resize",
 ]

@@ -1,8 +1,8 @@
 """Carry a resize's weights from the JAX package into this port.
 
 A resize's weights are its plan's two banded operators (one per axis).
-These functions rebuild the port's ``BandedOp`` and ``ResizePlan`` from
-plain NumPy arrays and scalars, so the same taps can run through both
+These functions rebuild the port's ``BandedOp``, ``ResizePlan`` and
+``LancirPlan`` from plain NumPy arrays and scalars, so the same taps can run through both
 packages' executors.  Nothing here imports the JAX package: the caller
 hands over the arrays (``np.asarray`` of each field).
 """
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .plan.compose import BandedOp
+from .plan.lancir_plan import LancirPlan
 from .plan.plan import AxisPlan, ResizePlan
 
 _AXIS_FIELDS = ("n_in", "n_out", "starts", "taps", "build_mode", "k", "o")
@@ -53,3 +54,15 @@ def resize_plan_from_numpy(fields: dict) -> ResizePlan:
     fields["h"] = axis(fields["h"])
     fields["v"] = axis(fields["v"])
     return ResizePlan(**fields)
+
+
+def lancir_plan_from_numpy(fields: dict) -> LancirPlan:
+    """A LancirPlan from the JAX ``LancirPlan``'s scalar fields plus
+    ``h`` and ``v`` given as ``(n_in, n_out, starts, taps)``."""
+    fields = dict(fields)
+    for axis in ("h", "v"):
+        value = fields[axis]
+        if len(value) != 4:
+            raise ValueError("axis needs (n_in, n_out, starts, taps)")
+        fields[axis] = banded_op_from_numpy(*value)
+    return LancirPlan(**fields)

@@ -15,8 +15,13 @@ from .design import (
     FirEq,
     FracFilterBank,
 )
+from .lanczos import FRAC_COUNT, LanczosBank, lanczos_filter, lanczos_geometry
 
 __all__ = [
+    "FRAC_COUNT",
+    "LanczosBank",
+    "lanczos_filter",
+    "lanczos_geometry",
     "peaked_cosine_window",
     "peaked_cosine_lpf",
     "lpf_geometry",

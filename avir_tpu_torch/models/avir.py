@@ -67,14 +67,19 @@ class ImageResizer:
         it never takes K1's int8 mode (see models/runtime.py).
         ``precision``: "auto" (K1 int8 mode for u8 in / 8-bit out /
         default dither, else split-bf16: split2 for a first pass over u8
-        input, split3 otherwise), "fast" (split2 for both passes) or
-        "exact" (full-float32 products, no kernel).  Device compute is
+        input without gamma, split3 otherwise), "fast" (split2 for both
+        passes) or "exact" (full-float32 products, no kernel).  Device
+        compute is
         float32: float64 input is cast to float32 on the host, and float64
         output is float32 cast back.  ``device``: None means the CUDA card
         (an error without one); ``"cpu"`` runs the kernels' plain versions.
 
+        ``use_srgb_gamma``: resize in linear light (sRGB in and out, in
+        the kernel); ``alpha_index`` 0 or 3 of 4-channel data passes that
+        channel through the gamma stages unchanged.
+
         Still raising NotImplementedError, with their ROADMAP.md item:
-        sRGB gamma, ``dither="errdiff-device"``, a callable ditherer,
+        ``dither="errdiff-device"``, a callable ditherer,
         ``precision="f64"``, ``engine="host"`` and more than 4 channels.
         """
         if callable(dither):

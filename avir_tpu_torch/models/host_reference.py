@@ -3,14 +3,16 @@
 A copy of the JAX package's ``models/host_reference.py`` (the parts the
 port needs): the semantics specification for the device kernels, slow
 but exact.  Tests and ``chip_smoke.py`` hold the port's outputs to it.
-It is not wired as the public ``precision="f64"`` route yet (ROADMAP.md
-Queue 1 items 4 and 10).
+``execute_lancir_numpy`` is also the public LANCIR ``precision="f64"``
+route (``models/lancir.py``); ``execute_plan_numpy`` is not wired as the
+AVIR ``precision="f64"`` route yet (ROADMAP.md Queue 1 items 4 and 10).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..ops.gamma import linear_to_srgb_np, srgb_to_linear_np
 from ..plan.compose import apply_banded_numpy
 from ..plan.plan import ResizePlan
 
@@ -88,14 +90,12 @@ def execute_plan_numpy(
     """Run a full resize on the host. src is [H, W, C] of the planned
     input dtype; returns [new_h, new_w, C] of the output dtype.
 
-    ``return_predither=True`` returns the float64 image before the
-    dither/quantize stage.  sRGB gamma plans raise NotImplementedError
-    (ROADMAP.md Queue 1 item 7)."""
-    if plan.use_srgb_gamma:
-        raise NotImplementedError(
-            "not ported yet: sRGB gamma (ROADMAP.md Queue 1 item 7)"
-        )
+    ``return_predither=True`` returns the float64 image after gamma-out
+    but before the dither/quantize stage."""
     x = src.astype(np.float64)
+
+    if plan.use_srgb_gamma:
+        x = srgb_to_linear_np(x * plan.in_gamma_mult, plan.alpha_index)
 
     # Horizontal pass over axis 1.
     x = np.moveaxis(x, 1, 0)  # [W, H, C]
@@ -103,6 +103,11 @@ def execute_plan_numpy(
     x = np.moveaxis(x, 0, 1)  # [H, new_w, C]
     # Vertical pass over axis 0.
     x = apply_banded_numpy(plan.v.op, x)
+
+    if plan.use_srgb_gamma:
+        x = linear_to_srgb_np(x, plan.alpha_index) * (
+            plan.out_gamma_mult if plan.out_gamma_mult != 0.0 else 1.0
+        )
 
     if plan.is_out_float:
         return x.astype(np.float64 if plan.out_float64 else np.float32)
@@ -117,3 +122,29 @@ def execute_plan_numpy(
         x = default_dither(x, trunc_bits, plan.out_type_max)
     dtype = np.uint8 if out_bits == 8 else np.uint16
     return x.astype(dtype)
+
+
+def execute_lancir_numpy(plan, src: np.ndarray) -> np.ndarray:
+    """Float64 host execution of a LancirPlan, the LANCIR analog of
+    ``execute_plan_numpy`` and the compute path behind the public
+    ``precision="f64"`` tier (the reference templates the whole LANCIR
+    pipeline on T = double, lancir.h:386-390).
+
+    src is [H, W, C] of the planned input dtype; returns
+    [new_h, new_w, C] in the planned output representation (float64 for
+    float outputs, round-half-even quantized ints otherwise, matching
+    the reference's nearest-even output conversions,
+    lancir.h:1870-2002)."""
+    x = src.astype(np.float64)
+    x = np.moveaxis(x, 1, 0)  # [W, H, C]
+    x = apply_banded_numpy(plan.h, x)
+    x = np.moveaxis(x, 0, 1)  # [H, new_w, C]
+    x = apply_banded_numpy(plan.v, x)
+    if plan.out_mul != 1.0:
+        x = x * plan.out_mul
+    if plan.is_out_float:
+        return x
+    # np.rint is round-half-even, like the SIMD cvt instructions the
+    # reference's outputScanline relies on.
+    x = np.clip(np.rint(x), 0.0, plan.clamp)
+    return x.astype(np.uint8 if plan.clamp == 255.0 else np.uint16)

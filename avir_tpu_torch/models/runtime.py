@@ -1,25 +1,37 @@
 """Execution of resize plans on PyTorch tensors.
 
-Counterpart of the JAX package's ``models/runtime.py:make_avir_executor``.
-An executor takes the image [H, W*C] (u8, u16 or float32) on ``device``
-and returns [new_h, new_w*C] in the plan's output type (u8, u16, or
-float32 for float output).  Routing:
+Counterpart of the JAX package's ``models/runtime.py``
+(``make_avir_executor``, ``make_lancir_executor``).  An executor takes
+the image [H, W*C] (u8, u16 or float32) on ``device`` and returns
+[new_h, new_w*C] in the plan's output type (u8, u16, or float32 for
+float output).  AVIR routing:
 
   - ``precision="exact"``: both passes as full-float32 batched products
     (``ops/banded.py:apply_blocked``, the JAX package's
-    ``_separable_pass``), then the dither stage;
+    ``_separable_pass``), with sRGB gamma by the rational forms
+    (``ops/gamma.py``) around them, then the dither stage;
   - otherwise the fused two-pass kernel K1, one launch per resize, V pass
-    first for a downsize and H pass first for an upsize:
+    first for a downsize and H pass first for an upsize, with sRGB gamma
+    in the kernel:
       * int8 mode (``ops/cuda/fused_kernel.py``) for u8 in, 8-bit out,
         ``trunc_bits == 0``, ``precision="auto"`` and no error diffusion,
-        when the operators' int8 limbs are feasible;
+        when the operators' int8 limbs are feasible (gamma: 13-bit
+        linear light, and a tighter s32 bound);
       * else the split-bf16 modes (``ops/cuda/fused_split.py``) from
         ``resolve_modes``: "auto" is split2 for a first pass over u8
-        input (exact in bf16) and split3 otherwise, "fast" split2 for both.
+        input without gamma (exact in bf16) and split3 otherwise, "fast"
+        split2 for both.
     K1 quantizes in its epilogue (default dither, ``trunc_bits``), or
-    writes float32 for float output and for error diffusion;
+    writes float32 (after gamma-out) for float output and for error
+    diffusion;
   - error diffusion runs the wavefront scan K4
     (``ops/cuda/wavefront.py``) on the float32 pre-dither image.
+
+LANCIR routes the same way (int8 for u8 in and u8 out at
+``precision="auto"``), with K1's round-half-even epilogue and its
+``scale`` (the plan's ``out_mul``) for integer output; float output is
+written unscaled and multiplied by ``out_mul`` after the kernel, as in
+the JAX package.
 
 Error diffusion excludes the int8 mode, as in the JAX package
 (``avir_tpu/models/runtime.py:344-347``): the recursive quantizer feeds
@@ -52,7 +64,9 @@ from ..ops.cuda.fused_split import (
 )
 from ..ops.cuda.wavefront import errdiff_wavefront
 from ..ops.dither import default_dither
+from ..ops.gamma import linear_to_srgb_2d, srgb_to_linear_2d
 from ..ops.lanes import lane_block_banded
+from ..plan.lancir_plan import LancirPlan
 from ..plan.plan import ResizePlan
 
 
@@ -90,13 +104,21 @@ def resolve_modes(
     raise ValueError(f"unknown precision {precision!r}")
 
 
+def in_exact_bf16(plan: ResizePlan) -> bool:
+    """The first pass's input is exact in bf16: raw u8 without gamma
+    (linearized u8 is not)."""
+    return (
+        not plan.is_in_float
+        and plan.in_type_max == 255.0
+        and not plan.use_srgb_gamma
+    )
+
+
 def unsupported_reason(plan: ResizePlan, precision: str) -> str | None:
     """Why the port cannot run this plan yet (with its ROADMAP.md
     item), or None when it can."""
     if precision == "f64":
         return "precision='f64', the host oracle route (ROADMAP.md Queue 1 items 4 and 10)"
-    if plan.use_srgb_gamma:
-        return "sRGB gamma (ROADMAP.md Queue 1 item 7)"
     if not 1 <= plan.el_count <= 4:
         return f"{plan.el_count} channels (ROADMAP.md Queue 1 item 4)"
     return None
@@ -152,9 +174,14 @@ def make_avir_executor(
     trunc_bits = 0 if plan.is_out_float else out_bits - plan.res_bit_depth
     errdiff = errdiff and not plan.is_out_float
     order = _order(vop, lop)
-    mode1, mode2 = resolve_modes(
-        precision, not plan.is_in_float and plan.in_type_max == 255.0
+    gamma = plan.use_srgb_gamma
+    gamma_kw = dict(
+        gamma=gamma,
+        alpha_index=plan.alpha_index,
+        in_gamma_mult=plan.in_gamma_mult,
+        out_gamma_mult=plan.out_gamma_mult,
     )
+    mode1, mode2 = resolve_modes(precision, in_exact_bf16(plan))
     int8_ok = (
         precision == "auto"
         and not plan.is_in_float
@@ -184,16 +211,21 @@ def make_avir_executor(
         v_taps = torch.from_numpy(vop.taps).to(device)
 
         def run(src: torch.Tensor) -> torch.Tensor:
-            x = separable_pass_exact(
-                to_float32(src), hop, vop, h, w, c, h_taps, v_taps
-            )
+            x = to_float32(src)
+            if gamma:
+                x = srgb_to_linear_2d(x * plan.in_gamma_mult, c, plan.alpha_index)
+            x = separable_pass_exact(x, hop, vop, h, w, c, h_taps, v_taps)
+            if gamma:
+                x = linear_to_srgb_2d(x, c, plan.alpha_index)
+                if plan.out_gamma_mult != 0.0:
+                    x = x * plan.out_gamma_mult
             return quantize(x)
 
         run.route, run.order, run.ops = "exact", None, None
         return run
 
-    if int8_ok and int8_feasible(vop, lop, order):
-        ops = prepare_fused_int8(vop, lop, order, device)
+    if int8_ok and int8_feasible(vop, lop, order, gamma):
+        ops = prepare_fused_int8(vop, lop, order, device, **gamma_kw)
 
         def run(src: torch.Tensor) -> torch.Tensor:
             return apply_fused_int8(ops, src)
@@ -208,11 +240,91 @@ def make_avir_executor(
         out_dtype=out_dt if fuse_quant else torch.float32,
         out_max=plan.out_type_max,
         trunc_bits=trunc_bits if fuse_quant else 0,
+        **gamma_kw,
     )
 
     def run(src: torch.Tensor) -> torch.Tensor:
         out = apply_fused_split(ops, src)
         return out if fuse_quant else quantize(out)
+
+    run.route, run.order, run.ops = "split", order, ops
+    return run
+
+
+def make_lancir_executor(
+    plan: LancirPlan,
+    precision: str = "auto",
+    device=None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Build a LANCIR resize function [H, W*C] -> [new_h, new_w*C] on
+    ``device`` for ``plan``: output rounding is round-half-even, as the
+    reference's SIMD nearest-even conversions (lancir.h:1870-2002).
+    ``run.route``, ``run.order`` and ``run.ops`` as in
+    ``make_avir_executor``; ``precision="f64"`` is the host oracle's
+    (models/lancir.py), not an executor's."""
+    if not 1 <= plan.el_count <= 4:
+        raise NotImplementedError(
+            f"not ported yet: {plan.el_count} channels (ROADMAP.md Queue 1 item 4)"
+        )
+    device = resolve_device(device)
+    in_bytes = plan.in_itemsize
+    c = plan.el_count
+    vop = block_banded(plan.v, in_bytes=in_bytes)
+    lop = lane_block_banded(plan.h, c, in_bytes=in_bytes)
+    out_dt = (
+        torch.float32 if plan.is_out_float
+        else torch.uint8 if plan.clamp == 255.0 else torch.uint16
+    )
+    order = _order(vop, lop)
+    mode1, mode2 = resolve_modes(precision, plan.in_exact_bf16)
+    epi_kw = dict(scale=plan.out_mul, round_mode="even")
+
+    def rescale(x: torch.Tensor) -> torch.Tensor:
+        return x * plan.out_mul if plan.out_mul != 1.0 else x
+
+    if mode1 == "exact":
+        hop = block_banded(plan.h, in_bytes=in_bytes)
+        h, w = plan.src_h, plan.src_w
+        h_taps = torch.from_numpy(hop.taps).to(device)
+        v_taps = torch.from_numpy(vop.taps).to(device)
+
+        def run(src: torch.Tensor) -> torch.Tensor:
+            x = separable_pass_exact(
+                to_float32(src), hop, vop, h, w, c, h_taps, v_taps
+            )
+            x = rescale(x)
+            if plan.is_out_float:
+                return x
+            return torch.clamp(torch.round(x), 0.0, plan.clamp).to(
+                torch.int32
+            ).to(out_dt)
+
+        run.route, run.order, run.ops = "exact", None, None
+        return run
+
+    int8_ok = (
+        precision == "auto"
+        and plan.in_exact_bf16
+        and out_dt == torch.uint8
+    )
+    if int8_ok and int8_feasible(vop, lop, order):
+        ops = prepare_fused_int8(vop, lop, order, device, **epi_kw)
+
+        def run(src: torch.Tensor) -> torch.Tensor:
+            return apply_fused_int8(ops, src)
+
+        run.route, run.order, run.ops = "int8", order, ops
+        return run
+
+    mode_v, mode_h = (mode1, mode2) if order == "vh" else (mode2, mode1)
+    ops = prepare_fused_split(
+        vop, lop, order, mode_v, mode_h, device,
+        out_dtype=out_dt, out_max=plan.clamp, **epi_kw,
+    )
+
+    def run(src: torch.Tensor) -> torch.Tensor:
+        out = apply_fused_split(ops, src)
+        return rescale(out) if plan.is_out_float else out
 
     run.route, run.order, run.ops = "split", order, ops
     return run

@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``build/kernels/`` at the root of the
-checkout, named by a digest of their source, so an edited source is
-rebuilt and a stale library is never loaded.  ``build`` starts one
+checkout, named by a digest of their source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt and a stale
+library is never loaded.  ``build`` starts one
 ``nvcc`` per missing library, all at once, and waits for them.
 """
 
@@ -47,9 +48,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, dict]:

@@ -2,29 +2,41 @@
 //
 // Replaces the JAX package's Pallas kernel
 // avir_tpu/ops/pallas/fused_kernel.py: apply_fused_pallas -> _kernel ->
-// _int8_passes -> _finish, in its int8 mode with the default (biased)
-// rounding epilogue.  One launch computes the whole separable resize
-// [rows_in, lanes_in] u8 -> [rows_out, lanes_out] u8 from radix-128
-// two-limb s8 taps; the 15-bit inter-pass intermediate lives only in
-// shared memory.
+// _int8_passes -> _finish, in its int8 mode, with its epilogue options:
+// the biased or round-half-even rounding, LANCIR's output ``scale``, and
+// the in-kernel sRGB gamma stages (the u8 linearization quantized to
+// 13-bit linear light, _linear_to_srgb, the C=4 alpha bypass).  One
+// launch computes the whole separable resize [rows_in, lanes_in] u8 ->
+// [rows_out, lanes_out] u8 from radix-128 two-limb s8 taps; the 15-bit
+// inter-pass intermediate lives only in shared memory.
 //
 // Arithmetic (bit-exact with the TPU kernel): every product and sum
 // before the float recombination is an exact s32 integer, and each
 // output's recombination uses only that output's full sums, so the
 // result does not depend on the tiling.  Float steps use the _rn
-// intrinsics so that no FMA contraction can move a rounding.
+// intrinsics so that no FMA contraction can move a rounding
+// (k1_common.cuh).
 //
-//   input       xs = s8(x ^ 0x80) = x - 128; reads past the edge see 0.
+//   input       no gamma: xs = s8(x ^ 0x80) = x - 128; reads past the
+//               edge see 0.
+//               gamma (GAMMA): xq = rint(poly7(x * in_gamma_mult) * 2^13)
+//               (the alpha lane: rint(x * in_gamma_mult * 2^13)), split
+//               into s8 limbs xq1 = (xq + 64) >> 7, xq0 = xq - 128*xq1,
+//               staged as two planes; reads past the edge see xq = 0.
 //   vh (downsize), per output row r and lane l:
 //     fq  = 128*sum q1v*xs + sum q0v*xs + v_comp[r]   (v_comp: row sums)
+//         gamma: 2^14*sum q1v*xq1 + 2^7*(sum q1v*xq0 + sum q0v*xq1)
 //     x15 = (fq + 2^(sh-1)) >> sh ; x1 = (x15+64)>>7 ; x0 = x15 - 128*x1
 //     pa  = sum x1*h1 ; pb = sum x0*h1 + sum x1*h0     (over the chunk)
 //   hv (upsize):
 //     fq  = 128*sum xs*h1 + sum xs*h0 + h_comp[l]      (h_comp: col sums)
+//         gamma: 2^14*sum xq1*h1 + 2^7*(sum xq0*h1 + sum xq1*h0)
 //     x15, x1, x0 as above
 //     pa  = sum q1v*x1 ; pb = sum q1v*x0 + sum q0v*x1
-//   epilogue    acc = (f32(pa)*16384 + f32(pb)*128) * scale
-//               out = u8(clamp(floor(acc + 0.5), 0, 255))
+//   epilogue    acc = (f32(pa)*16384 + f32(pb)*128) * rec  (rec = 2^-k)
+//               gamma: acc = linear_to_srgb(acc) * out_gamma_mult
+//               acc *= scale (when != 1); out = u8(clamp(rint(acc)) or
+//               clamp(floor(acc + 0.5)), 0, 255)
 //
 // Design.  A thread block owns 32 output rows (a slice of one V block)
 // and one 128-lane output chunk of one lane block; 256 threads each own
@@ -42,7 +54,8 @@
 //       chunks for a downsize by s: 2 at 7680x4320 -> 1920x1080, where
 //       win_c = 1024 and s = 4) and by every slice whose 32-aligned row
 //       range covers a row (1.5 there): each input byte is read ~3
-//       times.
+//       times.  Dynamic shared memory: 46 KB, 50 KB with gamma's second
+//       input plane.
 //   hv: for each 32-row segment of the slice's nonzero V-tap rows, the
 //       first pass computes x15 for those window rows x 128 chunk lanes
 //       over the win_c window lanes, then the second pass adds the
@@ -50,6 +63,9 @@
 //       recomputed by each (4x at 1920x1080 -> 3840x2160), and window
 //       lanes by every chunk that covers them (8x there): each input
 //       byte is read ~32 times.
+//   With gamma the polynomial runs on every staged input element, so it
+//   is recomputed as often as the first pass reads the byte, and the
+//   first pass makes 3 products instead of 2.
 //   chip_smoke.py prints these factors ("first_pass_reads_per_input").
 //
 // What bounds it on this card.  The image bytes read once plus the
@@ -66,6 +82,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "k1_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -81,19 +99,20 @@ struct Args {
   int rows_out, lanes_out;
   const int8_t* v1;        // [Bv, Tv, Wv]
   const int8_t* v0;
-  const int32_t* v_comp;   // [Bv, Tv] (vh only)
+  const int32_t* v_comp;   // [Bv, Tv] (vh without gamma)
   const int32_t* offs_v;   // [Bv]
   int tv, wv;
   const uint32_t* h1p;     // [Bh, n_ch, win_c/4, 128] packed along win_c
   const uint32_t* h0p;
-  const int32_t* h_comp;   // [Bh, n_ch, 128] (hv only)
+  const int32_t* h_comp;   // [Bh, n_ch, 128] (hv without gamma)
   const int32_t* offs_l;   // [Bh]
   const int32_t* rel;      // [n_ch]
   int n_ch, win_c, tc;
   const int32_t* k_range;  // [Bv, n_slices, 2] nonzero V-tap rows, 32-aligned
   int n_slices;
   int sh;                  // first-pass requantizing shift (>= 1)
-  float scale;             // 2^-(x_shift + second-pass q_shift)
+  float rec;               // 2^-(x_shift + second-pass q_shift)
+  k1::Epilogue epi;
 };
 
 // Image byte as s8 (x - 128), zero past the edge.
@@ -105,6 +124,19 @@ __device__ __forceinline__ uint8_t load_xs(const Args& a, int r, int l) {
   return v ^ 0x80u;
 }
 
+// Image byte as 13-bit linear light in two s8 limbs (hi, lo); zero past
+// the edge.
+__device__ __forceinline__ void load_xq(const Args& a, int r, int l,
+                                        uint8_t* q1, uint8_t* q0) {
+  int32_t xq = 0;
+  if (r < a.rows_in && l < a.lanes_in) {
+    xq = k1::gamma_in_q13(a.epi, __ldg(a.x + static_cast<size_t>(r) * a.lanes_in + l), l);
+  }
+  const int32_t hi = (xq + 64) >> 7;
+  *q1 = static_cast<uint8_t>(hi);
+  *q0 = static_cast<uint8_t>(xq - hi * 128);
+}
+
 __device__ __forceinline__ int32_t requant(int32_t fq, int sh) {
   return (fq + (1 << (sh - 1))) >> sh;
 }
@@ -113,13 +145,12 @@ __device__ __forceinline__ uint32_t byte_of(int32_t v, int i) {
   return (static_cast<uint32_t>(v) & 0xffu) << (8 * i);
 }
 
-__device__ __forceinline__ uint8_t finish(int32_t pa, int32_t pb, float scale) {
+template <bool GAMMA>
+__device__ __forceinline__ uint8_t finish(const Args& a, int32_t pa, int32_t pb, int lane) {
   float acc = __fadd_rn(__fmul_rn(__int2float_rn(pa), 16384.0f),
                         __fmul_rn(__int2float_rn(pb), 128.0f));
-  acc = __fmul_rn(acc, scale);
-  float v = floorf(__fadd_rn(acc, 0.5f));
-  v = fminf(fmaxf(v, 0.0f), 255.0f);
-  return static_cast<uint8_t>(static_cast<int>(v));
+  acc = __fmul_rn(acc, a.rec);
+  return static_cast<uint8_t>(static_cast<int>(k1::finish_int<GAMMA>(a.epi, acc, lane)));
 }
 
 // V tap limbs of the block's 32 rows over contraction rows k0..k0+31:
@@ -139,6 +170,7 @@ __device__ __forceinline__ void stage_v_taps(
   s0[r][w] = q0;
 }
 
+template <bool GAMMA>
 __device__ __forceinline__ void store_out(
     const Args& a, int vb, int r0, int hb, int j,
     const int32_t (&pa)[4][4], const int32_t (&pb)[4][4]) {
@@ -154,12 +186,23 @@ __device__ __forceinline__ void store_out(
       const int olane = hb * a.tc + cl;
       if (cl < a.tc && olane < a.lanes_out) {
         a.out[static_cast<size_t>(orow) * a.lanes_out + olane] =
-            finish(pa[i][jj], pb[i][jj], a.scale);
+            finish<GAMMA>(a, pa[i][jj], pb[i][jj], olane);
       }
     }
   }
 }
 
+// Dynamic shared memory of the vh kernel, in 32-bit words.
+constexpr int kVhTapWords = 2 * kRows * kDepth4;            // sv1, sv0
+constexpr int kVhXWords = kDepth4 * kLanes;                 // one input plane
+constexpr int kVhLimbWords = 2 * kRows * (kLanes / 4);      // sl1, sl0
+constexpr int kVhHWords = 2 * (kLanes / 4) * kLanes;        // sh1, sh0
+template <bool GAMMA>
+constexpr size_t vh_smem_bytes() {
+  return (kVhTapWords + (GAMMA ? 2 : 1) * kVhXWords + kVhLimbWords + kVhHWords) * 4;
+}
+
+template <bool GAMMA>
 __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -167,13 +210,18 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   const int r0 = sl * kRows;
   const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
 
-  __shared__ uint32_t sv1[kRows][kDepth4];       // V tap limbs
-  __shared__ uint32_t sv0[kRows][kDepth4];
-  __shared__ __align__(16) uint32_t sx[kDepth4][kLanes];    // xs, packed along rows
-  __shared__ uint32_t sl1[kRows][kLanes / 4];    // x1/x0 limbs, packed along lanes
-  __shared__ uint32_t sl0[kRows][kLanes / 4];
-  __shared__ __align__(16) uint32_t sh1[kLanes / 4][kLanes];  // H taps, packed
-  __shared__ __align__(16) uint32_t sh0[kLanes / 4][kLanes];
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t (*sv1)[kDepth4] = reinterpret_cast<uint32_t (*)[kDepth4]>(smem);  // V tap limbs
+  uint32_t (*sv0)[kDepth4] = sv1 + kRows;
+  // Input tile, packed along rows: xs, or with gamma the xq1 / xq0 planes.
+  uint32_t (*sx1)[kLanes] = reinterpret_cast<uint32_t (*)[kLanes]>(smem + kVhTapWords);
+  uint32_t (*sx0)[kLanes] = sx1 + (GAMMA ? kDepth4 : 0);
+  // x1/x0 limbs, packed along lanes.
+  uint32_t (*sl1)[kLanes / 4] = reinterpret_cast<uint32_t (*)[kLanes / 4]>(
+      smem + kVhTapWords + (GAMMA ? 2 : 1) * kVhXWords);
+  uint32_t (*sl0)[kLanes / 4] = sl1 + kRows;
+  uint32_t (*sh1)[kLanes] = reinterpret_cast<uint32_t (*)[kLanes]>(sl0 + kRows);  // H taps
+  uint32_t (*sh0)[kLanes] = sh1 + kLanes / 4;
 
   const int k_lo = a.k_range[2 * blockIdx.y];
   const int k_hi = a.k_range[2 * blockIdx.y + 1];
@@ -183,35 +231,55 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int tr = r0 + 4 * ty + i;
-    comp[i] = tr < a.tv ? a.v_comp[vb * a.tv + tr] : 0;
+    comp[i] = (!GAMMA && tr < a.tv) ? a.v_comp[vb * a.tv + tr] : 0;
   }
 
   int32_t pa[4][4] = {}, pb[4][4] = {};
   for (int seg = 0; seg < a.win_c; seg += kLanes) {
     // ---- first (vertical) pass over this 128-lane segment ----------
-    int32_t m1[4][4] = {}, m0[4][4] = {};
+    // m1/m0: products with xs (no gamma), or m1 = q1v.xq1, m0 = q1v.xq0
+    // and m2 = q0v.xq1 (gamma).
+    int32_t m1[4][4] = {}, m0[4][4] = {}, m2[4][4] = {};
     for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
       __syncthreads();
       stage_v_taps(a, vb, r0, k0, sv1, sv0);
       for (int e = tid; e < kDepth * kLanes; e += kThreads) {
         const int k = e / kLanes, l = e % kLanes;
-        reinterpret_cast<uint8_t*>(&sx[k / 4][l])[k % 4] =
-            load_xs(a, row0 + k0 + k, lane0 + seg + l);
+        if (GAMMA) {
+          load_xq(a, row0 + k0 + k, lane0 + seg + l,
+                  reinterpret_cast<uint8_t*>(&sx1[k / 4][l]) + k % 4,
+                  reinterpret_cast<uint8_t*>(&sx0[k / 4][l]) + k % 4);
+        } else {
+          reinterpret_cast<uint8_t*>(&sx1[k / 4][l])[k % 4] =
+              load_xs(a, row0 + k0 + k, lane0 + seg + l);
+        }
       }
       __syncthreads();
 #pragma unroll
       for (int k4 = 0; k4 < kDepth4; ++k4) {
-        const uint4 xb = *reinterpret_cast<const uint4*>(&sx[k4][4 * tx]);
+        const uint4 xb = *reinterpret_cast<const uint4*>(&sx1[k4][4 * tx]);
         const int xv[4] = {static_cast<int>(xb.x), static_cast<int>(xb.y),
                            static_cast<int>(xb.z), static_cast<int>(xb.w)};
+        int xl[4] = {0, 0, 0, 0};
+        if (GAMMA) {
+          const uint4 xc = *reinterpret_cast<const uint4*>(&sx0[k4][4 * tx]);
+          xl[0] = static_cast<int>(xc.x); xl[1] = static_cast<int>(xc.y);
+          xl[2] = static_cast<int>(xc.z); xl[3] = static_cast<int>(xc.w);
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int q1 = static_cast<int>(sv1[4 * ty + i][k4]);
           const int q0 = static_cast<int>(sv0[4 * ty + i][k4]);
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
-            m1[i][jj] = __dp4a(q1, xv[jj], m1[i][jj]);
-            m0[i][jj] = __dp4a(q0, xv[jj], m0[i][jj]);
+            if (GAMMA) {
+              m1[i][jj] = __dp4a(q1, xv[jj], m1[i][jj]);
+              m0[i][jj] = __dp4a(q1, xl[jj], m0[i][jj]);
+              m2[i][jj] = __dp4a(q0, xv[jj], m2[i][jj]);
+            } else {
+              m1[i][jj] = __dp4a(q1, xv[jj], m1[i][jj]);
+              m0[i][jj] = __dp4a(q0, xv[jj], m0[i][jj]);
+            }
           }
         }
       }
@@ -223,7 +291,9 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
       uint32_t w1 = 0, w0 = 0;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const int32_t x15 = requant(m1[i][jj] * 128 + m0[i][jj] + comp[i], a.sh);
+        const int32_t fq = GAMMA ? m1[i][jj] * 16384 + (m0[i][jj] + m2[i][jj]) * 128
+                                 : m1[i][jj] * 128 + m0[i][jj] + comp[i];
+        const int32_t x15 = requant(fq, a.sh);
         const int32_t x1 = (x15 + 64) >> 7;
         w1 |= byte_of(x1, jj);
         w0 |= byte_of(x15 - x1 * 128, jj);
@@ -264,9 +334,10 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
       }
     }
   }
-  store_out(a, vb, r0, hb, j, pa, pb);
+  store_out<GAMMA>(a, vb, r0, hb, j, pa, pb);
 }
 
+template <bool GAMMA>
 __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -274,7 +345,8 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   const int r0 = sl * kRows;
   const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
 
-  __shared__ uint32_t sxa[kRows][kDepth4];                   // xs, packed along lanes
+  // Input tile packed along lanes: xs, or with gamma the xq1 / xq0 planes.
+  __shared__ uint32_t sxa[GAMMA ? 2 : 1][kRows][kDepth4];
   __shared__ __align__(16) uint32_t st1[kDepth4][kLanes];    // H taps, packed
   __shared__ __align__(16) uint32_t st0[kDepth4][kLanes];
   __shared__ __align__(16) uint32_t sl1[kDepth4][kLanes];    // x1/x0, packed along rows
@@ -288,19 +360,29 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   const int lane0 = a.offs_l[hb] + a.rel[j];
   int32_t comp[4];
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) comp[jj] = a.h_comp[chunk * kLanes + 4 * tx + jj];
+  for (int jj = 0; jj < 4; ++jj) {
+    comp[jj] = GAMMA ? 0 : a.h_comp[chunk * kLanes + 4 * tx + jj];
+  }
   const size_t tap_base = static_cast<size_t>(chunk) * (a.win_c / 4) * kLanes / 4;
 
   int32_t pa[4][4] = {}, pb[4][4] = {};
   for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
     // ---- first (horizontal) pass for window rows k0..k0+31 ---------
-    int32_t f1[4][4] = {}, f0[4][4] = {};
+    // f1/f0: products with xs (no gamma), or f1 = xq1.h1, f0 = xq0.h1
+    // and f2 = xq1.h0 (gamma).
+    int32_t f1[4][4] = {}, f0[4][4] = {}, f2[4][4] = {};
     for (int m0 = 0; m0 < a.win_c; m0 += kDepth) {
       __syncthreads();
       for (int e = tid; e < kRows * kDepth; e += kThreads) {
         const int r = e / kDepth, l = e % kDepth;
-        reinterpret_cast<uint8_t*>(&sxa[r][l / 4])[l % 4] =
-            load_xs(a, row0 + k0 + r, lane0 + m0 + l);
+        if (GAMMA) {
+          load_xq(a, row0 + k0 + r, lane0 + m0 + l,
+                  reinterpret_cast<uint8_t*>(&sxa[0][r][l / 4]) + l % 4,
+                  reinterpret_cast<uint8_t*>(&sxa[GAMMA ? 1 : 0][r][l / 4]) + l % 4);
+        } else {
+          reinterpret_cast<uint8_t*>(&sxa[0][r][l / 4])[l % 4] =
+              load_xs(a, row0 + k0 + r, lane0 + m0 + l);
+        }
       }
       {
         const uint4* g1 = reinterpret_cast<const uint4*>(a.h1p) + tap_base + m0 / 4 * kLanes / 4;
@@ -319,11 +401,17 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
                            static_cast<int>(t0.z), static_cast<int>(t0.w)};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int xv = static_cast<int>(sxa[4 * ty + i][m4]);
+          const int xv = static_cast<int>(sxa[0][4 * ty + i][m4]);
+          const int xl = GAMMA ? static_cast<int>(sxa[GAMMA ? 1 : 0][4 * ty + i][m4]) : 0;
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
             f1[i][jj] = __dp4a(xv, h1[jj], f1[i][jj]);
-            f0[i][jj] = __dp4a(xv, h0[jj], f0[i][jj]);
+            if (GAMMA) {
+              f0[i][jj] = __dp4a(xl, h1[jj], f0[i][jj]);
+              f2[i][jj] = __dp4a(xv, h0[jj], f2[i][jj]);
+            } else {
+              f0[i][jj] = __dp4a(xv, h0[jj], f0[i][jj]);
+            }
           }
         }
       }
@@ -335,7 +423,9 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
       uint32_t w1 = 0, w0 = 0;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int32_t x15 = requant(f1[i][jj] * 128 + f0[i][jj] + comp[jj], a.sh);
+        const int32_t fq = GAMMA ? f1[i][jj] * 16384 + (f0[i][jj] + f2[i][jj]) * 128
+                                 : f1[i][jj] * 128 + f0[i][jj] + comp[jj];
+        const int32_t x15 = requant(fq, a.sh);
         const int32_t x1 = (x15 + 64) >> 7;
         w1 |= byte_of(x1, i);
         w0 |= byte_of(x15 - x1 * 128, i);
@@ -367,7 +457,22 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
       }
     }
   }
-  store_out(a, vb, r0, hb, j, pa, pb);
+  store_out<GAMMA>(a, vb, r0, hb, j, pa, pb);
+}
+
+template <bool GAMMA>
+cudaError_t launch(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
+  if (hv) {
+    fused_int8_hv<GAMMA><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    constexpr size_t bytes = vh_smem_bytes<GAMMA>();
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_int8_vh<GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    fused_int8_vh<GAMMA><<<grid, kThreads, bytes, s>>>(a);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -382,7 +487,9 @@ extern "C" int avir_fused_int8(
     const void* offs_l, const void* rel,
     int bh, int n_ch, int win_c, int tc,
     const void* k_range, int n_slices,
-    int sh, float scale,
+    int sh, float rec,
+    int gamma, int alpha_lane, float in_gamma_mult, float out_gamma_mult,
+    float scale, int even,
     void* stream) {
   Args a;
   a.x = static_cast<const uint8_t*>(x);
@@ -408,13 +515,17 @@ extern "C" int avir_fused_int8(
   a.k_range = static_cast<const int32_t*>(k_range);
   a.n_slices = n_slices;
   a.sh = sh;
-  a.scale = scale;
+  a.rec = rec;
+  a.epi.alpha_lane = alpha_lane;
+  a.epi.in_gamma_mult = in_gamma_mult;
+  a.epi.out_gamma_mult = out_gamma_mult;
+  a.epi.scale = scale;
+  a.epi.even = even;
+  a.epi.trunc_bits = 0;
+  a.epi.tm = 1.0f;
+  a.epi.out_max = 255.0f;
   const dim3 grid(bh * n_ch, bv * n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hv) {
-    fused_int8_hv<<<grid, kThreads, 0, s>>>(a);
-  } else {
-    fused_int8_vh<<<grid, kThreads, 0, s>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e = gamma ? launch<true>(hv, a, grid, s) : launch<false>(hv, a, grid, s);
+  return static_cast<int>(e);
 }

@@ -3,22 +3,29 @@
 //
 // Replaces the JAX package's Pallas kernel
 // avir_tpu/ops/pallas/fused_kernel.py: apply_fused_pallas -> _kernel
-// (float branch) -> _rmul -> _finish, with the default (biased) rounding
-// epilogue and no gamma.  One launch computes the whole separable resize
+// (float branch) -> _rmul -> _finish, with its epilogue options (biased
+// or round-half-even rounding, LANCIR's output ``scale``) and its
+// in-kernel sRGB gamma stages (the degree-9 linearization as the input
+// tile is staged, _linear_to_srgb before the epilogue, the C=4 alpha
+// bypass; k1_common.cuh).  One launch computes the whole separable resize
 // [rows_in, lanes_in] (u8, u16 or f32) -> [rows_out, lanes_out] (f32, u8
 // or u16) from the error-free bf16 hi/lo tap splits; the float32
 // intermediate lives only in shared memory.
 //
 // Arithmetic (the same function as the TPU kernel, summed in another
 // order, so equal to float32 rounding and not bit for bit):
-//   input       u8/u16 -> f32 exactly; split x = hi + lo with
-//               hi = bf16(x), lo = bf16(x - hi); reads past the edge see 0.
+//   input       u8/u16 -> f32 exactly; gamma (GAMMA): x = poly9(x *
+//               in_gamma_mult) (the alpha lane: x * in_gamma_mult);
+//               split x = hi + lo with hi = bf16(x), lo = bf16(x - hi);
+//               reads past the edge see 0.
 //   a pass      split2: sum t_hi*x_hi + t_lo*x_hi
 //               split3: ... + t_hi*x_lo
 //               every product is bf16 x bf16, exact in f32; sums are f32
 //               (fmaf of bf16-valued operands adds an exact product).
 //   between     the f32 intermediate is split the same way.
-//   epilogue    f32 out: store.  Integer out: v = floor(v + 0.5), or
+//   epilogue    gamma: v = linear_to_srgb(v) * out_gamma_mult.
+//               f32 out: store.  Integer out: v *= scale (when != 1);
+//               v = floor(v + 0.5), rint(v) (round_mode "even"), or
 //               floor(v / tm + 0.5) * tm when trunc_bits > 0 (IEEE
 //               division); clamp to [0, out_max]; truncate to u8/u16.
 //
@@ -50,12 +57,17 @@
 // bound.  mma/wgmma on the bf16 splits, TMA staging and a first-pass
 // intermediate shared across chunks are the planned ways down.
 //
-// Built without --use_fast_math: the division and rounding of the
-// epilogue stay IEEE.
+// With gamma the polynomial runs on every staged input element (as often
+// as the first pass reads it) and the square roots once per output.
+//
+// Built without --use_fast_math: the division, the square roots and the
+// rounding of the epilogue stay IEEE.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "k1_common.cuh"
 
 namespace {
 
@@ -83,8 +95,7 @@ struct Args {
   const int32_t* k_range;   // [Bv, n_slices, 2] nonzero V-tap rows, 32-aligned
   int n_slices;
   const int32_t* h_range;   // [Bh, n_ch, 2] nonzero lane-tap rows, 32-aligned
-  float out_max, tm;
-  int trunc_bits;
+  k1::Epilogue epi;
 };
 
 __device__ __forceinline__ float bf(float v) {
@@ -104,18 +115,20 @@ __device__ __forceinline__ float load_x(const Args& a, int r, int l) {
   return __ldg(static_cast<const float*>(a.x) + i);
 }
 
-__device__ __forceinline__ void store_one(const Args& a, size_t i, float v) {
+// Image element as f32 after the pack stage.
+template <bool GAMMA>
+__device__ __forceinline__ float load_lin(const Args& a, int r, int l) {
+  const float v = load_x(a, r, l);
+  return GAMMA ? k1::gamma_in(a.epi, v, l) : v;
+}
+
+template <bool GAMMA>
+__device__ __forceinline__ void store_one(const Args& a, size_t i, float v, int lane) {
   if (a.out_kind == 0) {
-    static_cast<float*>(a.out)[i] = v;
+    static_cast<float*>(a.out)[i] = k1::finish_float<GAMMA>(a.epi, v, lane);
     return;
   }
-  if (a.trunc_bits > 0) {
-    v = __fmul_rn(floorf(__fadd_rn(__fdiv_rn(v, a.tm), 0.5f)), a.tm);
-  } else {
-    v = floorf(__fadd_rn(v, 0.5f));
-  }
-  v = fminf(fmaxf(v, 0.0f), a.out_max);
-  const int q = static_cast<int>(v);
+  const int q = static_cast<int>(k1::finish_int<GAMMA>(a.epi, v, lane));
   if (a.out_kind == 1) {
     static_cast<uint8_t*>(a.out)[i] = static_cast<uint8_t>(q);
   } else {
@@ -123,6 +136,7 @@ __device__ __forceinline__ void store_one(const Args& a, size_t i, float v) {
   }
 }
 
+template <bool GAMMA>
 __device__ __forceinline__ void store_out(
     const Args& a, int vb, int r0, int hb, int j, const float (&acc)[4][4]) {
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
@@ -136,7 +150,8 @@ __device__ __forceinline__ void store_out(
       const int cl = j * kLanes + 4 * tx + jj;
       const int olane = hb * a.tc + cl;
       if (cl < a.tc && olane < a.lanes_out) {
-        store_one(a, static_cast<size_t>(orow) * a.lanes_out + olane, acc[i][jj]);
+        store_one<GAMMA>(a, static_cast<size_t>(orow) * a.lanes_out + olane,
+                         acc[i][jj], olane);
       }
     }
   }
@@ -170,7 +185,7 @@ __device__ __forceinline__ void stage_h_taps(
   }
 }
 
-template <bool S3V, bool S3H>
+template <bool S3V, bool S3H, bool GAMMA>
 __global__ void __launch_bounds__(kThreads) fused_split_vh(const Args a) {
   extern __shared__ __align__(16) float smem[];
   float (*svh)[kDepth] = reinterpret_cast<float (*)[kDepth]>(smem);  // V taps
@@ -203,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) fused_split_vh(const Args a) {
       stage_v_taps(a, vb, r0, k0, svh, svl);
       for (int e = tid; e < kDepth * kLanes; e += kThreads) {
         const int k = e / kLanes, l = e % kLanes;
-        const float v = load_x(a, row0 + k0 + k, lane0 + seg + l);
+        const float v = load_lin<GAMMA>(a, row0 + k0 + k, lane0 + seg + l);
         const float hi = bf(v);
         sah[k][l] = hi;
         sal[k][l] = bf(__fsub_rn(v, hi));
@@ -266,10 +281,10 @@ __global__ void __launch_bounds__(kThreads) fused_split_vh(const Args a) {
       }
     }
   }
-  store_out(a, vb, r0, hb, j, acc);
+  store_out<GAMMA>(a, vb, r0, hb, j, acc);
 }
 
-template <bool S3V, bool S3H>
+template <bool S3V, bool S3H, bool GAMMA>
 __global__ void __launch_bounds__(kThreads) fused_split_hv(const Args a) {
   extern __shared__ __align__(16) float smem[];
   float (*sxh)[kDepth] = reinterpret_cast<float (*)[kDepth]>(smem);  // x tile [32 rows][32 lanes]
@@ -301,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) fused_split_hv(const Args a) {
       __syncthreads();
       for (int e = tid; e < kRows * kDepth; e += kThreads) {
         const int r = e / kDepth, l = e % kDepth;
-        const float v = load_x(a, row0 + k0 + r, lane0 + m0 + l);
+        const float v = load_lin<GAMMA>(a, row0 + k0 + r, lane0 + m0 + l);
         const float hi = bf(v);
         sxh[r][l] = hi;
         sxl[r][l] = bf(__fsub_rn(v, hi));
@@ -362,28 +377,39 @@ __global__ void __launch_bounds__(kThreads) fused_split_hv(const Args a) {
       }
     }
   }
-  store_out(a, vb, r0, hb, j, acc);
+  store_out<GAMMA>(a, vb, r0, hb, j, acc);
 }
 
 constexpr size_t kSmemVh = (2 * kRows * kDepth + 2 * kDepth * kLanes + 2 * kRows * kLanes) * sizeof(float);
 constexpr size_t kSmemHv = (4 * kRows * kDepth + 2 * kDepth * kLanes + 2 * kDepth * kLanes) * sizeof(float);
 
-template <bool S3V, bool S3H>
+template <bool S3V, bool S3H, bool GAMMA>
 cudaError_t launch(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
   if (hv) {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_split_hv<S3V, S3H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_split_hv<S3V, S3H, GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemHv));
     if (e != cudaSuccess) return e;
-    fused_split_hv<S3V, S3H><<<grid, kThreads, kSmemHv, s>>>(a);
+    fused_split_hv<S3V, S3H, GAMMA><<<grid, kThreads, kSmemHv, s>>>(a);
   } else {
     cudaError_t e = cudaFuncSetAttribute(
-        fused_split_vh<S3V, S3H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_split_vh<S3V, S3H, GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemVh));
     if (e != cudaSuccess) return e;
-    fused_split_vh<S3V, S3H><<<grid, kThreads, kSmemVh, s>>>(a);
+    fused_split_vh<S3V, S3H, GAMMA><<<grid, kThreads, kSmemVh, s>>>(a);
   }
   return cudaGetLastError();
+}
+
+template <bool GAMMA>
+cudaError_t launch_modes(bool hv, bool s3v, bool s3h, const Args& a, dim3 grid,
+                         cudaStream_t s) {
+  if (s3v) {
+    return s3h ? launch<true, true, GAMMA>(hv, a, grid, s)
+               : launch<true, false, GAMMA>(hv, a, grid, s);
+  }
+  return s3h ? launch<false, true, GAMMA>(hv, a, grid, s)
+             : launch<false, false, GAMMA>(hv, a, grid, s);
 }
 
 }  // namespace
@@ -399,6 +425,8 @@ extern "C" int avir_fused_split(
     int bh, int n_ch, int win_c, int tc,
     const void* k_range, int n_slices, const void* h_range,
     float out_max, float tm, int trunc_bits,
+    int gamma, int alpha_lane, float in_gamma_mult, float out_gamma_mult,
+    float scale, int even,
     void* stream) {
   Args a;
   a.x = x;
@@ -424,16 +452,18 @@ extern "C" int avir_fused_split(
   a.k_range = static_cast<const int32_t*>(k_range);
   a.n_slices = n_slices;
   a.h_range = static_cast<const int32_t*>(h_range);
-  a.out_max = out_max;
-  a.tm = tm;
-  a.trunc_bits = trunc_bits;
+  a.epi.alpha_lane = alpha_lane;
+  a.epi.in_gamma_mult = in_gamma_mult;
+  a.epi.out_gamma_mult = out_gamma_mult;
+  a.epi.scale = scale;
+  a.epi.even = even;
+  a.epi.trunc_bits = trunc_bits;
+  a.epi.tm = tm;
+  a.epi.out_max = out_max;
   const dim3 grid(bh * n_ch, bv * n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (split3_v) {
-    e = split3_h ? launch<true, true>(hv, a, grid, s) : launch<true, false>(hv, a, grid, s);
-  } else {
-    e = split3_h ? launch<false, true>(hv, a, grid, s) : launch<false, false>(hv, a, grid, s);
-  }
+  const cudaError_t e =
+      gamma ? launch_modes<true>(hv, split3_v, split3_h, a, grid, s)
+            : launch_modes<false>(hv, split3_v, split3_h, a, grid, s);
   return static_cast<int>(e);
 }

@@ -1,19 +1,23 @@
 """K1 in int8 mode: the fused two-pass resize, its wrapper and its plain
-PyTorch version.
+PyTorch version; and K1's epilogue options, shared with the split modes.
 
 Counterpart of the JAX package's ``ops/pallas/fused_kernel.py``
 (``apply_fused_pallas`` -> ``_kernel`` -> ``_int8_passes`` -> ``_finish``,
-int8 mode, biased rounding).  The kernel (``csrc/fused_int8.cu``) does the
-whole separable resize of a u8 image in one launch from the radix-128
-two-limb s8 taps of a blocked V operator (ops/banded.py) and a lane
-operator (ops/lanes.py), keeping the 15-bit intermediate on chip.
+int8 mode).  The kernel (``csrc/fused_int8.cu``) does the whole separable
+resize of a u8 image in one launch from the radix-128 two-limb s8 taps of
+a blocked V operator (ops/banded.py) and a lane operator (ops/lanes.py),
+keeping the 15-bit intermediate on chip.  ``Epilogue`` selects its output
+stage: the biased or round-half-even rounding, LANCIR's ``scale``, and
+sRGB gamma, which linearizes the u8 input to 13-bit linear light as two
+s8 limbs (three limb products in the first pass instead of two, and no
+-128 shift) and converts the result back to sRGB before rounding.
 
 ``prepare_fused_int8`` turns the two operators into device tensors once
 per executor: the chunked lane taps (the unchunked form becomes
 ``ceil(TC/128)`` chunks at offset 0 over the whole window), the same taps
 packed four-along-the-contraction for the kernel, the row/column sums
-that undo the input's -128 shift, and each 32-row slice's range of
-nonzero V taps.
+that undo the input's -128 shift (unused with gamma), and each 32-row
+slice's range of nonzero V taps.
 
 ``apply_fused_int8`` launches the kernel on a CUDA tensor and runs
 ``apply_fused_int8_reference`` on a CPU tensor.  The reference does the
@@ -32,29 +36,143 @@ import numpy as np
 import torch
 
 from ..banded import BlockedBandedOp
+from ..gamma import (
+    GAMMA_IN_BITS,
+    _int8_limbs,
+    _linear_to_srgb,
+    _srgb_to_linear13_u8poly,
+    f32,
+    fma32,
+)
 from ..lanes import LaneBlockedOp
 
-# Launches of each kernel of this module, counted by the wrapper.
-launches = {"fused_int8_vh": 0, "fused_int8_hv": 0}
+ROUND_MODES = ("biased", "even")
+
+
+def _variants(prefix: str) -> dict[str, int]:
+    return {
+        f"{prefix}_{order}{g}{e}": 0
+        for order in ("vh", "hv") for g in ("", "_gamma") for e in ("", "_even")
+    }
+
+
+# Launches of each kernel variant of this module, counted by the wrapper:
+# fused_int8_{vh,hv}[_gamma][_even] (see Epilogue.suffix).
+launches = _variants("fused_int8")
 
 _ROWS = 32    # output rows per thread block (csrc: kRows)
 _LANES = 128  # output lanes per thread block (csrc: kLanes)
 
 
-def _int8_x_shift(first_l1_max: float, first_bits: int) -> int:
+@dataclasses.dataclass(frozen=True)
+class Epilogue:
+    """K1's output stage (``_kernel``'s gamma stages and ``_finish``
+    there; ``k1::Epilogue`` in csrc/k1_common.cuh).
+
+    ``scale`` multiplies integer outputs before rounding (LANCIR's
+    ``out_mul``; float32 output is written unscaled, as there);
+    ``round_mode`` is "biased" (floor(v + 0.5), the AVIR ditherer) or
+    "even" (round half to even, LANCIR).  ``gamma`` linearizes the input
+    (``x * in_gamma_mult`` first) and converts the result back to sRGB
+    (then ``* out_gamma_mult`` when that is not 0); with C = 4 and
+    ``alpha_index`` 0 or 3 that lane is only scaled."""
+
+    scale: float = 1.0
+    round_mode: str = "biased"
+    gamma: bool = False
+    c: int = 1
+    alpha_index: int = -1
+    in_gamma_mult: float = 1.0
+    out_gamma_mult: float = 1.0
+
+    def __post_init__(self):
+        if self.round_mode not in ROUND_MODES:
+            raise ValueError(f"unknown round_mode {self.round_mode!r}")
+
+    @property
+    def alpha_lane(self) -> int:
+        """The kernels' alpha lane (lane % 4), or -1 for none."""
+        if self.gamma and self.c == 4 and self.alpha_index in (0, 3):
+            return self.alpha_index
+        return -1
+
+    @property
+    def suffix(self) -> str:
+        """Launch-count key suffix of the kernel variant."""
+        return ("_gamma" if self.gamma else "") + (
+            "_even" if self.round_mode == "even" else ""
+        )
+
+    def launch_args(self) -> tuple:
+        """(gamma, alpha_lane, in_gamma_mult, out_gamma_mult, scale,
+        even) as the kernels' C entry points take them."""
+        return (
+            int(self.gamma), self.alpha_lane, f32(self.in_gamma_mult),
+            f32(self.out_gamma_mult), f32(self.scale),
+            int(self.round_mode == "even"),
+        )
+
+
+def finish_reference(
+    acc: torch.Tensor,
+    epi: Epilogue,
+    out_dtype: torch.dtype = torch.uint8,
+    out_max: float = 255.0,
+    trunc_bits: int = 0,
+    tm: float = 1.0,
+) -> torch.Tensor:
+    """K1's epilogue on the float32 image [rows_out, lanes_out] (plain
+    version of ``k1::finish_float`` / ``k1::finish_int``): gamma-out,
+    then for integer output the scale, the rounding and the clamp.  The
+    last multiply before a biased rounding fuses with its + 0.5, as the
+    reference's compiled kernel does (ops/gamma.py)."""
+    mul = None
+    if epi.gamma:
+        acc = _linear_to_srgb(acc, epi.c, epi.alpha_index)
+        if epi.out_gamma_mult != 0.0:
+            mul = f32(epi.out_gamma_mult)
+    if out_dtype == torch.float32:
+        return acc if mul is None else acc * mul
+    if epi.scale != 1.0:
+        if mul is not None:
+            acc = acc * mul
+        mul = f32(epi.scale)
+    if trunc_bits > 0:
+        if mul is not None:
+            acc = acc * mul
+        tmt = torch.tensor(tm, dtype=torch.float32, device=acc.device)
+        acc = torch.floor(acc / tmt + 0.5) * tmt
+    elif epi.round_mode == "even":
+        acc = torch.round(acc if mul is None else acc * mul)
+    else:
+        acc = torch.floor(acc + 0.5 if mul is None else fma32(acc, mul, 0.5))
+    acc = torch.clamp(acc, 0.0, out_max)
+    return acc.to(torch.int32).to(out_dtype)
+
+
+def _int8_x_shift(
+    first_l1_max: float, first_bits: int, in_max: float = 255.0
+) -> int:
     """Inter-pass 15-bit quantization scale: the high limb (x15+64)>>7
-    must fit s8 for |y| <= 255 * l1_max of the first pass, and the
-    re-quantizing right shift (first_bits - x_shift) must be positive."""
+    must fit s8 for |y| <= in_max * l1_max of the first pass (in_max is
+    the input's value range: 255 raw, 1.0 linear light), and the
+    re-quantizing right shift (first_bits - x_shift) must be positive.
+    first_bits is the first pass's total fixed-point scale (q_shift, plus
+    GAMMA_IN_BITS when the input is quantized linear light)."""
     if first_l1_max <= 0.0:
         return 0
-    x_shift = int(math.floor(math.log2(16319.0 / (255.0 * first_l1_max))))
+    x_shift = int(math.floor(math.log2(16319.0 / (in_max * first_l1_max))))
     return min(x_shift, first_bits - 1)
 
 
 def int8_feasible(
-    vop: BlockedBandedOp, lop: LaneBlockedOp, order: str = "vh"
+    vop: BlockedBandedOp,
+    lop: LaneBlockedOp,
+    order: str = "vh",
+    gamma: bool = False,
 ) -> bool:
-    """Limb taps exist and the 15-bit intermediate scale is positive."""
+    """Limb taps exist, the 15-bit intermediate scale is positive and,
+    with gamma, the first pass's limb sums fit s32."""
     if vop.taps_q1 is None or lop.taps_q1 is None:
         return False
     if vop.q_shift <= 0 or lop.q_shift <= 0:
@@ -62,7 +180,20 @@ def int8_feasible(
     first, first_shift = (
         (vop, vop.q_shift) if order == "vh" else (lop, lop.q_shift)
     )
-    return _int8_x_shift(first.l1_max, first_shift) >= 1
+    if gamma:
+        # The gamma first pass recombines limb products with << 14:
+        # |xq limbs| <= 64, so the s32 bound is exact from the taps'
+        # per-output abs limb sums.
+        bound = (
+            (64 * first.q_abs1 << 14)
+            + (64 * (first.q_abs1 + first.q_abs0) << 7)
+            + (1 << 26)
+        )
+        if bound >= 2**31:
+            return False
+    first_bits = first_shift + (GAMMA_IN_BITS if gamma else 0)
+    in_max = 1.0 if gamma else 255.0
+    return _int8_x_shift(first.l1_max, first_bits, in_max=in_max) >= 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,11 +210,13 @@ class FusedInt8Operands:
     tc: int               # output lanes per lane block
     sh: int               # first-pass requantizing shift
     out_exp: int          # recombination scale 2^out_exp
+    epi: Epilogue
     offs_v_host: tuple[int, ...]
     offs_v: torch.Tensor   # int32 [Bv]
     v1: torch.Tensor       # int8 [Bv, Tv, Wv]
     v0: torch.Tensor
     v_comp: torch.Tensor   # int32 [Bv, Tv]: 128 * (128*rowsum(v1) + rowsum(v0))
+                           # (no gamma)
     offs_l: torch.Tensor   # int32 [Bh]
     rel: torch.Tensor      # int32 [n_ch]
     h1: torch.Tensor       # int8 [Bh, n_ch, win_c, 128]
@@ -91,11 +224,16 @@ class FusedInt8Operands:
     h1p: torch.Tensor      # int32 [Bh, n_ch, win_c/4, 128], 4 taps per word
     h0p: torch.Tensor
     h_comp: torch.Tensor   # int32 [Bh, n_ch, 128]: 128*128*colsum(h1) + 128*colsum(h0)
+                           # (no gamma)
     k_range: torch.Tensor  # int32 [Bv, n_slices, 2] nonzero V-tap rows
 
     @property
     def device(self) -> torch.device:
         return self.v1.device
+
+    @property
+    def launch_key(self) -> str:
+        return f"fused_int8_{self.order}{self.epi.suffix}"
 
 
 def _chunked_lane_taps(lop: LaneBlockedOp):
@@ -144,19 +282,35 @@ def prepare_fused_int8(
     lop: LaneBlockedOp,
     order: str,
     device: torch.device | str,
+    scale: float = 1.0,
+    round_mode: str = "biased",
+    gamma: bool = False,
+    alpha_index: int = -1,
+    in_gamma_mult: float = 1.0,
+    out_gamma_mult: float = 1.0,
 ) -> FusedInt8Operands:
     """Operands of the fused int8 resize by ``vop`` (rows) and ``lop``
-    (interleaved lanes) in pass order ``order``, on ``device``."""
+    (interleaved lanes) in pass order ``order``, on ``device``, with the
+    epilogue options of ``Epilogue``."""
     if order not in ("vh", "hv"):
         raise ValueError(f"unknown order {order!r}")
-    if not int8_feasible(vop, lop, order):
+    if not int8_feasible(vop, lop, order, gamma):
         raise ValueError("int8 mode infeasible for these taps")
     if lop.out_idx is not None:
         raise ValueError("lane-subset operators are not supported")
+    epi = Epilogue(
+        scale=float(scale), round_mode=round_mode, gamma=bool(gamma),
+        c=lop.c, alpha_index=int(alpha_index),
+        in_gamma_mult=float(in_gamma_mult),
+        out_gamma_mult=float(out_gamma_mult),
+    )
     qv, qh = vop.q_shift, lop.q_shift
     first_shift, second_shift = (qv, qh) if order == "vh" else (qh, qv)
     first = vop if order == "vh" else lop
-    x_shift = _int8_x_shift(first.l1_max, first_shift)
+    first_bits = first_shift + (GAMMA_IN_BITS if gamma else 0)
+    x_shift = _int8_x_shift(
+        first.l1_max, first_bits, in_max=1.0 if gamma else 255.0
+    )
 
     v1, v0 = vop.taps_q1, vop.taps_q0
     rs = v1.astype(np.int64).sum(axis=2) * 128 + v0.astype(np.int64).sum(axis=2)
@@ -179,8 +333,9 @@ def prepare_fused_int8(
         rows_pad=vop.n_in_pad,
         lanes_pad=lop.lanes_pad,
         tc=lop.tile * lop.c,
-        sh=first_shift - x_shift,
+        sh=first_bits - x_shift,
         out_exp=-(x_shift + second_shift),
+        epi=epi,
         offs_v_host=tuple(int(o) for o in vop.offs),
         offs_v=dev(vop.offs, torch.int32),
         v1=dev(v1),
@@ -210,11 +365,10 @@ def _limbs(fq: torch.Tensor, sh: int) -> tuple[torch.Tensor, torch.Tensor]:
     return x1.to(torch.float64), (x15 - (x1 << 7)).to(torch.float64)
 
 
-def _finish(pa: torch.Tensor, pb: torch.Tensor, out_exp: int) -> torch.Tensor:
-    """Float32 recombination and biased rounding (``_finish`` there)."""
+def _recombine(pa: torch.Tensor, pb: torch.Tensor, out_exp: int) -> torch.Tensor:
+    """Float32 recombination of the second pass's limb sums."""
     acc = pa.to(torch.float32) * 16384.0 + pb.to(torch.float32) * 128.0
-    acc = acc * (2.0 ** out_exp)
-    return torch.floor(acc + 0.5).clamp_(0.0, 255.0).to(torch.uint8)
+    return acc * (2.0 ** out_exp)
 
 
 def apply_fused_int8_reference(
@@ -223,10 +377,7 @@ def apply_fused_int8_reference(
     """Plain PyTorch fused int8 resize: u8 [rows_in, lanes_in] ->
     u8 [rows_out, lanes_out], on the device of ``x``."""
     dev = x.device
-    xs = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float64, device=dev)
-    xs[: ops.rows_in, : ops.lanes_in] = x
-    xs -= 128.0  # s8(x ^ 0x80) == x - 128; padding reads 0 -> -128
-
+    epi = ops.epi
     v1, v0 = ops.v1.to(torch.float64), ops.v0.to(torch.float64)
     h1, h0 = ops.h1.to(torch.float64), ops.h0.to(torch.float64)
     bv, tv, wv = ops.v1.shape
@@ -236,31 +387,52 @@ def apply_fused_int8_reference(
         + ops.rel.long()[None, :, None]
         + torch.arange(win_c, device=dev)
     )  # [Bh, n_ch, win_c]
-    out = torch.empty((bv, tv, bh, n_ch * _LANES), dtype=torch.uint8, device=dev)
+    acc = torch.empty((bv, tv, bh, n_ch * _LANES), dtype=torch.float32, device=dev)
+
+    if epi.gamma:
+        # 13-bit linear light as two limbs; padding reads 0 -> 0.
+        xf = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float32, device=dev)
+        xf[: ops.rows_in, : ops.lanes_in] = x
+        xq = _srgb_to_linear13_u8poly(
+            xf * f32(epi.in_gamma_mult), epi.c, epi.alpha_index
+        )
+        xq1, xq0 = (q.to(torch.float64) for q in _int8_limbs(xq))
+    else:
+        xs = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float64, device=dev)
+        xs[: ops.rows_in, : ops.lanes_in] = x
+        xs -= 128.0  # s8(x ^ 0x80) == x - 128; padding reads 0 -> -128
 
     if ops.order == "vh":
         v_comp = ops.v_comp.to(torch.float64)
         for b, o in enumerate(ops.offs_v_host):
-            xw = xs[o : o + wv]
-            fq = (v1[b] @ xw) * 128.0 + v0[b] @ xw + v_comp[b][:, None]
+            if epi.gamma:
+                w1, w0 = xq1[o : o + wv], xq0[o : o + wv]
+                fq = (v1[b] @ w1) * 16384.0 + (v1[b] @ w0 + v0[b] @ w1) * 128.0
+            else:
+                xw = xs[o : o + wv]
+                fq = (v1[b] @ xw) * 128.0 + v0[b] @ xw + v_comp[b][:, None]
             x1, x0 = _limbs(fq, ops.sh)
             g1, g0 = x1[:, lane_idx], x0[:, lane_idx]  # [Tv, Bh, n_ch, win_c]
             pa = torch.einsum("tbjw,bjwc->tbjc", g1, h1)
             pb = torch.einsum("tbjw,bjwc->tbjc", g0, h1) + torch.einsum(
                 "tbjw,bjwc->tbjc", g1, h0
             )
-            out[b] = _finish(pa, pb, ops.out_exp).reshape(tv, bh, -1)
+            acc[b] = _recombine(pa, pb, ops.out_exp).reshape(tv, bh, -1)
     else:
         h_comp = ops.h_comp.to(torch.float64)
         x1 = torch.empty((ops.rows_pad, bh, n_ch, _LANES), dtype=torch.float64, device=dev)
         x0 = torch.empty_like(x1)
+
+        def rmul(x, h, j):  # chunk j of the lane contraction
+            return torch.einsum("rbw,bwc->rbc", x[:, lane_idx[:, j]], h[:, j])
+
         for j in range(n_ch):
-            g = xs[:, lane_idx[:, j]]  # [rows, Bh, win_c]
-            fq = (
-                torch.einsum("rbw,bwc->rbc", g, h1[:, j]) * 128.0
-                + torch.einsum("rbw,bwc->rbc", g, h0[:, j])
-                + h_comp[:, j]
-            )
+            if epi.gamma:
+                fq = rmul(xq1, h1, j) * 16384.0 + (
+                    rmul(xq0, h1, j) + rmul(xq1, h0, j)
+                ) * 128.0
+            else:
+                fq = rmul(xs, h1, j) * 128.0 + rmul(xs, h0, j) + h_comp[:, j]
             x1[:, :, j], x0[:, :, j] = _limbs(fq, ops.sh)
         x1 = x1.reshape(ops.rows_pad, -1)
         x0 = x0.reshape(ops.rows_pad, -1)
@@ -268,10 +440,10 @@ def apply_fused_int8_reference(
             w1, w0 = x1[o : o + wv], x0[o : o + wv]
             pa = v1[b] @ w1
             pb = v1[b] @ w0 + v0[b] @ w1
-            out[b] = _finish(pa, pb, ops.out_exp).reshape(tv, bh, -1)
+            acc[b] = _recombine(pa, pb, ops.out_exp).reshape(tv, bh, -1)
 
-    out = out[:, :, :, : ops.tc].reshape(bv * tv, bh * ops.tc)
-    return out[: ops.rows_out, : ops.lanes_out].contiguous()
+    acc = acc[:, :, :, : ops.tc].reshape(bv * tv, bh * ops.tc)
+    return finish_reference(acc[: ops.rows_out, : ops.lanes_out], epi).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +460,9 @@ _ARGTYPES = [
     _P, _P, _P, _P, _P,    # h1p, h0p, h_comp, offs_l, rel
     _I, _I, _I, _I,        # bh, n_ch, win_c, tc
     _P, _I,                # k_range, n_slices
-    _I, ctypes.c_float,    # sh, scale
+    _I, ctypes.c_float,    # sh, rec
+    _I, _I, ctypes.c_float, ctypes.c_float,  # gamma, alpha_lane, in/out gamma mults
+    ctypes.c_float, _I,    # scale, even
     _P,                    # stream
 ]
 
@@ -343,9 +517,10 @@ def apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor) -> torch.Tensor:
             bh, n_ch, win_c, ops.tc,
             ops.k_range.data_ptr(), n_slices,
             ops.sh, 2.0 ** ops.out_exp,
+            *ops.epi.launch_args(),
             stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_int8 launch failed: CUDA error {err}")
-    launches[f"fused_int8_{ops.order}"] += 1
+    launches[ops.launch_key] += 1
     return out

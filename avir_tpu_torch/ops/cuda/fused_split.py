@@ -3,20 +3,23 @@ its plain PyTorch version.
 
 Counterpart of the JAX package's ``ops/pallas/fused_kernel.py``
 (``apply_fused_pallas`` -> ``_kernel``'s float branch -> ``_rmul`` ->
-``_finish``, biased rounding, no gamma).  The kernel
+``_finish``).  The kernel
 (``csrc/fused_split.cu``) does the whole separable resize of a u8, u16 or
 float32 image in one launch from the error-free bf16 hi/lo taps of a
 blocked V operator (ops/banded.py) and a lane operator (ops/lanes.py):
 
-  - the raw input goes to float32 and splits as hi = bf16(x),
-    lo = bf16(x - hi);
+  - the raw input goes to float32 (with gamma: ``x * in_gamma_mult``
+    through the degree-9 linearization, ops/gamma.py:_srgb_to_linear)
+    and splits as hi = bf16(x), lo = bf16(x - hi);
   - a pass in "split2" mode sums taps_hi@x_hi + taps_lo@x_hi, in
     "split3" mode also taps_hi@x_lo; every product is bf16 x bf16,
     exact in float32, and sums are float32;
   - the float32 intermediate is split the same way between the passes;
-  - the epilogue stores float32, or rounds (floor(v + 0.5), or
-    floor(v / tm + 0.5) * tm when ``trunc_bits`` > 0), clamps to
-    [0, out_max] and stores u8/u16.
+  - the epilogue (``fused_kernel.py:Epilogue``, ``finish_reference``)
+    converts back to sRGB with gamma, then stores float32, or scales,
+    rounds (floor(v + 0.5), round half to even, or floor(v / tm + 0.5) *
+    tm when ``trunc_bits`` > 0), clamps to [0, out_max] and stores
+    u8/u16.
 
 ``prepare_fused_split`` turns the two operators into device tensors once
 per executor, with the lane taps in the chunked form (the unchunked form
@@ -39,11 +42,19 @@ import numpy as np
 import torch
 
 from ..banded import BlockedBandedOp, assert_full_f32
+from ..gamma import _srgb_to_linear, f32
 from ..lanes import LaneBlockedOp
-from .fused_kernel import _LANES, _k_ranges
+from .fused_kernel import (
+    _LANES,
+    Epilogue,
+    _k_ranges,
+    _variants,
+    finish_reference,
+)
 
-# Launches of each kernel of this module, counted by the wrapper.
-launches = {"fused_split_vh": 0, "fused_split_hv": 0}
+# Launches of each kernel variant of this module, counted by the wrapper:
+# fused_split_{vh,hv}[_gamma][_even] (see Epilogue.suffix).
+launches = _variants("fused_split")
 
 MODES = ("split2", "split3")
 _IN_KINDS = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
@@ -61,6 +72,7 @@ class FusedSplitOperands:
     out_max: float
     trunc_bits: int
     tm: float             # float32 quantization step when trunc_bits > 0
+    epi: Epilogue
     rows_in: int          # input image [rows_in, lanes_in]
     lanes_in: int
     rows_out: int         # output image [rows_out, lanes_out]
@@ -82,6 +94,10 @@ class FusedSplitOperands:
     @property
     def device(self) -> torch.device:
         return self.tvh.device
+
+    @property
+    def launch_key(self) -> str:
+        return f"fused_split_{self.order}{self.epi.suffix}"
 
 
 def _chunked_lane_taps(lop: LaneBlockedOp):
@@ -125,10 +141,17 @@ def prepare_fused_split(
     out_dtype: torch.dtype = torch.float32,
     out_max: float = 255.0,
     trunc_bits: int = 0,
+    scale: float = 1.0,
+    round_mode: str = "biased",
+    gamma: bool = False,
+    alpha_index: int = -1,
+    in_gamma_mult: float = 1.0,
+    out_gamma_mult: float = 1.0,
 ) -> FusedSplitOperands:
     """Operands of the fused split-bf16 resize by ``vop`` (rows) and
     ``lop`` (interleaved lanes) in pass order ``order`` with the given
-    per-pass modes and epilogue, on ``device``."""
+    per-pass modes and epilogue (``fused_kernel.py:Epilogue``; ``scale``
+    applies to integer outputs only), on ``device``."""
     if order not in ("vh", "hv"):
         raise ValueError(f"unknown order {order!r}")
     if mode_v not in MODES or mode_h not in MODES:
@@ -137,6 +160,12 @@ def prepare_fused_split(
         raise ValueError(f"unsupported output dtype {out_dtype}")
     if lop.out_idx is not None:
         raise ValueError("lane-subset operators are not supported")
+    epi = Epilogue(
+        scale=float(scale), round_mode=round_mode, gamma=bool(gamma),
+        c=lop.c, alpha_index=int(alpha_index),
+        in_gamma_mult=float(in_gamma_mult),
+        out_gamma_mult=float(out_gamma_mult),
+    )
     tm = 1.0
     if trunc_bits > 0 and out_dtype != torch.float32:
         tm = float(np.float32(out_max / (int(out_max) >> trunc_bits)))
@@ -159,6 +188,7 @@ def prepare_fused_split(
         out_max=float(out_max),
         trunc_bits=int(trunc_bits) if out_dtype != torch.float32 else 0,
         tm=tm,
+        epi=epi,
         rows_in=vop.n_in,
         lanes_in=lop.n_in * lop.c,
         rows_out=vop.n_out,
@@ -197,19 +227,6 @@ def to_float32(x: torch.Tensor) -> torch.Tensor:
     return x.float()
 
 
-def _finish(acc: torch.Tensor, ops) -> torch.Tensor:
-    """The epilogue (``_finish`` there, biased rounding, scale 1)."""
-    if ops.out_dtype == torch.float32:
-        return acc
-    if ops.trunc_bits > 0:
-        tm = torch.tensor(ops.tm, dtype=torch.float32, device=acc.device)
-        acc = torch.floor(acc / tm + 0.5) * tm
-    else:
-        acc = torch.floor(acc + 0.5)
-    acc = torch.clamp(acc, 0.0, ops.out_max)
-    return acc.to(torch.int32).to(ops.out_dtype)
-
-
 def apply_fused_split_reference(
     ops: FusedSplitOperands, x: torch.Tensor
 ) -> torch.Tensor:
@@ -221,6 +238,9 @@ def apply_fused_split_reference(
         assert_full_f32()
     xs = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float32, device=dev)
     xs[: ops.rows_in, : ops.lanes_in] = to_float32(x)
+    epi = ops.epi
+    if epi.gamma:  # padding stays 0
+        xs = _srgb_to_linear(xs * f32(epi.in_gamma_mult), epi.c, epi.alpha_index)
 
     tvh, tvl = ops.tvh.float(), ops.tvl.float()
     thh, thl = ops.thh.float(), ops.thl.float()
@@ -267,7 +287,10 @@ def apply_fused_split_reference(
             out[b] = vpass(b, hh[o : o + wv], hl[o : o + wv]).reshape(tv, bh, -1)
 
     out = out[:, :, :, : ops.tc].reshape(bv * tv, bh * ops.tc)
-    return _finish(out[: ops.rows_out, : ops.lanes_out], ops).contiguous()
+    return finish_reference(
+        out[: ops.rows_out, : ops.lanes_out], epi, ops.out_dtype,
+        ops.out_max, ops.trunc_bits, ops.tm,
+    ).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +309,8 @@ _ARGTYPES = [
     _I, _I, _I, _I,        # bh, n_ch, win_c, tc
     _P, _I, _P,            # k_range, n_slices, h_range
     _F, _F, _I,            # out_max, tm, trunc_bits
+    _I, _I, _F, _F,        # gamma, alpha_lane, in/out gamma mults
+    _F, _I,                # scale, even
     _P,                    # stream
 ]
 
@@ -341,9 +366,10 @@ def apply_fused_split(ops: FusedSplitOperands, x: torch.Tensor) -> torch.Tensor:
             bh, n_ch, win_c, ops.tc,
             ops.k_range.data_ptr(), n_slices, ops.h_range.data_ptr(),
             ops.out_max, ops.tm, ops.trunc_bits,
+            *ops.epi.launch_args(),
             stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_split launch failed: CUDA error {err}")
-    launches[f"fused_split_{ops.order}"] += 1
+    launches[ops.launch_key] += 1
     return out

@@ -16,6 +16,11 @@ Phases (any failure exits non-zero before the last line):
          integers within 1 LSB (one quantization step when trunc_bits > 0);
        - K4 wavefront: C in {1, 3, 4}, one and several row blocks, 8- and
          16-bit steps: bit-equal;
+       - K1's epilogue variants: round-half-even with LANCIR's scale, and
+         sRGB gamma with the C=4 alpha bypass, in int8 vh/hv (bit-equal)
+         and split vh/hv (the split gate above; an integer output whose
+         float32 difference is amplified, by LANCIR's scale > 1 or by
+         gamma-out, takes the float32 gate on its range plus one step);
   3. drives the main path through ``avir_tpu_torch.ImageResizer.resize``,
      with the launch counts set to 0 just before each first call and
      read just after:
@@ -30,11 +35,26 @@ Phases (any failure exits non-zero before the last line):
        - 1080p_to_4k_u16, 1920x1080 -> 3840x2160 u16 RGB,
          res_bit_depth=16 (K1 split3/split3, u16 epilogue): within 1 LSB
          of the plain version, within 4 LSB / >= 60 dB of the oracle;
+       - lancir_8k_to_1080p, ``LancIR.resize`` 7680x4320 -> 1920x1080 u8
+         RGB (K1 int8 vh, round-half-even): bit-equal to the plain
+         version, within 1 LSB / >= 60 dB of ``execute_lancir_numpy``;
+       - lancir_4k_u16_to_1080p_u8, 3840x2160 u16 RGB -> 1920x1080 u8 (K1
+         split3/split3 vh, scale 255/65535, round-half-even): within 1 LSB
+         of the plain version and 1 LSB / >= 60 dB of the oracle;
+       - 8k_to_1080p_gamma, ``ImageResizer.resize(use_srgb_gamma=True)``
+         7680x4320 -> 1920x1080 u8 RGB (K1 int8 vh with the 13-bit
+         linearization): bit-equal to the plain version, within 1 LSB /
+         >= 60 dB of the float64 gamma oracle;
+       - 1080p_to_4k_u16_gamma_rgba, 1920x1080 -> 3840x2160 u16 RGBA,
+         ``alpha_index=3``, ``res_bit_depth=16`` (K1 split3/split3 hv with
+         the degree-9 linearization): within the split gate of the plain
+         version and 5 LSB / >= 60 dB of the oracle (the JAX package's gate for
+         its fused u16 gamma route);
   4. times each kernel at its main-path shape with CUDA events (L2
      flushed before every launch) beside its bound and its plain
      version's time, plus the host wall time of a cached resize and its
-     two copies (and, for the new shapes, the full-float32
-     ``precision="exact"`` passes as a yardstick), and prints one JSON
+     two copies (and, for the shapes of the split and epilogue variants,
+     the ``precision="exact"`` route as a yardstick), and prints one JSON
      line per shape;
   5. prints the kernels line and, last, the device line.
 """
@@ -49,11 +69,17 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data sheet (700 W): HBM rate and dense int8 and bf16
-# tensor-core rates.
+# H100 SXM data sheet (700 W): HBM rate, dense int8 and bf16 tensor-core
+# rates, and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BF16_OPS_PER_S = 0.989e15
+F32_OPS_PER_S = 67e12
+# Float32 operations of K1's gamma stages (k1_common.cuh), per input
+# element as staged once (int8: scale + 7 FMA; split: scale + 9 FMA) and
+# per output element (3 square roots + 6 FMA + the output multiply).
+GAMMA_IN_OPS = {"int8": 15, "split": 19}
+GAMMA_OUT_OPS = 16
 SEED = 7
 MAIN_PATH = (
     # (name, src_w, src_h, new_w, new_h, c)
@@ -123,6 +149,19 @@ KERNELS = {
     "wavefront": "avir_tpu/ops/pallas/wavefront_kernel.py:229 "
     "(wavefront_scan_pallas_carry, _kernel_carry :139) and :331 "
     "(wavefront_scan_pallas, _kernel :55)",
+    "fused_int8_vh_even": "avir_tpu/ops/pallas/fused_kernel.py:191 "
+    "(_int8_passes, order vh) with _finish :400-419 (scale, "
+    "round_mode='even'); entry apply_fused_pallas :422",
+    "fused_int8_vh_gamma": "avir_tpu/ops/pallas/fused_kernel.py:210-244 "
+    "(_int8_passes gamma first pass, _srgb_to_linear13_u8poly :117), "
+    ":323-327 (_linear_to_srgb :79), _finish :400; entry "
+    "apply_fused_pallas :422",
+    "fused_split_vh_even": "avir_tpu/ops/pallas/fused_kernel.py:344-361 "
+    "(_kernel float branch, order vh) with _finish :400-419 (scale, "
+    "round_mode='even'); entry apply_fused_pallas :422",
+    "fused_split_hv_gamma": "avir_tpu/ops/pallas/fused_kernel.py:338-342 "
+    "(pack, _srgb_to_linear :69), :362-386 (order hv), :388-392 (unpack, "
+    "_linear_to_srgb :79), _finish :400; entry apply_fused_pallas :422",
 }
 SOURCES = {
     "fused_int8_vh": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
@@ -130,7 +169,60 @@ SOURCES = {
     "fused_split_vh": "avir_tpu_torch/ops/cuda/csrc/fused_split.cu",
     "fused_split_hv": "avir_tpu_torch/ops/cuda/csrc/fused_split.cu",
     "wavefront": "avir_tpu_torch/ops/cuda/csrc/wavefront.cu",
+    "fused_int8_vh_even": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
+    "fused_int8_vh_gamma": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
+    "fused_split_vh_even": "avir_tpu_torch/ops/cuda/csrc/fused_split.cu",
+    "fused_split_hv_gamma": "avir_tpu_torch/ops/cuda/csrc/fused_split.cu",
 }
+INT8_EPI_CASES = (
+    # (src_w, src_h, new_w, new_h, c, lane tile, order, round_mode, scale,
+    #  gamma, alpha_index)
+    (150, 90, 61, 37, 1, None, "vh", "even", 1.0, False, -1),
+    (200, 150, 80, 60, 3, None, "vh", "even", 1.0, False, -1),
+    (181, 77, 60, 33, 4, None, "vh", "even", 0.75, False, -1),
+    (120, 80, 70, 50, 3, 50, "vh", "even", 1.0, False, -1),
+    (45, 31, 97, 70, 1, None, "hv", "even", 1.0, False, -1),
+    (300, 20, 1400, 41, 3, None, "hv", "even", 1.0, False, -1),
+    (29, 21, 71, 45, 4, 48, "hv", "even", 1.0, False, -1),
+    (200, 150, 80, 60, 3, None, "vh", "biased", 1.0, True, -1),
+    (181, 77, 60, 33, 4, None, "vh", "biased", 1.0, True, 3),
+    (120, 80, 70, 50, 4, 50, "vh", "biased", 1.0, True, 0),
+    (300, 20, 1400, 41, 3, None, "hv", "biased", 1.0, True, -1),
+    (500, 20, 1200, 41, 4, None, "hv", "biased", 1.0, True, 3),
+    (29, 21, 71, 45, 4, 48, "hv", "biased", 1.0, True, 3),
+    (1031, 517, 263, 129, 4, None, "vh", "biased", 1.0, True, 3),
+    (333, 251, 1001, 777, 4, None, "hv", "biased", 1.0, True, 3),
+    (1031, 517, 263, 129, 3, None, "vh", "even", 1.0, False, -1),
+)
+SPLIT_EPI_CASES = (
+    # SPLIT_CASES' fields plus round_mode, scale, gamma, alpha_index
+    (181, 77, 60, 33, 3, None, "vh", "split3", "split3", "u16", "u8", 0, "even", 255.0 / 65535.0, False, -1),
+    (40, 30, 64, 48, 4, None, "hv", "split3", "split2", "u8", "u16", 0, "even", 65535.0 / 255.0, False, -1),
+    (120, 80, 70, 50, 3, 50, "vh", "split3", "split3", "f32", "f32", 0, "even", 0.5, False, -1),
+    (300, 20, 1400, 41, 3, None, "hv", "split2", "split2", "u8", "u8", 0, "even", 1.0, False, -1),
+    (200, 150, 80, 60, 3, None, "vh", "split3", "split3", "u8", "u8", 0, "biased", 1.0, True, -1),
+    (181, 77, 60, 33, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 3),
+    (150, 90, 61, 37, 1, None, "vh", "split3", "split3", "u8", "f32", 0, "biased", 1.0, True, -1),
+    (45, 31, 97, 70, 4, None, "hv", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 3),
+    (29, 21, 71, 45, 4, 48, "hv", "split3", "split3", "u8", "f32", 0, "biased", 1.0, True, 0),
+    (300, 20, 1400, 41, 3, None, "hv", "split3", "split3", "f32", "u8", 2, "biased", 1.0, True, -1),
+    (333, 251, 1001, 777, 4, None, "hv", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 3),
+    (1031, 517, 263, 129, 3, None, "vh", "split3", "split3", "u16", "u8", 0, "even", 255.0 / 65535.0, False, -1),
+)
+EPI_SHAPES = (
+    # (name, entry point, src_w, src_h, new_w, new_h, c, in dtype,
+    #  out dtype, resize keywords, kernel variant, LSB gate vs the oracle)
+    ("lancir_8k_to_1080p", "lancir", 7680, 4320, 1920, 1080, 3, np.uint8,
+     np.uint8, {}, "fused_int8_vh_even", 1),
+    ("lancir_4k_u16_to_1080p_u8", "lancir", 3840, 2160, 1920, 1080, 3,
+     np.uint16, np.uint8, {}, "fused_split_vh_even", 1),
+    ("8k_to_1080p_gamma", "avir", 7680, 4320, 1920, 1080, 3, np.uint8,
+     np.uint8, {"use_srgb_gamma": True}, "fused_int8_vh_gamma", 1),
+    ("1080p_to_4k_u16_gamma_rgba", "avir", 1920, 1080, 3840, 2160, 4,
+     np.uint16, np.uint16,
+     {"use_srgb_gamma": True, "alpha_index": 3, "res_bit_depth": 16},
+     "fused_split_hv_gamma", 5),
+)
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
 
@@ -157,24 +249,38 @@ def _predither(plan, src: np.ndarray) -> np.ndarray:
     """Float64 host oracle before the dither stage: both banded operators
     applied with apply_banded_numpy (models/host_reference.py's
     execute_plan_numpy), in slabs to bound host memory."""
+    return _passes(plan.h.op, plan.v.op, src)
+
+
+def _passes(hop, vop, src: np.ndarray) -> np.ndarray:
+    """[H, W, C] -> float64 [new_h, new_w, C] through the banded operators
+    ``hop`` (columns) and ``vop`` (rows), in slabs."""
     from avir_tpu_torch.plan.compose import apply_banded_numpy
 
     h, w, c = src.shape
     x = np.moveaxis(src, 1, 0).reshape(w, h * c)
-    step = max(1, (1 << 27) // (plan.h.op.n_out * plan.h.op.width * 8))
+    step = max(1, (1 << 27) // (hop.n_out * hop.width * 8))
     hx = np.concatenate(
-        [apply_banded_numpy(plan.h.op, x[:, i : i + step])
+        [apply_banded_numpy(hop, x[:, i : i + step])
          for i in range(0, h * c, step)],
         axis=1,
     )  # [new_w, h*c]
     x = np.moveaxis(hx.reshape(-1, h, c), 1, 0).reshape(h, -1)
-    step = max(1, (1 << 27) // (plan.v.op.n_out * plan.v.op.width * 8))
+    step = max(1, (1 << 27) // (vop.n_out * vop.width * 8))
     vx = np.concatenate(
-        [apply_banded_numpy(plan.v.op, x[:, i : i + step])
+        [apply_banded_numpy(vop, x[:, i : i + step])
          for i in range(0, x.shape[1], step)],
         axis=1,
     )
-    return vx.reshape(plan.v.op.n_out, plan.h.op.n_out, c)
+    return vx.reshape(vop.n_out, hop.n_out, c)
+
+
+def _split_int_tol(ref_max: float, scale: float, gamma: bool) -> float:
+    """K1 split vs its plain version on an integer output: 1 LSB, or, when
+    a scale > 1 or gamma-out's slope amplifies the float32 difference of
+    the two summation orders, the float32 gate (max * 1e-4) on the
+    output's range plus one rounding step."""
+    return 1.0 + (ref_max * 1e-4 if scale > 1.0 or gamma else 0.0)
 
 
 def _time_ms(fn, n: int, flush: torch.Tensor) -> float:
@@ -205,28 +311,41 @@ def _first_pass_reads(ops) -> dict[str, float]:
     return {"rows": rows, "lanes": lanes, "total": rows * lanes}
 
 
-def _bound(plan, c: int, order: str) -> tuple[float, str, int, int]:
-    """(bound_ms, bound_by, bytes, ops): image bytes read once and
-    written once plus the two banded operators as two s8 limbs per tap;
-    band MACs (two products in the first pass, three in the second)."""
-    h, v = plan.h.op, plan.v.op
+def _k1_bound(h, v, c: int, order: str, in_bytes: int, out_bytes: int,
+              tap_bytes: int, pv: int, ph: int, rate: float,
+              f32_ops: int = 0) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, tensor ops) of one K1 launch by the
+    banded operators ``h`` and ``v``: the image read once, the output
+    written once and both operators once (``tap_bytes`` per tap); 2 x band
+    MACs x products per pass (``pv``, ``ph``) at ``rate``; plus
+    ``f32_ops`` float32 operations (the gamma stages) on the CUDA cores.
+    The least time is the largest of the three."""
     lanes_in, lanes_out = h.n_in * c, h.n_out * c
     nbytes = (
-        v.n_in * lanes_in + v.n_out * lanes_out
-        + 2 * (h.n_out * h.width + v.n_out * v.width)
+        v.n_in * lanes_in * in_bytes + v.n_out * lanes_out * out_bytes
+        + tap_bytes * (h.n_out * h.width + v.n_out * v.width)
     )
     if order == "vh":
-        macs = v.n_out * lanes_in * v.width * 2 + v.n_out * lanes_out * h.width * 3
+        macs = v.n_out * lanes_in * v.width * pv + v.n_out * lanes_out * h.width * ph
     else:
-        macs = v.n_in * lanes_out * h.width * 2 + v.n_out * lanes_out * v.width * 3
+        macs = v.n_in * lanes_out * h.width * ph + v.n_out * lanes_out * v.width * pv
     ops = 2 * macs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops / rate, f32_ops / F32_OPS_PER_S)
     return (
         1e3 * max(t_bytes, t_ops),
         "bytes" if t_bytes >= t_ops else "operations",
         nbytes,
         ops,
     )
+
+
+def _bound(plan, c: int, order: str) -> tuple[float, str, int, int]:
+    """K1 int8: two s8 limbs per tap; two products in the first pass,
+    three in the second."""
+    pv, ph = (2, 3) if order == "vh" else (3, 2)
+    return _k1_bound(plan.h.op, plan.v.op, c, order, 1, 1, 2, pv, ph,
+                     INT8_OPS_PER_S)
 
 
 def _split_reads(ops) -> dict[str, float]:
@@ -245,29 +364,12 @@ def _split_reads(ops) -> dict[str, float]:
 
 
 def _split_bound(plan, c: int, ops, in_bytes: int, out_bytes: int):
-    """(bound_ms, bound_by, bytes, ops) of K1 in split modes: the image
-    read once, the output written once and both banded operators as bf16
-    hi + lo per tap; 2 x band MACs x products per pass (2 for split2,
-    3 for split3) at the bf16 tensor-core rate."""
-    h, v = plan.h.op, plan.v.op
-    lanes_in, lanes_out = h.n_in * c, h.n_out * c
-    nbytes = (
-        v.n_in * lanes_in * in_bytes + v.n_out * lanes_out * out_bytes
-        + 4 * (h.n_out * h.width + v.n_out * v.width)
-    )
-    pv = 3 if ops.mode_v == "split3" else 2
-    ph = 3 if ops.mode_h == "split3" else 2
-    if ops.order == "vh":
-        macs = v.n_out * lanes_in * v.width * pv + v.n_out * lanes_out * h.width * ph
-    else:
-        macs = v.n_in * lanes_out * h.width * ph + v.n_out * lanes_out * v.width * pv
-    nops = 2 * macs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
-    return (
-        1e3 * max(t_bytes, t_ops),
-        "bytes" if t_bytes >= t_ops else "operations",
-        nbytes,
-        nops,
+    """K1 in split modes: bf16 hi + lo per tap; 2 products per pass for
+    split2, 3 for split3, at the bf16 tensor-core rate."""
+    return _k1_bound(
+        plan.h.op, plan.v.op, c, ops.order, in_bytes, out_bytes, 4,
+        3 if ops.mode_v == "split3" else 2, 3 if ops.mode_h == "split3" else 2,
+        BF16_OPS_PER_S,
     )
 
 
@@ -441,6 +543,235 @@ def _new_shape(name, sw, sh, nw, nh, c, in_dt, bits, dither, gen, dev,
     return entries
 
 
+def _epi_shape(name, entry, sw, sh, nw, nh, c, in_dt, out_dt, kw, key,
+               lsb_gate, gen, dev, flush, smi, mods) -> list[dict]:
+    """Drive one main-path shape of K1's epilogue variants (LANCIR's
+    round-half-even, sRGB gamma) through its public entry point, check it
+    against the plain version and the float64 oracle, time it, and return
+    its kernels-line entry."""
+    import avir_tpu_torch
+    from avir_tpu_torch.models.host_reference import default_dither
+    from avir_tpu_torch.models.runtime import (
+        make_avir_executor,
+        make_lancir_executor,
+    )
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.gamma import linear_to_srgb_np, srgb_to_linear_np
+    from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    src = gen.integers(0, np.iinfo(in_dt).max + 1, (sh, sw, c), dtype=in_dt)
+    kw = dict(kw)
+    bits = kw.pop("res_bit_depth", 8)
+    if entry == "lancir":
+        api = avir_tpu_torch.LancIR()
+        plan = build_lancir_plan(sw, sh, nw, nh, c, in_dt, out_dt)
+        make = make_lancir_executor
+        hop, vop = plan.h, plan.v
+    else:
+        api = avir_tpu_torch.ImageResizer(res_bit_depth=bits)
+        plan = build_resize_plan(
+            sw, sh, nw, nh, c, in_dt, out_dt, res_bit_depth=bits, **kw
+        )
+        make = make_avir_executor
+        hop, vop = plan.h.op, plan.v.op
+
+    def call():
+        return api.resize(src, nw, nh, out_dtype=out_dt, device=dev, **kw)
+
+    _zero(mods)
+    t0 = time.perf_counter()
+    out = call()
+    first_s = time.perf_counter() - t0
+    counts = _counts(mods)
+    fn = make(plan, device=dev)
+    ops = fn.ops
+    print(json.dumps({
+        "main_path": name, "launches": {k: v for k, v in counts.items() if v},
+        "route": fn.route, "order": fn.order, "variant": ops.launch_key,
+    }))
+    if counts[key] < 1 or ops.launch_key != key:
+        _fail(f"{name}: {key} was not launched on the main path")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        walls.append(1e3 * (time.perf_counter() - t0))
+
+    mod = fk if fn.route == "int8" else fs
+    kernel = fk.apply_fused_int8 if mod is fk else fs.apply_fused_split
+    plain = (
+        fk.apply_fused_int8_reference if mod is fk
+        else fs.apply_fused_split_reference
+    )
+    x = torch.from_numpy(src.reshape(sh, sw * c)).to(dev)
+    got = kernel(ops, x)
+    torch.cuda.synchronize()
+    want = plain(ops, x)
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max())
+    tol = 0.0 if mod is fk else _split_int_tol(
+        float(want.double().abs().max()), ops.epi.scale, ops.epi.gamma
+    )
+    same_as_resize = bool(np.array_equal(got.cpu().numpy().reshape(nh, nw, c), out))
+
+    # Float64 oracle: models/host_reference.py's execute_lancir_numpy /
+    # execute_plan_numpy (gamma branch), with slabbed passes.
+    t0 = time.perf_counter()
+    out_max = 255.0 if np.dtype(out_dt).itemsize == 1 else 65535.0
+    if entry == "lancir":
+        pre = _passes(hop, vop, src) * plan.out_mul
+        oracle = np.clip(np.rint(pre), 0.0, plan.clamp).astype(out_dt)
+    else:
+        lin = srgb_to_linear_np(src * plan.in_gamma_mult, plan.alpha_index)
+        pre = linear_to_srgb_np(_passes(hop, vop, lin), plan.alpha_index)
+        oracle = default_dither(pre * plan.out_gamma_mult, 0, out_max).astype(out_dt)
+    oracle_s = time.perf_counter() - t0
+    lsb = int(np.abs(out.astype(np.int32) - oracle.astype(np.int32)).max())
+    psnr = _psnr(out, oracle, out_max)
+    ok = (
+        out.shape == (nh, nw, c) and out.dtype == np.dtype(out_dt)
+        and err <= tol and same_as_resize and lsb <= lsb_gate and psnr >= 60.0
+    )
+
+    ms = _time_ms(lambda: kernel(ops, x), 20, flush)
+    plain_ms = _time_ms(lambda: plain(ops, x), 2, flush)
+    exact = make(plan, precision="exact", device=dev)
+    exact_ms = _time_ms(lambda: exact(x), 3, flush)
+    h2d_ms = _time_ms(lambda: torch.from_numpy(src.reshape(sh, -1)).to(dev), 5, flush)
+    d2h_ms = _time_ms(lambda: got.cpu(), 5, flush)
+    in_b, out_b = np.dtype(in_dt).itemsize, np.dtype(out_dt).itemsize
+    gamma = ops.epi.gamma
+    if mod is fk:
+        p_first = 3 if gamma else 2
+        pv, ph = (p_first, 3) if ops.order == "vh" else (3, p_first)
+        tap_b, rate, reads = 2, INT8_OPS_PER_S, _first_pass_reads(ops)
+    else:
+        pv = 3 if ops.mode_v == "split3" else 2
+        ph = 3 if ops.mode_h == "split3" else 2
+        tap_b, rate, reads = 4, BF16_OPS_PER_S, _split_reads(ops)
+    f32_ops = 0
+    if gamma:
+        f32_ops = (
+            vop.n_in * hop.n_in * c * GAMMA_IN_OPS[fn.route]
+            + vop.n_out * hop.n_out * c * GAMMA_OUT_OPS
+        )
+    bound_ms, bound_by, nbytes, nops = _k1_bound(
+        hop, vop, c, ops.order, in_b, out_b, tap_b, pv, ph, rate, f32_ops
+    )
+    report = {
+        "shape": name, "kernel": key, "route": fn.route,
+        "order": ops.order, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "tensor_ops": nops, "f32_gamma_ops": f32_ops,
+        "max_abs_err_vs_plain": err, "tol_vs_plain": tol,
+        "max_lsb_vs_f64_oracle": lsb, "lsb_gate": lsb_gate,
+        "psnr_vs_f64_oracle_db": psnr, "oracle_s": oracle_s,
+        "pixels_off_vs_oracle": int((out != oracle).sum()),
+        "first_pass_reads_per_input": reads,
+        "launches_per_resize": {k: v for k, v in counts.items() if v},
+        "exact_route_ms": exact_ms,
+        "exact_route_note": "precision='exact': the same resize as "
+        "full-float32 torch.bmm passes (and the rational gamma forms) -- "
+        "several PyTorch calls, so no single library call (library_ms null)",
+        "resize_first_call_s": first_s,
+        "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
+        "h2d_copy_ms": h2d_ms, "d2h_copy_ms": d2h_ms,
+        "card": smi,
+    }
+    if mod is fs:
+        report.update({"mode_v": ops.mode_v, "mode_h": ops.mode_h})
+    print(json.dumps(report))
+    if not ok:
+        _fail(
+            f"{name}: shape {out.shape} {out.dtype}, kernel vs plain {err} "
+            f"(tol {tol}), same as resize {same_as_resize}, oracle {lsb} LSB "
+            f"(gate {lsb_gate}) / {psnr} dB"
+        )
+    return [{
+        "name": key, "route": "cuda", "source": SOURCES[key],
+        "replaces": KERNELS[key], "launches": counts[key],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }]
+
+
+def _epi_cases(gen, dev) -> None:
+    """K1's epilogue variants against their plain versions, small cases."""
+    from avir_tpu_torch.ops.banded import block_banded
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.lanes import lane_block_banded
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    def epi(plan, rm, scale, g, alpha):
+        kw = dict(scale=scale, round_mode=rm)
+        if g:
+            kw.update(gamma=True, alpha_index=alpha,
+                      in_gamma_mult=plan.in_gamma_mult,
+                      out_gamma_mult=plan.out_gamma_mult)
+        return kw
+
+    for sw, sh, nw, nh, c, tile, order, rm, scale, g, alpha in INT8_EPI_CASES:
+        plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8,
+                                 use_srgb_gamma=g, alpha_index=alpha)
+        ops = fk.prepare_fused_int8(
+            block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile),
+            order, dev, **epi(plan, rm, scale, g, alpha),
+        )
+        x = torch.from_numpy(
+            gen.integers(0, 256, (sh, sw * c), dtype=np.uint8)
+        ).to(dev)
+        got = fk.apply_fused_int8(ops, x)
+        torch.cuda.synchronize()
+        want = fk.apply_fused_int8_reference(ops, x)
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        case = (f"{ops.launch_key} {sw}x{sh}->{nw}x{nh} C={c} tile={tile} "
+                f"scale={scale} alpha={alpha}")
+        print(json.dumps({"case": case, "max_abs_err": err}))
+        if err != 0:
+            _fail(f"kernel != plain on {case}")
+
+    for case_t in SPLIT_EPI_CASES:
+        (sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb, rm, scale, g,
+         alpha) = case_t
+        ib = np.dtype(NP_TYPES[tin]).itemsize
+        out_max = 255.0 if tout == "u8" else 65535.0
+        plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout],
+                                 use_srgb_gamma=g, alpha_index=alpha)
+        ops = fs.prepare_fused_split(
+            block_banded(plan.v.op, in_bytes=ib),
+            lane_block_banded(plan.h.op, c, tile=tile, in_bytes=ib),
+            order, mv, mh, dev, out_dtype=TORCH_TYPES[tout], out_max=out_max,
+            trunc_bits=tb, **epi(plan, rm, scale, g, alpha),
+        )
+        if tin == "f32":
+            xn = gen.random((sh, sw * c), dtype=np.float32)
+        else:
+            xn = gen.integers(0, int(np.iinfo(NP_TYPES[tin]).max) + 1,
+                              (sh, sw * c), dtype=NP_TYPES[tin])
+        x = torch.from_numpy(xn).to(dev)
+        got = fs.apply_fused_split(ops, x)
+        torch.cuda.synchronize()
+        want = fs.apply_fused_split_reference(ops, x)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        ref_max = float(want.double().abs().max())
+        if tout == "f32":
+            tol = ref_max * 1e-4
+        elif tb:
+            tol = out_max / (int(out_max) >> tb)
+        else:
+            tol = _split_int_tol(ref_max, scale, g)
+        case = (f"{ops.launch_key} {sw}x{sh}->{nw}x{nh} C={c} tile={tile} "
+                f"{mv}/{mh} {tin}->{tout} tb={tb} scale={scale:.6g} alpha={alpha}")
+        print(json.dumps({"case": case, "max_abs_err": err, "tol": tol}))
+        if not err <= tol:
+            _fail(f"split kernel != plain on {case}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -553,6 +884,8 @@ def main() -> int:
         if not err <= (0.0 if tb == 0 else om / (int(om) >> tb)):
             _fail(f"wavefront kernel != plain on {case}")
 
+    _epi_cases(gen, dev)
+
     # ---- 3./4. main path, checks and timing ----------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     entries = []
@@ -632,6 +965,8 @@ def main() -> int:
             name, sw, sh, nw, nh, c, in_dt, bits, dith, gen, dev, flush, smi,
             mods,
         )
+    for shape in EPI_SHAPES:
+        entries += _epi_shape(*shape, gen, dev, flush, smi, mods)
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({

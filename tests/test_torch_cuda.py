@@ -6,9 +6,10 @@ toolkit are installed:
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances: K1 int8 and K4 are bit-equal (exact integer sums; the same
-float32 operations in the same order).  K1 split-bf16 sums in another
-order than its plain version: float32 within max|plain| * 1e-4, integers
-within 1 LSB, or one quantization step when ``trunc_bits`` > 0."""
+float32 operations in the same order, gamma and the round-half-even
+epilogue included).  K1 split-bf16 sums in another order than its plain
+version: float32 within max|plain| * 1e-4, integers within 1 LSB, or one
+quantization step when ``trunc_bits`` > 0."""
 
 import numpy as np
 import pytest
@@ -17,12 +18,16 @@ import torch
 from torch_cases import (
     FUSED_CASES,
     IN_BYTES,
+    INT8_EPI_CASES,
     NP_TYPES,
     SPLIT_CASES,
+    SPLIT_EPI_CASES,
     WAVEFRONT_CASES,
+    epi_kwargs,
     float_image,
     order_of,
     split_source,
+    split_tol,
 )
 
 from avir_tpu_torch.ops.banded import block_banded
@@ -84,6 +89,58 @@ def test_split_kernel_matches_plain_on_card(name, cuda_device):
         assert diff <= want.abs().max().item() * 1e-4
     else:
         assert diff <= (out_max / (int(out_max) >> tb) if tb else 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(INT8_EPI_CASES))
+def test_int8_epilogue_kernel_matches_plain_on_card(name, cuda_device):
+    """Round-half-even with scale, and gamma with the C=4 alpha bypass."""
+    sw, sh, nw, nh, c, tile, order, rm, scale, g, alpha = INT8_EPI_CASES[name]
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=g,
+        alpha_index=alpha,
+    )
+    ops = fk.prepare_fused_int8(
+        block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile),
+        order, cuda_device, **epi_kwargs(plan, rm, scale, g, alpha),
+    )
+    x = torch.from_numpy(
+        np.random.default_rng(sum(map(ord, name))).integers(
+            0, 256, (sh, sw * c), dtype=np.uint8
+        )
+    ).to(cuda_device)
+    before = fk.launches[ops.launch_key]
+    got = fk.apply_fused_int8(ops, x)
+    torch.cuda.synchronize()
+    assert fk.launches[ops.launch_key] == before + 1
+    assert torch.equal(got, fk.apply_fused_int8_reference(ops, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SPLIT_EPI_CASES))
+def test_split_epilogue_kernel_matches_plain_on_card(name, cuda_device):
+    (sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb, rm, scale, g,
+     alpha) = SPLIT_EPI_CASES[name]
+    out_max = 255.0 if tout == "u8" else 65535.0
+    ib = IN_BYTES[tin]
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout], use_srgb_gamma=g,
+        alpha_index=alpha,
+    )
+    ops = fs.prepare_fused_split(
+        block_banded(plan.v.op, in_bytes=ib),
+        lane_block_banded(plan.h.op, c, tile=tile, in_bytes=ib),
+        order, mv, mh, cuda_device, out_dtype=_TORCH[tout], out_max=out_max,
+        trunc_bits=tb, **epi_kwargs(plan, rm, scale, g, alpha),
+    )
+    x = torch.from_numpy(split_source(name, sh, sw, c, tin)).to(cuda_device)
+    got = fs.apply_fused_split(ops, x)
+    torch.cuda.synchronize()
+    want = fs.apply_fused_split_reference(ops, x)
+    diff = (got.double() - want.double()).abs().max().item()
+    assert diff <= split_tol(
+        tout, want.double().abs().max().item(), out_max, tb, scale, g
+    )
 
 
 @pytest.mark.cuda

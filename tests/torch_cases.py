@@ -39,6 +39,42 @@ SPLIT_CASES = {
     "other_hv_c1_u8_u8_tb4": (96, 80, 70, 101, 1, None, "hv", "split3", "split2", "u8", "u8", 4),
 }
 
+# K1 int8 epilogue variants: (src_w, src_h, new_w, new_h, c, lane tile
+# or None, order, round_mode, scale, gamma, alpha_index).  "even" is
+# LANCIR's round-half-even (its int8 route has scale 1); gamma linearizes
+# the u8 input to 13-bit linear light.
+INT8_EPI_CASES = {
+    "even_down_c1": (150, 90, 61, 37, 1, None, "vh", "even", 1.0, False, -1),
+    "even_down_c3": (200, 150, 80, 60, 3, None, "vh", "even", 1.0, False, -1),
+    "even_down_c4_scale": (181, 77, 60, 33, 4, None, "vh", "even", 0.75, False, -1),
+    "even_down_c3_tc": (120, 80, 70, 50, 3, 50, "vh", "even", 1.0, False, -1),
+    "even_up_c1": (45, 31, 97, 70, 1, None, "hv", "even", 1.0, False, -1),
+    "even_up_c3": (300, 20, 1400, 41, 3, None, "hv", "even", 1.0, False, -1),
+    "even_up_c4_tc": (29, 21, 71, 45, 4, 48, "hv", "even", 1.0, False, -1),
+    "gamma_down_c3": (200, 150, 80, 60, 3, None, "vh", "biased", 1.0, True, -1),
+    "gamma_down_c4a": (181, 77, 60, 33, 4, None, "vh", "biased", 1.0, True, 3),
+    "gamma_down_c4a0_tc": (120, 80, 70, 50, 4, 50, "vh", "biased", 1.0, True, 0),
+    "gamma_up_c3": (300, 20, 1400, 41, 3, None, "hv", "biased", 1.0, True, -1),
+    "gamma_up_c4a": (500, 20, 1200, 41, 4, None, "hv", "biased", 1.0, True, 3),
+    "gamma_up_c4a_tc": (29, 21, 71, 45, 4, 48, "hv", "biased", 1.0, True, 3),
+}
+
+# K1 split-bf16 epilogue variants: SPLIT_CASES' fields plus round_mode,
+# scale, gamma, alpha_index.  The scales are LANCIR's out_mul (u16 -> u8,
+# u8 -> u16, and float output, which is written unscaled).
+SPLIT_EPI_CASES = {
+    "even_down_u16_u8": (181, 77, 60, 33, 3, None, "vh", "split3", "split3", "u16", "u8", 0, "even", 255.0 / 65535.0, False, -1),
+    "even_up_u8_u16": (40, 30, 64, 48, 4, None, "hv", "split3", "split2", "u8", "u16", 0, "even", 65535.0 / 255.0, False, -1),
+    "even_down_f32_f32": (120, 80, 70, 50, 3, 50, "vh", "split3", "split3", "f32", "f32", 0, "even", 0.5, False, -1),
+    "even_up_u8_u8_fast": (300, 20, 1400, 41, 3, None, "hv", "split2", "split2", "u8", "u8", 0, "even", 1.0, False, -1),
+    "gamma_down_u8_u8": (200, 150, 80, 60, 3, None, "vh", "split3", "split3", "u8", "u8", 0, "biased", 1.0, True, -1),
+    "gamma_down_u16_u16_c4a": (181, 77, 60, 33, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 3),
+    "gamma_down_u8_f32": (150, 90, 61, 37, 1, None, "vh", "split3", "split3", "u8", "f32", 0, "biased", 1.0, True, -1),
+    "gamma_up_u16_u16_c4a": (45, 31, 97, 70, 4, None, "hv", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 3),
+    "gamma_up_u8_f32_c4a0": (29, 21, 71, 45, 4, 48, "hv", "split3", "split3", "u8", "f32", 0, "biased", 1.0, True, 0),
+    "gamma_up_f32_u8_tb2": (300, 20, 1400, 41, 3, None, "hv", "split3", "split3", "f32", "u8", 2, "biased", 1.0, True, -1),
+}
+
 # K4: (h, w, c, trunc_bits, out_max)
 WAVEFRONT_CASES = [
     (24, 40, 1, 0, 255.0),
@@ -56,6 +92,35 @@ IN_BYTES = {"u8": 1, "u16": 2, "f32": 4}
 
 def order_of(sw, sh, nw, nh):
     return "vh" if nw * nh <= sw * sh else "hv"
+
+
+def split_tol(out_dtype_name, ref_max, out_max=255.0, trunc_bits=0,
+              scale=1.0, gamma=False):
+    """The split gate between two summation orders: float32 within
+    max|ref| * 1e-4; integers within 1 LSB (one quantization step with
+    ``trunc_bits``).  An integer output that amplifies the float32
+    difference -- scaled up by ``scale`` > 1 (LANCIR u8 -> u16: 257), or
+    through gamma-out's slope (up to 12.92) -- takes the float32 gate on
+    its own range plus one rounding step (about 7.5 LSB at 16 bits; still
+    1 LSB at 8 bits)."""
+    if out_dtype_name == "f32":
+        return ref_max * 1e-4
+    if trunc_bits:
+        return out_max / (int(out_max) >> trunc_bits)
+    return 1.0 + (ref_max * 1e-4 if scale > 1.0 or gamma else 0.0)
+
+
+def epi_kwargs(plan, round_mode, scale, gamma, alpha):
+    """K1 epilogue keyword arguments of a case, the gamma multipliers
+    taken from a gamma plan (either package's)."""
+    kw = dict(scale=scale, round_mode=round_mode)
+    if gamma:
+        kw.update(
+            gamma=True, alpha_index=alpha,
+            in_gamma_mult=plan.in_gamma_mult,
+            out_gamma_mult=plan.out_gamma_mult,
+        )
+    return kw
 
 
 def split_source(name, sh, sw, c, tin):
