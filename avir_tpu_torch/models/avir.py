@@ -9,13 +9,15 @@ and runs it on ``device``.  Arrays go in and come out as NumPy arrays.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from ..params import PARAMS_DEF, Params
 from ..plan.plan import build_resize_plan
 from ..utils.excache import ExecutorCache
-from .runtime import make_avir_executor, resolve_device
+from .runtime import GAMMA_ROUTE_ENV, make_avir_executor, resolve_device
 
 DITHERS = ("default", "errdiff", "errdiff-wavefront")
 
@@ -76,7 +78,10 @@ class ImageResizer:
 
         ``use_srgb_gamma``: resize in linear light (sRGB in and out, in
         the kernel); ``alpha_index`` 0 or 3 of 4-channel data passes that
-        channel through the gamma stages unchanged.
+        channel through the gamma stages unchanged.  The environment
+        variable ``AVIR_TPU_GAMMA_ROUTE=prologue`` makes the int8 route
+        linearize the image once (kernel K5) before K1; "ring" raises (see
+        models/runtime.py).
 
         Still raising NotImplementedError, with their ROADMAP.md item:
         ``dither="errdiff-device"``, a callable ditherer,
@@ -119,6 +124,8 @@ class ImageResizer:
             sw, sh, new_w, new_h, ch, src.dtype.str, out_dtype.str,
             k, ox, oy, use_srgb_gamma, alpha_index, build_mode, precision,
             errdiff, self.res_bit_depth, self.src_bit_depth, str(device),
+            # the int8 gamma route is chosen when the executor is built
+            os.environ.get(GAMMA_ROUTE_ENV, "auto"),
         )
 
         def build():

@@ -27,31 +27,59 @@ float output).  AVIR routing:
   - error diffusion runs the wavefront scan K4
     (``ops/cuda/wavefront.py``) on the float32 pre-dither image.
 
+Fused or unfused (``choose_fused``, the JAX package's rule of
+``ops/pallas/fused_kernel.py:choose_fused`` with its TPU VMEM check
+``fused_viable`` taken as true, and ``models/runtime.py:366-375`` there),
+in this order:
+  1. an int8-eligible plan whose limbs are infeasible (``int8_feasible``
+     false) runs unfused in the split modes, downsize or upsize;
+  2. otherwise a downsize is fused;
+  3. a 2- or 4-byte upsize is fused;
+  4. a u8 upsize in the split modes is fused only with a split2 first
+     pass, no gamma and new_h * new_w * C >= 8,000,000.
+The unfused route (``run.route == "unfused"``, ``separable_pass_lanes``)
+runs two kernels: K3, the lane pass (``ops/cuda/lanes_kernel.py``), and
+K2, the row pass (``ops/cuda/banded_kernel.py``), in the order of the JAX
+package's cost model (``run.order``: "vh" is K2 then K3), over the lane
+operator at its base tile (``ops/lanes.py:narrow_lop``), with a float32
+intermediate in device memory.  With gamma the rational forms
+(``ops/gamma.py``) run around the two passes, as on the "exact" route;
+then the dither stage.  The pass order of a fused launch stays the
+port's ``_order``.
+
+The int8 gamma route reads ``AVIR_TPU_GAMMA_ROUTE`` when the executor is
+built (``models/runtime.py:402-449`` there): "prologue" linearizes the
+image once with K5 (``ops/cuda/gamma_prologue.py``) and K1 reads its two
+limb planes (bit-equal to the in-kernel route); "ring" (K6) raises
+NotImplementedError; anything else is the in-kernel route.
+
 LANCIR routes the same way (int8 for u8 in and u8 out at
 ``precision="auto"``), with K1's round-half-even epilogue and its
 ``scale`` (the plan's ``out_mul``) for integer output; float output is
 written unscaled and multiplied by ``out_mul`` after the kernel, as in
-the JAX package.
+the JAX package.  Its unfused route multiplies by ``out_mul`` after the
+passes, then rounds half to even and clamps.
 
 Error diffusion excludes the int8 mode, as in the JAX package
 (``avir_tpu/models/runtime.py:344-347``): the recursive quantizer feeds
 its residual back, which turns the int8 route's ~2^-14 tap noise into
 extra +-1 flips, so the pre-dither image must be full precision.
 
-The JAX package's fused/unfused choice (``choose_fused``,
-``fused_viable``) is calibrated for the TPU's VMEM and is not carried
-over.  Configurations this port does not carry yet raise
-NotImplementedError naming the ROADMAP.md item that will bring them;
-none is computed by another route.
+Configurations this port does not carry yet raise NotImplementedError
+naming the ROADMAP.md item that will bring them; none is computed by
+another route.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Callable
 
 import torch
 
-from ..ops.banded import apply_blocked, block_banded
+from ..ops.banded import BlockedBandedOp, apply_blocked, block_banded
+from ..ops.cuda.banded_kernel import BandedOperands, apply_banded, prepare_banded
 from ..ops.cuda.fused_kernel import (
     apply_fused_int8,
     int8_feasible,
@@ -62,12 +90,18 @@ from ..ops.cuda.fused_split import (
     prepare_fused_split,
     to_float32,
 )
+from ..ops.cuda.gamma_prologue import apply_gamma_prologue
+from ..ops.cuda.lanes_kernel import LanesOperands, apply_lanes, prepare_lanes
 from ..ops.cuda.wavefront import errdiff_wavefront
 from ..ops.dither import default_dither
-from ..ops.gamma import linear_to_srgb_2d, srgb_to_linear_2d
-from ..ops.lanes import lane_block_banded
+from ..ops.gamma import f32, linear_to_srgb_2d, srgb_to_linear_2d
+from ..ops.lanes import LaneBlockedOp, lane_block_banded, narrow_lop
 from ..plan.lancir_plan import LancirPlan
 from ..plan.plan import ResizePlan
+
+# Environment variable that selects the int8 gamma route (read when an
+# executor is built; part of the resizers' cache keys).
+GAMMA_ROUTE_ENV = "AVIR_TPU_GAMMA_ROUTE"
 
 
 def resolve_device(device) -> torch.device:
@@ -128,6 +162,83 @@ def _order(vop, lop) -> str:
     return "vh" if vop.n_out * lop.n_out <= vop.n_in * lop.n_in else "hv"
 
 
+def choose_fused(
+    vop: BlockedBandedOp, lop: LaneBlockedOp, mode1: str, gamma: bool,
+    c: int, in_bytes: int = 1,
+) -> bool:
+    """Whether K1 runs the resize (else the unfused K3/K2 route): rules
+    1-4 of the module docstring.  ``mode1`` is the first pass's mode,
+    "int8" for an int8-eligible plan."""
+    if mode1 == "int8":
+        return int8_feasible(vop, lop, _order(vop, lop), gamma)
+    if _order(vop, lop) == "vh" or in_bytes >= 2:
+        return True
+    return (
+        mode1 == "split2" and not gamma
+        and vop.n_out * lop.n_out * c >= 8_000_000
+    )
+
+
+def lanes_order(vop: BlockedBandedOp, lop: LaneBlockedOp, h: int, w: int, c: int) -> str:
+    """Pass order of the unfused route: the JAX package's model of the
+    two kernels' tap work (``_separable_pass_lanes``, runtime.py:222-227
+    there); "vh" runs the row pass K2 first."""
+    flops_v = vop.n_blocks * vop.tile * vop.win
+    flops_h = lop.n_blocks * lop.win_l * lop.tile * c
+    cost_vh = flops_v * w * c + flops_h * vop.n_out
+    cost_hv = flops_h * h + flops_v * lop.n_out * c
+    return "vh" if cost_vh <= cost_hv else "hv"
+
+
+@dataclasses.dataclass(frozen=True)
+class UnfusedOperands:
+    """The two kernels of an unfused resize and their order."""
+
+    order: str             # "vh": K2 (rows) then K3 (lanes); "hv" the other
+    rows: BandedOperands   # K2
+    lanes: LanesOperands   # K3
+
+    @property
+    def mode_v(self) -> str:
+        return self.rows.mode
+
+    @property
+    def mode_h(self) -> str:
+        return self.lanes.mode
+
+
+def prepare_unfused(
+    vop: BlockedBandedOp, lop: LaneBlockedOp, h: int, w: int, c: int,
+    mode1: str, mode2: str, device,
+) -> UnfusedOperands:
+    """Operands of the unfused route; ``mode1`` applies to the pass that
+    reads the image, ``mode2`` to the other."""
+    order = lanes_order(vop, lop, h, w, c)
+    mode_v, mode_h = (mode1, mode2) if order == "vh" else (mode2, mode1)
+    return UnfusedOperands(
+        order=order,
+        rows=prepare_banded(vop, mode_v, device),
+        lanes=prepare_lanes(lop, mode_h, device),
+    )
+
+
+def separable_pass_lanes(x: torch.Tensor, ops: UnfusedOperands) -> torch.Tensor:
+    """[H, W*C] (u8, u16 or float32) -> float32 [new_h, new_w*C] by the
+    two kernels (``_separable_pass_lanes`` there): each converts its input
+    as it stages it, and the lane pass writes the interleaved layout, so
+    nothing is transposed."""
+    if ops.order == "vh":
+        return apply_lanes(ops.lanes, apply_banded(ops.rows, x))
+    return apply_banded(ops.rows, apply_lanes(ops.lanes, x))
+
+
+def gamma_route() -> str:
+    """The int8 gamma route ``AVIR_TPU_GAMMA_ROUTE`` asks for: "prologue",
+    "ring", or "inkernel" (unset or anything else)."""
+    route = os.environ.get(GAMMA_ROUTE_ENV, "auto")
+    return route if route in ("prologue", "ring") else "inkernel"
+
+
 def separable_pass_exact(
     x: torch.Tensor, hop, vop, h: int, w: int, c: int,
     h_taps: torch.Tensor | None = None, v_taps: torch.Tensor | None = None,
@@ -139,14 +250,14 @@ def separable_pass_exact(
     device."""
     new_w, new_h = hop.n_out, vop.n_out
     if new_h * w <= h * new_w:
-        x = apply_blocked(vop, x, v_taps)  # [new_h, W*C]
+        x = apply_blocked(vop, x, taps=v_taps)  # [new_h, W*C]
         x = x.reshape(new_h, w, c).transpose(0, 1).reshape(w, new_h * c)
-        x = apply_blocked(hop, x, h_taps)  # [new_w, new_h*C]
+        x = apply_blocked(hop, x, taps=h_taps)  # [new_w, new_h*C]
         return x.reshape(new_w, new_h, c).transpose(0, 1).reshape(new_h, -1)
     x = x.reshape(h, w, c).transpose(0, 1).reshape(w, h * c)
-    x = apply_blocked(hop, x, h_taps)  # [new_w, H*C]
+    x = apply_blocked(hop, x, taps=h_taps)  # [new_w, H*C]
     x = x.reshape(new_w, h, c).transpose(0, 1).reshape(h, new_w * c)
-    return apply_blocked(vop, x, v_taps)  # [new_h, new_w*C]
+    return apply_blocked(vop, x, taps=v_taps)  # [new_h, new_w*C]
 
 
 def make_avir_executor(
@@ -158,9 +269,10 @@ def make_avir_executor(
     """Build a resize function [H, W*C] -> [new_h, new_w*C] on ``device``
     for ``plan`` (see the module docstring for the routing).  ``errdiff``
     selects error diffusion for integer output.  The returned function
-    carries its route as ``run.route`` ("int8", "split" or "exact"), the
-    pass order as ``run.order`` and the K1 operands (None for "exact") as
-    ``run.ops``."""
+    carries its route as ``run.route`` ("int8", "split", "unfused" or
+    "exact"), the pass order as ``run.order`` and its kernels' operands
+    as ``run.ops`` (K1's, ``UnfusedOperands`` for "unfused", None for
+    "exact")."""
     reason = unsupported_reason(plan, precision)
     if reason is not None:
         raise NotImplementedError(f"not ported yet: {reason}")
@@ -224,11 +336,52 @@ def make_avir_executor(
         run.route, run.order, run.ops = "exact", None, None
         return run
 
-    if int8_ok and int8_feasible(vop, lop, order, gamma):
-        ops = prepare_fused_int8(vop, lop, order, device, **gamma_kw)
+    if not choose_fused(vop, lop, "int8" if int8_ok else mode1, gamma, c, in_bytes):
+        ops = prepare_unfused(
+            vop, narrow_lop(plan.h.op, lop, c, in_bytes=in_bytes),
+            plan.src_h, plan.src_w, c, mode1, mode2, device,
+        )
+
+        def predither(src: torch.Tensor) -> torch.Tensor:
+            x = src
+            if gamma:
+                x = srgb_to_linear_2d(
+                    to_float32(src) * f32(plan.in_gamma_mult), c, plan.alpha_index
+                )
+            x = separable_pass_lanes(x, ops)
+            if gamma:
+                x = linear_to_srgb_2d(x, c, plan.alpha_index)
+                if plan.out_gamma_mult != 0.0:
+                    x = x * f32(plan.out_gamma_mult)
+            return x
 
         def run(src: torch.Tensor) -> torch.Tensor:
-            return apply_fused_int8(ops, src)
+            return quantize(predither(src))
+
+        # The float32 image before the dither stage, for callers that
+        # check it (chip_smoke.py).
+        run.predither = predither
+        run.route, run.order, run.ops = "unfused", ops.order, ops
+        return run
+
+    if int8_ok:
+        route = gamma_route() if gamma else "inkernel"
+        if route == "ring":
+            raise NotImplementedError(
+                f"not ported yet: {GAMMA_ROUTE_ENV}=ring, the shift-ring "
+                "gamma kernel K6 (ROADMAP.md Queue 2 K6)"
+            )
+        pre = route == "prologue"
+        ops = prepare_fused_int8(vop, lop, order, device, gamma_pre=pre, **gamma_kw)
+
+        def run(src: torch.Tensor) -> torch.Tensor:
+            if not pre:
+                return apply_fused_int8(ops, src)
+            hi, lo = apply_gamma_prologue(
+                src, ops.rows_pad, ops.lanes_pad, c, plan.alpha_index,
+                plan.in_gamma_mult,
+            )
+            return apply_fused_int8(ops, hi, lo)
 
         run.route, run.order, run.ops = "int8", order, ops
         return run
@@ -282,6 +435,16 @@ def make_lancir_executor(
     def rescale(x: torch.Tensor) -> torch.Tensor:
         return x * plan.out_mul if plan.out_mul != 1.0 else x
 
+    def finish(x: torch.Tensor) -> torch.Tensor:
+        """``out_mul``, then round half to even and clamp for integer
+        output (the routes that do not round in a kernel)."""
+        x = rescale(x)
+        if plan.is_out_float:
+            return x
+        return torch.clamp(torch.round(x), 0.0, plan.clamp).to(
+            torch.int32
+        ).to(out_dt)
+
     if mode1 == "exact":
         hop = block_banded(plan.h, in_bytes=in_bytes)
         h, w = plan.src_h, plan.src_w
@@ -289,15 +452,9 @@ def make_lancir_executor(
         v_taps = torch.from_numpy(vop.taps).to(device)
 
         def run(src: torch.Tensor) -> torch.Tensor:
-            x = separable_pass_exact(
+            return finish(separable_pass_exact(
                 to_float32(src), hop, vop, h, w, c, h_taps, v_taps
-            )
-            x = rescale(x)
-            if plan.is_out_float:
-                return x
-            return torch.clamp(torch.round(x), 0.0, plan.clamp).to(
-                torch.int32
-            ).to(out_dt)
+            ))
 
         run.route, run.order, run.ops = "exact", None, None
         return run
@@ -307,7 +464,19 @@ def make_lancir_executor(
         and plan.in_exact_bf16
         and out_dt == torch.uint8
     )
-    if int8_ok and int8_feasible(vop, lop, order):
+    if not choose_fused(vop, lop, "int8" if int8_ok else mode1, False, c, in_bytes):
+        ops = prepare_unfused(
+            vop, narrow_lop(plan.h, lop, c, in_bytes=in_bytes),
+            plan.src_h, plan.src_w, c, mode1, mode2, device,
+        )
+
+        def run(src: torch.Tensor) -> torch.Tensor:
+            return finish(separable_pass_lanes(src, ops))
+
+        run.route, run.order, run.ops = "unfused", ops.order, ops
+        return run
+
+    if int8_ok:
         ops = prepare_fused_int8(vop, lop, order, device, **epi_kw)
 
         def run(src: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,10 @@ The tiles (``pick_tile``) are the JAX package's, so both packages build
 identical operators from one plan; the CUDA kernels re-tile each block
 for the card on their own.
 
-``apply_blocked`` runs the float32 taps as one batched full-float32
-product: the ``precision="exact"`` route, which has no kernel of its own.
+``apply_blocked`` runs the pass as batched products: in "exact" mode
+the float32 taps in full float32 (the ``precision="exact"`` route, which
+has no kernel of its own), in the split modes the bf16 hi/lo taps (the
+plain version of the row-pass kernel K2, ops/cuda/banded_kernel.py).
 """
 
 from __future__ import annotations
@@ -188,22 +190,53 @@ def assert_full_f32() -> None:
         )
 
 
+BLOCKED_MODES = ("exact", "split2", "split3")
+
+
 def apply_blocked(
-    bop: BlockedBandedOp, x: torch.Tensor, taps: torch.Tensor | None = None
+    bop: BlockedBandedOp,
+    x: torch.Tensor,
+    mode: str = "exact",
+    taps=None,
 ) -> torch.Tensor:
-    """Apply the operator along axis 0 of the float32 ``x`` ([n_in, R] ->
-    [n_out, R]) in full float32: the JAX package's ``apply_blocked`` in
-    its "exact" mode (Precision.HIGHEST), as one batched product of the
-    float32 tap blocks with the gathered input windows.  ``taps`` is
-    ``bop.taps`` already on ``x``'s device (moved per call when None)."""
+    """Apply the operator along axis 0 of ``x`` ([n_in, R] -> float32
+    [n_out, R]; u8/u16 input goes through int32 to float32): the JAX
+    package's ``apply_blocked``, as batched products of the tap blocks
+    with the gathered input windows.
+
+    ``mode``: "exact" (the float32 taps, full float32: Precision.HIGHEST
+    there), "split2" (bf16 hi/lo taps against bf16(x): for inputs exact
+    in bf16) or "split3" (adds taps_hi against the input residual
+    bf16(x - f32(bf16(x))), rounded to nearest even).  Each split product
+    is bf16 x bf16, exact in float32, summed in float32.  ``taps``: the
+    operator's taps already on ``x``'s device (the float32 ``bop.taps``
+    for "exact", the pair (taps_hi, taps_lo) otherwise); moved per call
+    when None."""
+    if mode not in BLOCKED_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     if x.device.type == "cuda":
         assert_full_f32()
+    if x.dtype in (torch.uint8, torch.uint16):
+        x = x.to(torch.int32)
+    x = x.float()
     if bop.n_in_pad > x.shape[0]:
         x = torch.nn.functional.pad(x, (0, 0, 0, bop.n_in_pad - x.shape[0]))
     idx = torch.from_numpy(
         bop.offs.astype(np.int64)[:, None] + np.arange(bop.win)[None, :]
     ).to(x.device)
-    if taps is None:
-        taps = torch.from_numpy(bop.taps).to(x.device)
-    y = torch.bmm(taps, x[idx])  # [n_blocks, tile, R]
+    xw = x[idx]  # [n_blocks, win, R]
+    if mode == "exact":
+        if taps is None:
+            taps = torch.from_numpy(bop.taps).to(x.device)
+        y = torch.bmm(taps, xw)  # [n_blocks, tile, R]
+    else:
+        hi, lo = (
+            (bop.taps_hi.to(x.device), bop.taps_lo.to(x.device))
+            if taps is None else taps
+        )
+        hi, lo = hi.float(), lo.float()
+        xh = xw.to(torch.bfloat16).float()
+        y = torch.bmm(hi, xh) + torch.bmm(lo, xh)
+        if mode == "split3":
+            y = y + torch.bmm(hi, (xw - xh).to(torch.bfloat16).float())
     return y.reshape(bop.n_blocks * bop.tile, -1)[: bop.n_out]

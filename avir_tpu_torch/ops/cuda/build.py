@@ -25,6 +25,9 @@ SOURCES = {
     "fused_int8": "fused_int8.cu",
     "fused_split": "fused_split.cu",
     "wavefront": "wavefront.cu",
+    "banded": "banded.cu",
+    "lanes": "lanes.cu",
+    "gamma_prologue": "gamma_prologue.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

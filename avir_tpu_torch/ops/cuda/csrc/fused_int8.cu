@@ -23,6 +23,11 @@
 //               (the alpha lane: rint(x * in_gamma_mult * 2^13)), split
 //               into s8 limbs xq1 = (xq + 64) >> 7, xq0 = xq - 128*xq1,
 //               staged as two planes; reads past the edge see xq = 0.
+//               gamma from limb planes (GAMMA_PRE: the template's PRE,
+//               _kernel's x_lo input there): xq1 and xq0 read from the two
+//               s8 planes of the prologue kernel K5 (gamma_prologue.cu),
+//               which computed them with the same gamma_in_q13; the rest
+//               of the kernel is unchanged.
 //   vh (downsize), per output row r and lane l:
 //     fq  = 128*sum q1v*xs + sum q0v*xs + v_comp[r]   (v_comp: row sums)
 //         gamma: 2^14*sum q1v*xq1 + 2^7*(sum q1v*xq0 + sum q0v*xq1)
@@ -93,8 +98,9 @@ constexpr int kDepth = 32;   // contraction elements staged per step
 constexpr int kDepth4 = kDepth / 4;
 
 struct Args {
-  const uint8_t* x;
-  int rows_in, lanes_in;
+  const uint8_t* x;        // the u8 image, or (GAMMA_PRE) the hi limb plane
+  const uint8_t* x_lo;     // GAMMA_PRE: the lo limb plane
+  int rows_in, lanes_in;   // extent of x (and x_lo)
   uint8_t* out;
   int rows_out, lanes_out;
   const int8_t* v1;        // [Bv, Tv, Wv]
@@ -125,9 +131,21 @@ __device__ __forceinline__ uint8_t load_xs(const Args& a, int r, int l) {
 }
 
 // Image byte as 13-bit linear light in two s8 limbs (hi, lo); zero past
-// the edge.
+// the edge.  PRE: the limbs read from K5's two planes (x, x_lo).
+template <bool PRE>
 __device__ __forceinline__ void load_xq(const Args& a, int r, int l,
                                         uint8_t* q1, uint8_t* q0) {
+  if (PRE) {
+    uint8_t h = 0, o = 0;
+    if (r < a.rows_in && l < a.lanes_in) {
+      const size_t i = static_cast<size_t>(r) * a.lanes_in + l;
+      h = __ldg(a.x + i);
+      o = __ldg(a.x_lo + i);
+    }
+    *q1 = h;
+    *q0 = o;
+    return;
+  }
   int32_t xq = 0;
   if (r < a.rows_in && l < a.lanes_in) {
     xq = k1::gamma_in_q13(a.epi, __ldg(a.x + static_cast<size_t>(r) * a.lanes_in + l), l);
@@ -202,7 +220,7 @@ constexpr size_t vh_smem_bytes() {
   return (kVhTapWords + (GAMMA ? 2 : 1) * kVhXWords + kVhLimbWords + kVhHWords) * 4;
 }
 
-template <bool GAMMA>
+template <bool GAMMA, bool PRE>
 __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -246,7 +264,7 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
       for (int e = tid; e < kDepth * kLanes; e += kThreads) {
         const int k = e / kLanes, l = e % kLanes;
         if (GAMMA) {
-          load_xq(a, row0 + k0 + k, lane0 + seg + l,
+          load_xq<PRE>(a, row0 + k0 + k, lane0 + seg + l,
                   reinterpret_cast<uint8_t*>(&sx1[k / 4][l]) + k % 4,
                   reinterpret_cast<uint8_t*>(&sx0[k / 4][l]) + k % 4);
         } else {
@@ -337,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   store_out<GAMMA>(a, vb, r0, hb, j, pa, pb);
 }
 
-template <bool GAMMA>
+template <bool GAMMA, bool PRE>
 __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -376,7 +394,7 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
       for (int e = tid; e < kRows * kDepth; e += kThreads) {
         const int r = e / kDepth, l = e % kDepth;
         if (GAMMA) {
-          load_xq(a, row0 + k0 + r, lane0 + m0 + l,
+          load_xq<PRE>(a, row0 + k0 + r, lane0 + m0 + l,
                   reinterpret_cast<uint8_t*>(&sxa[0][r][l / 4]) + l % 4,
                   reinterpret_cast<uint8_t*>(&sxa[GAMMA ? 1 : 0][r][l / 4]) + l % 4);
         } else {
@@ -460,17 +478,17 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   store_out<GAMMA>(a, vb, r0, hb, j, pa, pb);
 }
 
-template <bool GAMMA>
+template <bool GAMMA, bool PRE>
 cudaError_t launch(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
   if (hv) {
-    fused_int8_hv<GAMMA><<<grid, kThreads, 0, s>>>(a);
+    fused_int8_hv<GAMMA, PRE><<<grid, kThreads, 0, s>>>(a);
   } else {
     constexpr size_t bytes = vh_smem_bytes<GAMMA>();
     cudaError_t e = cudaFuncSetAttribute(
-        fused_int8_vh<GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_int8_vh<GAMMA, PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
-    fused_int8_vh<GAMMA><<<grid, kThreads, bytes, s>>>(a);
+    fused_int8_vh<GAMMA, PRE><<<grid, kThreads, bytes, s>>>(a);
   }
   return cudaGetLastError();
 }
@@ -479,7 +497,7 @@ cudaError_t launch(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
 
 extern "C" int avir_fused_int8(
     int hv,
-    const void* x, int rows_in, int lanes_in,
+    const void* x, const void* x_lo, int rows_in, int lanes_in,
     void* out, int rows_out, int lanes_out,
     const void* v1, const void* v0, const void* v_comp, const void* offs_v,
     int bv, int tv, int wv,
@@ -493,6 +511,7 @@ extern "C" int avir_fused_int8(
     void* stream) {
   Args a;
   a.x = static_cast<const uint8_t*>(x);
+  a.x_lo = static_cast<const uint8_t*>(x_lo);
   a.rows_in = rows_in;
   a.lanes_in = lanes_in;
   a.out = static_cast<uint8_t*>(out);
@@ -526,6 +545,9 @@ extern "C" int avir_fused_int8(
   a.epi.out_max = 255.0f;
   const dim3 grid(bh * n_ch, bv * n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = gamma ? launch<true>(hv, a, grid, s) : launch<false>(hv, a, grid, s);
+  if (x_lo != nullptr && !gamma) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = !gamma          ? launch<false, false>(hv, a, grid, s)
+                        : x_lo != nullptr ? launch<true, true>(hv, a, grid, s)
+                                          : launch<true, false>(hv, a, grid, s);
   return static_cast<int>(e);
 }

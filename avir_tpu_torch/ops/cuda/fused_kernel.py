@@ -10,7 +10,10 @@ keeping the 15-bit intermediate on chip.  ``Epilogue`` selects its output
 stage: the biased or round-half-even rounding, LANCIR's ``scale``, and
 sRGB gamma, which linearizes the u8 input to 13-bit linear light as two
 s8 limbs (three limb products in the first pass instead of two, and no
--128 shift) and converts the result back to sRGB before rounding.
+-128 shift) and converts the result back to sRGB before rounding.  With
+``gamma_pre`` (``x_lo`` there) the kernel reads those limbs from the two
+s8 planes that the prologue kernel K5 wrote (ops/cuda/gamma_prologue.py)
+in place of the u8 image and its in-kernel polynomial.
 
 ``prepare_fused_int8`` turns the two operators into device tensors once
 per executor: the chunked lane taps (the unchunked form becomes
@@ -57,8 +60,15 @@ def _variants(prefix: str) -> dict[str, int]:
 
 
 # Launches of each kernel variant of this module, counted by the wrapper:
-# fused_int8_{vh,hv}[_gamma][_even] (see Epilogue.suffix).
-launches = _variants("fused_int8")
+# fused_int8_{vh,hv}[_gamma][_even] (see Epilogue.suffix), and the
+# limb-plane input variants fused_int8_{vh,hv}_gamma[_even]_pre.
+launches = {
+    **_variants("fused_int8"),
+    **{
+        f"fused_int8_{order}_gamma{e}_pre": 0
+        for order in ("vh", "hv") for e in ("", "_even")
+    },
+}
 
 _ROWS = 32    # output rows per thread block (csrc: kRows)
 _LANES = 128  # output lanes per thread block (csrc: kLanes)
@@ -226,6 +236,9 @@ class FusedInt8Operands:
     h_comp: torch.Tensor   # int32 [Bh, n_ch, 128]: 128*128*colsum(h1) + 128*colsum(h0)
                            # (no gamma)
     k_range: torch.Tensor  # int32 [Bv, n_slices, 2] nonzero V-tap rows
+    # The input is K5's two s8 limb planes of the linearized image
+    # (ops/cuda/gamma_prologue.py), not the u8 image (gamma only).
+    gamma_pre: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -233,7 +246,8 @@ class FusedInt8Operands:
 
     @property
     def launch_key(self) -> str:
-        return f"fused_int8_{self.order}{self.epi.suffix}"
+        pre = "_pre" if self.gamma_pre else ""
+        return f"fused_int8_{self.order}{self.epi.suffix}{pre}"
 
 
 def _chunked_lane_taps(lop: LaneBlockedOp):
@@ -288,12 +302,16 @@ def prepare_fused_int8(
     alpha_index: int = -1,
     in_gamma_mult: float = 1.0,
     out_gamma_mult: float = 1.0,
+    gamma_pre: bool = False,
 ) -> FusedInt8Operands:
     """Operands of the fused int8 resize by ``vop`` (rows) and ``lop``
     (interleaved lanes) in pass order ``order``, on ``device``, with the
-    epilogue options of ``Epilogue``."""
+    epilogue options of ``Epilogue``.  ``gamma_pre``: the resize reads
+    K5's limb planes (``apply_fused_int8(ops, hi, x_lo=lo)``)."""
     if order not in ("vh", "hv"):
         raise ValueError(f"unknown order {order!r}")
+    if gamma_pre and not gamma:
+        raise ValueError("limb-plane input is the int8 gamma route")
     if not int8_feasible(vop, lop, order, gamma):
         raise ValueError("int8 mode infeasible for these taps")
     if lop.out_idx is not None:
@@ -349,6 +367,7 @@ def prepare_fused_int8(
         h0p=dev(_pack4(h0)),
         h_comp=dev(cs * 128, torch.int32),
         k_range=dev(_k_ranges(v1, v0)),
+        gamma_pre=bool(gamma_pre),
     )
 
 
@@ -372,10 +391,11 @@ def _recombine(pa: torch.Tensor, pb: torch.Tensor, out_exp: int) -> torch.Tensor
 
 
 def apply_fused_int8_reference(
-    ops: FusedInt8Operands, x: torch.Tensor
+    ops: FusedInt8Operands, x: torch.Tensor, x_lo: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Plain PyTorch fused int8 resize: u8 [rows_in, lanes_in] ->
-    u8 [rows_out, lanes_out], on the device of ``x``."""
+    u8 [rows_out, lanes_out], on the device of ``x``; with
+    ``ops.gamma_pre``, ``x`` and ``x_lo`` are K5's s8 limb planes."""
     dev = x.device
     epi = ops.epi
     v1, v0 = ops.v1.to(torch.float64), ops.v0.to(torch.float64)
@@ -389,7 +409,13 @@ def apply_fused_int8_reference(
     )  # [Bh, n_ch, win_c]
     acc = torch.empty((bv, tv, bh, n_ch * _LANES), dtype=torch.float32, device=dev)
 
-    if epi.gamma:
+    if ops.gamma_pre:
+        # K5's planes already hold the two limbs, zero past the image.
+        _check_planes(ops, x, x_lo)
+        xq1, xq0 = (
+            q[: ops.rows_pad, : ops.lanes_pad].to(torch.float64) for q in (x, x_lo)
+        )
+    elif epi.gamma:
         # 13-bit linear light as two limbs; padding reads 0 -> 0.
         xf = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float32, device=dev)
         xf[: ops.rows_in, : ops.lanes_in] = x
@@ -450,10 +476,26 @@ def apply_fused_int8_reference(
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
+def _check_planes(
+    ops: FusedInt8Operands, x: torch.Tensor, x_lo: torch.Tensor | None
+) -> None:
+    """The limb planes of a ``gamma_pre`` launch: s8, one shape, covering
+    every row and lane the operators' windows reach."""
+    if x_lo is None or x.dtype != torch.int8 or x_lo.dtype != torch.int8:
+        raise ValueError("gamma_pre operands read two s8 limb planes (x, x_lo)")
+    if x.shape != x_lo.shape or x.dim() != 2 or (
+        x.shape[0] < ops.rows_pad or x.shape[1] < ops.lanes_pad
+    ):
+        raise ValueError(
+            f"limb planes {tuple(x.shape)} / {tuple(x_lo.shape)} must share a "
+            f"shape covering [{ops.rows_pad}, {ops.lanes_pad}]"
+        )
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [
     _I,                    # hv
-    _P, _I, _I,            # x, rows_in, lanes_in
+    _P, _P, _I, _I,        # x, x_lo, rows_in, lanes_in
     _P, _I, _I,            # out, rows_out, lanes_out
     _P, _P, _P, _P,        # v1, v0, v_comp, offs_v
     _I, _I, _I,            # bv, tv, wv
@@ -478,24 +520,36 @@ def _library():
     return fn
 
 
-def apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor) -> torch.Tensor:
+def apply_fused_int8(
+    ops: FusedInt8Operands, x: torch.Tensor, x_lo: torch.Tensor | None = None
+) -> torch.Tensor:
     """Fused int8 resize of the u8 image ``x`` [rows_in, lanes_in] ->
-    u8 [rows_out, lanes_out].  A CUDA tensor launches the kernel; a CPU
+    u8 [rows_out, lanes_out]; with ``ops.gamma_pre``, of K5's limb planes
+    ``x`` (hi) and ``x_lo``.  A CUDA tensor launches the kernel; a CPU
     tensor runs the plain version."""
     if x.device.type == "cpu" and ops.device.type == "cpu":
-        return apply_fused_int8_reference(ops, x)
+        return apply_fused_int8_reference(ops, x, x_lo)
     if x.device.type != "cuda" or x.device != ops.device:
         raise ValueError(
             f"image on {x.device}, operands on {ops.device}: both must be "
             "on one CUDA device (or both on the CPU)"
         )
-    if x.dtype != torch.uint8 or x.shape != (ops.rows_in, ops.lanes_in):
-        raise ValueError(
-            f"expected u8 [{ops.rows_in}, {ops.lanes_in}], got "
-            f"{x.dtype} {tuple(x.shape)}"
-        )
-    if not x.is_contiguous():
-        raise ValueError("image must be contiguous")
+    if ops.gamma_pre:
+        _check_planes(ops, x, x_lo)
+        if x_lo.device != x.device or not (x.is_contiguous() and x_lo.is_contiguous()):
+            raise ValueError("limb planes must be contiguous, on one device")
+        rows_in, lanes_in = x.shape
+    else:
+        if x_lo is not None:
+            raise ValueError("x_lo is the gamma_pre operands' input")
+        if x.dtype != torch.uint8 or x.shape != (ops.rows_in, ops.lanes_in):
+            raise ValueError(
+                f"expected u8 [{ops.rows_in}, {ops.lanes_in}], got "
+                f"{x.dtype} {tuple(x.shape)}"
+            )
+        if not x.is_contiguous():
+            raise ValueError("image must be contiguous")
+        rows_in, lanes_in = ops.rows_in, ops.lanes_in
     bv, tv, wv = ops.v1.shape
     bh, n_ch, win_c, _ = ops.h1.shape
     n_slices = ops.k_range.shape[1]
@@ -507,7 +561,8 @@ def apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
             1 if ops.order == "hv" else 0,
-            x.data_ptr(), ops.rows_in, ops.lanes_in,
+            x.data_ptr(), None if x_lo is None else x_lo.data_ptr(),
+            rows_in, lanes_in,
             out.data_ptr(), ops.rows_out, ops.lanes_out,
             ops.v1.data_ptr(), ops.v0.data_ptr(), ops.v_comp.data_ptr(),
             ops.offs_v.data_ptr(),

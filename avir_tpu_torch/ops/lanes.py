@@ -110,15 +110,19 @@ def lane_chunk_geometry(
     return win_l, min(win_c, win_l), n_ch
 
 
-def pick_lane_tile(op: BandedOp, c: int, in_bytes: int = 1) -> int:
+def pick_lane_tile(
+    op: BandedOp, c: int, wide: bool = True, in_bytes: int = 1
+) -> int:
     """Output pixels per block of the lane form, as the JAX package picks
-    it for its fused kernel: a multiple of 128/gcd(c, 128) pixels, widened
+    it: a multiple of 128/gcd(c, 128) pixels, widened for its fused kernel
     on upsizes to ~2304 output lanes (1-byte input) or to the candidate
-    with the least modeled chunked-window work (2/4-byte input)."""
+    with the least modeled chunked-window work (2/4-byte input).
+    ``wide=False`` returns the base tile: the unfused lane pass's dense
+    [win_l, tile*c] tap blocks (``narrow_lop``)."""
     step = 128 // int(np.gcd(c, 128))
     base = step * max(1, -(-64 // step))
     n_out = op.n_out
-    if n_out < 2:
+    if not wide or n_out < 2:
         return base
     k = (op.starts[-1] - op.starts[0]) / (n_out - 1)
     if k >= 1.0 or n_out * c < 4096:
@@ -285,3 +289,15 @@ def lane_block_banded(
         q_abs0=q_abs0,
         out_idx=out_idx,
     )
+
+
+def narrow_lop(
+    op: BandedOp, lop: LaneBlockedOp, c: int, in_bytes: int = 1
+) -> LaneBlockedOp:
+    """The lane form of ``op`` at the base tile, for the unfused route
+    (the JAX package's ``models/runtime.py:_narrow_lop``): ``lop`` itself
+    when it already has that tile."""
+    base = pick_lane_tile(op, c, wide=False)
+    if lop.tile == base:
+        return lop
+    return lane_block_banded(op, c, tile=base, in_bytes=in_bytes)

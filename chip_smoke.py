@@ -162,6 +162,21 @@ KERNELS = {
     "fused_split_hv_gamma": "avir_tpu/ops/pallas/fused_kernel.py:338-342 "
     "(pack, _srgb_to_linear :69), :362-386 (order hv), :388-392 (unpack, "
     "_linear_to_srgb :79), _finish :400; entry apply_fused_pallas :422",
+    "lanes_split2": "avir_tpu/ops/pallas/lanes_kernel.py:41 "
+    "(apply_lanes_pallas, _kernel :24, mode split2)",
+    "lanes_split3": "avir_tpu/ops/pallas/lanes_kernel.py:41 "
+    "(apply_lanes_pallas, _kernel :24-38, mode split3)",
+    "banded_split2": "avir_tpu/ops/pallas/banded_kernel.py:58 "
+    "(apply_blocked_pallas, _kernel :37, mode split2)",
+    "banded_split3": "avir_tpu/ops/pallas/banded_kernel.py:58 "
+    "(apply_blocked_pallas, _kernel :37-46, mode split3)",
+    "banded_exact": "avir_tpu/ops/pallas/banded_kernel.py:58 "
+    "(apply_blocked_pallas, _kernel :47-54, mode exact)",
+    "gamma_prologue": "avir_tpu/ops/pallas/gamma_prologue.py:48 "
+    "(apply_gamma_prologue, _kernel :37)",
+    "fused_int8_vh_gamma_pre": "avir_tpu/ops/pallas/fused_kernel.py:462-516 "
+    "(x_lo limb-plane input, gamma_pre) with _int8_passes :191 and "
+    "_linear_to_srgb :79; entry apply_fused_pallas :422",
 }
 SOURCES = {
     "fused_int8_vh": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
@@ -173,6 +188,13 @@ SOURCES = {
     "fused_int8_vh_gamma": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
     "fused_split_vh_even": "avir_tpu_torch/ops/cuda/csrc/fused_split.cu",
     "fused_split_hv_gamma": "avir_tpu_torch/ops/cuda/csrc/fused_split.cu",
+    "lanes_split2": "avir_tpu_torch/ops/cuda/csrc/lanes.cu",
+    "lanes_split3": "avir_tpu_torch/ops/cuda/csrc/lanes.cu",
+    "banded_split2": "avir_tpu_torch/ops/cuda/csrc/banded.cu",
+    "banded_split3": "avir_tpu_torch/ops/cuda/csrc/banded.cu",
+    "banded_exact": "avir_tpu_torch/ops/cuda/csrc/banded.cu",
+    "gamma_prologue": "avir_tpu_torch/ops/cuda/csrc/gamma_prologue.cu",
+    "fused_int8_vh_gamma_pre": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
 }
 INT8_EPI_CASES = (
     # (src_w, src_h, new_w, new_h, c, lane tile, order, round_mode, scale,
@@ -222,6 +244,35 @@ EPI_SHAPES = (
      np.uint16, np.uint16,
      {"use_srgb_gamma": True, "alpha_index": 3, "res_bit_depth": 16},
      "fused_split_hv_gamma", 5),
+)
+# The unfused route (K3 lane pass, K2 row pass): (name, entry point,
+# src_w, src_h, new_w, new_h, c, out dtype, resize keywords, expected
+# (order, K3 mode, K2 mode)).
+UNFUSED_SHAPES = (
+    ("720p_to_1080p_errdiff", "avir", 1280, 720, 1920, 1080, 3, np.uint8,
+     {"dither": "errdiff"}, ("hv", "split2", "split3")),
+    ("1080p_to_4k_gamma_errdiff", "avir", 1920, 1080, 3840, 2160, 3, np.uint8,
+     {"dither": "errdiff", "use_srgb_gamma": True}, ("hv", "split3", "split3")),
+    ("lancir_720p_to_1080p_f32", "lancir", 1280, 720, 1920, 1080, 3,
+     np.float32, {}, ("hv", "split2", "split3")),
+)
+# The linearize-once gamma route (K5 + K1 int8 limb-plane input):
+# (name, src_w, src_h, new_w, new_h, c), u8 RGB with sRGB gamma.
+PROLOGUE_SHAPE = ("8k_to_1080p_gamma_prologue", 7680, 4320, 1920, 1080, 3)
+# K2 / K3 small cases: (src_w, src_h, new_w, new_h), cycled over every
+# mode x input type x channel count.
+PASS_SHAPES = ((53, 37, 90, 71), (150, 97, 61, 40), (300, 20, 1400, 41))
+# K5 + K1 int8 limb-plane input: (src_w, src_h, new_w, new_h, c, lane
+# tile, order, alpha_index).
+GAMMA_PRE_CASES = (
+    (200, 150, 80, 60, 3, None, "vh", -1),
+    (80, 60, 200, 150, 4, None, "hv", 3),
+    (150, 90, 61, 37, 1, None, "vh", -1),
+    (120, 80, 70, 50, 4, 50, "vh", 0),
+    (300, 20, 1400, 41, 3, None, "hv", -1),
+    (29, 21, 71, 45, 4, 48, "hv", -1),
+    (1031, 517, 263, 129, 4, None, "vh", 3),
+    (333, 251, 1001, 777, 3, None, "hv", -1),
 )
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
@@ -772,6 +823,487 @@ def _epi_cases(gen, dev) -> None:
             _fail(f"split kernel != plain on {case}")
 
 
+def _image(gen, shape, tin: str) -> np.ndarray:
+    if tin == "f32":
+        return gen.random(shape, dtype=np.float32)
+    dt = NP_TYPES[tin]
+    return gen.integers(0, int(np.iinfo(dt).max) + 1, shape, dtype=dt)
+
+
+def _unfused_cases(gen, dev) -> None:
+    """K2 and K3 in every mode, u8/u16/f32 in, C in {1, 3, 4}: float32
+    within max|plain| * 1e-5; K5 and K1 int8's limb-plane input: bit-equal
+    to their plain versions, and K1's to the in-kernel gamma kernel."""
+    import itertools
+
+    from avir_tpu_torch.ops.banded import block_banded
+    from avir_tpu_torch.ops.cuda import banded_kernel as bk
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import gamma_prologue as gp
+    from avir_tpu_torch.ops.cuda import lanes_kernel as lk
+    from avir_tpu_torch.ops.lanes import lane_block_banded, narrow_lop
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    def check(case, got, want):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = float(want.abs().max()) * 1e-5
+        print(json.dumps({"case": case, "max_abs_err": err, "tol": tol}))
+        if not (got.shape == want.shape and err <= tol):
+            _fail(f"kernel != plain on {case}")
+
+    combos = itertools.product(("u8", "u16", "f32"), (1, 3, 4))
+    for i, (tin, c) in enumerate(combos):
+        sw, sh, nw, nh = PASS_SHAPES[i % len(PASS_SHAPES)]
+        ib = np.dtype(NP_TYPES[tin]).itemsize
+        plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+        x = torch.from_numpy(_image(gen, (sh, sw * c), tin)).to(dev)
+        vop = block_banded(plan.v.op, in_bytes=ib)
+        lop = narrow_lop(plan.h.op, lane_block_banded(plan.h.op, c, in_bytes=ib),
+                         c, in_bytes=ib)
+        for mode in ("split2", "split3", "exact"):
+            ops = bk.prepare_banded(vop, mode, dev)
+            check(f"banded_{mode} {sw}x{sh}->{nw}x{nh} C={c} {tin}",
+                  bk.apply_banded(ops, x), bk.apply_banded_reference(ops, x))
+        for mode in ("split2", "split3"):
+            ops = lk.prepare_lanes(lop, mode, dev)
+            check(f"lanes_{mode} {sw}x{sh}->{nw}x{nh} C={c} {tin} tile={lop.tile}",
+                  lk.apply_lanes(ops, x), lk.apply_lanes_reference(ops, x))
+
+    for sw, sh, nw, nh, c, tile, order, alpha in GAMMA_PRE_CASES:
+        plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8,
+                                 use_srgb_gamma=True, alpha_index=alpha)
+        gkw = dict(gamma=True, alpha_index=alpha,
+                   in_gamma_mult=plan.in_gamma_mult,
+                   out_gamma_mult=plan.out_gamma_mult)
+        vop = block_banded(plan.v.op)
+        lop = lane_block_banded(plan.h.op, c, tile=tile)
+        pre = fk.prepare_fused_int8(vop, lop, order, dev, gamma_pre=True, **gkw)
+        ink = fk.prepare_fused_int8(vop, lop, order, dev, **gkw)
+        x = torch.from_numpy(_image(gen, (sh, sw * c), "u8")).to(dev)
+        args = (pre.rows_pad, pre.lanes_pad, c, alpha, plan.in_gamma_mult)
+        hi, lo = gp.apply_gamma_prologue(x, *args)
+        torch.cuda.synchronize()
+        phi, plo = gp.apply_gamma_prologue_reference(x, *args)
+        k5_ok = torch.equal(hi, phi) and torch.equal(lo, plo)
+        got = fk.apply_fused_int8(pre, hi, lo)
+        torch.cuda.synchronize()
+        err_plain = int((got.int() - fk.apply_fused_int8_reference(pre, hi, lo).int()).abs().max())
+        err_ink = int((got.int() - fk.apply_fused_int8(ink, x).int()).abs().max())
+        case = f"{pre.launch_key} {sw}x{sh}->{nw}x{nh} C={c} tile={tile} alpha={alpha}"
+        print(json.dumps({"case": case, "gamma_prologue_bit_equal": k5_ok,
+                          "max_abs_err_vs_plain": err_plain,
+                          "max_abs_err_vs_inkernel": err_ink}))
+        if not (k5_ok and err_plain == 0 and err_ink == 0):
+            _fail(f"gamma_prologue / limb-plane K1 != plain or in-kernel on {case}")
+
+
+def _pass_bound(op, in_elems: int, out_elems: int, in_bytes: int,
+                products: int) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, bf16 ops) of one K2/K3 pass by the
+    banded operator ``op`` over ``in_elems`` input elements to
+    ``out_elems`` float32 outputs: the input read once, the output written
+    once and the operator's taps once (bf16 hi + lo); 2 x band MACs
+    (``op.width`` per output) x products at the bf16 tensor-core rate."""
+    nbytes = in_elems * in_bytes + out_elems * 4 + 4 * op.n_out * op.width
+    ops = 2 * out_elems * op.width * products
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes, ops
+
+
+def _dense(op) -> np.ndarray:
+    """The banded operator ``op`` as a dense float32 [n_out, n_in]."""
+    d = np.zeros((op.n_out, op.n_in), np.float32)
+    rows = np.arange(op.n_out)[:, None]
+    d[rows, op.starts[:, None] + np.arange(op.width)[None, :]] = op.taps
+    return d
+
+
+def _unfused_shape(name, entry, sw, sh, nw, nh, c, out_dt, kw, expect, gen,
+                   dev, flush, smi, mods) -> list[dict]:
+    """Drive one shape of the unfused route (K3, K2, then K4 for error
+    diffusion) through its public entry point, check each kernel against
+    its plain version and the result against the float64 oracle, time
+    both kernels, their pair, the fused K1 split kernel on the same shape
+    and modes, and return the kernels-line entries."""
+    import avir_tpu_torch
+    from avir_tpu_torch.models import host_reference as hr
+    from avir_tpu_torch.models.runtime import (
+        make_avir_executor,
+        make_lancir_executor,
+        separable_pass_exact,
+        separable_pass_lanes,
+    )
+    from avir_tpu_torch.ops.banded import apply_blocked, block_banded
+    from avir_tpu_torch.ops.cuda import banded_kernel as bk
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.cuda import lanes_kernel as lk
+    from avir_tpu_torch.ops.cuda import wavefront as wf
+    from avir_tpu_torch.ops.gamma import (
+        f32,
+        linear_to_srgb_np,
+        srgb_to_linear_2d,
+        srgb_to_linear_np,
+    )
+    from avir_tpu_torch.ops.lanes import lane_block_banded
+    from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    src = gen.integers(0, 256, (sh, sw, c), dtype=np.uint8)
+    kw = dict(kw)
+    dither = kw.pop("dither", "default")
+    errdiff = dither == "errdiff"
+    gamma = kw.get("use_srgb_gamma", False)
+    if entry == "lancir":
+        api = avir_tpu_torch.LancIR()
+        plan = build_lancir_plan(sw, sh, nw, nh, c, np.uint8, out_dt)
+        hop, vop_op = plan.h, plan.v
+        fn = make_lancir_executor(plan, device=dev)
+
+        def call():
+            return api.resize(src, nw, nh, out_dtype=out_dt, device=dev)
+    else:
+        api = avir_tpu_torch.ImageResizer()
+        plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, out_dt, **kw)
+        hop, vop_op = plan.h.op, plan.v.op
+        fn = make_avir_executor(plan, errdiff=errdiff, device=dev)
+
+        def call():
+            return api.resize(src, nw, nh, out_dtype=out_dt, dither=dither,
+                              device=dev, **kw)
+
+    _zero(mods)
+    t0 = time.perf_counter()
+    out = call()
+    first_s = time.perf_counter() - t0
+    counts = _counts(mods)
+    ops = fn.ops
+    got_route = (fn.route, fn.order, ops.lanes.mode, ops.rows.mode)
+    print(json.dumps({"main_path": name, "launches": {k: v for k, v in counts.items() if v},
+                      "route": fn.route, "order": fn.order,
+                      "k3_mode": ops.lanes.mode, "k2_mode": ops.rows.mode}))
+    k3, k2 = ops.lanes.launch_key, ops.rows.launch_key
+    others = {k: v for k, v in counts.items() if v and k not in (k3, k2, "wavefront")}
+    if (got_route != ("unfused", *expect) or counts[k3] != 1 or counts[k2] != 1
+            or others or (counts["wavefront"] < 1) != (not errdiff)):
+        _fail(f"{name}: route {got_route}, launches {counts}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        call()
+        walls.append(1e3 * (time.perf_counter() - t0))
+
+    x = torch.from_numpy(src.reshape(sh, sw * c)).to(dev)
+    xin = x
+    if gamma:
+        xin = srgb_to_linear_2d(x.to(torch.int32).float() * f32(plan.in_gamma_mult),
+                                c, plan.alpha_index)
+    # Each kernel against its plain version, on the inputs the route gives it.
+    if ops.order == "hv":
+        a = lk.apply_lanes(ops.lanes, xin)
+        a_plain = lk.apply_lanes_reference(ops.lanes, xin)
+        b = bk.apply_banded(ops.rows, a)
+        b_plain = bk.apply_banded_reference(ops.rows, a)
+        k3_in, k2_in = xin, a
+    else:
+        a = bk.apply_banded(ops.rows, xin)
+        a_plain = bk.apply_banded_reference(ops.rows, xin)
+        b = lk.apply_lanes(ops.lanes, a)
+        b_plain = lk.apply_lanes_reference(ops.lanes, a)
+        k2_in, k3_in = xin, a
+    torch.cuda.synchronize()
+    first_err = float((a - a_plain).abs().max())
+    first_tol = float(a_plain.abs().max()) * 1e-5
+    second_err = float((b - b_plain).abs().max())
+    second_tol = float(b_plain.abs().max()) * 1e-5
+    k3_err, k3_tol, k2_err, k2_tol = (
+        (first_err, first_tol, second_err, second_tol) if ops.order == "hv"
+        else (second_err, second_tol, first_err, first_tol)
+    )
+    report = {"shape": name, "route": "unfused", "order": ops.order,
+              "k3_mode": ops.lanes.mode, "k2_mode": ops.rows.mode,
+              "k3_max_abs_err_vs_plain": k3_err, "k3_tol": k3_tol,
+              "k2_max_abs_err_vs_plain": k2_err, "k2_tol": k2_tol}
+    ok = k3_err <= k3_tol and k2_err <= k2_tol
+
+    # Against the float64 oracle (slabbed passes).
+    t0 = time.perf_counter()
+    if entry == "lancir":
+        oracle = hr.execute_lancir_numpy(plan, src)
+        err = float(np.abs(out.astype(np.float64) - oracle).max())
+        tol = float(np.abs(oracle).max()) * 1e-4
+        report.update({"max_abs_err_vs_f64_oracle": err, "oracle_tol": tol})
+        dev_out = fn(x)
+        same_as_resize = bool(np.array_equal(dev_out.cpu().numpy().reshape(nh, nw, c), out))
+        ok = ok and err <= tol
+    else:
+        if gamma:
+            lin = srgb_to_linear_np(src * plan.in_gamma_mult, plan.alpha_index)
+            pre64 = linear_to_srgb_np(_passes(hop, vop_op, lin), plan.alpha_index)
+            pre64 = pre64 * plan.out_gamma_mult
+        else:
+            pre64 = _passes(hop, vop_op, src)
+        pre = fn.predither(x)
+        pre3 = pre.reshape(nh, nw, c).contiguous()
+        pre_err = float(np.abs(pre3.cpu().numpy() - pre64).max())
+        q = wf.errdiff_wavefront(pre3, 0, 255.0, out_dtype=torch.uint8)
+        q_plain = wf.errdiff_wavefront_reference(pre3, 0, 255.0).to(torch.uint8)
+        torch.cuda.synchronize()
+        k4_err = int((q.int() - q_plain.int()).abs().max())
+        dev_out = q
+        same_as_resize = bool(np.array_equal(q.cpu().numpy().reshape(nh, nw, c), out))
+        oracle = hr.errdiff_dither(pre64, 0, 255.0).astype(np.uint8)
+        lsb = int(np.abs(out.astype(np.int32) - oracle.astype(np.int32)).max())
+        report.update({
+            "max_abs_err_predither_vs_f64_oracle": pre_err,
+            "predither_tol": 255.0 * 1e-4, "k4_max_abs_err_vs_plain": k4_err,
+            "max_lsb_vs_f64_oracle": lsb, "psnr_vs_f64_oracle_db": _psnr(out, oracle),
+            "pixels_off_vs_oracle": int((out != oracle).sum()),
+        })
+        ok = ok and pre_err <= 255.0 * 1e-4 and k4_err == 0 and lsb <= 1
+    report["oracle_s"] = time.perf_counter() - t0
+    ok = ok and out.shape == (nh, nw, c) and out.dtype == np.dtype(out_dt) and same_as_resize
+
+    # Timing: each kernel, the pair, the route up to the pre-dither image,
+    # the fused K1 split kernel on the same shape and modes, and one dense
+    # float32 matmul per pass as the library yardstick.
+    k3_ms = _time_ms(lambda: lk.apply_lanes(ops.lanes, k3_in), 20, flush)
+    k2_ms = _time_ms(lambda: bk.apply_banded(ops.rows, k2_in), 20, flush)
+    pair_ms = _time_ms(lambda: separable_pass_lanes(xin, ops), 10, flush)
+    k3_plain_ms = _time_ms(lambda: lk.apply_lanes_reference(ops.lanes, k3_in), 2, flush)
+    k2_plain_ms = _time_ms(lambda: bk.apply_banded_reference(ops.rows, k2_in), 2, flush)
+    if entry == "lancir":
+        route_ms = _time_ms(lambda: fn(x), 10, flush)
+        epi = dict(scale=plan.out_mul, round_mode="even")
+    else:
+        route_ms = _time_ms(lambda: fn.predither(x), 10, flush)
+        epi = dict(gamma=gamma, alpha_index=plan.alpha_index,
+                   in_gamma_mult=plan.in_gamma_mult,
+                   out_gamma_mult=plan.out_gamma_mult) if gamma else {}
+    lop_w = lane_block_banded(hop, c)
+    f_order = "vh" if nw * nh <= sw * sh else "hv"
+    # The pass that reads the image keeps its mode in the fused kernel.
+    m_first, m_second = (
+        (ops.lanes.mode, ops.rows.mode) if ops.order == "hv"
+        else (ops.rows.mode, ops.lanes.mode)
+    )
+    mv, mh = (m_first, m_second) if f_order == "vh" else (m_second, m_first)
+    fops = fs.prepare_fused_split(ops.rows.bop, lop_w, f_order, mv, mh, dev,
+                                  out_dtype=torch.float32, **epi)
+    fused_ms = _time_ms(lambda: fs.apply_fused_split(fops, x), 10, flush)
+    dh = torch.from_numpy(
+        np.kron(_dense(hop).T, np.eye(c, dtype=np.float32))
+    ).to(dev)  # [n_in*C, n_out*C], channel-diagonal
+    dv = torch.from_numpy(_dense(vop_op)).to(dev)
+    k3_lib_ms = _time_ms(lambda: torch.matmul(k3_in.float(), dh), 3, flush)
+    k2_lib_ms = _time_ms(lambda: torch.matmul(dv, k2_in.float()), 3, flush)
+    del dh, dv
+    # The yardstick the port already had: the "exact" route's full-float32
+    # torch.bmm passes (gathers and transposes included), per pass and for
+    # the pair.
+    hop_b = block_banded(hop)
+    h_taps = torch.from_numpy(hop_b.taps).to(dev)
+    v_taps = torch.from_numpy(ops.rows.bop.taps).to(dev)
+
+    def h_exact(t):
+        r = t.shape[0]
+        y = t.reshape(r, sw, c).transpose(0, 1).reshape(sw, r * c)
+        y = apply_blocked(hop_b, y, taps=h_taps)
+        return y.reshape(nw, r, c).transpose(0, 1).reshape(r, nw * c)
+
+    xin_f = xin.float()
+    k3_exact_ms = _time_ms(lambda: h_exact(k3_in.float()), 5, flush)
+    k2_exact_ms = _time_ms(
+        lambda: apply_blocked(ops.rows.bop, k2_in, taps=v_taps), 5, flush
+    )
+    pair_exact_ms = _time_ms(
+        lambda: separable_pass_exact(xin_f, hop_b, ops.rows.bop, sh, sw, c,
+                                     h_taps, v_taps), 5, flush
+    )
+    k3_in_b = k3_in.element_size()
+    k2_in_b = k2_in.element_size()
+    p3 = 3 if ops.lanes.mode == "split3" else 2
+    p2 = 3 if ops.rows.mode == "split3" else 2
+    k3_bound = _pass_bound(hop, k3_in.numel(), k3_in.shape[0] * hop.n_out * c,
+                           k3_in_b, p3)
+    k2_bound = _pass_bound(vop_op, k2_in.numel(), vop_op.n_out * k2_in.shape[1],
+                           k2_in_b, p2)
+    report.update({
+        "k3_ms": k3_ms, "k2_ms": k2_ms, "k3_plus_k2_ms": k3_ms + k2_ms,
+        "pair_ms": pair_ms, "route_to_predither_ms": route_ms,
+        "fused_k1_split_ms": fused_ms,
+        "fused_k1_split": {"order": f_order, "mode_v": mv, "mode_h": mh,
+                           "lane_tile": lop_w.tile, "gamma": gamma},
+        "k3_plain_ms": k3_plain_ms, "k2_plain_ms": k2_plain_ms,
+        "k3_library_ms": k3_lib_ms, "k2_library_ms": k2_lib_ms,
+        "k3_exact_route_ms": k3_exact_ms, "k2_exact_route_ms": k2_exact_ms,
+        "pair_exact_route_ms": pair_exact_ms,
+        "library_note": "one full-float32 torch.matmul per pass with the "
+        "dense operator (K3: channel-diagonal [n_in*C, n_out*C]); timed here, "
+        "used nowhere in the port",
+        "k3_bound_ms": k3_bound[0], "k3_bound_by": k3_bound[1],
+        "k3_bytes": k3_bound[2], "k3_bf16_ops": k3_bound[3],
+        "k2_bound_ms": k2_bound[0], "k2_bound_by": k2_bound[1],
+        "k2_bytes": k2_bound[2], "k2_bf16_ops": k2_bound[3],
+        "k3_kp": ops.lanes.kp, "k3_lane_tile": ops.lanes.lop.tile,
+        "launches_per_resize": {k: v for k, v in counts.items() if v},
+        "resize_first_call_s": first_s,
+        "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
+        "h2d_copy_ms": _time_ms(
+            lambda: torch.from_numpy(src.reshape(sh, -1)).to(dev), 3, flush),
+        "d2h_copy_ms": _time_ms(lambda: dev_out.cpu(), 3, flush),
+        "card": smi,
+    })
+    entries = [
+        {"name": k3, "route": "cuda", "source": SOURCES[k3], "replaces": KERNELS[k3],
+         "launches": counts[k3], "max_abs_err": k3_err, "ms": k3_ms,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": k3_lib_ms},
+        {"name": k2, "route": "cuda", "source": SOURCES[k2], "replaces": KERNELS[k2],
+         "launches": counts[k2], "max_abs_err": k2_err, "ms": k2_ms,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": k2_lib_ms},
+    ]
+    if name == UNFUSED_SHAPES[0][0]:
+        # K2 in the modes no main-path shape runs (split2 reads the u8
+        # image when the row pass goes first; exact is off every route):
+        # timed on this shape's image, 0 launches on the main path.
+        dv = torch.from_numpy(_dense(vop_op)).to(dev)
+        for mode in ("split2", "exact"):
+            o2 = bk.prepare_banded(ops.rows.bop, mode, dev)
+            got = bk.apply_banded(o2, x)
+            want = bk.apply_banded_reference(o2, x)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = float(want.abs().max()) * 1e-5
+            b_ = _pass_bound(vop_op, x.numel(), vop_op.n_out * x.shape[1], 1,
+                             1 if mode == "exact" else 2)
+            report[f"k2_{mode}_off_path"] = {
+                "ms": _time_ms(lambda: bk.apply_banded(o2, x), 20, flush),
+                "plain_ms": _time_ms(lambda: bk.apply_banded_reference(o2, x), 2, flush),
+                "library_ms": _time_ms(lambda: torch.matmul(dv, x.float()), 3, flush),
+                "bound_ms": b_[0], "bound_by": b_[1], "max_abs_err": err, "tol": tol,
+                "launches_on_main_path": 0, "input": f"u8 [{sh}, {sw * c}]",
+            }
+            ok = ok and err <= tol
+        del dv
+    print(json.dumps(report))
+    if not ok:
+        _fail(f"{name}: report {report}")
+    if errdiff:
+        pre3 = fn.predither(x).reshape(nh, nw, c).contiguous()
+        k4_ms = _time_ms(
+            lambda: wf.errdiff_wavefront(pre3, 0, 255.0, out_dtype=torch.uint8), 3, flush
+        )
+        print(json.dumps({"shape": name, "k4_ms": k4_ms,
+                          "k4_chain_steps": wf.chain_steps(nh, nw, c),
+                          "k4_launches": counts["wavefront"]}))
+    return entries
+
+
+def _prologue_shape(gen, dev, flush, smi, mods) -> list[dict]:
+    """8k_to_1080p_gamma_prologue: ImageResizer.resize with sRGB gamma
+    under AVIR_TPU_GAMMA_ROUTE=prologue: one K5 launch and one K1 int8
+    limb-plane launch, bit-equal to the in-kernel route on the same image;
+    K5 and K1 timed apart beside the in-kernel K1 of the same run."""
+    import os
+
+    import avir_tpu_torch
+    from avir_tpu_torch.models.runtime import GAMMA_ROUTE_ENV, make_avir_executor
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import gamma_prologue as gp
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    name, sw, sh, nw, nh, c = PROLOGUE_SHAPE
+    src = gen.integers(0, 256, (sh, sw, c), dtype=np.uint8)
+    api = avir_tpu_torch.ImageResizer()
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True)
+    os.environ[GAMMA_ROUTE_ENV] = "prologue"
+    try:
+        _zero(mods)
+        t0 = time.perf_counter()
+        out = api.resize(src, nw, nh, use_srgb_gamma=True, device=dev)
+        first_s = time.perf_counter() - t0
+        counts = _counts(mods)
+        fn = make_avir_executor(plan, device=dev)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            api.resize(src, nw, nh, use_srgb_gamma=True, device=dev)
+            walls.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        del os.environ[GAMMA_ROUTE_ENV]
+    ink = make_avir_executor(plan, device=dev)
+    ops, iops = fn.ops, ink.ops
+    key = ops.launch_key
+    print(json.dumps({"main_path": name, "launches": {k: v for k, v in counts.items() if v},
+                      "route": fn.route, "variant": key}))
+    if (key != "fused_int8_vh_gamma_pre" or counts[key] != 1
+            or counts["gamma_prologue"] != 1 or sum(counts.values()) != 2):
+        _fail(f"{name}: launches {counts}, variant {key}")
+
+    x = torch.from_numpy(src.reshape(sh, sw * c)).to(dev)
+    args = (ops.rows_pad, ops.lanes_pad, c, plan.alpha_index, plan.in_gamma_mult)
+    hi, lo = gp.apply_gamma_prologue(x, *args)
+    phi, plo = gp.apply_gamma_prologue_reference(x, *args)
+    torch.cuda.synchronize()
+    k5_err = max(int((hi.int() - phi.int()).abs().max()),
+                 int((lo.int() - plo.int()).abs().max()))
+    k5_eq = k5_err == 0
+    got = fk.apply_fused_int8(ops, hi, lo)
+    want = fk.apply_fused_int8_reference(ops, hi, lo)
+    base = fk.apply_fused_int8(iops, x)
+    torch.cuda.synchronize()
+    k1_err = int((got.int() - want.int()).abs().max())
+    vs_inkernel = int((got.int() - base.int()).abs().max())
+    same_as_resize = bool(np.array_equal(got.cpu().numpy().reshape(nh, nw, c), out))
+    ok = k5_eq and k1_err == 0 and vs_inkernel == 0 and same_as_resize
+
+    k5_ms = _time_ms(lambda: gp.apply_gamma_prologue(x, *args), 20, flush)
+    k1_ms = _time_ms(lambda: fk.apply_fused_int8(ops, hi, lo), 20, flush)
+    route_ms = _time_ms(lambda: fn(x), 10, flush)
+    ink_ms = _time_ms(lambda: fk.apply_fused_int8(iops, x), 20, flush)
+    k5_plain_ms = _time_ms(lambda: gp.apply_gamma_prologue_reference(x, *args), 2, flush)
+    k1_plain_ms = _time_ms(lambda: fk.apply_fused_int8_reference(ops, hi, lo), 2, flush)
+    n_in = sh * sw * c
+    rows_p, lanes_p = hi.shape
+    k5_bytes = n_in + 2 * rows_p * lanes_p
+    t_b, t_o = k5_bytes / HBM_BYTES_PER_S, n_in * GAMMA_IN_OPS["int8"] / F32_OPS_PER_S
+    k5_bound = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+    k1_bound = _k1_bound(plan.h.op, plan.v.op, c, "vh", 2, 1, 2, 3, 3, INT8_OPS_PER_S,
+                         nh * nw * c * GAMMA_OUT_OPS)
+    report = {
+        "shape": name, "route": "int8 + prologue", "variant": key,
+        "gamma_prologue_bit_equal_to_plain": k5_eq,
+        "k1_pre_max_abs_err_vs_plain": k1_err,
+        "max_abs_err_vs_inkernel_route": vs_inkernel,
+        "k5_ms": k5_ms, "k1_pre_ms": k1_ms, "k5_plus_k1_ms": k5_ms + k1_ms,
+        "route_ms": route_ms, "inkernel_k1_ms": ink_ms,
+        "k5_plain_ms": k5_plain_ms, "k1_pre_plain_ms": k1_plain_ms,
+        "k5_bound_ms": k5_bound[0], "k5_bound_by": k5_bound[1], "k5_bytes": k5_bytes,
+        "k1_pre_bound_ms": k1_bound[0], "k1_pre_bound_by": k1_bound[1],
+        "planes": [rows_p, lanes_p],
+        "first_pass_reads_per_input": _first_pass_reads(ops),
+        "launches_per_resize": {k: v for k, v in counts.items() if v},
+        "resize_first_call_s": first_s,
+        "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
+        "card": smi,
+    }
+    print(json.dumps(report))
+    if not ok:
+        _fail(f"{name}: report {report}")
+    return [
+        {"name": "gamma_prologue", "route": "cuda", "source": SOURCES["gamma_prologue"],
+         "replaces": KERNELS["gamma_prologue"], "launches": counts["gamma_prologue"],
+         "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
+         "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None},
+        {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": KERNELS[key],
+         "launches": counts[key], "max_abs_err": k1_err, "ms": k1_ms,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": None},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -780,9 +1312,12 @@ def main() -> int:
     import avir_tpu_torch
     from avir_tpu_torch.models.runtime import make_avir_executor
     from avir_tpu_torch.ops.banded import block_banded
+    from avir_tpu_torch.ops.cuda import banded_kernel as bk
     from avir_tpu_torch.ops.cuda import build
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
     from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.cuda import gamma_prologue as gp
+    from avir_tpu_torch.ops.cuda import lanes_kernel as lk
     from avir_tpu_torch.ops.cuda import wavefront as wf
     from avir_tpu_torch.ops.lanes import lane_block_banded
     from avir_tpu_torch.plan.plan import build_resize_plan
@@ -815,7 +1350,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    mods = (fk, fs, wf)
+    mods = (fk, fs, wf, bk, lk, gp)
 
     # ---- 2. kernel vs plain on small cases -----------------------------
     for sw, sh, nw, nh, c, tile, order in KERNEL_CASES:
@@ -885,6 +1420,7 @@ def main() -> int:
             _fail(f"wavefront kernel != plain on {case}")
 
     _epi_cases(gen, dev)
+    _unfused_cases(gen, dev)
 
     # ---- 3./4. main path, checks and timing ----------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -967,6 +1503,14 @@ def main() -> int:
         )
     for shape in EPI_SHAPES:
         entries += _epi_shape(*shape, gen, dev, flush, smi, mods)
+    seen = {e["name"] for e in entries}
+    for shape in UNFUSED_SHAPES:
+        for e in _unfused_shape(*shape, gen, dev, flush, smi, mods):
+            # One entry per kernel: its first main-path shape.
+            if e["name"] not in seen:
+                seen.add(e["name"])
+                entries.append(e)
+    entries += _prologue_shape(gen, dev, flush, smi, mods)
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({

@@ -5,19 +5,24 @@ toolkit are installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: K1 int8 and K4 are bit-equal (exact integer sums; the same
-float32 operations in the same order, gamma and the round-half-even
-epilogue included).  K1 split-bf16 sums in another order than its plain
-version: float32 within max|plain| * 1e-4, integers within 1 LSB, or one
-quantization step when ``trunc_bits`` > 0."""
+Tolerances: K1 int8 (its limb-plane input included), K4 and K5 are
+bit-equal (exact integer sums; the same float32 operations in the same
+order, gamma and the round-half-even epilogue included).  K1 split-bf16
+sums in another order than its plain version: float32 within
+max|plain| * 1e-4, integers within 1 LSB, or one quantization step when
+``trunc_bits`` > 0.  K2 and K3 (one pass each) sum in another order:
+float32 within max|plain| * 1e-5."""
 
 import numpy as np
 import pytest
 import torch
 
 from torch_cases import (
+    BANDED_CASES,
     FUSED_CASES,
+    GAMMA_PRE_CASES,
     IN_BYTES,
+    LANES_CASES,
     INT8_EPI_CASES,
     NP_TYPES,
     SPLIT_CASES,
@@ -31,10 +36,13 @@ from torch_cases import (
 )
 
 from avir_tpu_torch.ops.banded import block_banded
+from avir_tpu_torch.ops.cuda import banded_kernel as bk
 from avir_tpu_torch.ops.cuda import fused_kernel as fk
 from avir_tpu_torch.ops.cuda import fused_split as fs
+from avir_tpu_torch.ops.cuda import gamma_prologue as gp
+from avir_tpu_torch.ops.cuda import lanes_kernel as lk
 from avir_tpu_torch.ops.cuda import wavefront as wf
-from avir_tpu_torch.ops.lanes import lane_block_banded
+from avir_tpu_torch.ops.lanes import lane_block_banded, narrow_lop
 from avir_tpu_torch.plan.plan import build_resize_plan
 
 _TORCH = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
@@ -152,3 +160,78 @@ def test_wavefront_kernel_matches_plain_on_card(h, w, c, tb, om, cuda_device):
         torch.cuda.synchronize()
         want = wf.errdiff_wavefront_reference(img, tb, om, block_rows=rows)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BANDED_CASES))
+def test_banded_kernel_matches_plain_on_card(name, cuda_device):
+    """K2, the row pass: f32 within max|plain| * 1e-5."""
+    sw, sh, nw, nh, c, tin, mode = BANDED_CASES[name]
+    ib = IN_BYTES[tin]
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+    ops = bk.prepare_banded(block_banded(plan.v.op, in_bytes=ib), mode, cuda_device)
+    x = torch.from_numpy(split_source(name, sh, sw, c, tin)).to(cuda_device)
+    before = bk.launches[ops.launch_key]
+    got = bk.apply_banded(ops, x)
+    torch.cuda.synchronize()
+    assert bk.launches[ops.launch_key] == before + 1
+    want = bk.apply_banded_reference(ops, x)
+    assert got.shape == want.shape == (nh, sw * c)
+    assert (got - want).abs().max().item() <= want.abs().max().item() * 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LANES_CASES))
+def test_lanes_kernel_matches_plain_on_card(name, cuda_device):
+    """K3, the lane pass at the base tile: f32 within max|plain| * 1e-5."""
+    sw, sh, nw, nh, c, tin, mode = LANES_CASES[name]
+    ib = IN_BYTES[tin]
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+    lop = narrow_lop(
+        plan.h.op, lane_block_banded(plan.h.op, c, in_bytes=ib), c, in_bytes=ib
+    )
+    ops = lk.prepare_lanes(lop, mode, cuda_device)
+    x = torch.from_numpy(split_source(name, sh, sw, c, tin)).to(cuda_device)
+    before = lk.launches[ops.launch_key]
+    got = lk.apply_lanes(ops, x)
+    torch.cuda.synchronize()
+    assert lk.launches[ops.launch_key] == before + 1
+    want = lk.apply_lanes_reference(ops, x)
+    assert got.shape == want.shape == (sh, nw * c)
+    assert (got - want).abs().max().item() <= want.abs().max().item() * 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GAMMA_PRE_CASES))
+def test_gamma_prologue_and_limb_input_match_plain_on_card(name, cuda_device):
+    """K5 bit-equal to its plain version; K1 int8 reading its planes
+    bit-equal to its plain version and to the in-kernel gamma kernel."""
+    sw, sh, nw, nh, c, tile, order, alpha = GAMMA_PRE_CASES[name]
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True,
+        alpha_index=alpha,
+    )
+    gkw = dict(
+        gamma=True, alpha_index=alpha, in_gamma_mult=plan.in_gamma_mult,
+        out_gamma_mult=plan.out_gamma_mult,
+    )
+    vop = block_banded(plan.v.op)
+    lop = lane_block_banded(plan.h.op, c, tile=tile)
+    pre = fk.prepare_fused_int8(vop, lop, order, cuda_device, gamma_pre=True, **gkw)
+    inkernel = fk.prepare_fused_int8(vop, lop, order, cuda_device, **gkw)
+    x = torch.from_numpy(
+        np.random.default_rng(sum(map(ord, name))).integers(
+            0, 256, (sh, sw * c), dtype=np.uint8
+        )
+    ).to(cuda_device)
+    args = (pre.rows_pad, pre.lanes_pad, c, alpha, plan.in_gamma_mult)
+    hi, lo = gp.apply_gamma_prologue(x, *args)
+    torch.cuda.synchronize()
+    phi, plo = gp.apply_gamma_prologue_reference(x, *args)
+    assert torch.equal(hi, phi) and torch.equal(lo, plo)
+    before = fk.launches[pre.launch_key]
+    got = fk.apply_fused_int8(pre, hi, lo)
+    torch.cuda.synchronize()
+    assert fk.launches[pre.launch_key] == before + 1
+    assert torch.equal(got, fk.apply_fused_int8_reference(pre, hi, lo))
+    assert torch.equal(got, fk.apply_fused_int8(inkernel, x))

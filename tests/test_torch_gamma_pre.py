@@ -1,0 +1,200 @@
+"""The linearize-once gamma route of the port (the prologue kernel K5 and
+K1 int8's limb-plane input) against the JAX package on the CPU, and its
+selection by ``AVIR_TPU_GAMMA_ROUTE``.  The JAX package's Pallas kernels
+run in interpret mode; the port runs its kernels' plain versions.  The
+kernels themselves are held against their plain versions on the card only
+(tests/test_torch_cuda.py).
+
+Every comparison here is bit-equal: the prologue evaluates the same
+float32 polynomial with the same fused multiply-adds as K1's in-kernel
+stage (ops/gamma.py), and the limb split is an exact integer
+decomposition."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import xorshift128_fill
+
+from avir_tpu.ops.banded import block_banded as jax_block_banded
+from avir_tpu.ops.lanes import lane_block_banded as jax_lane_block_banded
+from avir_tpu.ops.pallas import fused_kernel as jax_fk
+from avir_tpu.ops.pallas.gamma_prologue import (
+    apply_gamma_prologue as jax_apply_gamma_prologue,
+)
+from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
+
+from torch_cases import GAMMA_PRE_CASES
+
+import avir_tpu_torch
+from avir_tpu_torch.models import runtime
+from avir_tpu_torch.ops.banded import block_banded
+from avir_tpu_torch.ops.cuda import fused_kernel as fk
+from avir_tpu_torch.ops.cuda import gamma_prologue as gp
+from avir_tpu_torch.ops.lanes import lane_block_banded
+from avir_tpu_torch.plan.plan import build_resize_plan
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _jax_on_cpu():
+    with jax.default_device(jax.devices("cpu")[0]):
+        yield
+
+
+def _case(name):
+    sw, sh, nw, nh, c, tile, order, alpha = GAMMA_PRE_CASES[name]
+    kw = dict(use_srgb_gamma=True, alpha_index=alpha)
+    x = xorshift128_fill((sh, sw * c), np.uint8, sum(map(ord, name)))
+    return (
+        (sw, sh, nw, nh, c, tile, order),
+        jax_build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8, **kw),
+        build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8, **kw),
+        x,
+    )
+
+
+@pytest.mark.parametrize("name", list(GAMMA_PRE_CASES))
+def test_prologue_plain_matches_pallas(name):
+    """K5's plain version against interpret-mode ``apply_gamma_prologue``:
+    bit-equal over the port's planes, and the TPU layout's extra padding
+    (256 x 1536 blocks) holds only zeros."""
+    (sw, sh, nw, nh, c, tile, _), jplan, plan, x = _case(name)
+    vop = block_banded(plan.v.op)
+    lop = lane_block_banded(plan.h.op, c, tile=tile)
+    hi, lo = gp.apply_gamma_prologue(
+        torch.from_numpy(x), vop.n_in_pad, lop.lanes_pad, c, plan.alpha_index,
+        plan.in_gamma_mult,
+    )
+    rows_p, lanes_p = hi.shape
+    assert (rows_p, lanes_p) == gp.plane_shape(sh, sw * c, vop.n_in_pad, lop.lanes_pad)
+    assert hi.dtype == lo.dtype == torch.int8
+    jhi, jlo = jax_apply_gamma_prologue(
+        jnp.asarray(x), vop.n_in_pad, lop.lanes_pad, c, jplan.alpha_index,
+        jplan.in_gamma_mult, interpret=True,
+    )
+    for ours, theirs in ((hi, jhi), (lo, jlo)):
+        theirs = np.asarray(theirs)
+        ext = np.zeros(
+            (max(rows_p, theirs.shape[0]), max(lanes_p, theirs.shape[1])), np.int8
+        )
+        ext[: theirs.shape[0], : theirs.shape[1]] = theirs
+        np.testing.assert_array_equal(ours.numpy(), ext[:rows_p, :lanes_p])
+        assert not ext[rows_p:].any() and not ext[:, lanes_p:].any()
+    # The limbs recombine to the in-kernel stage's 13-bit values.
+    q = hi.int() * 128 + lo.int()
+    assert int(q.max()) <= 8192 and int(q.min()) >= 0
+
+
+@pytest.mark.parametrize("name", list(GAMMA_PRE_CASES))
+def test_int8_limb_plane_input_matches_pallas_and_inkernel(name):
+    """K1 int8's plain version reading K5's planes is bit-equal to
+    interpret-mode ``apply_fused_pallas(..., x_lo=lo)`` and to the port's
+    in-kernel gamma plain version on the same image."""
+    (sw, sh, nw, nh, c, tile, order), jplan, plan, x = _case(name)
+    gkw = dict(
+        gamma=True, alpha_index=plan.alpha_index,
+        in_gamma_mult=plan.in_gamma_mult, out_gamma_mult=plan.out_gamma_mult,
+    )
+    vop = block_banded(plan.v.op)
+    lop = lane_block_banded(plan.h.op, c, tile=tile)
+    pre = fk.prepare_fused_int8(vop, lop, order, "cpu", gamma_pre=True, **gkw)
+    inkernel = fk.prepare_fused_int8(vop, lop, order, "cpu", **gkw)
+    assert pre.launch_key == f"fused_int8_{order}_gamma_pre"
+    hi, lo = gp.apply_gamma_prologue(
+        torch.from_numpy(x), pre.rows_pad, pre.lanes_pad, c, plan.alpha_index,
+        plan.in_gamma_mult,
+    )
+    got = fk.apply_fused_int8(pre, hi, lo).numpy()
+    np.testing.assert_array_equal(
+        got, fk.apply_fused_int8(inkernel, torch.from_numpy(x)).numpy()
+    )
+
+    jvop = jax_block_banded(jplan.v.op)
+    jlop = jax_lane_block_banded(jplan.h.op, c, tile=tile)
+    jkw = dict(
+        out_dtype=jnp.uint8, order=order, gamma=True,
+        alpha_index=jplan.alpha_index, in_gamma_mult=jplan.in_gamma_mult,
+        out_gamma_mult=jplan.out_gamma_mult, interpret=True,
+    )
+    jhi, jlo = jax_apply_gamma_prologue(
+        jnp.asarray(x), jvop.n_in_pad, jlop.lanes_pad, c, jplan.alpha_index,
+        jplan.in_gamma_mult, interpret=True,
+    )
+    ref = np.asarray(
+        jax_fk.apply_fused_pallas(jvop, jlop, jhi, "int8", "int8", x_lo=jlo, **jkw)
+    )[:nh, : nw * c]
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_limb_plane_input_checks_its_operands():
+    (sw, sh, nw, nh, c, tile, order), _, plan, x = _case("down_c3")
+    vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, c)
+    with pytest.raises(ValueError, match="gamma route"):
+        fk.prepare_fused_int8(vop, lop, order, "cpu", gamma_pre=True)
+    pre = fk.prepare_fused_int8(
+        vop, lop, order, "cpu", gamma=True, gamma_pre=True,
+        in_gamma_mult=plan.in_gamma_mult,
+    )
+    hi, lo = gp.apply_gamma_prologue(
+        torch.from_numpy(x), pre.rows_pad, pre.lanes_pad, c, -1, plan.in_gamma_mult
+    )
+    with pytest.raises(ValueError, match="limb planes"):
+        fk.apply_fused_int8(pre, hi)
+    with pytest.raises(ValueError, match="covering"):
+        fk.apply_fused_int8(pre, hi[:-1, :-16], lo[:-1, :-16])
+
+
+# ---------------------------------------------------------------------------
+# Route selection
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("route", [None, "inkernel", "auto", "prologue", "ring"])
+def test_gamma_route_env(route, monkeypatch):
+    """"prologue" runs K5 and K1's limb-plane variant (launch key
+    ``*_gamma_pre``), bit-equal to the in-kernel route; "ring" (K6)
+    raises naming its ROADMAP item; unset or anything else is the
+    in-kernel route."""
+    if route is None:
+        monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+    else:
+        monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, route)
+    plan = build_resize_plan(
+        97, 61, 151, 83, 4, np.uint8, np.uint8, use_srgb_gamma=True, alpha_index=3
+    )
+    if route == "ring":
+        with pytest.raises(NotImplementedError, match="K6.*ROADMAP.md"):
+            runtime.make_avir_executor(plan, device="cpu")
+        return
+    fn = runtime.make_avir_executor(plan, device="cpu")
+    assert fn.route == "int8" and fn.order == "hv"
+    want = "fused_int8_hv_gamma" + ("_pre" if route == "prologue" else "")
+    assert fn.ops.launch_key == want
+    x = torch.from_numpy(xorshift128_fill((61, 97 * 4), np.uint8, 5))
+    monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+    base = runtime.make_avir_executor(plan, device="cpu")
+    assert base.ops.launch_key == "fused_int8_hv_gamma"
+    np.testing.assert_array_equal(fn(x).numpy(), base(x).numpy())
+
+
+def test_gamma_route_is_part_of_the_cache_key(monkeypatch):
+    src = xorshift128_fill((61, 97, 3), np.uint8, 9)
+    rz = avir_tpu_torch.ImageResizer()
+    monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+    base = rz.resize(src, 151, 83, use_srgb_gamma=True, device="cpu")
+    assert len(rz._cache) == 1
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "prologue")
+    pre = rz.resize(src, 151, 83, use_srgb_gamma=True, device="cpu")
+    assert len(rz._cache) == 2
+    np.testing.assert_array_equal(pre, base)
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "ring")
+    with pytest.raises(NotImplementedError, match="K6"):
+        rz.resize(src, 151, 83, use_srgb_gamma=True, device="cpu")
+    # Without gamma the variable changes nothing.
+    plain = rz.resize(src, 151, 83, device="cpu")
+    monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV)
+    np.testing.assert_array_equal(plain, rz.resize(src, 151, 83, device="cpu"))

@@ -175,8 +175,9 @@ def test_unsupported_configs_raise(kwargs, src_dtype, c):
 
 
 def test_int8_infeasible_operator_raises(monkeypatch):
-    """An operator whose int8 limbs are infeasible takes K1's split-bf16
-    modes, as the JAX package falls back (runtime.py:372-373)."""
+    """An operator whose int8 limbs are infeasible runs unfused (K2 and
+    K3) in the split-bf16 modes, as the JAX package falls back
+    (runtime.py:372-375)."""
     monkeypatch.setattr(runtime, "int8_feasible", lambda *a: False)
     cfg = _M["a_down3u8"]
     src = _source(cfg)
@@ -188,7 +189,7 @@ def test_int8_infeasible_operator_raises(monkeypatch):
         ),
         device="cpu",
     )
-    assert fn.route == "split"
+    assert fn.route == "unfused" and fn.order == "vh"
     assert (fn.ops.mode_v, fn.ops.mode_h) == ("split2", "split3")
     out = avir_tpu_torch.ImageResizer(
         params=avir_tpu_torch.preset(cfg["preset"])

@@ -75,6 +75,41 @@ SPLIT_EPI_CASES = {
     "gamma_up_f32_u8_tb2": (300, 20, 1400, 41, 3, None, "hv", "split3", "split3", "f32", "u8", 2, "biased", 1.0, True, -1),
 }
 
+# K5 + K1 int8 limb-plane input: (src_w, src_h, new_w, new_h, c, lane tile
+# or None, order, alpha_index); sRGB gamma, u8 in and out.  The first two
+# are tests/test_pallas_kernel.py:808-811's.
+GAMMA_PRE_CASES = {
+    "down_c3": (200, 150, 80, 60, 3, None, "vh", -1),
+    "up_c4a": (80, 60, 200, 150, 4, None, "hv", 3),
+    "down_c1": (150, 90, 61, 37, 1, None, "vh", -1),
+    "down_c4a0_tc": (120, 80, 70, 50, 4, 50, "vh", 0),
+    "up_c3": (300, 20, 1400, 41, 3, None, "hv", -1),
+    "up_c4_tc": (29, 21, 71, 45, 4, 48, "hv", -1),
+    "up_c1": (45, 31, 97, 70, 1, None, "hv", -1),
+}
+
+# K2 (row pass) on the card: (src_w, src_h, new_w, new_h, c, in type,
+# mode); the pass runs over the image's rows.
+BANDED_CASES = {
+    "up_c1_u8_split2": (53, 37, 90, 71, 1, "u8", "split2"),
+    "up_c3_u16_split3": (53, 37, 90, 71, 3, "u16", "split3"),
+    "down_c4_f32_split3": (150, 97, 61, 40, 4, "f32", "split3"),
+    "down_c3_u8_exact": (150, 97, 61, 40, 3, "u8", "exact"),
+    "up_c4_u8_exact": (40, 30, 64, 101, 4, "f32", "exact"),
+    "down_c1_u16_split2": (150, 97, 61, 40, 1, "u16", "split2"),
+}
+
+# K3 (lane pass) on the card: the same fields; the pass runs over the
+# image's interleaved lanes at the base tile.
+LANES_CASES = {
+    "up_c1_u8_split2": (53, 37, 90, 71, 1, "u8", "split2"),
+    "up_c3_u8_split3": (53, 37, 90, 71, 3, "u8", "split3"),
+    "up_c4_u16_split3": (53, 37, 90, 71, 4, "u16", "split3"),
+    "down_c3_f32_split2": (150, 97, 61, 40, 3, "f32", "split2"),
+    "down_c4_u8_split3": (150, 97, 61, 40, 4, "u8", "split3"),
+    "up_c3_wide_f32_split3": (300, 20, 1400, 41, 3, "f32", "split3"),
+}
+
 # K4: (h, w, c, trunc_bits, out_max)
 WAVEFRONT_CASES = [
     (24, 40, 1, 0, 255.0),
