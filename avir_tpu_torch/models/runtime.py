@@ -50,8 +50,12 @@ port's ``_order``.
 The int8 gamma route reads ``AVIR_TPU_GAMMA_ROUTE`` when the executor is
 built (``models/runtime.py:402-449`` there): "prologue" linearizes the
 image once with K5 (``ops/cuda/gamma_prologue.py``) and K1 reads its two
-limb planes (bit-equal to the in-kernel route); "ring" (K6) raises
-NotImplementedError; anything else is the in-kernel route.
+limb planes; "ring" runs the shift-ring kernel K6
+(``ops/cuda/fused_ring.py``) on the V operator's uniform blocking when
+``ring_viable`` holds (a uniform-stride downsize; launch key
+``fused_ring_vh_gamma``, ``run.order`` "vh"), and otherwise warns, as the
+JAX package does, and takes the in-kernel route; anything else is the
+in-kernel route.  All three are bit-equal.
 
 LANCIR routes the same way (int8 for u8 in and u8 out at
 ``precision="auto"``), with K1's round-half-even epilogue and its
@@ -74,6 +78,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Callable
 
 import torch
@@ -85,6 +90,7 @@ from ..ops.cuda.fused_kernel import (
     int8_feasible,
     prepare_fused_int8,
 )
+from ..ops.cuda.fused_ring import apply_fused_ring, prepare_fused_ring, ring_viable
 from ..ops.cuda.fused_split import (
     apply_fused_split,
     prepare_fused_split,
@@ -99,8 +105,9 @@ from ..ops.lanes import LaneBlockedOp, lane_block_banded, narrow_lop
 from ..plan.lancir_plan import LancirPlan
 from ..plan.plan import ResizePlan
 
-# Environment variable that selects the int8 gamma route (read when an
-# executor is built; part of the resizers' cache keys).
+# Environment variable that selects the int8 gamma route: "prologue"
+# (K5 + K1), "ring" (K6) or the in-kernel K1 (read when an executor is
+# built; part of the resizers' cache keys).
 GAMMA_ROUTE_ENV = "AVIR_TPU_GAMMA_ROUTE"
 
 
@@ -239,6 +246,22 @@ def gamma_route() -> str:
     return route if route in ("prologue", "ring") else "inkernel"
 
 
+def _ring_operands(plan: ResizePlan, lop: LaneBlockedOp, order: str, device):
+    """K6's operands for an int8 gamma plan, or None when the ring route is
+    not viable (``models/runtime.py:414-423`` there): the V operator by
+    uniform blocking, with limbs, and ``ring_viable``."""
+    try:
+        vop_ring = block_banded(plan.v.op, uniform=True)
+    except ValueError:
+        return None
+    if vop_ring.taps_q1 is None or not ring_viable(vop_ring, lop, True, order):
+        return None
+    return prepare_fused_ring(
+        vop_ring, lop, device, alpha_index=plan.alpha_index,
+        in_gamma_mult=plan.in_gamma_mult, out_gamma_mult=plan.out_gamma_mult,
+    )
+
+
 def separable_pass_exact(
     x: torch.Tensor, hop, vop, h: int, w: int, c: int,
     h_taps: torch.Tensor | None = None, v_taps: torch.Tensor | None = None,
@@ -367,9 +390,16 @@ def make_avir_executor(
     if int8_ok:
         route = gamma_route() if gamma else "inkernel"
         if route == "ring":
-            raise NotImplementedError(
-                f"not ported yet: {GAMMA_ROUTE_ENV}=ring, the shift-ring "
-                "gamma kernel K6 (ROADMAP.md Queue 2 K6)"
+            ring = _ring_operands(plan, lop, order, device)
+            if ring is not None:
+                def run(src: torch.Tensor) -> torch.Tensor:
+                    return apply_fused_ring(ring, src)
+
+                run.route, run.order, run.ops = "int8", "vh", ring
+                return run
+            warnings.warn(
+                f"{GAMMA_ROUTE_ENV}=ring not viable for this config (needs a "
+                "uniform-stride int8 downsize); falling back to the in-kernel route"
             )
         pre = route == "prologue"
         ops = prepare_fused_int8(vop, lop, order, device, gamma_pre=pre, **gamma_kw)

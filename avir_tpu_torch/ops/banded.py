@@ -90,6 +90,10 @@ class BlockedBandedOp:
     # Max per-output abs limb sums along the contraction.
     q_abs1: int = 0
     q_abs0: int = 0
+    # Rows of zero padding above the input (uniform blocking only):
+    # offsets and taps are in the padded coordinates, so the input is
+    # read pad_top rows lower.
+    pad_top: int = 0
 
     @property
     def n_blocks(self) -> int:
@@ -105,36 +109,80 @@ def bf16_split(dense: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def _uniform_offsets(
+    starts: np.ndarray, n_out: int, n_in: int, width: int, tile: int
+) -> tuple[np.ndarray, int, int, int]:
+    """(offs, win, n_in_pad, pad_top) of the uniform blocking: a constant
+    window stride delta, a multiple of 32, from a base rounded down to 32;
+    a negative base becomes ``pad_top`` rows of zero padding, and offsets
+    are in the padded coordinates (``block_banded(uniform=True)`` there)."""
+    n_blocks = -(-n_out // tile)
+    if n_blocks < 2:
+        raise ValueError("uniform blocking needs >= 2 blocks")
+    lo_starts = starts[np.arange(n_blocks) * tile]
+    # Interior strides of a constant-k plan are exactly tile*k; the first
+    # and last may differ (edge clamping in op.starts).
+    deltas = np.diff(lo_starts[1:-1])
+    if len(deltas) and not (deltas == deltas[0]).all():
+        raise ValueError("non-uniform stride")
+    delta = int(deltas[0]) if len(deltas) else int(np.diff(lo_starts).max())
+    if delta <= 0 or delta % 32:
+        raise ValueError("stride not a positive multiple of 32")
+    # offs[b] starts at or before each block's first tap row.
+    off0 = int((lo_starts - delta * np.arange(n_blocks)).min()) // 32 * 32
+    pad_top = max(0, -off0)
+    offs = off0 + pad_top + delta * np.arange(n_blocks)
+    ends = starts[np.minimum(np.arange(1, n_blocks + 1) * tile, n_out) - 1]
+    win = _round_up(int((ends + pad_top + width - offs).max()), 128)
+    n_in_pad = max(n_in + pad_top, int(offs.max()) + win)
+    return offs, win, n_in_pad, pad_top
+
+
 def block_banded(
-    op: BandedOp, tile: int | None = None, in_bytes: int = 1
+    op: BandedOp, tile: int | None = None, in_bytes: int = 1,
+    uniform: bool = False,
 ) -> BlockedBandedOp:
     """Lower a BandedOp to its blocked dense form (window starts aligned
-    to 32 rows, windows rounded up to 128 rows, as in the JAX package)."""
+    to 32 rows, windows rounded up to 128 rows, as in the JAX package).
+
+    ``uniform=True`` forces a constant window stride (the shift-ring
+    kernel's operator, ops/cuda/fused_ring.py): the boundary blocks, whose
+    windows the default mode clamps into the input, are covered by
+    ``pad_top`` rows of zero padding at the top (and more at the bottom
+    through ``n_in_pad``).  Raises ValueError for under 2 blocks or a
+    stride that is not constant or not a positive multiple of 32."""
     if tile is None:
         tile = pick_tile(op, in_bytes=in_bytes)
     n_out, width = op.n_out, op.width
     n_blocks = -(-n_out // tile)
     starts = op.starts.astype(np.int64)
 
-    offs = np.empty(n_blocks, dtype=np.int64)
-    spans = np.empty(n_blocks, dtype=np.int64)
-    for b in range(n_blocks):
-        lo = b * tile
-        hi = min(lo + tile, n_out)
-        offs[b] = (starts[lo] // 32) * 32
-        spans[b] = starts[hi - 1] + width - offs[b]
-    win = _round_up(int(spans.max()), 128)
-
-    # Pull overrunning tail windows left (32-aligned) so offs+win fits
-    # inside the input, when the widened spans still fit in win.
-    max_off = (op.n_in - win) // 32 * 32
-    if max_off >= 0 and int(
-        (spans + np.maximum(offs - max_off, 0)).max()
-    ) <= win:
-        offs -= np.maximum(offs - max_off, 0)
-        n_in_pad = op.n_in
+    pad_top = 0
+    if uniform:
+        offs, win, n_in_pad, pad_top = _uniform_offsets(
+            starts, n_out, op.n_in, width, tile
+        )
+        starts = starts + pad_top
     else:
-        n_in_pad = max(op.n_in, int(offs.max()) + win)
+        offs = np.empty(n_blocks, dtype=np.int64)
+        spans = np.empty(n_blocks, dtype=np.int64)
+        for b in range(n_blocks):
+            lo = b * tile
+            hi = min(lo + tile, n_out)
+            offs[b] = (starts[lo] // 32) * 32
+            spans[b] = starts[hi - 1] + width - offs[b]
+        win = _round_up(int(spans.max()), 128)
+
+        # Pull overrunning tail windows left (32-aligned) so offs+win fits
+        # inside the input, when the widened spans still fit in win.
+        max_off = (op.n_in - win) // 32 * 32
+        if max_off >= 0 and int(
+            (spans + np.maximum(offs - max_off, 0)).max()
+        ) <= win:
+            offs -= np.maximum(offs - max_off, 0)
+            n_in_pad = op.n_in
+        else:
+            n_in_pad = max(op.n_in, int(offs.max()) + win)
 
     dense = np.zeros((n_blocks, tile, win), dtype=np.float32)
     rows = np.arange(n_out)
@@ -173,6 +221,7 @@ def block_banded(
         q_abs0=0 if q0 is None else int(
             np.abs(q0.astype(np.int64)).sum(axis=2).max()
         ),
+        pad_top=pad_top,
     )
 
 
@@ -219,8 +268,10 @@ def apply_blocked(
     if x.dtype in (torch.uint8, torch.uint16):
         x = x.to(torch.int32)
     x = x.float()
-    if bop.n_in_pad > x.shape[0]:
-        x = torch.nn.functional.pad(x, (0, 0, 0, bop.n_in_pad - x.shape[0]))
+    if bop.pad_top or bop.n_in_pad > x.shape[0]:
+        x = torch.nn.functional.pad(
+            x, (0, 0, bop.pad_top, bop.n_in_pad - bop.pad_top - x.shape[0])
+        )
     idx = torch.from_numpy(
         bop.offs.astype(np.int64)[:, None] + np.arange(bop.win)[None, :]
     ).to(x.device)

@@ -28,6 +28,8 @@ SOURCES = {
     "banded": "banded.cu",
     "lanes": "lanes.cu",
     "gamma_prologue": "gamma_prologue.cu",
+    "fused_ring": "fused_ring.cu",
+    "planar": "planar.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

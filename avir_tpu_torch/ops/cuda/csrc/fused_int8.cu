@@ -150,13 +150,9 @@ __device__ __forceinline__ void load_xq(const Args& a, int r, int l,
   if (r < a.rows_in && l < a.lanes_in) {
     xq = k1::gamma_in_q13(a.epi, __ldg(a.x + static_cast<size_t>(r) * a.lanes_in + l), l);
   }
-  const int32_t hi = (xq + 64) >> 7;
+  const int32_t hi = k1::limb_hi(xq);
   *q1 = static_cast<uint8_t>(hi);
   *q0 = static_cast<uint8_t>(xq - hi * 128);
-}
-
-__device__ __forceinline__ int32_t requant(int32_t fq, int sh) {
-  return (fq + (1 << (sh - 1))) >> sh;
 }
 
 __device__ __forceinline__ uint32_t byte_of(int32_t v, int i) {
@@ -165,9 +161,7 @@ __device__ __forceinline__ uint32_t byte_of(int32_t v, int i) {
 
 template <bool GAMMA>
 __device__ __forceinline__ uint8_t finish(const Args& a, int32_t pa, int32_t pb, int lane) {
-  float acc = __fadd_rn(__fmul_rn(__int2float_rn(pa), 16384.0f),
-                        __fmul_rn(__int2float_rn(pb), 128.0f));
-  acc = __fmul_rn(acc, a.rec);
+  const float acc = k1::recombine(pa, pb, a.rec);
   return static_cast<uint8_t>(static_cast<int>(k1::finish_int<GAMMA>(a.epi, acc, lane)));
 }
 
@@ -311,8 +305,8 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
       for (int jj = 0; jj < 4; ++jj) {
         const int32_t fq = GAMMA ? m1[i][jj] * 16384 + (m0[i][jj] + m2[i][jj]) * 128
                                  : m1[i][jj] * 128 + m0[i][jj] + comp[i];
-        const int32_t x15 = requant(fq, a.sh);
-        const int32_t x1 = (x15 + 64) >> 7;
+        const int32_t x15 = k1::requant(fq, a.sh);
+        const int32_t x1 = k1::limb_hi(x15);
         w1 |= byte_of(x1, jj);
         w0 |= byte_of(x15 - x1 * 128, jj);
       }
@@ -443,8 +437,8 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
       for (int i = 0; i < 4; ++i) {
         const int32_t fq = GAMMA ? f1[i][jj] * 16384 + (f0[i][jj] + f2[i][jj]) * 128
                                  : f1[i][jj] * 128 + f0[i][jj] + comp[jj];
-        const int32_t x15 = requant(fq, a.sh);
-        const int32_t x1 = (x15 + 64) >> 7;
+        const int32_t x15 = k1::requant(fq, a.sh);
+        const int32_t x1 = k1::limb_hi(x15);
         w1 |= byte_of(x1, i);
         w0 |= byte_of(x15 - x1 * 128, i);
       }

@@ -49,7 +49,7 @@ __global__ void __launch_bounds__(kThreads) gamma_prologue(
       if (r < rows && l < lanes) {
         q = k1::gamma_in_q13(epi, __ldg(x + static_cast<size_t>(r) * lanes + l), l);
       }
-      const int32_t q1 = (q + 64) >> 7;
+      const int32_t q1 = k1::limb_hi(q);
       w1 |= (static_cast<uint32_t>(q1) & 0xffu) << (8 * k);
       w0 |= (static_cast<uint32_t>(q - q1 * 128) & 0xffu) << (8 * k);
     }

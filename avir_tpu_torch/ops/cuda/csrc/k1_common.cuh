@@ -87,6 +87,24 @@ __device__ __forceinline__ int32_t gamma_in_q13(const Epilogue& e, uint8_t x, in
   return srgb_to_linear13(v);
 }
 
+// The int8 mode's integer steps, shared by every kernel of that route
+// (fused_int8.cu, gamma_prologue.cu, fused_ring.cu) so that their limbs
+// and sums agree by construction.
+// High limb of the balanced radix-128 split q = 128 * hi + lo, |lo| <= 64.
+__device__ __forceinline__ int32_t limb_hi(int32_t q) { return (q + 64) >> 7; }
+
+// The first pass's exact sum requantized to the 15-bit intermediate.
+__device__ __forceinline__ int32_t requant(int32_t fq, int sh) {
+  return (fq + (1 << (sh - 1))) >> sh;
+}
+
+// The second pass's limb sums recombined in float32, times rec = 2^-k.
+__device__ __forceinline__ float recombine(int32_t pa, int32_t pb, float rec) {
+  const float acc = __fadd_rn(__fmul_rn(__int2float_rn(pa), 16384.0f),
+                              __fmul_rn(__int2float_rn(pb), 128.0f));
+  return __fmul_rn(acc, rec);
+}
+
 // The split modes' pack stage.
 __device__ __forceinline__ float gamma_in(const Epilogue& e, float x, int lane) {
   const float v = __fmul_rn(x, e.in_gamma_mult);

@@ -130,15 +130,19 @@ def finish_reference(
     out_max: float = 255.0,
     trunc_bits: int = 0,
     tm: float = 1.0,
+    curve: bool = True,
 ) -> torch.Tensor:
     """K1's epilogue on the float32 image [rows_out, lanes_out] (plain
     version of ``k1::finish_float`` / ``k1::finish_int``): gamma-out,
     then for integer output the scale, the rounding and the clamp.  The
     last multiply before a biased rounding fuses with its + 0.5, as the
-    reference's compiled kernel does (ops/gamma.py)."""
+    reference's compiled kernel does (ops/gamma.py).  ``curve=False``:
+    the image is an alpha plane, which skips the sRGB curve but not
+    ``out_gamma_mult`` (the planar kernels' bypass)."""
     mul = None
     if epi.gamma:
-        acc = _linear_to_srgb(acc, epi.c, epi.alpha_index)
+        if curve:
+            acc = _linear_to_srgb(acc, epi.c, epi.alpha_index)
         if epi.out_gamma_mult != 0.0:
             mul = f32(epi.out_gamma_mult)
     if out_dtype == torch.float32:

@@ -227,6 +227,35 @@ def to_float32(x: torch.Tensor) -> torch.Tensor:
     return x.float()
 
 
+def vh_passes(
+    xs: torch.Tensor, tvh: torch.Tensor, tvl: torch.Tensor,
+    thh: torch.Tensor, thl: torch.Tensor, offs_v: tuple[int, ...],
+    lane_idx: torch.Tensor, s3v: bool, s3h: bool,
+) -> torch.Tensor:
+    """The V pass, then the chunked H pass, of the float32 image ``xs``
+    [rows_pad, lanes_pad] by float32 bf16-valued taps (V [Bv, Tv, Wv] at
+    ``offs_v``, H [Bh, n_ch, win_c, 128] over the window lanes
+    ``lane_idx`` [Bh, n_ch, win_c]), the input and the intermediate split
+    into bf16 hi/lo: float32 [Bv, Tv, Bh, n_ch * 128]."""
+    bv, tv, wv = tvh.shape
+    bh, n_ch = thh.shape[:2]
+    out = torch.empty((bv, tv, bh, n_ch * _LANES), dtype=torch.float32, device=xs.device)
+    for b, o in enumerate(offs_v):
+        wh, wl = _split(xs[o : o + wv])
+        v = tvh[b] @ wh + tvl[b] @ wh
+        if s3v:
+            v = v + tvh[b] @ wl
+        vh, vl = _split(v)
+        gh = vh[:, lane_idx]  # [Tv, Bh, n_ch, win_c]
+        acc = torch.einsum("tbjw,bjwc->tbjc", gh, thh) + torch.einsum(
+            "tbjw,bjwc->tbjc", gh, thl
+        )
+        if s3h:
+            acc = acc + torch.einsum("tbjw,bjwc->tbjc", vl[:, lane_idx], thh)
+        out[b] = acc.reshape(tv, bh, -1)
+    return out
+
+
 def apply_fused_split_reference(
     ops: FusedSplitOperands, x: torch.Tensor
 ) -> torch.Tensor:
@@ -252,24 +281,15 @@ def apply_fused_split_reference(
         + ops.rel.long()[None, :, None]
         + torch.arange(win_c, device=dev)
     )  # [Bh, n_ch, win_c]
-    out = torch.empty((bv, tv, bh, n_ch * _LANES), dtype=torch.float32, device=dev)
-
-    def vpass(b, wh, wl):
-        acc = tvh[b] @ wh + tvl[b] @ wh
-        return acc + tvh[b] @ wl if s3v else acc
-
     if ops.order == "vh":
-        for b, o in enumerate(ops.offs_v_host):
-            v = vpass(b, *_split(xs[o : o + wv]))
-            vh, vl = _split(v)
-            gh = vh[:, lane_idx]  # [Tv, Bh, n_ch, win_c]
-            acc = torch.einsum("tbjw,bjwc->tbjc", gh, thh) + torch.einsum(
-                "tbjw,bjwc->tbjc", gh, thl
-            )
-            if s3h:
-                acc = acc + torch.einsum("tbjw,bjwc->tbjc", vl[:, lane_idx], thh)
-            out[b] = acc.reshape(tv, bh, -1)
+        out = vh_passes(xs, tvh, tvl, thh, thl, ops.offs_v_host, lane_idx, s3v, s3h)
     else:
+        out = torch.empty((bv, tv, bh, n_ch * _LANES), dtype=torch.float32, device=dev)
+
+        def vpass(b, wh, wl):
+            acc = tvh[b] @ wh + tvl[b] @ wh
+            return acc + tvh[b] @ wl if s3v else acc
+
         xh, xl = _split(xs)
         hp = torch.empty((ops.rows_pad, bh, n_ch, _LANES), dtype=torch.float32, device=dev)
         for j in range(n_ch):

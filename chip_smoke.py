@@ -21,6 +21,12 @@ Phases (any failure exits non-zero before the last line):
          and split vh/hv (the split gate above; an integer output whose
          float32 difference is amplified, by LANCIR's scale > 1 or by
          gamma-out, takes the float32 gate on its range plus one step);
+       - K2, K3 (max * 1e-5), K5 and K1's limb-plane input (bit-equal);
+       - K6 ring: the JAX package's five ring cases plus C = 1, bit-equal
+         to its plain version and to K1's in-kernel gamma kernel;
+       - K7 planar and K8 interleaved: C in {1, 3, 4}, split2/split3,
+         u8/u16/f32 in, f32/u8/u16 out, trunc_bits 0 and 2, gamma with
+         alpha: the split gate;
   3. drives the main path through ``avir_tpu_torch.ImageResizer.resize``,
      with the launch counts set to 0 just before each first call and
      read just after:
@@ -50,6 +56,14 @@ Phases (any failure exits non-zero before the last line):
          the degree-9 linearization): within the split gate of the plain
          version and 5 LSB / >= 60 dB of the oracle (the JAX package's gate for
          its fused u16 gamma route);
+       - the unfused and prologue shapes, then the ring route
+         (``AVIR_TPU_GAMMA_ROUTE=ring``) at 8k_to_1080p_gamma_ring and
+         4k_to_720p_gamma_ring (one K6 launch, bit-equal to its plain
+         version, the in-kernel route and the prologue route), and K7/K8
+         called directly (no resize routes to them) at 8k_to_1080p_planar
+         (u8 RGB split2/split3) and 1080p_to_4k_u16_gamma_rgba_planar
+         (split3/split3, gamma, alpha 3): the split gate of their plain
+         versions;
   4. times each kernel at its main-path shape with CUDA events (L2
      flushed before every launch) beside its bound and its plain
      version's time, plus the host wall time of a cached resize and its
@@ -177,6 +191,12 @@ KERNELS = {
     "fused_int8_vh_gamma_pre": "avir_tpu/ops/pallas/fused_kernel.py:462-516 "
     "(x_lo limb-plane input, gamma_pre) with _int8_passes :191 and "
     "_linear_to_srgb :79; entry apply_fused_pallas :422",
+    "fused_ring_vh_gamma": "avir_tpu/ops/pallas/fused_ring_kernel.py:137 "
+    "(apply_fused_ring_pallas, _kernel :87)",
+    "planar": "avir_tpu/ops/pallas/planar_kernel.py:117 (apply_planar_pallas, "
+    "_kernel :41)",
+    "planar2": "avir_tpu/ops/pallas/planar2_kernel.py:123 (apply_planar2_pallas, "
+    "_kernel :54)",
 }
 SOURCES = {
     "fused_int8_vh": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
@@ -195,6 +215,9 @@ SOURCES = {
     "banded_exact": "avir_tpu_torch/ops/cuda/csrc/banded.cu",
     "gamma_prologue": "avir_tpu_torch/ops/cuda/csrc/gamma_prologue.cu",
     "fused_int8_vh_gamma_pre": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
+    "fused_ring_vh_gamma": "avir_tpu_torch/ops/cuda/csrc/fused_ring.cu",
+    "planar": "avir_tpu_torch/ops/cuda/csrc/planar.cu",
+    "planar2": "avir_tpu_torch/ops/cuda/csrc/planar.cu",
 }
 INT8_EPI_CASES = (
     # (src_w, src_h, new_w, new_h, c, lane tile, order, round_mode, scale,
@@ -273,6 +296,49 @@ GAMMA_PRE_CASES = (
     (29, 21, 71, 45, 4, 48, "hv", -1),
     (1031, 517, 263, 129, 4, None, "vh", 3),
     (333, 251, 1001, 777, 3, None, "hv", -1),
+)
+# K6, the shift-ring gamma route: (src_w, src_h, new_w, new_h, c,
+# alpha_index, V tile, uniform blocking); tests/test_pallas_kernel.py:
+# 854-862's five cases plus C = 1.
+RING_CASES = (
+    (256, 768, 64, 192, 3, -1, 64, False),
+    (128, 768, 32, 192, 4, 3, 64, False),
+    (384, 512, 96, 128, 3, -1, None, False),
+    (512, 1024, 128, 256, 3, -1, 64, True),
+    (256, 960, 128, 480, 4, 3, 64, True),
+    (640, 1024, 160, 256, 1, -1, 64, True),
+)
+# K6 at full size through ImageResizer.resize(use_srgb_gamma=True) with
+# AVIR_TPU_GAMMA_ROUTE=ring, u8 RGB: (name, src_w, src_h, new_w, new_h).
+RING_SHAPES = (
+    ("8k_to_1080p_gamma_ring", 7680, 4320, 1920, 1080),
+    ("4k_to_720p_gamma_ring", 3840, 2160, 1280, 720),
+)
+# K7 (planar input) and K8 (interleaved input), small cases: (src_w,
+# src_h, new_w, new_h, c, in type, out type, mode_v, mode_h, trunc_bits,
+# gamma, alpha_index).
+PLANAR_CASES = (
+    (200, 150, 80, 60, 3, "u8", "f32", "split2", "split3", 0, False, -1),
+    (200, 150, 80, 60, 3, "u8", "u8", "split2", "split3", 0, False, -1),
+    (96, 80, 144, 120, 4, "u16", "u16", "split3", "split3", 0, True, 3),
+    (150, 90, 61, 37, 1, "f32", "f32", "split3", "split3", 0, False, -1),
+    (120, 80, 70, 50, 4, "u8", "u8", "split3", "split2", 2, True, 0),
+    (45, 31, 97, 70, 3, "u16", "u8", "split3", "split3", 0, False, -1),
+    (40, 30, 64, 48, 1, "u8", "u16", "split2", "split2", 2, False, -1),
+    (181, 77, 60, 33, 4, "f32", "u16", "split3", "split3", 0, True, 3),
+    (1031, 517, 263, 129, 3, "u8", "u8", "split2", "split3", 0, False, -1),
+    (333, 251, 1001, 777, 4, "u16", "u16", "split3", "split3", 0, True, 3),
+)
+# K7 and K8 at full size, called directly (no resize routes to them, as in
+# the JAX package): (name, src_w, src_h, new_w, new_h, c, in dtype, out
+# dtype, mode_v, mode_h, resize keywords, K1 variant of the same resize).
+PLANAR_SHAPES = (
+    ("8k_to_1080p_planar", 7680, 4320, 1920, 1080, 3, np.uint8, np.uint8,
+     "split2", "split3", {}, "fused_split_vh"),
+    ("1080p_to_4k_u16_gamma_rgba_planar", 1920, 1080, 3840, 2160, 4, np.uint16,
+     np.uint16, "split3", "split3",
+     {"use_srgb_gamma": True, "alpha_index": 3, "res_bit_depth": 16},
+     "fused_split_hv_gamma"),
 )
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
@@ -1304,6 +1370,306 @@ def _prologue_shape(gen, dev, flush, smi, mods) -> list[dict]:
     ]
 
 
+def _gamma_kw(plan) -> dict:
+    return dict(gamma=True, in_gamma_mult=plan.in_gamma_mult,
+                out_gamma_mult=plan.out_gamma_mult)
+
+
+def _ring_cases(gen, dev) -> None:
+    """K6 against its plain version and K1's in-kernel gamma kernel:
+    bit-equal."""
+    from avir_tpu_torch.ops.banded import block_banded
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_ring as fr
+    from avir_tpu_torch.ops.lanes import lane_block_banded
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    for sw, sh, nw, nh, c, alpha, tile, uniform in RING_CASES:
+        plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8,
+                                 use_srgb_gamma=True, alpha_index=alpha)
+        gkw = dict(alpha_index=alpha, in_gamma_mult=plan.in_gamma_mult,
+                   out_gamma_mult=plan.out_gamma_mult)
+        lop = lane_block_banded(plan.h.op, c)
+        ops = fr.prepare_fused_ring(
+            block_banded(plan.v.op, tile=tile, uniform=uniform), lop, dev, **gkw
+        )
+        ink = fk.prepare_fused_int8(block_banded(plan.v.op, tile=tile), lop, "vh",
+                                    dev, gamma=True, **gkw)
+        x = torch.from_numpy(_image(gen, (sh, sw * c), "u8")).to(dev)
+        got = fr.apply_fused_ring(ops, x)
+        torch.cuda.synchronize()
+        err_plain = int((got.int() - fr.apply_fused_ring_reference(ops, x).int()).abs().max())
+        err_ink = int((got.int() - fk.apply_fused_int8(ink, x).int()).abs().max())
+        case = (f"{ops.launch_key} {sw}x{sh}->{nw}x{nh} C={c} tile={tile} "
+                f"uniform={uniform} pad_top={ops.pad_top} alpha={alpha}")
+        print(json.dumps({"case": case, "max_abs_err_vs_plain": err_plain,
+                          "max_abs_err_vs_inkernel": err_ink}))
+        if err_plain or err_ink:
+            _fail(f"ring kernel != plain or in-kernel on {case}")
+
+
+def _planar_ops(plan, c, mv, mh, out_dt, out_max, tb, g, alpha, dev):
+    """(vop, pop, K7 operands, K8 operands) of one planar resize."""
+    from avir_tpu_torch.ops.banded import block_banded
+    from avir_tpu_torch.ops.cuda import planar as pk
+    from avir_tpu_torch.ops.cuda import planar2 as p2
+    from avir_tpu_torch.ops.lanes import lane_block_banded
+
+    in_b = 4 if plan.is_in_float else (1 if plan.in_type_max == 255.0 else 2)
+    vop = block_banded(plan.v.op, in_bytes=in_b)
+    pop = lane_block_banded(plan.h.op, 1, in_bytes=in_b)
+    kw = dict(mode_v=mv, mode_h=mh, out_dtype=out_dt, out_max=out_max, trunc_bits=tb)
+    if g:
+        kw.update(_gamma_kw(plan))
+    return (vop, pop, pk.prepare_planar(vop, pop, c, dev, alpha_plane=alpha, **kw),
+            p2.prepare_planar2(vop, pop, c, dev, alpha_index=alpha, **kw))
+
+
+def _planar_cases(gen, dev) -> None:
+    """K7 and K8 against their plain versions: the split gate."""
+    from avir_tpu_torch.ops.cuda import planar as pk
+    from avir_tpu_torch.ops.cuda import planar2 as p2
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    for sw, sh, nw, nh, c, tin, tout, mv, mh, tb, g, alpha in PLANAR_CASES:
+        out_max = 65535.0 if tout == "u16" else 255.0
+        plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout],
+                                 res_bit_depth=16 if tout == "u16" else 8,
+                                 use_srgb_gamma=g, alpha_index=alpha)
+        vop, pop, k7, k8 = _planar_ops(plan, c, mv, mh, TORCH_TYPES[tout], out_max,
+                                       tb, g, alpha, dev)
+        x = torch.from_numpy(_image(gen, (sh, sw * c), tin)).to(dev)
+        xp = pk.deinterleave(x, sh, sw, c, pk.plane_stride(vop), max(sw, pop.lanes_pad))
+        for ops, src, kernel, plain in (
+            (k7, xp, pk.apply_planar, pk.apply_planar_reference),
+            (k8, x, p2.apply_planar2, p2.apply_planar2_reference),
+        ):
+            got = kernel(ops, src)
+            torch.cuda.synchronize()
+            want = plain(ops, src)
+            err = float((got.double() - want.double()).abs().max())
+            ref_max = float(want.double().abs().max())
+            if tout == "f32":
+                tol = ref_max * 1e-4
+            elif tb:
+                tol = out_max / (int(out_max) >> tb)
+            else:
+                tol = _split_int_tol(ref_max, 1.0, g)
+            case = (f"{ops.launch_key} {sw}x{sh}->{nw}x{nh} C={c} {mv}/{mh} "
+                    f"{tin}->{tout} tb={tb} gamma={g} alpha={alpha}")
+            print(json.dumps({"case": case, "max_abs_err": err, "tol": tol}))
+            if not (got.shape == want.shape and err <= tol):
+                _fail(f"planar kernel != plain on {case}")
+
+
+def _ring_shape(name, sw, sh, nw, nh, gen, dev, flush, smi, mods) -> list[dict]:
+    """One full-size shape of the ring route: ImageResizer.resize with sRGB
+    gamma under AVIR_TPU_GAMMA_ROUTE=ring runs one K6 launch, bit-equal to
+    K6's plain version, to the in-kernel route and to the prologue route
+    on the same image; K6 timed beside both routes in the same run."""
+    import os
+
+    import avir_tpu_torch
+    from avir_tpu_torch.models.runtime import GAMMA_ROUTE_ENV, make_avir_executor
+    from avir_tpu_torch.ops.banded import block_banded
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_ring as fr
+    from avir_tpu_torch.ops.lanes import lane_block_banded
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    c = 3
+    src = gen.integers(0, 256, (sh, sw, c), dtype=np.uint8)
+    api = avir_tpu_torch.ImageResizer()
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True)
+    routes = {}
+    try:
+        os.environ[GAMMA_ROUTE_ENV] = "ring"
+        _zero(mods)
+        t0 = time.perf_counter()
+        out = api.resize(src, nw, nh, use_srgb_gamma=True, device=dev)
+        first_s = time.perf_counter() - t0
+        counts = _counts(mods)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            api.resize(src, nw, nh, use_srgb_gamma=True, device=dev)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        for route in ("ring", "prologue"):
+            os.environ[GAMMA_ROUTE_ENV] = route
+            routes[route] = make_avir_executor(plan, device=dev)
+    finally:
+        del os.environ[GAMMA_ROUTE_ENV]
+    ink = make_avir_executor(plan, device=dev)
+    ops = routes["ring"].ops
+    key = ops.launch_key
+    print(json.dumps({"main_path": name, "launches": {k: v for k, v in counts.items() if v},
+                      "route": routes["ring"].route, "order": routes["ring"].order,
+                      "variant": key}))
+    if key != "fused_ring_vh_gamma" or counts[key] != 1 or sum(counts.values()) != 1:
+        _fail(f"{name}: launches {counts}, variant {key}")
+
+    x = torch.from_numpy(src.reshape(sh, sw * c)).to(dev)
+    got = fr.apply_fused_ring(ops, x)
+    want = fr.apply_fused_ring_reference(ops, x)
+    base = fk.apply_fused_int8(ink.ops, x)
+    pre = routes["prologue"](x)
+    torch.cuda.synchronize()
+    errs = {k: int((got.int() - v.int()).abs().max())
+            for k, v in (("plain", want), ("inkernel_route", base), ("prologue_route", pre))}
+    same_as_resize = bool(np.array_equal(got.cpu().numpy().reshape(nh, nw, c), out))
+    ok = not any(errs.values()) and same_as_resize
+
+    ms = _time_ms(lambda: fr.apply_fused_ring(ops, x), 20, flush)
+    ink_ms = _time_ms(lambda: fk.apply_fused_int8(ink.ops, x), 20, flush)
+    pre_ms = _time_ms(lambda: routes["prologue"](x), 20, flush)
+    ms_again = _time_ms(lambda: fr.apply_fused_ring(ops, x), 20, flush)
+    plain_ms = _time_ms(lambda: fr.apply_fused_ring_reference(ops, x), 2, flush)
+    # How the column's cut into parts trades the preloads against the
+    # blocks in flight (the route's default is ops.part_ptr's).
+    vop_ring, lop = block_banded(plan.v.op, uniform=True), lane_block_banded(plan.h.op, c)
+    sweep = {}
+    for parts in (1, 3, 6, 12, 24):
+        o = fr.prepare_fused_ring(vop_ring, lop, dev, in_gamma_mult=plan.in_gamma_mult,
+                                  out_gamma_mult=plan.out_gamma_mult, parts=parts)
+        sweep[parts] = {
+            "ms": _time_ms(lambda: fr.apply_fused_ring(o, x), 10, flush),
+            "blocks": o.segs.shape[0] * (o.part_ptr.shape[0] - 1),
+            "linearizations_per_input": fr.linearizations_per_input(o),
+        }
+    f32_ops = sh * sw * c * GAMMA_IN_OPS["int8"] + nh * nw * c * GAMMA_OUT_OPS
+    bound_ms, bound_by, nbytes, nops = _k1_bound(
+        plan.h.op, plan.v.op, c, "vh", 1, 1, 2, 3, 3, INT8_OPS_PER_S, f32_ops
+    )
+    k1 = ops.k1
+    report = {
+        "shape": name, "kernel": key, "route": "int8 ring",
+        "max_abs_err_vs": errs, "same_as_resize": same_as_resize,
+        "ms": ms, "ms_again": ms_again, "inkernel_k1_ms": ink_ms,
+        "prologue_route_ms": pre_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "int8_ops": nops, "f32_gamma_ops": f32_ops,
+        "linearizations_per_input": fr.linearizations_per_input(ops),
+        "inkernel_first_pass_reads_per_input": _first_pass_reads(ink.ops),
+        "ring_operator": list(k1.v1.shape), "delta": ops.delta, "n_pre": ops.n_pre,
+        "pad_top": ops.pad_top, "ring_rows": ops.ring_rows,
+        "segments": ops.segs.shape[0], "pairs": ops.pair_chunk.shape[0],
+        "parts": ops.part_ptr.shape[0] - 1, "slices": ops.slices.shape[0],
+        "parts_sweep": sweep,
+        "launches_per_resize": {k: v for k, v in counts.items() if v},
+        "resize_first_call_s": first_s,
+        "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
+        "card": smi,
+    }
+    print(json.dumps(report))
+    if not ok:
+        _fail(f"{name}: report {report}")
+    return [{
+        "name": key, "route": "cuda", "source": SOURCES[key], "replaces": KERNELS[key],
+        "launches": counts[key], "max_abs_err": errs["plain"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }]
+
+
+def _planar_shape(name, sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, k1_key,
+                  gen, dev, flush, smi, mods) -> list[dict]:
+    """One full-size shape of K7 and K8, called as a user would (no resize
+    routes to them): deinterleave -> K7 -> reinterleave, and K8 ->
+    regroup_channels, with the launch counts set to 0 just before and read
+    just after.  Each kernel within the split gate of its plain version;
+    timed beside K1 split of the same resize and the exact route."""
+    from avir_tpu_torch.models.runtime import make_avir_executor
+    from avir_tpu_torch.ops.banded import block_banded
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.cuda import planar as pk
+    from avir_tpu_torch.ops.cuda import planar2 as p2
+    from avir_tpu_torch.ops.lanes import lane_block_banded
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    kw = dict(kw)
+    bits = kw.pop("res_bit_depth", 8)
+    g, alpha = kw.get("use_srgb_gamma", False), kw.get("alpha_index", -1)
+    out_max = 255.0 if np.dtype(out_dt).itemsize == 1 else 65535.0
+    plan = build_resize_plan(sw, sh, nw, nh, c, in_dt, out_dt, res_bit_depth=bits, **kw)
+    out_t = TORCH_TYPES["u8" if out_max == 255.0 else "u16"]
+    vop, pop, k7, k8 = _planar_ops(plan, c, mv, mh, out_t, out_max, 0, g, alpha, dev)
+    src = gen.integers(0, np.iinfo(in_dt).max + 1, (sh, sw, c), dtype=in_dt)
+    x = torch.from_numpy(src.reshape(sh, sw * c)).to(dev)
+    hp, wp = pk.plane_stride(vop), max(sw, pop.lanes_pad)
+    bv_tv = vop.n_blocks * vop.tile
+
+    _zero(mods)
+    xp = pk.deinterleave(x, sh, sw, c, hp, wp)
+    res7 = pk.reinterleave(pk.apply_planar(k7, xp), c, bv_tv, nh, nw)
+    res8 = p2.regroup_channels(p2.apply_planar2(k8, x), c, pop.tile, nh, nw)
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    print(json.dumps({"main_path": name, "launches": {k: v for k, v in counts.items() if v},
+                      "mode_v": mv, "mode_h": mh}))
+    if counts["planar"] != 1 or counts["planar2"] != 1 or sum(counts.values()) != 2:
+        _fail(f"{name}: launches {counts}")
+
+    # K1 split on the same resize, modes and epilogue, in its own order.
+    in_b = np.dtype(in_dt).itemsize
+    k1 = fs.prepare_fused_split(
+        block_banded(plan.v.op, in_bytes=in_b),
+        lane_block_banded(plan.h.op, c, in_bytes=in_b),
+        "vh" if nw * nh <= sw * sh else "hv", mv, mh, dev, out_dtype=out_t,
+        out_max=out_max, **(dict(_gamma_kw(plan), alpha_index=alpha) if g else {}),
+    )
+    if k1.launch_key != k1_key:
+        _fail(f"{name}: K1 variant {k1.launch_key}, expected {k1_key}")
+    k1_out = fs.apply_fused_split(k1, x)
+    report = {"shape": name, "kernels": ["planar", "planar2"], "mode_v": mv, "mode_h": mh}
+    entries, ok = [], True
+    for key, ops, inp, kernel, plain, res in (
+        ("planar", k7, xp, pk.apply_planar, pk.apply_planar_reference, res7),
+        ("planar2", k8, x, p2.apply_planar2, p2.apply_planar2_reference, res8),
+    ):
+        got = kernel(ops, inp)
+        want = plain(ops, inp)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        tol = _split_int_tol(float(want.double().abs().max()), 1.0, g)
+        ms = _time_ms(lambda: kernel(ops, inp), 10, flush)
+        plain_ms = _time_ms(lambda: plain(ops, inp), 2, flush)
+        f32_ops = (sh * sw * c * GAMMA_IN_OPS["split"] + nh * nw * c * GAMMA_OUT_OPS) if g else 0
+        bound = _k1_bound(plan.h.op, plan.v.op, c, "vh", np.dtype(in_dt).itemsize,
+                          np.dtype(out_dt).itemsize, 4, 3 if mv == "split3" else 2,
+                          3 if mh == "split3" else 2, BF16_OPS_PER_S, f32_ops)
+        vs_k1 = int((res.int() - k1_out.int()).abs().max())
+        report[key] = {
+            "max_abs_err_vs_plain": err, "tol_vs_plain": tol, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "bytes": bound[2], "bf16_ops": bound[3], "f32_gamma_ops": f32_ops,
+            "max_abs_diff_vs_k1_split": vs_k1, "launches": counts[key],
+        }
+        ok = ok and err <= tol and tuple(res.shape) == (nh, nw * c)
+        entries.append({
+            "name": key, "route": "cuda", "source": SOURCES[key], "replaces": KERNELS[key],
+            "launches": counts[key], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+        })
+    exact = make_avir_executor(plan, precision="exact", device=dev)
+    report.update({
+        "deinterleave_ms": _time_ms(lambda: pk.deinterleave(x, sh, sw, c, hp, wp), 10, flush),
+        "k7_plus_deinterleave_ms": _time_ms(
+            lambda: pk.apply_planar(k7, pk.deinterleave(x, sh, sw, c, hp, wp)), 10, flush),
+        "k1_split_ms": _time_ms(lambda: fs.apply_fused_split(k1, x), 10, flush),
+        "k1_split_variant": k1_key,
+        "exact_route_ms": _time_ms(lambda: exact(x), 3, flush),
+        "k7_vs_k8_max_abs_diff": int((res7.int() - res8.int()).abs().max()),
+        "planar_viable_tpu_budget": pk.planar_viable(vop, pop),
+        "planar2_viable_tpu_budget": p2.planar2_viable(vop, pop, c),
+        "h_operator": list(pop.taps_hi.shape), "v_operator": list(vop.taps_hi.shape),
+        "card": smi,
+    })
+    print(json.dumps(report))
+    if not ok:
+        _fail(f"{name}: report {report}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -1315,9 +1681,12 @@ def main() -> int:
     from avir_tpu_torch.ops.cuda import banded_kernel as bk
     from avir_tpu_torch.ops.cuda import build
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_ring as fr
     from avir_tpu_torch.ops.cuda import fused_split as fs
     from avir_tpu_torch.ops.cuda import gamma_prologue as gp
     from avir_tpu_torch.ops.cuda import lanes_kernel as lk
+    from avir_tpu_torch.ops.cuda import planar as pk
+    from avir_tpu_torch.ops.cuda import planar2 as p2
     from avir_tpu_torch.ops.cuda import wavefront as wf
     from avir_tpu_torch.ops.lanes import lane_block_banded
     from avir_tpu_torch.plan.plan import build_resize_plan
@@ -1350,7 +1719,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    mods = (fk, fs, wf, bk, lk, gp)
+    mods = (fk, fs, wf, bk, lk, gp, fr, pk, p2)
 
     # ---- 2. kernel vs plain on small cases -----------------------------
     for sw, sh, nw, nh, c, tile, order in KERNEL_CASES:
@@ -1421,6 +1790,8 @@ def main() -> int:
 
     _epi_cases(gen, dev)
     _unfused_cases(gen, dev)
+    _ring_cases(gen, dev)
+    _planar_cases(gen, dev)
 
     # ---- 3./4. main path, checks and timing ----------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -1511,6 +1882,13 @@ def main() -> int:
                 seen.add(e["name"])
                 entries.append(e)
     entries += _prologue_shape(gen, dev, flush, smi, mods)
+    for shapes, drive in ((RING_SHAPES, _ring_shape), (PLANAR_SHAPES, _planar_shape)):
+        for shape in shapes:
+            for e in drive(*shape, gen, dev, flush, smi, mods):
+                # One entry per kernel: its first main-path shape.
+                if e["name"] not in seen:
+                    seen.add(e["name"])
+                    entries.append(e)
 
     print(json.dumps({"kernels": entries}))
     print(json.dumps({

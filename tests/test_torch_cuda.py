@@ -5,13 +5,14 @@ toolkit are installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: K1 int8 (its limb-plane input included), K4 and K5 are
+Tolerances: K1 int8 (its limb-plane input included), K4, K5 and K6 are
 bit-equal (exact integer sums; the same float32 operations in the same
-order, gamma and the round-half-even epilogue included).  K1 split-bf16
-sums in another order than its plain version: float32 within
+order, gamma and the round-half-even epilogue included).  K1 split-bf16,
+K7 and K8 sum in another order than their plain versions: float32 within
 max|plain| * 1e-4, integers within 1 LSB, or one quantization step when
-``trunc_bits`` > 0.  K2 and K3 (one pass each) sum in another order:
-float32 within max|plain| * 1e-5."""
+``trunc_bits`` > 0 (16-bit output through gamma-out: max * 1e-4 plus one
+step).  K2 and K3 (one pass each) sum in another order: float32 within
+max|plain| * 1e-5."""
 
 import numpy as np
 import pytest
@@ -25,6 +26,8 @@ from torch_cases import (
     LANES_CASES,
     INT8_EPI_CASES,
     NP_TYPES,
+    PLANAR_CASES,
+    RING_CASES,
     SPLIT_CASES,
     SPLIT_EPI_CASES,
     WAVEFRONT_CASES,
@@ -38,9 +41,12 @@ from torch_cases import (
 from avir_tpu_torch.ops.banded import block_banded
 from avir_tpu_torch.ops.cuda import banded_kernel as bk
 from avir_tpu_torch.ops.cuda import fused_kernel as fk
+from avir_tpu_torch.ops.cuda import fused_ring as fr
 from avir_tpu_torch.ops.cuda import fused_split as fs
 from avir_tpu_torch.ops.cuda import gamma_prologue as gp
 from avir_tpu_torch.ops.cuda import lanes_kernel as lk
+from avir_tpu_torch.ops.cuda import planar as pk
+from avir_tpu_torch.ops.cuda import planar2 as p2
 from avir_tpu_torch.ops.cuda import wavefront as wf
 from avir_tpu_torch.ops.lanes import lane_block_banded, narrow_lop
 from avir_tpu_torch.plan.plan import build_resize_plan
@@ -235,3 +241,70 @@ def test_gamma_prologue_and_limb_input_match_plain_on_card(name, cuda_device):
     assert fk.launches[pre.launch_key] == before + 1
     assert torch.equal(got, fk.apply_fused_int8_reference(pre, hi, lo))
     assert torch.equal(got, fk.apply_fused_int8(inkernel, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RING_CASES))
+def test_ring_kernel_matches_plain_and_inkernel_on_card(name, cuda_device):
+    """K6 bit-equal to its plain version and to K1's in-kernel gamma
+    kernel on the default blocking."""
+    sw, sh, nw, nh, c, alpha, tile, uniform = RING_CASES[name]
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True,
+        alpha_index=alpha,
+    )
+    gkw = dict(alpha_index=alpha, in_gamma_mult=plan.in_gamma_mult,
+               out_gamma_mult=plan.out_gamma_mult)
+    lop = lane_block_banded(plan.h.op, c)
+    ops = fr.prepare_fused_ring(
+        block_banded(plan.v.op, tile=tile, uniform=uniform), lop, cuda_device, **gkw
+    )
+    inkernel = fk.prepare_fused_int8(
+        block_banded(plan.v.op, tile=tile), lop, "vh", cuda_device, gamma=True, **gkw
+    )
+    x = torch.from_numpy(
+        np.random.default_rng(sum(map(ord, name))).integers(
+            0, 256, (sh, sw * c), dtype=np.uint8
+        )
+    ).to(cuda_device)
+    before = fr.launches[ops.launch_key]
+    got = fr.apply_fused_ring(ops, x)
+    torch.cuda.synchronize()
+    assert fr.launches[ops.launch_key] == before + 1
+    assert torch.equal(got, fr.apply_fused_ring_reference(ops, x))
+    assert torch.equal(got, fk.apply_fused_int8(inkernel, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PLANAR_CASES))
+def test_planar_kernels_match_plain_on_card(name, cuda_device):
+    """K7 on ``deinterleave``'s planes and K8 on the interleaved image,
+    each within the split gate of its plain version."""
+    sw, sh, nw, nh, c, tin, tout, mv, mh, tb, g, alpha = PLANAR_CASES[name]
+    out_max = 65535.0 if tout == "u16" else 255.0
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout],
+        res_bit_depth=16 if tout == "u16" else 8, use_srgb_gamma=g, alpha_index=alpha,
+    )
+    vop, pop = block_banded(plan.v.op), lane_block_banded(plan.h.op, 1)
+    kw = dict(mode_v=mv, mode_h=mh, out_dtype=_TORCH[tout], out_max=out_max,
+              trunc_bits=tb)
+    if g:
+        kw.update(gamma=True, in_gamma_mult=plan.in_gamma_mult,
+                  out_gamma_mult=plan.out_gamma_mult)
+    x = torch.from_numpy(split_source(name, sh, sw, c, tin)).to(cuda_device)
+    xp = pk.deinterleave(x, sh, sw, c, pk.plane_stride(vop), max(sw, pop.lanes_pad))
+    k7 = pk.prepare_planar(vop, pop, c, cuda_device, alpha_plane=alpha, **kw)
+    k8 = p2.prepare_planar2(vop, pop, c, cuda_device, alpha_index=alpha, **kw)
+    for mod, ops, src, apply, plain in (
+        (pk, k7, xp, pk.apply_planar, pk.apply_planar_reference),
+        (p2, k8, x, p2.apply_planar2, p2.apply_planar2_reference),
+    ):
+        before = mod.launches[ops.launch_key]
+        got = apply(ops, src)
+        torch.cuda.synchronize()
+        assert mod.launches[ops.launch_key] == before + 1
+        want = plain(ops, src)
+        assert got.shape == want.shape == ops.out_shape
+        diff = (got.double() - want.double()).abs().max().item()
+        assert diff <= split_tol(tout, want.double().abs().max().item(), out_max, tb, 1.0, g)

@@ -88,6 +88,35 @@ GAMMA_PRE_CASES = {
     "up_c1": (45, 31, 97, 70, 1, None, "hv", -1),
 }
 
+# K6, the shift-ring int8 gamma route: (src_w, src_h, new_w, new_h, c,
+# alpha_index, V tile or None, uniform blocking).  The first five are
+# tests/test_pallas_kernel.py:854-862's (the first three on the default
+# blocking, whose offsets are already uniform; the last two with pad_top).
+RING_CASES = {
+    "pre1_c3": (256, 768, 64, 192, 3, -1, 64, False),
+    "pre1_c4a": (128, 768, 32, 192, 4, 3, 64, False),
+    "pre2_c3": (384, 512, 96, 128, 3, -1, None, False),
+    "uniform_c3": (512, 1024, 128, 256, 3, -1, 64, True),
+    "uniform_2x_c4a": (256, 960, 128, 480, 4, 3, 64, True),
+    "uniform_c1": (640, 1024, 160, 256, 1, -1, 64, True),
+}
+
+# K7 (planar input) and K8 (interleaved input): (src_w, src_h, new_w,
+# new_h, c, in type, out type, mode_v, mode_h, trunc_bits, gamma,
+# alpha_index).  The first three are tests/test_pallas_kernel.py:560-750's;
+# then C = 1, float32 input, trunc_bits and the other channel counts.
+PLANAR_CASES = {
+    "down_c3_u8_f32": (200, 150, 80, 60, 3, "u8", "f32", "split2", "split3", 0, False, -1),
+    "down_c3_u8_u8": (200, 150, 80, 60, 3, "u8", "u8", "split2", "split3", 0, False, -1),
+    "up_c4_u16_gamma_a3": (96, 80, 144, 120, 4, "u16", "u16", "split3", "split3", 0, True, 3),
+    "down_c1_f32_f32": (150, 90, 61, 37, 1, "f32", "f32", "split3", "split3", 0, False, -1),
+    "down_c4_u8_gamma_a0_tb2": (120, 80, 70, 50, 4, "u8", "u8", "split3", "split2", 2, True, 0),
+    "up_c3_u16_u8": (45, 31, 97, 70, 3, "u16", "u8", "split3", "split3", 0, False, -1),
+    "up_c1_u8_u16_tb2": (40, 30, 64, 48, 1, "u8", "u16", "split2", "split2", 2, False, -1),
+    "down_c4_f32_u16_gamma_a3": (181, 77, 60, 33, 4, "f32", "u16", "split3", "split3", 0, True, 3),
+    "up_c3_u8_gamma_f32": (53, 37, 90, 71, 3, "u8", "f32", "split3", "split3", 0, True, -1),
+}
+
 # K2 (row pass) on the card: (src_w, src_h, new_w, new_h, c, in type,
 # mode); the pass runs over the image's rows.
 BANDED_CASES = {
