@@ -79,9 +79,13 @@ class ImageResizer:
         ``use_srgb_gamma``: resize in linear light (sRGB in and out, in
         the kernel); ``alpha_index`` 0 or 3 of 4-channel data passes that
         channel through the gamma stages unchanged.  The environment
-        variable ``AVIR_TPU_GAMMA_ROUTE=prologue`` makes the int8 route
-        linearize the image once (kernel K5) before K1; "ring" raises (see
-        models/runtime.py).
+        variable ``AVIR_TPU_GAMMA_ROUTE`` picks the int8 gamma route (all
+        bit-equal; see models/runtime.py): unset or "auto" runs the
+        shift-ring kernel K6 where it is viable (uniform-stride
+        downsizes) and otherwise K1 with the in-kernel linearization;
+        "inkernel" always runs K1 that way; "prologue" linearizes the
+        image once (kernel K5) before K1; "ring" runs K6, and warns and
+        takes the in-kernel route where K6 is not viable.
 
         Still raising NotImplementedError, with their ROADMAP.md item:
         ``dither="errdiff-device"``, a callable ditherer,

@@ -10,9 +10,9 @@ float output).  AVIR routing:
     (``ops/banded.py:apply_blocked``, the JAX package's
     ``_separable_pass``), with sRGB gamma by the rational forms
     (``ops/gamma.py``) around them, then the dither stage;
-  - otherwise the fused two-pass kernel K1, one launch per resize, V pass
-    first for a downsize and H pass first for an upsize, with sRGB gamma
-    in the kernel:
+  - otherwise the fused two-pass kernel K1, one launch per resize, in
+    the pass order of ``choose_fused`` (below), with sRGB gamma in the
+    kernel:
       * int8 mode (``ops/cuda/fused_kernel.py``) for u8 in, 8-bit out,
         ``trunc_bits == 0``, ``precision="auto"`` and no error diffusion,
         when the operators' int8 limbs are feasible (gamma: 13-bit
@@ -27,16 +27,17 @@ float output).  AVIR routing:
   - error diffusion runs the wavefront scan K4
     (``ops/cuda/wavefront.py``) on the float32 pre-dither image.
 
-Fused or unfused (``choose_fused``, the JAX package's rule of
-``ops/pallas/fused_kernel.py:choose_fused`` with its TPU VMEM check
-``fused_viable`` taken as true, and ``models/runtime.py:366-375`` there),
-in this order:
-  1. an int8-eligible plan whose limbs are infeasible (``int8_feasible``
-     false) runs unfused in the split modes, downsize or upsize;
-  2. otherwise a downsize is fused;
-  3. a 2- or 4-byte upsize is fused;
-  4. a u8 upsize in the split modes is fused only with a split2 first
-     pass, no gamma and new_h * new_w * C >= 8,000,000.
+Fused or unfused, and the fused pass order (``choose_fused``, the JAX
+package's rule of ``ops/pallas/fused_kernel.py:choose_fused`` with its
+TPU VMEM check ``fused_viable`` taken as true, and
+``models/runtime.py:366-375`` there), in this order:
+  1. an int8-eligible plan runs fused, "vh" for a downsize and "hv" for
+     an upsize, when its limbs are feasible (``int8_feasible``), else
+     unfused in the split modes;
+  2. otherwise a downsize is fused, "vh";
+  3. a 2- or 4-byte (u16 / float) upsize is fused, "vh";
+  4. a u8 upsize in the split modes is fused "hv" only with a split2
+     first pass, no gamma and new_h * new_w * C >= 8,000,000.
 The unfused route (``run.route == "unfused"``, ``separable_pass_lanes``)
 runs two kernels: K3, the lane pass (``ops/cuda/lanes_kernel.py``), and
 K2, the row pass (``ops/cuda/banded_kernel.py``), in the order of the JAX
@@ -44,18 +45,24 @@ package's cost model (``run.order``: "vh" is K2 then K3), over the lane
 operator at its base tile (``ops/lanes.py:narrow_lop``), with a float32
 intermediate in device memory.  With gamma the rational forms
 (``ops/gamma.py``) run around the two passes, as on the "exact" route;
-then the dither stage.  The pass order of a fused launch stays the
-port's ``_order``.
+then the dither stage.
 
 The int8 gamma route reads ``AVIR_TPU_GAMMA_ROUTE`` when the executor is
-built (``models/runtime.py:402-449`` there): "prologue" linearizes the
-image once with K5 (``ops/cuda/gamma_prologue.py``) and K1 reads its two
-limb planes; "ring" runs the shift-ring kernel K6
-(``ops/cuda/fused_ring.py``) on the V operator's uniform blocking when
-``ring_viable`` holds (a uniform-stride downsize; launch key
-``fused_ring_vh_gamma``, ``run.order`` "vh"), and otherwise warns, as the
-JAX package does, and takes the in-kernel route; anything else is the
-in-kernel route.  All three are bit-equal.
+built (``models/runtime.py:402-449`` there):
+  - unset or "auto": the shift-ring kernel K6 (``ops/cuda/fused_ring.py``)
+    on the V operator's uniform blocking when ``ring_viable`` holds (a
+    uniform-stride downsize; launch key ``fused_ring_vh_gamma``,
+    ``run.order`` "vh"), else K1 with the in-kernel linearization.  This
+    differs from the JAX package, whose "auto" is always the in-kernel
+    route: on the H100 the ring route is the faster one where it runs
+    (PERF.md §7);
+  - "inkernel": K1 with the in-kernel linearization;
+  - "prologue": K5 (``ops/cuda/gamma_prologue.py``) linearizes the image
+    once and K1 reads its two limb planes;
+  - "ring": K6 when viable, and otherwise a warning, as the JAX package
+    gives, and the in-kernel route;
+  - anything else: the in-kernel route.
+All routes are bit-equal.
 
 LANCIR routes the same way (int8 for u8 in and u8 out at
 ``precision="auto"``), with K1's round-half-even epilogue and its
@@ -105,9 +112,10 @@ from ..ops.lanes import LaneBlockedOp, lane_block_banded, narrow_lop
 from ..plan.lancir_plan import LancirPlan
 from ..plan.plan import ResizePlan
 
-# Environment variable that selects the int8 gamma route: "prologue"
-# (K5 + K1), "ring" (K6) or the in-kernel K1 (read when an executor is
-# built; part of the resizers' cache keys).
+# Environment variable that selects the int8 gamma route: "auto" (K6
+# where viable, else the in-kernel K1), "inkernel", "prologue" (K5 + K1)
+# or "ring" (K6); read when an executor is built, part of the resizers'
+# cache keys.
 GAMMA_ROUTE_ENV = "AVIR_TPU_GAMMA_ROUTE"
 
 
@@ -165,25 +173,24 @@ def unsupported_reason(plan: ResizePlan, precision: str) -> str | None:
     return None
 
 
-def _order(vop, lop) -> str:
-    return "vh" if vop.n_out * lop.n_out <= vop.n_in * lop.n_in else "hv"
-
-
 def choose_fused(
     vop: BlockedBandedOp, lop: LaneBlockedOp, mode1: str, gamma: bool,
     c: int, in_bytes: int = 1,
-) -> bool:
-    """Whether K1 runs the resize (else the unfused K3/K2 route): rules
-    1-4 of the module docstring.  ``mode1`` is the first pass's mode,
-    "int8" for an int8-eligible plan."""
+) -> tuple[bool, str]:
+    """(K1 runs the resize, its pass order); when not fused, the unfused
+    K3/K2 route runs it.  Rules 1-4 of the module docstring.  ``mode1``
+    is the first pass's mode, "int8" for an int8-eligible plan."""
+    downsize = vop.n_out * lop.n_out <= vop.n_in * lop.n_in
     if mode1 == "int8":
-        return int8_feasible(vop, lop, _order(vop, lop), gamma)
-    if _order(vop, lop) == "vh" or in_bytes >= 2:
-        return True
-    return (
+        order = "vh" if downsize else "hv"
+        return int8_feasible(vop, lop, order, gamma), order
+    if downsize or in_bytes >= 2:
+        return True, "vh"
+    use = (
         mode1 == "split2" and not gamma
         and vop.n_out * lop.n_out * c >= 8_000_000
     )
+    return use, "hv" if use else "vh"
 
 
 def lanes_order(vop: BlockedBandedOp, lop: LaneBlockedOp, h: int, w: int, c: int) -> str:
@@ -240,16 +247,19 @@ def separable_pass_lanes(x: torch.Tensor, ops: UnfusedOperands) -> torch.Tensor:
 
 
 def gamma_route() -> str:
-    """The int8 gamma route ``AVIR_TPU_GAMMA_ROUTE`` asks for: "prologue",
-    "ring", or "inkernel" (unset or anything else)."""
+    """The int8 gamma route ``AVIR_TPU_GAMMA_ROUTE`` asks for: "auto"
+    (unset), "inkernel", "prologue" or "ring"; anything else is
+    "inkernel"."""
     route = os.environ.get(GAMMA_ROUTE_ENV, "auto")
-    return route if route in ("prologue", "ring") else "inkernel"
+    return route if route in ("auto", "prologue", "ring") else "inkernel"
 
 
 def _ring_operands(plan: ResizePlan, lop: LaneBlockedOp, order: str, device):
     """K6's operands for an int8 gamma plan, or None when the ring route is
     not viable (``models/runtime.py:414-423`` there): the V operator by
     uniform blocking, with limbs, and ``ring_viable``."""
+    if order != "vh":
+        return None
     try:
         vop_ring = block_banded(plan.v.op, uniform=True)
     except ValueError:
@@ -308,7 +318,6 @@ def make_avir_executor(
     out_bits = 8 if plan.out_type_max == 255.0 else 16
     trunc_bits = 0 if plan.is_out_float else out_bits - plan.res_bit_depth
     errdiff = errdiff and not plan.is_out_float
-    order = _order(vop, lop)
     gamma = plan.use_srgb_gamma
     gamma_kw = dict(
         gamma=gamma,
@@ -359,7 +368,10 @@ def make_avir_executor(
         run.route, run.order, run.ops = "exact", None, None
         return run
 
-    if not choose_fused(vop, lop, "int8" if int8_ok else mode1, gamma, c, in_bytes):
+    fused, order = choose_fused(
+        vop, lop, "int8" if int8_ok else mode1, gamma, c, in_bytes
+    )
+    if not fused:
         ops = prepare_unfused(
             vop, narrow_lop(plan.h.op, lop, c, in_bytes=in_bytes),
             plan.src_h, plan.src_w, c, mode1, mode2, device,
@@ -389,7 +401,7 @@ def make_avir_executor(
 
     if int8_ok:
         route = gamma_route() if gamma else "inkernel"
-        if route == "ring":
+        if route in ("auto", "ring"):
             ring = _ring_operands(plan, lop, order, device)
             if ring is not None:
                 def run(src: torch.Tensor) -> torch.Tensor:
@@ -397,10 +409,11 @@ def make_avir_executor(
 
                 run.route, run.order, run.ops = "int8", "vh", ring
                 return run
-            warnings.warn(
-                f"{GAMMA_ROUTE_ENV}=ring not viable for this config (needs a "
-                "uniform-stride int8 downsize); falling back to the in-kernel route"
-            )
+            if route == "ring":
+                warnings.warn(
+                    f"{GAMMA_ROUTE_ENV}=ring not viable for this config (needs a "
+                    "uniform-stride int8 downsize); falling back to the in-kernel route"
+                )
         pre = route == "prologue"
         ops = prepare_fused_int8(vop, lop, order, device, gamma_pre=pre, **gamma_kw)
 
@@ -458,7 +471,6 @@ def make_lancir_executor(
         torch.float32 if plan.is_out_float
         else torch.uint8 if plan.clamp == 255.0 else torch.uint16
     )
-    order = _order(vop, lop)
     mode1, mode2 = resolve_modes(precision, plan.in_exact_bf16)
     epi_kw = dict(scale=plan.out_mul, round_mode="even")
 
@@ -494,7 +506,10 @@ def make_lancir_executor(
         and plan.in_exact_bf16
         and out_dt == torch.uint8
     )
-    if not choose_fused(vop, lop, "int8" if int8_ok else mode1, False, c, in_bytes):
+    fused, order = choose_fused(
+        vop, lop, "int8" if int8_ok else mode1, False, c, in_bytes
+    )
+    if not fused:
         ops = prepare_unfused(
             vop, narrow_lop(plan.h, lop, c, in_bytes=in_bytes),
             plan.src_h, plan.src_w, c, mode1, mode2, device,

@@ -23,6 +23,11 @@
 //               (the alpha lane: rint(x * in_gamma_mult * 2^13)), split
 //               into s8 limbs xq1 = (xq + 64) >> 7, xq0 = xq - 128*xq1,
 //               staged as two planes; reads past the edge see xq = 0.
+//               Each block first evaluates xq for all 256 u8 values (512
+//               with an alpha lane) into a shared table
+//               (k1::fill_q13_table), and every staged element is one
+//               table read: the same bits as the polynomial, which used to
+//               run on every staged element.
 //               gamma from limb planes (GAMMA_PRE: the template's PRE,
 //               _kernel's x_lo input there): xq1 and xq0 read from the two
 //               s8 planes of the prologue kernel K5 (gamma_prologue.cu),
@@ -60,7 +65,7 @@
 //       win_c = 1024 and s = 4) and by every slice whose 32-aligned row
 //       range covers a row (1.5 there): each input byte is read ~3
 //       times.  Dynamic shared memory: 46 KB, 50 KB with gamma's second
-//       input plane.
+//       input plane, 52 KB with its table.
 //   hv: for each 32-row segment of the slice's nonzero V-tap rows, the
 //       first pass computes x15 for those window rows x 128 chunk lanes
 //       over the win_c window lanes, then the second pass adds the
@@ -68,8 +73,9 @@
 //       recomputed by each (4x at 1920x1080 -> 3840x2160), and window
 //       lanes by every chunk that covers them (8x there): each input
 //       byte is read ~32 times.
-//   With gamma the polynomial runs on every staged input element, so it
-//   is recomputed as often as the first pass reads the byte, and the
+//   Staging writes whole words: a thread loads the 4 contraction elements
+//   of one word (4 rows of one lane in vh, 4 lanes of one row in hv) and
+//   stores them with one 32-bit shared-memory store.  With gamma the
 //   first pass makes 3 products instead of 2.
 //   chip_smoke.py prints these factors ("first_pass_reads_per_input").
 //
@@ -130,33 +136,51 @@ __device__ __forceinline__ uint8_t load_xs(const Args& a, int r, int l) {
   return v ^ 0x80u;
 }
 
-// Image byte as 13-bit linear light in two s8 limbs (hi, lo); zero past
-// the edge.  PRE: the limbs read from K5's two planes (x, x_lo).
+// Image element as 13-bit linear light in two s8 limbs (hi, lo); zero
+// past the edge.  From the block's table of gamma_in_q13, or (PRE) read
+// from K5's two planes (x, x_lo).
 template <bool PRE>
-__device__ __forceinline__ void load_xq(const Args& a, int r, int l,
-                                        uint8_t* q1, uint8_t* q0) {
+__device__ __forceinline__ void load_limbs(const Args& a, const int32_t (*q13)[256],
+                                           int r, int l, int32_t* hi, int32_t* lo) {
+  *hi = 0;
+  *lo = 0;
+  if (r >= a.rows_in || l >= a.lanes_in) return;
+  const size_t i = static_cast<size_t>(r) * a.lanes_in + l;
   if (PRE) {
-    uint8_t h = 0, o = 0;
-    if (r < a.rows_in && l < a.lanes_in) {
-      const size_t i = static_cast<size_t>(r) * a.lanes_in + l;
-      h = __ldg(a.x + i);
-      o = __ldg(a.x_lo + i);
-    }
-    *q1 = h;
-    *q0 = o;
+    *hi = static_cast<int8_t>(__ldg(a.x + i));
+    *lo = static_cast<int8_t>(__ldg(a.x_lo + i));
     return;
   }
-  int32_t xq = 0;
-  if (r < a.rows_in && l < a.lanes_in) {
-    xq = k1::gamma_in_q13(a.epi, __ldg(a.x + static_cast<size_t>(r) * a.lanes_in + l), l);
-  }
-  const int32_t hi = k1::limb_hi(xq);
-  *q1 = static_cast<uint8_t>(hi);
-  *q0 = static_cast<uint8_t>(xq - hi * 128);
+  const int32_t q = k1::q13_of(a.epi, q13, __ldg(a.x + i), l);
+  *hi = k1::limb_hi(q);
+  *lo = q - *hi * 128;
 }
 
 __device__ __forceinline__ uint32_t byte_of(int32_t v, int i) {
   return (static_cast<uint32_t>(v) & 0xffu) << (8 * i);
+}
+
+// Four consecutive contraction elements from (r, l), stepping (dr, dl),
+// packed into one word of each input plane: xs, or with gamma the xq1 /
+// xq0 limbs.
+template <bool GAMMA, bool PRE>
+__device__ __forceinline__ void pack4(const Args& a, const int32_t (*q13)[256],
+                                      int r, int l, int dr, int dl,
+                                      uint32_t* w1, uint32_t* w0) {
+  uint32_t p1 = 0, p0 = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (GAMMA) {
+      int32_t hi, lo;
+      load_limbs<PRE>(a, q13, r + i * dr, l + i * dl, &hi, &lo);
+      p1 |= byte_of(hi, i);
+      p0 |= byte_of(lo, i);
+    } else {
+      p1 |= byte_of(load_xs(a, r + i * dr, l + i * dl), i);
+    }
+  }
+  *w1 = p1;
+  *w0 = p0;
 }
 
 template <bool GAMMA>
@@ -209,9 +233,11 @@ constexpr int kVhTapWords = 2 * kRows * kDepth4;            // sv1, sv0
 constexpr int kVhXWords = kDepth4 * kLanes;                 // one input plane
 constexpr int kVhLimbWords = 2 * kRows * (kLanes / 4);      // sl1, sl0
 constexpr int kVhHWords = 2 * (kLanes / 4) * kLanes;        // sh1, sh0
-template <bool GAMMA>
+constexpr int kTableWords = 2 * 256;                        // q13
+template <bool GAMMA, bool PRE>
 constexpr size_t vh_smem_bytes() {
-  return (kVhTapWords + (GAMMA ? 2 : 1) * kVhXWords + kVhLimbWords + kVhHWords) * 4;
+  return (kVhTapWords + (GAMMA ? 2 : 1) * kVhXWords + kVhLimbWords + kVhHWords +
+          (GAMMA && !PRE ? kTableWords : 0)) * 4;
 }
 
 template <bool GAMMA, bool PRE>
@@ -234,6 +260,8 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   uint32_t (*sl0)[kLanes / 4] = sl1 + kRows;
   uint32_t (*sh1)[kLanes] = reinterpret_cast<uint32_t (*)[kLanes]>(sl0 + kRows);  // H taps
   uint32_t (*sh0)[kLanes] = sh1 + kLanes / 4;
+  int32_t (*q13)[256] = reinterpret_cast<int32_t (*)[256]>(sh0 + kLanes / 4);
+  if (GAMMA && !PRE) k1::fill_q13_table(a.epi, q13);
 
   const int k_lo = a.k_range[2 * blockIdx.y];
   const int k_hi = a.k_range[2 * blockIdx.y + 1];
@@ -255,16 +283,13 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
     for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
       __syncthreads();
       stage_v_taps(a, vb, r0, k0, sv1, sv0);
-      for (int e = tid; e < kDepth * kLanes; e += kThreads) {
-        const int k = e / kLanes, l = e % kLanes;
-        if (GAMMA) {
-          load_xq<PRE>(a, row0 + k0 + k, lane0 + seg + l,
-                  reinterpret_cast<uint8_t*>(&sx1[k / 4][l]) + k % 4,
-                  reinterpret_cast<uint8_t*>(&sx0[k / 4][l]) + k % 4);
-        } else {
-          reinterpret_cast<uint8_t*>(&sx1[k / 4][l])[k % 4] =
-              load_xs(a, row0 + k0 + k, lane0 + seg + l);
-        }
+      // One word per (4 rows, lane): rows k0 + 4*k4 .. + 3.
+      for (int e = tid; e < kDepth4 * kLanes; e += kThreads) {
+        const int k4 = e / kLanes, l = e % kLanes;
+        uint32_t w1, w0;
+        pack4<GAMMA, PRE>(a, q13, row0 + k0 + 4 * k4, lane0 + seg + l, 1, 0, &w1, &w0);
+        sx1[k4][l] = w1;
+        if (GAMMA) sx0[k4][l] = w0;
       }
       __syncthreads();
 #pragma unroll
@@ -365,6 +390,8 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   __shared__ __align__(16) uint32_t sl0[kDepth4][kLanes];
   __shared__ uint32_t sv1[kRows][kDepth4];                   // V tap limbs
   __shared__ uint32_t sv0[kRows][kDepth4];
+  __shared__ int32_t q13[GAMMA && !PRE ? 2 : 1][256];        // gamma_in_q13 table
+  if (GAMMA && !PRE) k1::fill_q13_table(a.epi, q13);
 
   const int k_lo = a.k_range[2 * blockIdx.y];
   const int k_hi = a.k_range[2 * blockIdx.y + 1];
@@ -385,16 +412,14 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
     int32_t f1[4][4] = {}, f0[4][4] = {}, f2[4][4] = {};
     for (int m0 = 0; m0 < a.win_c; m0 += kDepth) {
       __syncthreads();
-      for (int e = tid; e < kRows * kDepth; e += kThreads) {
-        const int r = e / kDepth, l = e % kDepth;
-        if (GAMMA) {
-          load_xq<PRE>(a, row0 + k0 + r, lane0 + m0 + l,
-                  reinterpret_cast<uint8_t*>(&sxa[0][r][l / 4]) + l % 4,
-                  reinterpret_cast<uint8_t*>(&sxa[GAMMA ? 1 : 0][r][l / 4]) + l % 4);
-        } else {
-          reinterpret_cast<uint8_t*>(&sxa[0][r][l / 4])[l % 4] =
-              load_xs(a, row0 + k0 + r, lane0 + m0 + l);
-        }
+      {
+        // One word per (row, 4 lanes): one per thread.
+        static_assert(kRows * kDepth4 == kThreads, "one staged word per thread");
+        const int r = tid / kDepth4, l4 = tid % kDepth4;
+        uint32_t w1, w0;
+        pack4<GAMMA, PRE>(a, q13, row0 + k0 + r, lane0 + m0 + 4 * l4, 0, 1, &w1, &w0);
+        sxa[0][r][l4] = w1;
+        if (GAMMA) sxa[GAMMA ? 1 : 0][r][l4] = w0;
       }
       {
         const uint4* g1 = reinterpret_cast<const uint4*>(a.h1p) + tap_base + m0 / 4 * kLanes / 4;
@@ -477,7 +502,7 @@ cudaError_t launch(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
   if (hv) {
     fused_int8_hv<GAMMA, PRE><<<grid, kThreads, 0, s>>>(a);
   } else {
-    constexpr size_t bytes = vh_smem_bytes<GAMMA>();
+    constexpr size_t bytes = vh_smem_bytes<GAMMA, PRE>();
     cudaError_t e = cudaFuncSetAttribute(
         fused_int8_vh<GAMMA, PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));

@@ -87,6 +87,27 @@ __device__ __forceinline__ int32_t gamma_in_q13(const Epilogue& e, uint8_t x, in
   return srgb_to_linear13(v);
 }
 
+// gamma_in_q13 of every u8 value, in a block's shared table: q13[0] for a
+// colour lane, q13[1] (filled only with an alpha lane) for the alpha lane.
+// One thread per entry, then one __syncthreads.  The entries come from
+// gamma_in_q13 itself, so a table read gives its bits.
+__device__ __forceinline__ void fill_q13_table(const Epilogue& e, int32_t (*q13)[256]) {
+  const int n = e.alpha_lane >= 0 ? 512 : 256;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int alpha = i >> 8;
+    // A lane of the entry's kind: the alpha lane itself, or the next one.
+    const int lane = alpha ? e.alpha_lane : ((e.alpha_lane + 1) & 3);
+    q13[alpha][i & 255] = gamma_in_q13(e, static_cast<uint8_t>(i & 255), lane);
+  }
+  __syncthreads();
+}
+
+// gamma_in_q13(e, x, lane) read from the table.
+__device__ __forceinline__ int32_t q13_of(const Epilogue& e, const int32_t (*q13)[256],
+                                          uint8_t x, int lane) {
+  return q13[is_alpha(e, lane) ? 1 : 0][x];
+}
+
 // The int8 mode's integer steps, shared by every kernel of that route
 // (fused_int8.cu, gamma_prologue.cu, fused_ring.cu) so that their limbs
 // and sums agree by construction.

@@ -43,9 +43,9 @@ from ..gamma import (
     GAMMA_IN_BITS,
     _int8_limbs,
     _linear_to_srgb,
-    _srgb_to_linear13_u8poly,
     f32,
     fma32,
+    gamma_q13_table,
 )
 from ..lanes import LaneBlockedOp
 
@@ -420,12 +420,13 @@ def apply_fused_int8_reference(
             q[: ops.rows_pad, : ops.lanes_pad].to(torch.float64) for q in (x, x_lo)
         )
     elif epi.gamma:
-        # 13-bit linear light as two limbs; padding reads 0 -> 0.
-        xf = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float32, device=dev)
-        xf[: ops.rows_in, : ops.lanes_in] = x
-        xq = _srgb_to_linear13_u8poly(
-            xf * f32(epi.in_gamma_mult), epi.c, epi.alpha_index
-        )
+        # 13-bit linear light as two limbs, read from the kernel's table of
+        # every u8 value (row 1 on the alpha lane); padding reads 0 -> 0.
+        xi = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.long, device=dev)
+        xi[: ops.rows_in, : ops.lanes_in] = x
+        lane = torch.arange(ops.lanes_pad, device=dev)
+        row = ((lane & 3) == epi.alpha_lane).long().expand_as(xi)
+        xq = gamma_q13_table(epi.in_gamma_mult).to(dev)[row, xi]
         xq1, xq0 = (q.to(torch.float64) for q in _int8_limbs(xq))
     else:
         xs = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float64, device=dev)

@@ -119,6 +119,11 @@ class FusedRingOperands:
     def launch_key(self) -> str:
         return "fused_ring_vh_gamma"
 
+    @property
+    def epi(self):
+        """K1's epilogue, which the ring kernel shares."""
+        return self.k1.epi
+
 
 def _slice_rows(k1: FusedInt8Operands) -> tuple[np.ndarray, np.ndarray]:
     """Per slice vb * n_slices + sl: the absolute padded rows [lo, hi) of

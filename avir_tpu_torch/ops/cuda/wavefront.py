@@ -17,10 +17,13 @@ every product and sum rounded on its own in float32, with
 reads the previous block's last-row noise, so blocked and single-block
 runs give the same bits.
 
-``errdiff_wavefront`` launches the kernel (``csrc/wavefront.cu``) once
-per row block on a CUDA tensor, and runs ``errdiff_wavefront_reference``
-on a CPU tensor.  Both do the same float32 operations in the same order,
-so they agree bit for bit.
+``errdiff_wavefront`` launches the kernel (``csrc/wavefront.cu``) once per
+image on a CUDA tensor: ``block_rows`` rows form a group, one thread block
+each, and all groups run at once, each reading the last-row noise of the
+group above from device memory as it is written.  On a CPU tensor it runs
+``errdiff_wavefront_reference``, whose ``block_rows`` is the rows of a
+block run one after another.  Both do the same float32 operations in the
+same order, so they agree bit for bit at any grouping.
 """
 
 from __future__ import annotations
@@ -39,11 +42,15 @@ from ..dither import (
     trunc_mul,
 )
 
-# Launches of the kernel of this module (one per row block), counted by
-# the wrapper.
+# Launches of the kernel of this module (one per image), counted by the
+# wrapper.
 launches = {"wavefront": 0}
 
 _MAX_THREADS = 1024  # csrc: kMaxThreads, one thread per (row, channel)
+# Warps of one row group of the kernel when ``block_rows`` is None (see
+# group_rows_for): the fastest of chip_smoke.py's sweep at the errdiff
+# cells (PERF.md §6).
+_GROUP_WARPS = 4
 _OUT_KINDS = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
 
 
@@ -55,16 +62,32 @@ def quant_steps(trunc_bits: int, out_max: float) -> tuple[float, float]:
 
 
 def block_rows_for(h: int, c: int, block_rows: int | None) -> int:
-    """Rows per block: at most one thread per (row, channel) of a block."""
+    """Rows per block of the plain version: at most one thread per (row,
+    channel) of a thread block."""
     rb = _MAX_THREADS // c if block_rows is None else block_rows
     return max(1, min(rb, h))
 
 
+def group_rows_for(h: int, c: int, block_rows: int | None) -> int:
+    """Rows per group of the kernel: ``block_rows``, or by default as many
+    as fill ``_GROUP_WARPS`` warps with one thread per (row, channel)."""
+    rb = max(1, _GROUP_WARPS * 32 // c) if block_rows is None else block_rows
+    return max(1, min(rb, h))
+
+
 def chain_steps(h: int, w: int, c: int, block_rows: int | None = None) -> int:
-    """Diagonal steps the scan runs in sequence: sum over row blocks of
+    """Diagonal steps in sequence when row blocks run one after another
+    (the plain version's schedule): sum over row blocks of
     W + 2(R_b - 1)."""
     rb = block_rows_for(h, c, block_rows)
     return sum(w + 2 * (min(rb, h - y0) - 1) for y0 in range(0, h, rb))
+
+
+def critical_steps(h: int, w: int) -> int:
+    """Diagonal steps the recurrence itself needs in sequence, whatever
+    the grouping: W + 2(H - 1).  The kernel's chain adds each group's lag
+    behind the group above."""
+    return w + 2 * (h - 1) if h and w else 0
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +174,8 @@ def errdiff_wavefront_reference(
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [
     _P, _P, _I,            # img, out, out_kind
-    _I, _I, _I, _I,        # w, c, row0, rb
-    _P, _P,                # n_in, n_out
+    _I, _I, _I, _I,        # h, w, c, rows per group
+    _P, _P,                # noise words [groups, W*C], ticket
     _F, _F, _F,            # tm, tmi, out_max
     _F, _F, _F, _F,        # weights: cur right, next left, center, right
     _P,                    # stream
@@ -163,7 +186,7 @@ def _library():
     from .build import load_library
 
     lib = load_library("wavefront")
-    fn = lib.avir_wavefront_block
+    fn = lib.avir_wavefront
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
@@ -179,8 +202,9 @@ def errdiff_wavefront(
 ) -> torch.Tensor:
     """Wavefront error diffusion of the float32 image ``img`` [H, W, C]
     -> [H, W, C] of ``out_dtype`` (float32, uint8 or uint16).  A CUDA
-    tensor launches the kernel once per row block; a CPU tensor runs the
-    plain version."""
+    tensor launches the kernel once, with ``block_rows`` rows per group
+    (``group_rows_for``); a CPU tensor runs the plain version with
+    ``block_rows`` rows per block."""
     if out_dtype not in _OUT_KINDS:
         raise ValueError(f"unsupported output dtype {out_dtype}")
     if img.device.type == "cpu":
@@ -194,11 +218,17 @@ def errdiff_wavefront(
             f"{tuple(img.shape)}"
         )
     h, w, c = img.shape
-    rb = block_rows_for(h, c, block_rows)
+    rb = group_rows_for(h, c, block_rows)
     if rb * c > _MAX_THREADS:
         raise ValueError(f"{rb} rows x {c} channels exceed {_MAX_THREADS} threads")
     out = torch.empty((h, w, c), dtype=out_dtype, device=img.device)
-    noise = torch.zeros((2, w * c), dtype=torch.float32, device=img.device)
+    if h == 0 or w == 0:
+        return out
+    groups = -(-h // rb)
+    # Each group's last-row noise words, and the ticket (both zeroed by the
+    # kernel's entry point, on the stream).
+    noise = torch.empty((groups, w * c), dtype=torch.int64, device=img.device)
+    ticket = torch.empty(1, dtype=torch.int32, device=img.device)
     tm, tmi = quant_steps(trunc_bits, out_max)
     weights = [
         float(np.float32(v))
@@ -207,15 +237,13 @@ def errdiff_wavefront(
     fn = _library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream(img.device).cuda_stream
-        for b, y0 in enumerate(range(0, h, rb)):
-            err = fn(
-                img.data_ptr(), out.data_ptr(), _OUT_KINDS[out_dtype],
-                w, c, y0, min(rb, h - y0),
-                noise[b % 2].data_ptr(), noise[(b + 1) % 2].data_ptr(),
-                tm, tmi, float(out_max), *weights,
-                stream,
-            )
-            if err != 0:
-                raise RuntimeError(f"wavefront launch failed: CUDA error {err}")
-            launches["wavefront"] += 1
+        err = fn(
+            img.data_ptr(), out.data_ptr(), _OUT_KINDS[out_dtype],
+            h, w, c, rb, noise.data_ptr(), ticket.data_ptr(),
+            tm, tmi, float(out_max), *weights,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"wavefront launch failed: CUDA error {err}")
+    launches["wavefront"] += 1
     return out

@@ -212,6 +212,19 @@ def _srgb_to_linear13_u8poly(x: torch.Tensor, c: int, alpha_index: int) -> torch
     return torch.round(lin).to(torch.int32)
 
 
+def gamma_q13_table(in_gamma_mult: float) -> torch.Tensor:
+    """int32 [2, 256]: ``_srgb_to_linear13_u8poly`` of every u8 value
+    times ``in_gamma_mult``, row 0 for a colour lane and row 1 for the
+    alpha lane.  K1 int8 reads its linearization from this table
+    (``k1::fill_q13_table`` in csrc/k1_common.cuh), so a lookup gives the
+    function's own bits."""
+    x = torch.arange(256, dtype=torch.float32) * f32(in_gamma_mult)
+    # Lanes 0..2 of each group of 4 are colour lanes, lane 3 the alpha lane.
+    q = _srgb_to_linear13_u8poly(x.repeat_interleave(4)[None, :], 4, 3)
+    q = q.reshape(256, 4)
+    return torch.stack([q[:, 0], q[:, 3]])
+
+
 def _linear_to_srgb(x: torch.Tensor, c: int, alpha_index: int) -> torch.Tensor:
     """K1's unpack stage on float32 [rows, lanes]: the reference's
     _pow24i_srgb form with IEEE square roots."""

@@ -5,8 +5,8 @@ toolkit are installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: K1 int8 (its limb-plane input included), K4, K5 and K6 are
-bit-equal (exact integer sums; the same float32 operations in the same
+Tolerances: K1 int8 (its limb-plane input and its gamma table included),
+K4 (at every row grouping), K5 and K6 are bit-equal (exact integer sums; the same float32 operations in the same
 order, gamma and the round-half-even epilogue included).  K1 split-bf16,
 K7 and K8 sum in another order than their plain versions: float32 within
 max|plain| * 1e-4, integers within 1 LSB, or one quantization step when
@@ -31,6 +31,8 @@ from torch_cases import (
     SPLIT_CASES,
     SPLIT_EPI_CASES,
     WAVEFRONT_CASES,
+    WAVEFRONT_GROUP_CASES,
+    WAVEFRONT_GROUP_WARPS,
     epi_kwargs,
     float_image,
     order_of,
@@ -166,6 +168,60 @@ def test_wavefront_kernel_matches_plain_on_card(h, w, c, tb, om, cuda_device):
         torch.cuda.synchronize()
         want = wf.errdiff_wavefront_reference(img, tb, om, block_rows=rows)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", WAVEFRONT_GROUP_WARPS)
+@pytest.mark.parametrize("name", list(WAVEFRONT_GROUP_CASES))
+def test_wavefront_groups_match_plain_on_card(name, warps, cuda_device):
+    """K4 with row groups of one, four and 32 warps, all groups in one
+    launch: bit-equal to the plain version in every output type."""
+    h, w, c, tb, om, tout = WAVEFRONT_GROUP_CASES[name]
+    img = torch.from_numpy(float_image(h, w, c, om, h * 7 + w)).to(cuda_device)
+    rows = warps * 32 // c
+    before = wf.launches["wavefront"]
+    got = wf.errdiff_wavefront(img, tb, om, out_dtype=_TORCH[tout], block_rows=rows)
+    torch.cuda.synchronize()
+    assert wf.launches["wavefront"] == before + 1
+    want = wf.errdiff_wavefront_reference(img, tb, om).to(_TORCH[tout])
+    assert got.dtype == _TORCH[tout] and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 4])
+def test_wavefront_groups_agree_over_repeats_on_card(warps, cuda_device):
+    """A race between groups would show only sometimes: 20 runs of one
+    image of many groups, each bit-equal to the plain version."""
+    h, w, c, tb, om, _ = WAVEFRONT_GROUP_CASES["c3_tall_u8"]
+    img = torch.from_numpy(float_image(h, w, c, om, 11)).to(cuda_device)
+    want = wf.errdiff_wavefront_reference(img, tb, om)
+    for _ in range(20):
+        got = wf.errdiff_wavefront(img, tb, om, block_rows=warps * 32 // c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [-1, 3])
+@pytest.mark.parametrize("size", [(181, 77, 60, 33), (45, 31, 97, 70)])
+def test_int8_gamma_table_every_value_on_card(size, alpha, cuda_device):
+    """K1 int8 gamma reads its linearization from a shared table: every u8
+    value on every lane (vh and hv), bit-equal to the plain version."""
+    sw, sh, nw, nh = size
+    c = 4
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True, alpha_index=alpha
+    )
+    ops = fk.prepare_fused_int8(
+        block_banded(plan.v.op), lane_block_banded(plan.h.op, c),
+        order_of(sw, sh, nw, nh), cuda_device,
+        **epi_kwargs(plan, "biased", 1.0, True, alpha),
+    )
+    x = (torch.arange(sh * sw * c, dtype=torch.int64) * 7 % 256).to(torch.uint8)
+    x = x.reshape(sh, sw * c).to(cuda_device)
+    got = fk.apply_fused_int8(ops, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.apply_fused_int8_reference(ops, x))
 
 
 @pytest.mark.cuda

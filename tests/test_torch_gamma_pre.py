@@ -10,6 +10,8 @@ float32 polynomial with the same fused multiply-adds as K1's in-kernel
 stage (ops/gamma.py), and the limb split is an exact integer
 decomposition."""
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,7 +160,8 @@ def test_gamma_route_env(route, monkeypatch):
     """"prologue" runs K5 and K1's limb-plane variant (launch key
     ``*_gamma_pre``), bit-equal to the in-kernel route; "ring" (K6) is not
     viable on this upsize, so it warns, as the JAX package does, and takes
-    the in-kernel route; unset or anything else is the in-kernel route."""
+    the in-kernel route; unset, "auto" (K6 only where viable, silently)
+    or anything else is the in-kernel route here."""
     if route is None:
         monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
     else:
@@ -170,7 +173,9 @@ def test_gamma_route_env(route, monkeypatch):
         with pytest.warns(UserWarning, match="ring"):
             fn = runtime.make_avir_executor(plan, device="cpu")
     else:
-        fn = runtime.make_avir_executor(plan, device="cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            fn = runtime.make_avir_executor(plan, device="cpu")
     assert fn.route == "int8" and fn.order == "hv"
     want = "fused_int8_hv_gamma" + ("_pre" if route == "prologue" else "")
     assert fn.ops.launch_key == want

@@ -222,8 +222,9 @@ def test_ring_schedule_covers_every_slice(name):
 ])
 def test_ring_route_of_the_executor(size, c, alpha, monkeypatch):
     """``AVIR_TPU_GAMMA_ROUTE=ring`` on a viable downsize runs K6 (launch
-    key ``fused_ring_vh_gamma``), bit-equal to the in-kernel route and
-    within 1 LSB of ``avir_tpu.resize``."""
+    key ``fused_ring_vh_gamma``), bit-equal to the in-kernel route
+    (``AVIR_TPU_GAMMA_ROUTE=inkernel``) and within 1 LSB of
+    ``avir_tpu.resize``."""
     sw, sh, nw, nh = size
     _, plan = _plans(sw, sh, nw, nh, c, alpha)
     monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "ring")
@@ -231,7 +232,7 @@ def test_ring_route_of_the_executor(size, c, alpha, monkeypatch):
         warnings.simplefilter("error")
         fn = runtime.make_avir_executor(plan, device="cpu")
     assert (fn.route, fn.order, fn.ops.launch_key) == ("int8", "vh", "fused_ring_vh_gamma")
-    monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV)
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "inkernel")
     base = runtime.make_avir_executor(plan, device="cpu")
     assert base.ops.launch_key == "fused_int8_vh_gamma"
     src = xorshift128_fill((sh, sw, c), np.uint8, 41)

@@ -1,0 +1,185 @@
+"""The port's routing choices that the JAX package does not share, on the
+CPU: the int8 gamma table against the JAX package's linearization, the
+"auto" gamma route (the ring kernel K6 where viable, else K1 with the
+in-kernel linearization), the pass order of u16 upsizes, and the K4
+wrapper's row groups.  The port runs its kernels' plain versions; every
+comparison of outputs is bit-equal."""
+
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import xorshift128_fill
+
+from avir_tpu.ops.pallas.fused_kernel import (
+    _srgb_to_linear13_u8poly as jax_srgb_to_linear13_u8poly,
+)
+
+from torch_cases import WAVEFRONT_GROUP_CASES, WAVEFRONT_GROUP_WARPS, float_image
+
+import avir_tpu_torch
+from avir_tpu_torch.models import runtime
+from avir_tpu_torch.ops.cuda import wavefront as wf
+from avir_tpu_torch.ops.gamma import f32, gamma_q13_table
+from avir_tpu_torch.plan.plan import build_resize_plan
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _jax_on_cpu():
+    with jax.default_device(jax.devices("cpu")[0]):
+        yield
+
+
+# ---------------------------------------------------------------------------
+# K1 int8's linearization table
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("out_dtype", [np.uint8, np.uint16, np.float32])
+@pytest.mark.parametrize("alpha", [-1, 0, 3])
+def test_gamma_q13_table_matches_jax_poly(out_dtype, alpha):
+    """Every u8 value of both lane kinds, at the ``in_gamma_mult`` of a u8
+    gamma plan, bit for bit against the JAX package's
+    ``_srgb_to_linear13_u8poly`` on [256, 4] lanes."""
+    plan = build_resize_plan(
+        30, 20, 15, 10, 4, np.uint8, out_dtype, use_srgb_gamma=True,
+        alpha_index=alpha,
+    )
+    table = gamma_q13_table(plan.in_gamma_mult).numpy()
+    x = np.arange(256, dtype=np.float32) * np.float32(f32(plan.in_gamma_mult))
+    for a in (alpha, -1):
+        ref = np.asarray(jax_srgb_to_linear13_u8poly(
+            jnp.asarray(np.repeat(x, 4)[None, :]), 4, a
+        )).reshape(256, 4)
+        for lane in range(4):
+            row = 1 if a in (0, 3) and lane == a else 0
+            np.testing.assert_array_equal(table[row], ref[:, lane])
+    assert table.dtype == np.int32 and table[:, 0].tolist() == [0, 0]
+    assert table[1, 255] == 8192
+
+
+# ---------------------------------------------------------------------------
+# The "auto" int8 gamma route
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("route", [None, "auto"])
+@pytest.mark.parametrize("size, c, alpha", [
+    ((384, 768, 96, 192), 3, -1),
+    ((256, 960, 128, 480), 4, 3),
+])
+def test_auto_gamma_route_takes_the_ring_where_viable(route, size, c, alpha, monkeypatch):
+    """Unset or "auto" on a ring-viable downsize runs K6 (one
+    ``fused_ring_vh_gamma`` launch), bit-equal to "inkernel"."""
+    sw, sh, nw, nh = size
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True, alpha_index=alpha
+    )
+    if route is None:
+        monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+    else:
+        monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, route)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        fn = runtime.make_avir_executor(plan, device="cpu")
+    assert (fn.route, fn.order, fn.ops.launch_key) == ("int8", "vh", "fused_ring_vh_gamma")
+    assert fn.ops.epi.gamma and fn.ops.epi.alpha_lane == (3 if alpha == 3 else -1)
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "inkernel")
+    base = runtime.make_avir_executor(plan, device="cpu")
+    assert base.ops.launch_key == "fused_int8_vh_gamma"
+    x = torch.from_numpy(xorshift128_fill((sh, sw * c), np.uint8, 17))
+    np.testing.assert_array_equal(fn(x).numpy(), base(x).numpy())
+
+
+@pytest.mark.parametrize("size, c, alpha", [
+    ((97, 61, 151, 83), 4, 3),
+    ((64, 48, 130, 100), 3, -1),
+])
+def test_auto_gamma_route_upsize_runs_k1_without_a_warning(size, c, alpha, monkeypatch):
+    """An upsize cannot take the ring: "auto" runs K1 int8 hv with the
+    in-kernel linearization, and says nothing (unlike "ring")."""
+    sw, sh, nw, nh = size
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True, alpha_index=alpha
+    )
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "auto")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        fn = runtime.make_avir_executor(plan, device="cpu")
+    assert (fn.route, fn.order, fn.ops.launch_key) == ("int8", "hv", "fused_int8_hv_gamma")
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "inkernel")
+    base = runtime.make_avir_executor(plan, device="cpu")
+    x = torch.from_numpy(xorshift128_fill((sh, sw * c), np.uint8, 23))
+    np.testing.assert_array_equal(fn(x).numpy(), base(x).numpy())
+
+
+def test_gamma_route_names():
+    for value, route in ((None, "auto"), ("auto", "auto"), ("inkernel", "inkernel"),
+                         ("prologue", "prologue"), ("ring", "ring"), ("other", "inkernel")):
+        with pytest.MonkeyPatch.context() as mp:
+            if value is None:
+                mp.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+            else:
+                mp.setenv(runtime.GAMMA_ROUTE_ENV, value)
+            assert runtime.gamma_route() == route
+
+
+# ---------------------------------------------------------------------------
+# u16 upsizes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["avir", "lancir"])
+def test_u16_upsize_runs_vh_and_returns_the_executors_bits(kind):
+    """A u16 upsize fuses V pass first, as the JAX package orders it, and
+    the resizer returns the executor's bits on the CPU path."""
+    src = xorshift128_fill((20, 30, 3), np.uint16, 3)
+    if kind == "avir":
+        out = avir_tpu_torch.ImageResizer(res_bit_depth=16).resize(src, 64, 48, device="cpu")
+        plan = build_resize_plan(30, 20, 64, 48, 3, np.uint16, np.uint16, res_bit_depth=16)
+        fn = runtime.make_avir_executor(plan, device="cpu")
+    else:
+        from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
+
+        out = avir_tpu_torch.LancIR().resize(src, 64, 48, device="cpu")
+        fn = runtime.make_lancir_executor(
+            build_lancir_plan(30, 20, 64, 48, 3, np.uint16, np.uint16), device="cpu"
+        )
+    want = fn(torch.from_numpy(src.reshape(20, -1))).numpy().reshape(48, 64, 3)
+    assert out.dtype == np.uint16 and want.dtype == np.uint16
+    np.testing.assert_array_equal(out, want)
+    assert fn.order == "vh"
+
+
+# ---------------------------------------------------------------------------
+# K4's row groups
+# ---------------------------------------------------------------------------
+
+
+def test_group_rows_and_critical_steps():
+    for c in (1, 2, 3, 4):
+        assert wf.group_rows_for(5000, c, None) == wf._GROUP_WARPS * 32 // c
+        assert wf.group_rows_for(3, c, None) == 3
+        assert wf.group_rows_for(100, c, 7) == 7
+    assert wf.critical_steps(1080, 1920) == 1920 + 2 * 1079 == 4078
+    assert wf.critical_steps(2160, 3840) == 8158
+    assert wf.critical_steps(0, 5) == 0
+
+
+@pytest.mark.parametrize("name", list(WAVEFRONT_GROUP_CASES))
+def test_plain_wavefront_at_the_kernel_group_sizes(name):
+    """The plain version blocked as the kernel groups rows (one, four and
+    32 warps of (row, channel) threads) gives the single block's bits."""
+    h, w, c, tb, om, tout = WAVEFRONT_GROUP_CASES[name]
+    img = torch.from_numpy(float_image(h, w, c, om, h * 7 + w))
+    one = wf.errdiff_wavefront_reference(img, tb, om, block_rows=h)
+    for warps in WAVEFRONT_GROUP_WARPS:
+        rows = warps * 32 // c
+        got = wf.errdiff_wavefront(img, tb, om, block_rows=rows)
+        assert torch.equal(got, one), warps

@@ -205,6 +205,8 @@ ROUTES = {
     "avir_up_u8_gamma_errdiff": ("avir", 30, 20, 64, 48, 3, "u8", "u8", {"use_srgb_gamma": True, "errdiff": True}, True, "unfused"),
     "avir_up_u16": ("avir", 30, 20, 64, 48, 3, "u16", "u16", {}, True, "split"),
     "avir_up_f32": ("avir", 30, 20, 64, 48, 1, "f32", "f32", {}, True, "split"),
+    "avir_up_u16_gamma_rgba": ("avir", 30, 20, 64, 48, 4, "u16", "u16", {"use_srgb_gamma": True, "alpha_index": 3}, True, "split"),
+    "avir_up_f32_c3": ("avir", 30, 20, 64, 48, 3, "f32", "f32", {}, True, "split"),
     "avir_up_u8_u16": ("avir", 30, 20, 64, 48, 1, "u8", "u16", {}, True, "unfused"),
     "avir_up_u8_u16_big": ("avir", 800, 600, 2000, 1400, 3, "u8", "u16", {}, True, "split"),
     "avir_up_u8_gamma_big": ("avir", 800, 600, 2000, 1400, 3, "u8", "u16", {"use_srgb_gamma": True}, True, "unfused"),
@@ -290,6 +292,8 @@ def test_route_matches_jax_choose_fused(name):
         return
     jax_fused, jax_order = jax_choice
     assert (fn.route != "unfused") == jax_fused
+    if fn.route != "unfused":
+        assert fn.order == jax_order
     if fn.route == "unfused":
         assert fn.order in ("vh", "hv")
         # The pass that reads the image runs the first mode.

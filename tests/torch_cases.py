@@ -37,6 +37,11 @@ SPLIT_CASES = {
     "up_c4_u16_u8": (500, 20, 1200, 41, 4, None, "hv", "split3", "split3", "u16", "u8", 0),
     "other_vh_c3_u16_f32": (96, 80, 70, 101, 3, None, "vh", "split3", "split3", "u16", "f32", 0),
     "other_hv_c1_u8_u8_tb4": (96, 80, 70, 101, 1, None, "hv", "split3", "split2", "u8", "u8", 4),
+    # 2- and 4-byte upsizes on both axes run "vh" (choose_fused).
+    "up_vh_c3_u16_u16": (45, 31, 97, 70, 3, None, "vh", "split3", "split3", "u16", "u16", 0),
+    "up_vh_c1_f32_f32": (40, 30, 64, 48, 1, None, "vh", "split3", "split3", "f32", "f32", 0),
+    "up_vh_c2_f32_u16": (53, 37, 90, 71, 2, None, "vh", "split3", "split3", "f32", "u16", 0),
+    "up_vh_c4_u16_u16_tc": (29, 21, 71, 45, 4, 48, "vh", "split3", "split3", "u16", "u16", 0),
 }
 
 # K1 int8 epilogue variants: (src_w, src_h, new_w, new_h, c, lane tile
@@ -73,6 +78,10 @@ SPLIT_EPI_CASES = {
     "gamma_up_u16_u16_c4a": (45, 31, 97, 70, 4, None, "hv", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 3),
     "gamma_up_u8_f32_c4a0": (29, 21, 71, 45, 4, 48, "hv", "split3", "split3", "u8", "f32", 0, "biased", 1.0, True, 0),
     "gamma_up_f32_u8_tb2": (300, 20, 1400, 41, 3, None, "hv", "split3", "split3", "f32", "u8", 2, "biased", 1.0, True, -1),
+    # 2- and 4-byte gamma upsizes on both axes run "vh" (choose_fused).
+    "gamma_up_vh_u16_u16_c4a": (45, 31, 97, 70, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 3),
+    "gamma_up_vh_f32_f32_c3": (40, 30, 64, 48, 3, None, "vh", "split3", "split3", "f32", "f32", 0, "biased", 1.0, True, -1),
+    "gamma_up_vh_u16_u16_c1": (53, 37, 90, 71, 1, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, -1),
 }
 
 # K5 + K1 int8 limb-plane input: (src_w, src_h, new_w, new_h, c, lane tile
@@ -149,6 +158,22 @@ WAVEFRONT_CASES = [
     (22, 30, 3, 2, 255.0),
     (18, 27, 4, 4, 65535.0),
 ]
+
+# K4 at the kernel's row-group sizes: (h, w, c, trunc_bits, out_max, out
+# type), each run with groups of WAVEFRONT_GROUP_WARPS warps of (row,
+# channel) threads (rows per group = warps * 32 // c): H below every group
+# size, H not a multiple of it, W = 1, C 1-4, trunc_bits 0 and 4, float32,
+# u8 and u16 output, and images of many groups at each size.
+WAVEFRONT_GROUP_CASES = {
+    "h_lt_r_c1_u8": (5, 40, 1, 0, 255.0, "u8"),
+    "ragged_c3_f32": (47, 33, 3, 0, 255.0, "f32"),
+    "w1_c4_u16": (37, 1, 4, 0, 65535.0, "u16"),
+    "c2_tb4_u16": (70, 29, 2, 4, 65535.0, "u16"),
+    "c3_tb4_u8": (90, 31, 3, 4, 255.0, "u8"),
+    "c4_tall_f32": (300, 24, 4, 0, 255.0, "f32"),
+    "c3_tall_u8": (700, 20, 3, 0, 255.0, "u8"),
+}
+WAVEFRONT_GROUP_WARPS = (1, 4, 32)
 
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 IN_BYTES = {"u8": 1, "u16": 2, "f32": 4}
