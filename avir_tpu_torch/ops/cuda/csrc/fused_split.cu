@@ -10,7 +10,7 @@
 // bypass; k1_common.cuh).  One launch computes the whole separable resize
 // [rows_in, lanes_in] (u8, u16 or f32) -> [rows_out, lanes_out] (f32, u8
 // or u16) from the error-free bf16 hi/lo tap splits; the float32
-// intermediate lives only in shared memory.
+// intermediate lives only on chip.
 //
 // Arithmetic (the same function as the TPU kernel, summed in another
 // order, so equal to float32 rounding and not bit for bit):
@@ -20,8 +20,7 @@
 //               reads past the edge see 0.
 //   a pass      split2: sum t_hi*x_hi + t_lo*x_hi
 //               split3: ... + t_hi*x_lo
-//               every product is bf16 x bf16, exact in f32; sums are f32
-//               (fmaf of bf16-valued operands adds an exact product).
+//               every product is bf16 x bf16, exact in f32; sums are f32.
 //   between     the f32 intermediate is split the same way.
 //   epilogue    gamma: v = linear_to_srgb(v) * out_gamma_mult.
 //               f32 out: store.  Integer out: v *= scale (when != 1);
@@ -29,39 +28,73 @@
 //               floor(v / tm + 0.5) * tm when trunc_bits > 0 (IEEE
 //               division); clamp to [0, out_max]; truncate to u8/u16.
 //
-// Design (the structure of fused_int8.cu, on float32 operands).  A thread
-// block owns 32 output rows (a slice of one V block) and one 128-lane
-// output chunk of one lane block; 256 threads each own 4 rows x 4 lanes
-// and accumulate with fmaf on the CUDA cores.  Taps arrive as bf16 and
-// are widened to f32 as they are staged in (dynamic) shared memory.
-//   vh: for each 128-lane segment of the chunk's nonzero lane-tap rows,
-//       the first pass computes the 32 x 128 intermediate over the
-//       slice's nonzero V-tap rows (32 at a time), splits it into shared
-//       memory, then the second pass adds that segment's share (32 lanes
-//       of taps at a time).  72 KB of shared memory.
-//   hv: for each 32-row group of the slice's nonzero V-tap rows, the
-//       first pass computes those window rows x 128 chunk lanes over the
-//       chunk's nonzero lane-tap rows, splits them into shared memory,
-//       then the second pass adds the group's share.  80 KB.
-// Only nonzero tap ranges are visited (k_range per 32-row slice, h_range
-// per chunk), but the tap blocks inside them are dense, and the first
-// pass is recomputed by every block whose window covers an input element
-// (chip_smoke.py prints the factor).
+// vh (V pass first; every resize that takes the split route).  Both
+// passes run on the bf16 tensor cores: mma.sync m16n8k16 (row.col, f32
+// accumulate) on fragments that ldmatrix reads from shared memory (.trans
+// for the [K, N] operands).  The two or three split products of a pass
+// are consecutive MMAs into one accumulator.  A block owns 64 output rows
+// (a slice of one V block) and one 128-lane output chunk of one lane
+// block, with 8 warps: warp (wm, wn) owns rows 16 wm..16 wm + 15 and lanes
+// 64 wn..64 wn + 63 of each tile.  For each segment of up to 128 window
+// lanes, from the chunk's nonzero lane-tap range (h_range, 32-aligned) in
+// widths of 32 (warps skip 16-lane tiles past the segment's end):
+//   - first pass over the slice's nonzero V-tap rows (k_range), 32 a
+//     step: the V taps (bf16, as stored) come by cp.async, the image rows
+//     by vector loads into registers; the image is converted to f32 (the
+//     input type is a template parameter), linearized with gamma, and
+//     split into bf16 hi/lo planes once per staged element;
+//   - the segment's last first-pass step splits the accumulators into a
+//     bf16 hi/lo intermediate tile in shared memory.  Not straight into
+//     the second pass's A fragments: a warp's second pass reads all the
+//     segment's lanes of its rows, which two warps computed, so registers
+//     alone would leave half the warps idle in the first pass or need a
+//     cross-warp sum of the outputs;
+//   - second pass: the segment's lane taps (bf16, 32 window lanes a
+//     step, cp.async) times the intermediate, into the block's output
+//     accumulators.
+// All steps of both passes and all segments form one sequence with double
+// buffers: while a step's MMAs run, the next step's taps are in flight by
+// cp.async and its image rows in registers.  64 rows a block (not 32 or
+// 128, which were tried): a taller slice stages fewer image elements per
+// output (every block whose window covers an input element recomputes the
+// first pass over it) but multiplies a larger dense V block, and 128 rows
+// spill at the register budget of a full SM.  Shared-memory rows are
+// padded (V taps to 40 bf16, the 128-lane tiles to 136) so that the 8
+// rows of each ldmatrix phase fall in distinct banks; every tap row starts
+// 16-byte aligned (Wv and the lane-tap rows are multiples of 128 taps,
+// k_range and h_range multiples of 32), so the taps need no host padding.
+// 90,112 B of shared memory and at most 128 registers (ptxas, printed by
+// chip_smoke.py: no spills but 4-12 bytes in three u8 variants), so two
+// blocks (16 warps) an SM.
 //
 // What bounds it on this card.  The image read once, the output written
 // once and the taps bound it at tens of microseconds at the main-path
-// sizes (bytes, 3.35 TB/s); the band MACs are a few GFLOP, microseconds
-// at the bf16 tensor-core rate.  This first version runs 2-3 fmaf per
-// MAC on the CUDA cores over dense tap blocks, with the recompute above,
-// so it is bound by fmaf issue and shared-memory reads, far above that
-// bound.  mma/wgmma on the bf16 splits, TMA staging and a first-pass
-// intermediate shared across chunks are the planned ways down.
+// sizes (bytes, 3.35 TB/s); the dense MACs over the tap blocks (what the
+// MMAs issue) take tens of microseconds at the bf16 tensor-core rate.
+// What sets the pace now is the staging: each block converts and splits
+// its window of the image, so an input element is staged as often as the
+// first-pass recompute reads it (chip_smoke.py prints the factor, 1.8-8.8
+// at the main-path cells), with gamma's polynomial at each staging, and
+// each step waits on one barrier.  wgmma, TMA and a first-pass
+// intermediate shared across chunks are the next ways down (PERF.md).
 //
-// With gamma the polynomial runs on every staged input element (as often
-// as the first pass reads it) and the square roots once per output.
+// Tolerance: tensor-core sums of exact products are f32 in the hardware's
+// order and rounding, so the kernel is within the split gate of its plain
+// version (f32 within max|plain| * 1e-4; integers within 1 LSB, or one
+// step with trunc_bits, plus one step where a scale > 1 or gamma-out
+// amplifies it), not bit-equal.
 //
-// Built without --use_fast_math: the division, the square roots and the
-// rounding of the epilogue stay IEEE.
+// hv (reached by no resize; kept as built in the first port): a block
+// owns 32 output rows and one 128-lane chunk, 256 threads each 4 rows x 4
+// lanes with fmaf on the CUDA cores over f32-widened taps; for each
+// 32-row group of the slice's nonzero V-tap rows the first pass computes
+// those window rows x 128 chunk lanes over the chunk's nonzero lane-tap
+// rows, splits them into shared memory, then the second pass adds the
+// group's share.  80 KB.
+//
+// With gamma the polynomial runs on every staged input element and the
+// square roots once per output.  Built without --use_fast_math: the
+// division, the square roots and the rounding of the epilogue stay IEEE.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -71,8 +104,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 32;    // output rows per block
+constexpr int kThreads = 256;  // hv
+constexpr int kRows = 32;    // output rows per block (hv)
 constexpr int kLanes = 128;  // output lanes per block (one chunk)
 constexpr int kDepth = 32;   // contraction elements staged per step
 
@@ -185,103 +218,374 @@ __device__ __forceinline__ void stage_h_taps(
   }
 }
 
-template <bool S3V, bool S3H, bool GAMMA>
-__global__ void __launch_bounds__(kThreads) fused_split_vh(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float (*svh)[kDepth] = reinterpret_cast<float (*)[kDepth]>(smem);  // V taps
-  float (*svl)[kDepth] = svh + kRows;
-  // x tile [32 rows][128 lanes] in the first pass, lane taps [32][128]
-  // in the second.
-  float (*sah)[kLanes] = reinterpret_cast<float (*)[kLanes]>(smem + 2 * kRows * kDepth);
-  float (*sal)[kLanes] = sah + kDepth;
-  float (*sih)[kLanes] = sal + kDepth;  // intermediate [32 rows][128 lanes]
-  float (*sil)[kLanes] = sih + kRows;
+// ---------------------------------------------------------------------------
+// vh: tensor-core building blocks
+// ---------------------------------------------------------------------------
+
+constexpr int kVhRows = 64;          // output rows per vh block (R)
+constexpr int kVhThreads = 256;      // 8 warps: 4 (rows) x 2 (lanes)
+constexpr int kTapLd = kDepth + 8;   // V-tap row stride in shared memory (bf16)
+constexpr int kTileLd = kLanes + 8;  // 128-lane tile row stride (bf16)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Four 8x8 bf16 matrices; thread l names row (l & 15) at column (l >> 4) * 8
+// of a 16x16 tile, so r[0..3] are its (rows 0-7, cols 0-7), (8-15, 0-7),
+// (0-7, 8-15), (8-15, 8-15) quarters: an A fragment of m16n8k16, or with
+// .trans on a [K][N] tile the B fragments of two n8 tiles ({r0, r1} for
+// columns 0-7, {r2, r3} for 8-15).
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a * b, m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Error-free split of (x, y) into packed bf16 pairs hi = bf16(.), lo =
+// bf16(. - hi), x in the low half.
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y)));
+}
+
+// Four consecutive image elements of one row, packed as loaded: u8 in a
+// 32-bit word, u16 in two, f32 in four.  ``load`` reads them with one
+// vector load (16-byte row alignment and 4 in range), ``gather`` the
+// first n of them one by one (the rest 0).
+template <typename T>
+struct Pack4;
+
+template <>
+struct Pack4<uint8_t> {
+  using type = uint32_t;
+  __device__ static type load(const uint8_t* p) { return __ldg(reinterpret_cast<const uint32_t*>(p)); }
+  __device__ static type gather(const uint8_t* p, int n) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < n) v |= static_cast<uint32_t>(__ldg(p + e)) << (8 * e);
+    }
+    return v;
+  }
+  __device__ static float get(type v, int e) { return static_cast<float>((v >> (8 * e)) & 0xffu); }
+};
+
+template <>
+struct Pack4<uint16_t> {
+  using type = uint2;
+  __device__ static type load(const uint16_t* p) { return __ldg(reinterpret_cast<const uint2*>(p)); }
+  __device__ static type gather(const uint16_t* p, int n) {
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < n) w[e / 2] |= static_cast<uint32_t>(__ldg(p + e)) << (16 * (e % 2));
+    }
+    return make_uint2(w[0], w[1]);
+  }
+  __device__ static float get(type v, int e) {
+    const uint32_t w = e < 2 ? v.x : v.y;
+    return static_cast<float>((w >> (16 * (e % 2))) & 0xffffu);
+  }
+};
+
+template <>
+struct Pack4<float> {
+  using type = float4;
+  __device__ static type load(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
+  __device__ static type gather(const float* p, int n) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < n) v[e] = __ldg(p + e);
+    }
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ static float get(type v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
+};
+
+// Shared memory of the vh kernel, in bf16 elements:
+//   sv [2 buf][2 plane][R][kTapLd]      V taps (hi, lo)
+//   sx [2 buf][2 plane][32][kTileLd]    image tile (first pass) or lane
+//                                        taps (second pass), hi / lo
+//   si [2 plane][R][kTileLd]            intermediate hi / lo
+struct VhSmem {
+  static constexpr int kSv = 2 * 2 * kVhRows * kTapLd;
+  static constexpr int kSx = 2 * 2 * kDepth * kTileLd;
+  static constexpr int kSi = 2 * kVhRows * kTileLd;
+  static constexpr size_t kBytes = static_cast<size_t>(kSv + kSx + kSi) * 2;
+  __device__ static int sv(int b, int p, int r, int k) { return ((b * 2 + p) * kVhRows + r) * kTapLd + k; }
+  __device__ static int sx(int b, int p, int r, int l) {
+    return kSv + ((b * 2 + p) * kDepth + r) * kTileLd + l;
+  }
+  __device__ static int si(int p, int r, int l) { return kSv + kSx + (p * kVhRows + r) * kTileLd + l; }
+};
+
+template <bool S3V, bool S3H, bool GAMMA, typename TIn>
+struct Vh {
+  static constexpr int kNT = kVhThreads;
+  static constexpr int kGroups = kDepth * kLanes / 4 / kNT;  // 4-lane image groups per thread
+  using S = VhSmem;
+  using P = Pack4<TIn>;
+  using Raw = typename P::type;
+
+  // V taps of rows r0..r0+R-1 over k0..k0+31 into buffer b (rows past
+  // the V block: zeros).
+  __device__ static void stage_v(const Args& a, uint16_t* sm, int b, int vb, int r0, int k0) {
+    for (int c = threadIdx.x; c < 2 * kVhRows * 4; c += kNT) {
+      const int p = c / (kVhRows * 4), r = (c / 4) % kVhRows, part = c % 4;
+      const bool valid = r0 + r < a.tv;
+      const size_t row = static_cast<size_t>(vb) * a.tv + (valid ? r0 + r : 0);
+      const __nv_bfloat16* src = (p ? a.tvl : a.tvh) + row * a.wv + k0 + part * 8;
+      cp16(sm + S::sv(b, p, r, part * 8), src, valid);
+    }
+  }
+
+  // Lane taps of window rows m0..m0+31 of chunk ``chunk`` into buffer b.
+  __device__ static void stage_h(const Args& a, uint16_t* sm, int b, int chunk, int m0) {
+    for (int c = threadIdx.x; c < 2 * kDepth * 16; c += kNT) {
+      const int p = c / (kDepth * 16), r = (c / 16) % kDepth, part = c % 16;
+      const __nv_bfloat16* src =
+          (p ? a.thl : a.thh) + (static_cast<size_t>(chunk) * a.win_c + m0 + r) * kLanes + part * 8;
+      cp16(sm + S::sx(b, p, r, part * 8), src, true);
+    }
+  }
+
+  // Image rows row..row+31 over lanes lane..lane+w-1 (lane a multiple of
+  // 4) into registers, 4 lanes a group, zero past the edge.
+  __device__ static void load_x(const Args& a, int row, int lane, int w, bool vec,
+                                Raw (&raw)[kGroups]) {
+    const TIn* x = static_cast<const TIn*>(a.x);
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) {
+      const int q = threadIdx.x + i * kNT;
+      const int r = row + q / 32, l = 4 * (q % 32);
+      const int n = (r < a.rows_in && l < w) ? min(4, max(0, a.lanes_in - lane - l)) : 0;
+      const TIn* p = x + static_cast<size_t>(n > 0 ? r : 0) * a.lanes_in + lane + l;
+      raw[i] = (vec && n == 4) ? P::load(p) : P::gather(p, n);
+    }
+  }
+
+  // The registers of load_x converted, linearized and split into buffer b.
+  __device__ static void store_x(const Args& a, uint16_t* sm, int b, int lane, int w,
+                                 const Raw (&raw)[kGroups]) {
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) {
+      const int q = threadIdx.x + i * kNT;
+      const int k = q / 32, l = 4 * (q % 32);
+      if (l >= w) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = P::get(raw[i], e);
+        if (GAMMA) v[e] = k1::gamma_in(a.epi, v[e], lane + l + e);
+      }
+      uint2 hi, lo;
+      split_pair(v[0], v[1], hi.x, lo.x);
+      split_pair(v[2], v[3], hi.y, lo.y);
+      *reinterpret_cast<uint2*>(sm + S::sx(b, 0, k, l)) = hi;
+      if (S3V) *reinterpret_cast<uint2*>(sm + S::sx(b, 1, k, l)) = lo;
+    }
+  }
+};
+
+// One block: output rows r0..r0+R-1 of V block vb (slice ``slice``) x
+// the 128 lanes of chunk j of lane block hb.  The work is one sequence
+// of 32-deep steps: per lane segment, the first pass's steps over k_range
+// (V taps x image tile into the accumulators m, which the segment's last
+// such step splits into the intermediate tile) and then the second
+// pass's steps over the segment's lanes (intermediate x lane taps into
+// acc).  While a step's MMAs run, the next step's taps are on their way
+// by cp.async and its image rows in registers, into the other buffer.
+template <bool S3V, bool S3H, bool GAMMA, typename TIn>
+__global__ void __launch_bounds__(kVhThreads, 2) fused_split_vh(const Args a) {
+  using K = Vh<S3V, S3H, GAMMA, TIn>;
+  using S = VhSmem;
+  extern __shared__ __align__(16) uint16_t sm[];
 
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
-  const int vb = blockIdx.y / a.n_slices, sl = blockIdx.y % a.n_slices;
-  const int r0 = sl * kRows;
-  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
+  const int vb = blockIdx.y / a.n_slices, slice = blockIdx.y % a.n_slices;
+  const int r0 = slice * kVhRows;
+  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int arow = lid & 15, acol = (lid >> 4) * 8;  // ldmatrix address of this thread
+  const int g = lid / 4, t = lid % 4;                // accumulator row / lane pair
   const int k_lo = a.k_range[2 * blockIdx.y];
   const int k_hi = a.k_range[2 * blockIdx.y + 1];
-  const int h_lo = a.h_range[2 * chunk] / kLanes * kLanes;
+  const int h_lo = a.h_range[2 * chunk];
   const int h_hi = a.h_range[2 * chunk + 1];
-  const int row0 = a.offs_v[vb];
+  const int row0 = a.offs_v[vb] + k_lo;
   const int lane0 = a.offs_l[hb] + a.rel[j];
+  const int nv = (k_hi - k_lo) / kDepth;  // first-pass steps per segment
+  const bool vec = a.lanes_in % 4 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0;
 
-  float acc[4][4] = {};
-  for (int seg = h_lo; seg < h_hi; seg += kLanes) {
-    // ---- first (vertical) pass over this 128-lane segment ----------
-    float m[4][4] = {};
-    for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
-      __syncthreads();
-      stage_v_taps(a, vb, r0, k0, svh, svl);
-      for (int e = tid; e < kDepth * kLanes; e += kThreads) {
-        const int k = e / kLanes, l = e % kLanes;
-        const float v = load_lin<GAMMA>(a, row0 + k0 + k, lane0 + seg + l);
-        const float hi = bf(v);
-        sah[k][l] = hi;
-        sal[k][l] = bf(__fsub_rn(v, hi));
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kDepth; ++k) {
-        const float4 xh = *reinterpret_cast<const float4*>(&sah[k][4 * tx]);
-        const float xhv[4] = {xh.x, xh.y, xh.z, xh.w};
-        float xlv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (S3V) {
-          const float4 xl = *reinterpret_cast<const float4*>(&sal[k][4 * tx]);
-          xlv[0] = xl.x; xlv[1] = xl.y; xlv[2] = xl.z; xlv[3] = xl.w;
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float th = svh[4 * ty + i][k], tl = svl[4 * ty + i][k];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            m[i][jj] = fmaf(th, xhv[jj], m[i][jj]);
-            m[i][jj] = fmaf(tl, xhv[jj], m[i][jj]);
-            if (S3V) m[i][jj] = fmaf(th, xlv[jj], m[i][jj]);
-          }
-        }
-      }
-    }
-    // ---- split the intermediate into shared memory -----------------
+  float acc[8][4] = {};
+  // No nonzero V tap or lane tap: the block's sums are 0.
+  if (nv > 0 && h_lo < h_hi) {
+    float m[8][4] = {};
+    typename K::Raw raw[K::kGroups];
+    int seg = h_lo, i = 0, b = 0;
+    K::stage_v(a, sm, 0, vb, r0, k_lo);
+    cp_commit();
+    K::load_x(a, row0, lane0 + seg, min(kLanes, h_hi - seg), vec, raw);
+    K::store_x(a, sm, 0, lane0 + seg, min(kLanes, h_hi - seg), raw);
+    cp_wait_all();
     __syncthreads();
+    while (true) {
+      const int w = min(kLanes, h_hi - seg);  // a multiple of 32
+      // The next step: (nseg, ni), ni < nv a first-pass step.
+      int nseg = seg, ni = i + 1;
+      if (ni == nv + w / kDepth) {
+        nseg = seg + kLanes;
+        ni = 0;
+      }
+      const bool more = nseg < h_hi;
+      const int nw = min(kLanes, h_hi - nseg);
+      if (more) {
+        if (ni < nv) {
+          K::stage_v(a, sm, b ^ 1, vb, r0, k_lo + ni * kDepth);
+          cp_commit();
+          K::load_x(a, row0 + ni * kDepth, lane0 + nseg, nw, vec, raw);
+        } else {
+          K::stage_h(a, sm, b ^ 1, chunk, nseg + (ni - nv) * kDepth);
+          cp_commit();
+        }
+      }
+      if (i < nv) {
+        // ---- first (vertical) pass step ------------------------------
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4 h, l;
-      h.x = bf(m[i][0]); h.y = bf(m[i][1]); h.z = bf(m[i][2]); h.w = bf(m[i][3]);
-      l.x = bf(__fsub_rn(m[i][0], h.x)); l.y = bf(__fsub_rn(m[i][1], h.y));
-      l.z = bf(__fsub_rn(m[i][2], h.z)); l.w = bf(__fsub_rn(m[i][3], h.w));
-      *reinterpret_cast<float4*>(&sih[4 * ty + i][4 * tx]) = h;
-      *reinterpret_cast<float4*>(&sil[4 * ty + i][4 * tx]) = l;
-    }
-    // ---- second (horizontal) pass: this segment's share ------------
-    for (int l0 = 0; l0 < kLanes; l0 += kDepth) {
-      __syncthreads();
-      stage_h_taps(a, chunk, seg + l0, sah, sal);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kDepth; ++d) {
-        const float4 t1 = *reinterpret_cast<const float4*>(&sah[d][4 * tx]);
-        const float4 t0 = *reinterpret_cast<const float4*>(&sal[d][4 * tx]);
-        const float hh[4] = {t1.x, t1.y, t1.z, t1.w};
-        const float hl[4] = {t0.x, t0.y, t0.z, t0.w};
+        for (int k16 = 0; k16 < kDepth; k16 += 16) {
+          uint32_t th[4], tl[4];
+          ldsm(th, sm + S::sv(b, 0, 16 * wm + arow, k16 + acol));
+          ldsm(tl, sm + S::sv(b, 1, 16 * wm + arow, k16 + acol));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float vh = sih[4 * ty + i][l0 + d];
-          const float vl = S3H ? sil[4 * ty + i][l0 + d] : 0.0f;
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            acc[i][jj] = fmaf(vh, hh[jj], acc[i][jj]);
-            acc[i][jj] = fmaf(vh, hl[jj], acc[i][jj]);
-            if (S3H) acc[i][jj] = fmaf(vl, hh[jj], acc[i][jj]);
+          for (int q = 0; q < 4; ++q) {
+            const int n0 = 64 * wn + 16 * q;
+            if (n0 >= w) continue;
+            uint32_t xh[4];
+            ldsm_t(xh, sm + S::sx(b, 0, k16 + arow, n0 + acol));
+            mma(m[2 * q], th, xh[0], xh[1]);
+            mma(m[2 * q + 1], th, xh[2], xh[3]);
+            mma(m[2 * q], tl, xh[0], xh[1]);
+            mma(m[2 * q + 1], tl, xh[2], xh[3]);
+            if (S3V) {
+              uint32_t xl[4];
+              ldsm_t(xl, sm + S::sx(b, 1, k16 + arow, n0 + acol));
+              mma(m[2 * q], th, xl[0], xl[1]);
+              mma(m[2 * q + 1], th, xl[2], xl[3]);
+            }
           }
+        }
+        if (i == nv - 1) {
+          // The segment's intermediate, split into shared memory (the
+          // last second-pass step before ended with a barrier).
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int col = 64 * wn + 8 * n + 2 * t;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 16 * wm + g + 8 * h;
+              uint32_t hi, lo;
+              split_pair(m[n][2 * h], m[n][2 * h + 1], hi, lo);
+              *reinterpret_cast<uint32_t*>(sm + S::si(0, r, col)) = hi;
+              if (S3H) *reinterpret_cast<uint32_t*>(sm + S::si(1, r, col)) = lo;
+              m[n][2 * h] = 0.0f;
+              m[n][2 * h + 1] = 0.0f;
+            }
+          }
+        }
+      } else {
+        // ---- second (horizontal) pass step ---------------------------
+        const int kk = (i - nv) * kDepth;
+#pragma unroll
+        for (int k16 = 0; k16 < kDepth; k16 += 16) {
+          uint32_t ih[4], il[4];
+          ldsm(ih, sm + S::si(0, 16 * wm + arow, kk + k16 + acol));
+          if (S3H) ldsm(il, sm + S::si(1, 16 * wm + arow, kk + k16 + acol));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int n0 = 64 * wn + 16 * q;
+            uint32_t hh[4], hl[4];
+            ldsm_t(hh, sm + S::sx(b, 0, k16 + arow, n0 + acol));
+            ldsm_t(hl, sm + S::sx(b, 1, k16 + arow, n0 + acol));
+            mma(acc[2 * q], ih, hh[0], hh[1]);
+            mma(acc[2 * q + 1], ih, hh[2], hh[3]);
+            mma(acc[2 * q], ih, hl[0], hl[1]);
+            mma(acc[2 * q + 1], ih, hl[2], hl[3]);
+            if (S3H) {
+              mma(acc[2 * q], il, hh[0], hh[1]);
+              mma(acc[2 * q + 1], il, hh[2], hh[3]);
+            }
+          }
+        }
+      }
+      if (more) {
+        if (ni < nv) K::store_x(a, sm, b ^ 1, lane0 + nseg, nw, raw);
+        cp_wait_all();
+      }
+      __syncthreads();
+      if (!more) break;
+      seg = nseg;
+      i = ni;
+      b ^= 1;
+    }
+  }
+
+  // ---- epilogue: accumulator (row g (+8), lanes 2t, 2t+1) -> output ---
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int tr = r0 + 16 * wm + g + 8 * h;
+    const int orow = vb * a.tv + tr;
+    if (tr >= a.tv || orow >= a.rows_out) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = j * kLanes + 64 * wn + 8 * n + 2 * t + e;
+        const int olane = hb * a.tc + cl;
+        if (cl < a.tc && olane < a.lanes_out) {
+          store_one<GAMMA>(a, static_cast<size_t>(orow) * a.lanes_out + olane,
+                           acc[n][2 * h + e], olane);
         }
       }
     }
   }
-  store_out<GAMMA>(a, vb, r0, hb, j, acc);
 }
 
 template <bool S3V, bool S3H, bool GAMMA>
@@ -380,25 +684,36 @@ __global__ void __launch_bounds__(kThreads) fused_split_hv(const Args a) {
   store_out<GAMMA>(a, vb, r0, hb, j, acc);
 }
 
-constexpr size_t kSmemVh = (2 * kRows * kDepth + 2 * kDepth * kLanes + 2 * kRows * kLanes) * sizeof(float);
 constexpr size_t kSmemHv = (4 * kRows * kDepth + 2 * kDepth * kLanes + 2 * kDepth * kLanes) * sizeof(float);
 
 template <bool S3V, bool S3H, bool GAMMA>
-cudaError_t launch(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
-  if (hv) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_split_hv<S3V, S3H, GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemHv));
-    if (e != cudaSuccess) return e;
-    fused_split_hv<S3V, S3H, GAMMA><<<grid, kThreads, kSmemHv, s>>>(a);
-  } else {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_split_vh<S3V, S3H, GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemVh));
-    if (e != cudaSuccess) return e;
-    fused_split_vh<S3V, S3H, GAMMA><<<grid, kThreads, kSmemVh, s>>>(a);
-  }
+cudaError_t launch_hv(const Args& a, dim3 grid, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_split_hv<S3V, S3H, GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemHv));
+  if (e != cudaSuccess) return e;
+  fused_split_hv<S3V, S3H, GAMMA><<<grid, kThreads, kSmemHv, s>>>(a);
   return cudaGetLastError();
+}
+
+template <bool S3V, bool S3H, bool GAMMA, typename TIn>
+cudaError_t launch_vh(const Args& a, dim3 grid, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_split_vh<S3V, S3H, GAMMA, TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(VhSmem::kBytes));
+  if (e != cudaSuccess) return e;
+  fused_split_vh<S3V, S3H, GAMMA, TIn><<<grid, kVhThreads, VhSmem::kBytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+// The vh kernel takes k_range over 64-row slices, hv over 32-row ones.
+template <bool S3V, bool S3H, bool GAMMA>
+cudaError_t launch(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
+  if (hv) return launch_hv<S3V, S3H, GAMMA>(a, grid, s);
+  if (a.n_slices != (a.tv + kVhRows - 1) / kVhRows) return cudaErrorInvalidValue;
+  if (a.in_kind == 0) return launch_vh<S3V, S3H, GAMMA, uint8_t>(a, grid, s);
+  if (a.in_kind == 1) return launch_vh<S3V, S3H, GAMMA, uint16_t>(a, grid, s);
+  return launch_vh<S3V, S3H, GAMMA, float>(a, grid, s);
 }
 
 template <bool GAMMA>

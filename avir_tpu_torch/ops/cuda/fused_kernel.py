@@ -277,14 +277,14 @@ def _pack4(q: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(q).view(np.int32)[..., 0]
 
 
-def _k_ranges(v1: np.ndarray, v0: np.ndarray) -> np.ndarray:
-    """[Bv, n_slices, 2]: per 32-row slice of each V block, the window
-    rows [lo, hi) holding its nonzero taps, rounded out to 32."""
+def _k_ranges(v1: np.ndarray, v0: np.ndarray, rows: int = _ROWS) -> np.ndarray:
+    """[Bv, n_slices, 2]: per ``rows``-row slice of each V block, the
+    window rows [lo, hi) holding its nonzero taps, rounded out to 32."""
     bv, tv, wv = v1.shape
-    n_sl = -(-tv // _ROWS)
-    nz = np.zeros((bv, n_sl * _ROWS, wv), dtype=bool)
+    n_sl = -(-tv // rows)
+    nz = np.zeros((bv, n_sl * rows, wv), dtype=bool)
     nz[:, :tv] = (v1 != 0) | (v0 != 0)
-    nz = nz.reshape(bv, n_sl, _ROWS, wv).any(axis=2)
+    nz = nz.reshape(bv, n_sl, rows, wv).any(axis=2)
     any_nz = nz.any(axis=2)
     first = np.argmax(nz, axis=2)
     last = wv - 1 - np.argmax(nz[:, :, ::-1], axis=2)

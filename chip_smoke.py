@@ -13,8 +13,9 @@ Phases (any failure exits non-zero before the last line):
        - K1 split-bf16: both orders (vh also on upsizes of both axes),
          split2/split3 mode pairs, u8/u16/f32 in, f32/u8/u16 out with
          trunc_bits 0, 2 and 4, C in {1, 2, 3, 4}, chunked and unchunked
-         lanes: float32 within max|plain| * 1e-4, integers within 1 LSB
-         (one quantization step when trunc_bits > 0);
+         lanes, and the edges of the vh kernel's tensor-core tiling
+         (SPLIT_VH_EDGE_CASES): float32 within max|plain| * 1e-4, integers
+         within 1 LSB (one quantization step when trunc_bits > 0);
        - K4 wavefront: C in {1, 2, 3, 4}, one and several row groups (one
          launch each), W = 1, 8- and 16-bit steps: bit-equal;
        - K1's epilogue variants: round-half-even with LANCIR's scale, and
@@ -45,8 +46,7 @@ Phases (any failure exits non-zero before the last line):
          res_bit_depth=16 (K1 split3/split3 vh, as the JAX package's
          choose_fused orders a 2-byte upsize): within 1 LSB of the plain
          version, within 4 LSB / >= 60 dB of the oracle; the hv order
-         checked and timed beside it by a direct call; the uint16
-         device->host copy timed directly and through its int16 view;
+         checked and timed beside it by a direct call;
        - lancir_8k_to_1080p, ``LancIR.resize`` 7680x4320 -> 1920x1080 u8
          RGB (K1 int8 vh, round-half-even): bit-equal to the plain
          version, within 1 LSB / >= 60 dB of ``execute_lancir_numpy``;
@@ -82,13 +82,17 @@ Phases (any failure exits non-zero before the last line):
      two copies (and, for the shapes of the split and epilogue variants,
      the ``precision="exact"`` route as a yardstick), sweeps K4's row
      groups (K4_GROUP_WARPS) at the three errdiff cells, and prints one
-     JSON line per shape;
+     JSON line per shape; at the K1 split vh cells that line also holds
+     the dense MACs the kernel issues beside the band MACs of its bound,
+     and the image elements its first pass stages per input element, in
+     the kernel's tiling and in the tiling before it;
   5. prints the kernels line (every kernel of KERNELS, one entry each at
      its first main-path shape) and, last, the device line.
 
-``python3 chip_smoke.py --kernel-times DIR`` times K1 int8 gamma and K4
-on the package under DIR instead (one JSON line), so that two versions of
-the kernels can be compared in turns within one chip call.
+``python3 chip_smoke.py --kernel-times DIR`` times K1 split vh (plain,
+gamma, even) at its four main-path cells on the package under DIR instead
+(one JSON line), so that two versions of the kernel can be compared in
+turns within one chip call.
 """
 
 from __future__ import annotations
@@ -297,6 +301,22 @@ SPLIT_VH_UP_CASES = (
     (53, 37, 90, 71, 1, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, -1),
     (333, 251, 1001, 777, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 3),
 )
+# The edges of K1 split vh's tensor-core tiling (64-row slices, lane
+# segments in steps of 32, 16-deep MMA steps), tests/torch_cases.py's
+# vh_edge cases: rows_out not a multiple of 64, nonzero V-tap ranges and
+# lane windows ending inside an MMA step, C = 2, trunc_bits=4 into u16, a
+# downsize by more than 4, lanes_in not a multiple of 4, u16 gamma with
+# the alpha lane first.  SPLIT_EPI_CASES' fields; inputs from a generator
+# of their own (seed SEED + 2).
+SPLIT_VH_EDGE_CASES = (
+    (300, 250, 170, 150, 3, None, "vh", "split2", "split3", "u8", "f32", 0, "biased", 1.0, False, -1),
+    (97, 83, 61, 45, 2, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, False, -1),
+    (150, 120, 90, 70, 3, None, "vh", "split3", "split3", "u16", "u16", 4, "biased", 1.0, False, -1),
+    (1031, 517, 200, 97, 3, None, "vh", "split2", "split3", "u8", "u8", 0, "biased", 1.0, False, -1),
+    (45, 31, 97, 70, 2, None, "vh", "split3", "split3", "f32", "f32", 0, "biased", 1.0, False, -1),
+    (181, 77, 60, 33, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 0),
+    (53, 37, 90, 71, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 0),
+)
 # K4 with row groups running at once: (h, w, c, trunc_bits, out_max, rows
 # per group), one launch each.
 K4_GROUP_CASES = (
@@ -411,12 +431,20 @@ K4_REPEATS = 10
 # Elements of an unfused errdiff shape's output held to the serial float64
 # error diffusion (its top rows; the whole of a 1080p frame).
 ERRDIFF_ORACLE_ELEMS = 1920 * 1080 * 3
-# --kernel-times: K1 int8 gamma (src_w, src_h, new_w, new_h; u8 RGB) at
-# 8k_to_1080p_gamma, 4k_to_720p_gamma_ring's shape and 1080p_to_4k_gamma,
-# and K4 (h, w; C = 3) at the errdiff cells' two output sizes.
-KT_K1_SHAPES = ((7680, 4320, 1920, 1080), (3840, 2160, 1280, 720),
-                (1920, 1080, 3840, 2160))
-KT_K4_SHAPES = ((1080, 1920), (2160, 3840))
+# --kernel-times: K1 split vh at its four main-path cells: (name, entry
+# point, src_w, src_h, new_w, new_h, c, in dtype, out dtype, plan
+# keywords, executor keywords).
+KT_SPLIT_CELLS = (
+    ("8k_to_1080p_errdiff", "avir", 7680, 4320, 1920, 1080, 3, np.uint8,
+     np.uint8, {}, {"errdiff": True}),
+    ("1080p_to_4k_u16", "avir", 1920, 1080, 3840, 2160, 3, np.uint16,
+     np.uint16, {"res_bit_depth": 16}, {}),
+    ("1080p_to_4k_u16_gamma_rgba", "avir", 1920, 1080, 3840, 2160, 4,
+     np.uint16, np.uint16,
+     {"res_bit_depth": 16, "use_srgb_gamma": True, "alpha_index": 3}, {}),
+    ("lancir_4k_u16_to_1080p_u8", "lancir", 3840, 2160, 1920, 1080, 3,
+     np.uint16, np.uint8, {}, {}),
+)
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
 
@@ -543,18 +571,42 @@ def _bound(plan, c: int, order: str) -> tuple[float, str, int, int]:
 
 
 def _split_reads(ops) -> dict[str, float]:
-    """Image elements the split kernel's first pass reads per input
-    element: each thread block reads its slice's nonzero V-tap rows over
-    its chunk's nonzero lane-tap window (128-lane segments in vh)."""
-    kr = ops.k_range.cpu()
-    rows = int((kr[..., 1] - kr[..., 0]).sum()) / ops.rows_in
+    """Image elements the split kernel's first pass stages per input
+    element: each thread block stages its slice's nonzero V-tap rows
+    (k_range) over its chunk's nonzero lane-tap window (h_range; in vh,
+    segments from its 32-aligned start).  For vh also "before": the tiling
+    the vh kernel had before its tensor-core design (32-row slices,
+    128-lane segments from a 128-aligned start)."""
+    kr = ops.k_range.cpu().long()
     hr = ops.h_range.cpu().long()
-    lo, hi = hr[..., 0], hr[..., 1]
+    rows = int((kr[..., 1] - kr[..., 0]).sum()) / ops.rows_in
+    lanes = int((hr[..., 1] - hr[..., 0]).sum()) / ops.lanes_in
+    out = {"rows": rows, "lanes": lanes, "total": rows * lanes}
     if ops.order == "vh":
-        lo = lo // 128 * 128
+        from avir_tpu_torch.ops.cuda.fused_kernel import _k_ranges
+
+        kr = _k_ranges((ops.tvh != 0).cpu().numpy(), (ops.tvl != 0).cpu().numpy(), 32)
+        lo, hi = hr[..., 0] // 128 * 128, hr[..., 1]
         hi = torch.where(hi > lo, (hi - lo + 127) // 128 * 128 + lo, lo)
-    lanes = int((hi - lo).sum()) / ops.lanes_in
-    return {"rows": rows, "lanes": lanes, "total": rows * lanes}
+        out["before"] = (
+            int((kr[..., 1] - kr[..., 0]).sum()) / ops.rows_in
+            * int((hi - lo).sum()) / ops.lanes_in
+        )
+    return out
+
+
+def _split_dense_macs(ops) -> int:
+    """MACs the vh kernel issues on the tensor cores: each block multiplies
+    its slice's dense V block over its k_range by the image over its
+    chunk's lane window, then that intermediate by the dense lane-tap block
+    (2 or 3 products a pass)."""
+    kr = ops.k_range.cpu().long().reshape(-1, 2)
+    hr = ops.h_range.cpu().long().reshape(-1, 2)
+    k = int((kr[:, 1] - kr[:, 0]).sum())
+    w = int((hr[:, 1] - hr[:, 0]).sum())
+    pv = 3 if ops.mode_v == "split3" else 2
+    ph = 3 if ops.mode_h == "split3" else 2
+    return ops.rows * w * (k * pv + len(kr) * 128 * ph)
 
 
 def _split_bound(plan, c: int, ops, in_bytes: int, out_bytes: int):
@@ -683,17 +735,6 @@ def _k4_cell(pre3: torch.Tensor, out_max: float, want: torch.Tensor,
     return report, ok
 
 
-def _d2h_ms(t: torch.Tensor, flush) -> dict:
-    """Device->host copy of a result as the resizers make it (``.cpu()``)
-    and, for uint16, the copy of its int16 view (the same bits)."""
-    report = {"d2h_copy_ms": _time_ms(t.cpu, 5, flush)}
-    if t.dtype == torch.uint16:
-        report["d2h_int16_view_ms"] = _time_ms(
-            lambda: t.view(torch.int16).cpu(), 5, flush
-        )
-    return report
-
-
 def _new_shape(name, sw, sh, nw, nh, c, in_dt, bits, dither, gen, dev,
                flush, smi, mods) -> list[dict]:
     """Drive one full-precision main-path shape through
@@ -729,9 +770,9 @@ def _new_shape(name, sw, sh, nw, nh, c, in_dt, bits, dither, gen, dev,
         "order": order, "mode_v": ops.mode_v, "mode_h": ops.mode_h,
         "k1_out": str(ops.out_dtype),
     }))
-    if counts[kname] < 1 or counts["wavefront"] != (1 if errdiff else 0):
-        _fail(f"{name}: the split kernel or K4 was not launched on the main path "
-              f"(one K4 launch per resize): {counts}")
+    if counts[kname] != 1 or counts["wavefront"] != (1 if errdiff else 0):
+        _fail(f"{name}: the split kernel or K4 was not launched once on the main "
+              f"path: {counts}")
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -797,11 +838,12 @@ def _new_shape(name, sw, sh, nw, nh, c, in_dt, bits, dither, gen, dev,
         3, flush,
     )
     h2d_ms = _time_ms(lambda: torch.from_numpy(src.reshape(sh, -1)).to(dev), 5, flush)
-    d2h = _d2h_ms(dev_out, flush)
     report.update({
         "kernel": kname, "mode_v": ops.mode_v, "mode_h": ops.mode_h,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "bytes": nbytes, "bf16_ops": nops,
+        "band_macs": nops // 2,
+        "dense_macs": _split_dense_macs(ops) if ops.order == "vh" else None,
         "max_abs_err_vs_plain": k1_err, "tol_vs_plain": k1_tol,
         "max_lsb_vs_f64_oracle": lsb, "psnr_vs_f64_oracle_db": psnr,
         "first_pass_reads_per_input": _split_reads(ops),
@@ -812,7 +854,8 @@ def _new_shape(name, sw, sh, nw, nh, c, in_dt, bits, dither, gen, dev,
         "so no single library call (library_ms null)",
         "resize_first_call_s": first_s,
         "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
-        "h2d_copy_ms": h2d_ms, **d2h,
+        "h2d_copy_ms": h2d_ms,
+        "d2h_copy_ms": _time_ms(dev_out.cpu, 5, flush),
         "card": smi,
     })
     entries = [{
@@ -970,7 +1013,6 @@ def _epi_shape(name, entry, sw, sh, nw, nh, c, in_dt, out_dt, kw, key,
     exact_ms = _time_ms(lambda: exact(x), 3, flush)
     exact_lsb = int((exact(x).int() - got.int()).abs().max())
     h2d_ms = _time_ms(lambda: torch.from_numpy(src.reshape(sh, -1)).to(dev), 5, flush)
-    d2h = _d2h_ms(got, flush)
     in_b, out_b = np.dtype(in_dt).itemsize, np.dtype(out_dt).itemsize
     gamma = ops.epi.gamma
     if mod is fk:
@@ -1045,11 +1087,14 @@ def _epi_shape(name, entry, sw, sh, nw, nh, c, in_dt, out_dt, kw, key,
         "several PyTorch calls, so no single library call (library_ms null)",
         "resize_first_call_s": first_s,
         "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
-        "h2d_copy_ms": h2d_ms, **d2h, **extra,
+        "h2d_copy_ms": h2d_ms,
+        "d2h_copy_ms": _time_ms(got.cpu, 5, flush), **extra,
         "card": smi,
     }
     if mod is fs:
-        report.update({"mode_v": ops.mode_v, "mode_h": ops.mode_h})
+        report.update({"mode_v": ops.mode_v, "mode_h": ops.mode_h,
+                       "band_macs": nops // 2,
+                       "dense_macs": _split_dense_macs(ops) if ops.order == "vh" else None})
     print(json.dumps(report))
     if not ok:
         _fail(
@@ -1953,28 +1998,30 @@ def _card() -> str:
 
 
 def kernel_times(root: str) -> int:
-    """K1 int8 gamma at its three cells and K4 at the errdiff cells' two
-    image sizes, timed on the package under ``root`` through the calls
-    that the versions being compared share (``prepare_fused_int8`` /
-    ``apply_fused_int8``, ``errdiff_wavefront`` with its default rows), so
-    that two versions run in turns in one chip call:
+    """K1 split vh at its four main-path cells (KT_SPLIT_CELLS), timed on
+    the package under ``root`` through the calls that the versions being
+    compared share (the executors' ``prepare_fused_split`` operands,
+    ``apply_fused_split``), so that two versions run in turns in one chip
+    call:
 
         python3 chip_smoke.py --kernel-times DIR
 
-    Prints one JSON line with each time and a hash of each output (equal
-    hashes: bit-equal outputs across the versions)."""
+    Prints one JSON line with each time, the largest difference from the
+    plain version and a hash of each output (equal hashes: bit-equal
+    outputs across the versions)."""
     import hashlib
     import os
 
     sys.path.insert(0, os.path.abspath(root))
-    from avir_tpu_torch.ops.banded import block_banded
+    from avir_tpu_torch.models.runtime import make_avir_executor, make_lancir_executor
     from avir_tpu_torch.ops.cuda import build
-    from avir_tpu_torch.ops.cuda import fused_kernel as fk
-    from avir_tpu_torch.ops.cuda import wavefront as wf
-    from avir_tpu_torch.ops.lanes import lane_block_banded
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
     from avir_tpu_torch.plan.plan import build_resize_plan
 
-    build.build(["fused_int8", "wavefront"])
+    build.build(["fused_split"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
     gen = np.random.default_rng(SEED)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -1983,26 +2030,24 @@ def kernel_times(root: str) -> int:
         return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
     times = {}
-    for sw, sh, nw, nh in KT_K1_SHAPES:
-        plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8,
-                                 use_srgb_gamma=True)
-        ops = fk.prepare_fused_int8(
-            block_banded(plan.v.op), lane_block_banded(plan.h.op, 3),
-            "vh" if nw * nh <= sw * sh else "hv", dev, gamma=True,
-            in_gamma_mult=plan.in_gamma_mult, out_gamma_mult=plan.out_gamma_mult,
-        )
-        x = torch.from_numpy(gen.integers(0, 256, (sh, sw * 3), dtype=np.uint8)).to(dev)
-        times[f"{ops.launch_key} {sw}x{sh}->{nw}x{nh}"] = {
-            "ms": _time_ms(lambda: fk.apply_fused_int8(ops, x), 20, flush),
-            "sha": sha(fk.apply_fused_int8(ops, x)),
+    for name, entry, sw, sh, nw, nh, c, in_dt, out_dt, pkw, ekw in KT_SPLIT_CELLS:
+        if entry == "lancir":
+            fn = make_lancir_executor(
+                build_lancir_plan(sw, sh, nw, nh, c, in_dt, out_dt), device=dev
+            )
+        else:
+            plan = build_resize_plan(sw, sh, nw, nh, c, in_dt, out_dt, **pkw)
+            fn = make_avir_executor(plan, device=dev, **ekw)
+        ops = fn.ops
+        src = gen.integers(0, np.iinfo(in_dt).max + 1, (sh, sw * c), dtype=in_dt)
+        x = torch.from_numpy(src).to(dev)
+        got = fs.apply_fused_split(ops, x)
+        want = fs.apply_fused_split_reference(ops, x)
+        times[f"{ops.launch_key} {name}"] = {
+            "ms": _time_ms(lambda: fs.apply_fused_split(ops, x), 20, flush),
+            "max_abs_err_vs_plain": float((got.double() - want.double()).abs().max()),
+            "sha": sha(got),
         }
-    for h, w in KT_K4_SHAPES:
-        img = torch.from_numpy((gen.random((h, w, 3)) * 255.0).astype(np.float32)).to(dev)
-
-        def k4():
-            return wf.errdiff_wavefront(img, 0, 255.0, out_dtype=torch.uint8)
-
-        times[f"wavefront {h}x{w}x3"] = {"ms": _time_ms(k4, 10, flush), "sha": sha(k4())}
     print(json.dumps({"kernel_times": times, "root": root, "card": _card()}))
     return 0
 
@@ -2129,6 +2174,7 @@ def main() -> int:
     _planar_cases(gen, dev)
     gen2 = np.random.default_rng(SEED + 1)
     _split_epi_cases(SPLIT_VH_UP_CASES, gen2, dev)
+    _split_epi_cases(SPLIT_VH_EDGE_CASES, np.random.default_rng(SEED + 2), dev)
     for h, w, c, tb, om, rows in K4_GROUP_CASES:
         img = torch.from_numpy((gen2.random((h, w, c)) * om).astype(np.float32)).to(dev)
         got = wf.errdiff_wavefront(img, tb, om, block_rows=rows)

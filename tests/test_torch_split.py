@@ -15,6 +15,8 @@ integer output within one LSB, or one quantization step when
 ``trunc_bits`` > 0 (a value on a half-step boundary may round either
 way)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from torch_cases import IN_BYTES, NP_TYPES, SPLIT_CASES, split_source
 
 from avir_tpu_torch.ops.banded import apply_blocked, block_banded
 from avir_tpu_torch.ops.cuda import fused_split as fs
+from avir_tpu_torch.ops.cuda.fused_kernel import _k_ranges
 from avir_tpu_torch.ops.lanes import lane_block_banded
 from avir_tpu_torch.plan.plan import build_resize_plan
 
@@ -115,6 +118,85 @@ def test_h_ranges_cover_every_nonzero_tap():
     assert not (nz & ~inside).any()
     assert (rng[..., 0] % 32 == 0).all()
     assert ((rng[..., 1] % 32 == 0) | (rng[..., 1] == win_c)).all()
+
+
+def _split_ops(name, order=None):
+    """CPU operands of a SPLIT_CASES case (in ``order`` if given)."""
+    sw, sh, nw, nh, c, tile, case_order, mv, mh, tin, tout, tb = SPLIT_CASES[name]
+    ib = IN_BYTES[tin]
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout])
+    return fs.prepare_fused_split(
+        block_banded(plan.v.op, in_bytes=ib),
+        lane_block_banded(plan.h.op, c, tile=tile, in_bytes=ib),
+        order or case_order, mv, mh, "cpu", out_dtype=_TORCH[tout],
+        out_max=255.0 if tout == "u8" else 65535.0, trunc_bits=tb,
+    )
+
+
+@pytest.mark.parametrize("order, rows", [("vh", 64), ("hv", 32)])
+@pytest.mark.parametrize("name", ["down_c3_u8_f32", "up_vh_c2_f32_u16", "vh_edge_down5_u8_u8"])
+def test_k_ranges_cover_every_nonzero_tap(name, order, rows):
+    """The vh kernel runs 64-row slices, hv 32-row ones: each slice's
+    range holds every nonzero V tap of its rows, 32-aligned."""
+    ops = _split_ops(name, order)
+    nz = ((ops.tvh != 0) | (ops.tvl != 0)).numpy()  # [Bv, Tv, Wv]
+    bv, tv, wv = nz.shape
+    kr = ops.k_range.numpy()
+    assert ops.rows == rows and kr.shape == (bv, -(-tv // rows), 2)
+    cols = np.arange(wv)
+    for s in range(kr.shape[1]):
+        used = nz[:, s * rows : (s + 1) * rows].any(axis=1)  # [Bv, Wv]
+        inside = (cols >= kr[:, s, :1]) & (cols < kr[:, s, 1:])
+        assert not (used & ~inside).any()
+    assert (kr % 32 == 0).all()
+
+
+@pytest.mark.parametrize("name", ["down_c3_u8_f32", "up_vh_c1_f32_f32", "vh_edge_c2_u16_u16"])
+def test_plain_version_independent_of_row_tile(name):
+    """The plain version reads the whole tap blocks: the vh operands give
+    the bits of the same operands with 32-row ranges (the tiling before
+    the tensor-core kernel)."""
+    sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb = SPLIT_CASES[name]
+    ops = _split_ops(name)
+    assert ops.order == "vh" and ops.rows == fs.VH_ROWS
+    v1, v0 = (ops.tvh != 0).numpy(), (ops.tvl != 0).numpy()
+    ops32 = dataclasses.replace(
+        ops, rows=32, k_range=torch.from_numpy(_k_ranges(v1, v0, 32))
+    )
+    x = torch.from_numpy(split_source(name, sh, sw, c, tin))
+    assert torch.equal(
+        fs.apply_fused_split_reference(ops, x), fs.apply_fused_split_reference(ops32, x)
+    )
+
+
+def test_vh_edge_cases_reach_their_edges():
+    """The vh_edge cases (and their gamma ones) cover what their names
+    promise: rows_out not a multiple of the 64-row slice, nonzero V-tap
+    ranges and lane windows that end inside a 16-deep MMA step, C = 2,
+    trunc_bits=4, a downsize by more than 4 and lanes_in not a multiple
+    of 4."""
+    seen = set()
+    for name in [n for n in SPLIT_CASES if n.startswith("vh_edge")]:
+        ops = _split_ops(name)
+        sw, sh, nw, nh, c, *_, tb = SPLIT_CASES[name]
+        nz = ((ops.tvh != 0) | (ops.tvl != 0)).numpy()
+        bv, tv, _ = nz.shape
+        spans = [
+            np.flatnonzero(nz[b, s : s + 64].any(axis=0))
+            for b in range(bv) for s in range(0, tv, 64)
+        ]
+        hnz = ((ops.thh != 0) | (ops.thl != 0)).any(dim=3).numpy()
+        ends = [np.flatnonzero(w)[-1] + 1 for w in hnz.reshape(-1, hnz.shape[2]) if w.any()]
+        seen |= {
+            *(["rows_out"] if ops.rows_out % 64 else []),
+            *(["v_range"] if any(r.size and (r[-1] + 1 - r[0]) % 16 for r in spans) else []),
+            *(["lane_end"] if any(e % 16 for e in ends) else []),
+            *(["c2"] if c == 2 else []),
+            *(["tb4"] if tb == 4 and ops.out_dtype == torch.uint16 else []),
+            *(["down_gt4"] if sw > 4 * nw and sh > 4 * nh else []),
+            *(["lanes_in"] if ops.lanes_in % 4 else []),
+        }
+    assert seen == {"rows_out", "v_range", "lane_end", "c2", "tb4", "down_gt4", "lanes_in"}
 
 
 def test_cpu_tensor_takes_plain_version():

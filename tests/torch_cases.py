@@ -42,6 +42,17 @@ SPLIT_CASES = {
     "up_vh_c1_f32_f32": (40, 30, 64, 48, 1, None, "vh", "split3", "split3", "f32", "f32", 0),
     "up_vh_c2_f32_u16": (53, 37, 90, 71, 2, None, "vh", "split3", "split3", "f32", "u16", 0),
     "up_vh_c4_u16_u16_tc": (29, 21, 71, 45, 4, 48, "vh", "split3", "split3", "u16", "u16", 0),
+    # Edges of the vh kernel's tiling (64-row slices, lane segments in
+    # steps of 32, 16-deep MMA steps; test_torch_split.py checks each case
+    # has them): rows_out not a multiple of 64, nonzero V-tap ranges and
+    # lane windows that end inside an MMA step, C = 2, a u16 output with
+    # trunc_bits=4, a downsize by more than 4 (1031x517 -> 200x97), and
+    # rows of lanes_in not a multiple of 4 (the kernel's scalar loads).
+    "vh_edge_rows_u8_f32": (300, 250, 170, 150, 3, None, "vh", "split2", "split3", "u8", "f32", 0),
+    "vh_edge_c2_u16_u16": (97, 83, 61, 45, 2, None, "vh", "split3", "split3", "u16", "u16", 0),
+    "vh_edge_tb4_u16_u16": (150, 120, 90, 70, 3, None, "vh", "split3", "split3", "u16", "u16", 4),
+    "vh_edge_down5_u8_u8": (1031, 517, 200, 97, 3, None, "vh", "split2", "split3", "u8", "u8", 0),
+    "vh_edge_up_c2_f32_f32": (45, 31, 97, 70, 2, None, "vh", "split3", "split3", "f32", "f32", 0),
 }
 
 # K1 int8 epilogue variants: (src_w, src_h, new_w, new_h, c, lane tile
@@ -82,6 +93,9 @@ SPLIT_EPI_CASES = {
     "gamma_up_vh_u16_u16_c4a": (45, 31, 97, 70, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 3),
     "gamma_up_vh_f32_f32_c3": (40, 30, 64, 48, 3, None, "vh", "split3", "split3", "f32", "f32", 0, "biased", 1.0, True, -1),
     "gamma_up_vh_u16_u16_c1": (53, 37, 90, 71, 1, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, -1),
+    # u16 gamma with the alpha lane first (alpha_index=0) in the vh kernel.
+    "gamma_vh_edge_u16_u16_c4a0": (181, 77, 60, 33, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 0),
+    "gamma_up_vh_edge_u16_u16_c4a0": (53, 37, 90, 71, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 0),
 }
 
 # K5 + K1 int8 limb-plane input: (src_w, src_h, new_w, new_h, c, lane tile
