@@ -48,47 +48,105 @@
 //               acc *= scale (when != 1); out = u8(clamp(rint(acc)) or
 //               clamp(floor(acc + 0.5)), 0, 255)
 //
-// Design.  A thread block owns 32 output rows (a slice of one V block)
-// and one 128-lane output chunk of one lane block; 256 threads each own
-// 4 rows x 4 lanes.  Products are dp4a (4 s8 MACs into s32) from shared
-// memory.  Operands are staged "packed along the contraction": a 32-bit
-// word holds 4 consecutive contraction elements, so V taps (row-major)
-// and the horizontal taps (packed on the host, [win_c/4][128] words)
-// load as they are, and the image tile is transposed into that form as
-// it is stored.
+// Without gamma (the main path: every u8 AVIR and LANCIR resize): both
+// passes on the int8 tensor cores, mma.sync.aligned.m16n8k32.row.col
+// .s32.s8.s8.s32 from shared memory.  Fragments (g = lane / 4, t = lane %
+// 4): A (16 x 32 bytes, row-major) comes from one ldmatrix.x4 (b16, no
+// .trans: each 8x8 b16 matrix is 8 rows of 16 bytes, and thread l gets
+// bytes 4t..4t+3 of row g), with row (l & 15) and byte column (l >> 4) *
+// 16 as the address rule; the same instruction on a [N][K] tile gives the
+// B fragments of two n8 tiles ({r0, r2}: rows 0-7, {r1, r3}: rows 8-15).
+// A B operand stored as [K/4][N] words (4 contraction bytes a word) gives
+// b0 = word (t, g) and b1 = word (t + 4, g) by plain 32-bit loads; those
+// rows are padded to 136 words so that the 32 threads hit 32 banks.  The
+// two limb products of a pass share their B fragments: [q1; q0] against
+// one image fragment, [x1; x0] against h1 (plus x1 h0) in vh, and [x1;
+// x0] against q1 (plus x1 q0) in hv.  No .satfinite: a wrapped partial
+// sum still gives the exact total, which int8_feasible keeps inside s32.
+//
+//   vh (fused_int8_vh_mma): a block owns 32 output rows (a slice of one V
+//   block) and one 128-lane output chunk; 8 warps, warp (wm, wn) owns rows
+//   16 wm.. and lanes 32 wn.. of both passes.  The chunk's nonzero lane
+//   range (h_range, 32-aligned) is cut into segments of 128 lanes.  Per
+//   segment: the first pass over the slice's nonzero V-tap rows
+//   (slice_range, here the same as k_range), 64 a step (two MMA depths):
+//   V taps [32][64] by cp.async (A), the image rows loaded as 32-bit
+//   words (4 lanes of one row) into registers, transposed 4 x 4 bytes with
+//   byte permutes into words of 4 rows (B, [16][128] words), ^ 0x80; the
+//   segment's last such step requantizes the sums (fq = 128 m1 + m0 +
+//   v_comp) into s8 limb planes x1 / x0 in shared memory (row-major, A of
+//   the second pass); then the second pass, 64 lanes a step: h1p / h0p
+//   words [16][128] by cp.async (B).  All steps of all segments form one
+//   sequence over two buffers, as in fused_split.cu: while a step's MMAs
+//   run, the next step's taps are in flight by cp.async and its image
+//   words in registers, with one barrier a step.
+//   hv (fused_int8_hv_mma<R>): computed transposed, so that no byte needs
+//   transposing: F^T[n][k] = sum_m H^T[n][m] X^T[m][k], whose B fragment
+//   is 4 lanes of one image row, and out^T[n][r] = sum_k XT[n][k] V[r][k],
+//   whose A is the intermediate as [lane][row] bytes and whose B is the V
+//   taps as stored.  A block owns R output rows and one chunk; warp w owns
+//   lanes 16 w..16 w + 15.  Phase 1: for each 32-row group of the slice's
+//   nonzero V-tap rows, the first pass over the chunk's nonzero lane range
+//   (the lane taps H^T, [128][<= 128] bytes, staged once when the range
+//   fits, else per 128-lane piece; the image tile [32][<= 128] copied raw
+//   by cp.async with zero fill past the edge, ^ 0x80808080 on each
+//   fragment register, the next group's tile in flight during this
+//   group's MMAs), requantized into the shared intermediate XT [128][kw].
+//   Phase 2: per 32-row sub-tile, V taps by cp.async (double-buffered),
+//   the second pass over the sub-tile's own nonzero range (k_range), the
+//   epilogue.  A window taller than kw (256 rows: an hv order on a steep
+//   row downsize) runs in windows, with R = 32.
+//   hv's slice height R (32, 64 or 128) is a template parameter that the
+//   host chooses from the operators (fused_kernel.py:slice_rows): the
+//   tallest whose grid keeps two blocks per SM of the card and whose
+//   slices' nonzero ranges fit the intermediate (a taller slice recomputes
+//   fewer window rows: the first pass reads each input byte 7.9 / 5.9 / 3.9
+//   times at 32 / 64 / 128 rows at 1920x1080 -> 3840x2160).  vh runs 32
+//   rows: a 64-row vh tiling measured 47-65% slower at both 8K downsizes.
+//
+// What bounds it.  The image read once plus the output written once bound
+// it at 0.03 ms at 7680x4320 -> 1920x1080 (bytes at the H100 SXM data
+// sheet's 3.35 TB/s); the MMAs issue 5-14x the band MACs (dense tap
+// blocks over the nonzero ranges), tens of microseconds at the data sheet's
+// int8 tensor-core rate.  The kernels run 10-34x the bytes bound on an H100
+// 80GB HBM3 at 700 W (PERF.md); the staging (the first pass reads each
+// input byte about twice at 8K, 3.4-3.9 times at 2x upsizes: chip_smoke.py
+// prints the factor), the 32-bit B-fragment loads from shared memory and
+// the barrier per step are the candidates, none yet measured apart.
+// Registers and spills (ptxas for sm_90a, printed by chip_smoke.py): vh 128
+// registers, no spill; hv 128 at every height, with 16-20 bytes spilled.
+//
+// Bit-equality.  Every product and sum before the recombination is an
+// exact s32 integer (tensor-core s8 x s8 -> s32, wrapping), the
+// requantization and the epilogue are the k1:: functions of the dp4a
+// kernels, and each output is recombined from its own full sums, so the
+// bits do not depend on the tiling: the kernels equal the plain version
+// and the dp4a kernels they replace.
+//
+// With gamma (fused_int8_vh / fused_int8_hv<PRE>: the in-kernel and
+// limb-plane gamma routes), the dp4a design:
+// A thread block owns 32 output rows (a slice of one V block) and one
+// 128-lane output chunk of one lane block; 256 threads each own 4 rows x
+// 4 lanes.  Products are dp4a (4 s8 MACs into s32) from shared memory.
+// Operands are staged "packed along the contraction": a 32-bit word holds
+// 4 consecutive contraction elements, so V taps (row-major) and the
+// horizontal taps (packed on the host, [win_c/4][128] words) load as they
+// are, and the image tile is transposed into that form as it is stored.
 //   vh: for each 128-lane segment of the chunk's win_c-lane window, the
 //       first pass computes x15 for the 32 rows x 128 lanes over the
 //       slice's nonzero V-tap rows, then the second pass adds that
-//       segment's share of pa/pb.  The first pass is thus recomputed by
-//       every chunk whose window covers a lane (about win_c / (128 * s)
-//       chunks for a downsize by s: 2 at 7680x4320 -> 1920x1080, where
-//       win_c = 1024 and s = 4) and by every slice whose 32-aligned row
-//       range covers a row (1.5 there): each input byte is read ~3
-//       times.  Dynamic shared memory: 46 KB, 50 KB with gamma's second
-//       input plane, 52 KB with its table.
+//       segment's share of pa/pb.  Each input byte is read ~3 times at
+//       7680x4320 -> 1920x1080.  Dynamic shared memory: 50 KB with
+//       gamma's second input plane, 52 KB with its table.
 //   hv: for each 32-row segment of the slice's nonzero V-tap rows, the
 //       first pass computes x15 for those window rows x 128 chunk lanes
 //       over the win_c window lanes, then the second pass adds the
-//       segment's share.  Window rows shared by neighbouring slices are
-//       recomputed by each (4x at 1920x1080 -> 3840x2160), and window
-//       lanes by every chunk that covers them (8x there): each input
-//       byte is read ~32 times.
-//   Staging writes whole words: a thread loads the 4 contraction elements
-//   of one word (4 rows of one lane in vh, 4 lanes of one row in hv) and
-//   stores them with one 32-bit shared-memory store.  With gamma the
-//   first pass makes 3 products instead of 2.
-//   chip_smoke.py prints these factors ("first_pass_reads_per_input").
-//
-// What bounds it on this card.  The image bytes read once plus the
-// output written once bound the kernel at tens of microseconds at the
-// main-path sizes (memory-bound by the data sheet's 3.35 TB/s; the band
-// MACs are ~1e10 int8 operations, a few microseconds at the tensor
-// cores' rate).  This first version runs its products on the CUDA
-// cores (dp4a) over dense tap blocks (a 128-lane chunk's window is
-// win_c lanes however narrow its band) and recomputes the first pass as
-// above, so it is bound by dp4a issue, far above that bound.  Tensor
-// core products (mma/wgmma), TMA staging and a first-pass intermediate
-// shared across chunks are the planned ways down.
+//       segment's share: each input byte is read ~32 times at 1920x1080 ->
+//       3840x2160.
+//   With gamma the first pass makes 3 products instead of 2.  These
+//   kernels run on the CUDA cores (dp4a) over dense tap blocks, bound by
+//   dp4a issue; moving them onto the tensor-core kernels above is the
+//   next step (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -120,21 +178,20 @@ struct Args {
   const int32_t* offs_l;   // [Bh]
   const int32_t* rel;      // [n_ch]
   int n_ch, win_c, tc;
-  const int32_t* k_range;  // [Bv, n_slices, 2] nonzero V-tap rows, 32-aligned
+  const int32_t* k_range;  // [Bv, n_slices, 2] nonzero V-tap rows, 32-row slices
   int n_slices;
+  // The tensor-core kernels (no gamma).
+  const int32_t* slice_range;  // [Bv, n_slices_r, 2] the same over R-row slices
+  int n_slices_r;
+  const int32_t* h_range;  // [Bh, n_ch, 2] nonzero lane-tap rows, 32-aligned
+  const int8_t* h1t;       // [Bh, n_ch, 128, win_c] lane taps transposed (hv)
+  const int8_t* h0t;
+  int kwin;                // hv: rows of the shared intermediate (<= 256)
+  bool vec4, vec16;        // image rows and windows 4- / 16-byte aligned
   int sh;                  // first-pass requantizing shift (>= 1)
   float rec;               // 2^-(x_shift + second-pass q_shift)
   k1::Epilogue epi;
 };
-
-// Image byte as s8 (x - 128), zero past the edge.
-__device__ __forceinline__ uint8_t load_xs(const Args& a, int r, int l) {
-  uint8_t v = 0;
-  if (r < a.rows_in && l < a.lanes_in) {
-    v = __ldg(a.x + static_cast<size_t>(r) * a.lanes_in + l);
-  }
-  return v ^ 0x80u;
-}
 
 // Image element as 13-bit linear light in two s8 limbs (hi, lo); zero
 // past the edge.  From the block's table of gamma_in_q13, or (PRE) read
@@ -161,23 +218,18 @@ __device__ __forceinline__ uint32_t byte_of(int32_t v, int i) {
 }
 
 // Four consecutive contraction elements from (r, l), stepping (dr, dl),
-// packed into one word of each input plane: xs, or with gamma the xq1 /
-// xq0 limbs.
-template <bool GAMMA, bool PRE>
+// packed into one word of each limb plane, xq1 and xq0.
+template <bool PRE>
 __device__ __forceinline__ void pack4(const Args& a, const int32_t (*q13)[256],
                                       int r, int l, int dr, int dl,
                                       uint32_t* w1, uint32_t* w0) {
   uint32_t p1 = 0, p0 = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if (GAMMA) {
-      int32_t hi, lo;
-      load_limbs<PRE>(a, q13, r + i * dr, l + i * dl, &hi, &lo);
-      p1 |= byte_of(hi, i);
-      p0 |= byte_of(lo, i);
-    } else {
-      p1 |= byte_of(load_xs(a, r + i * dr, l + i * dl), i);
-    }
+    int32_t hi, lo;
+    load_limbs<PRE>(a, q13, r + i * dr, l + i * dl, &hi, &lo);
+    p1 |= byte_of(hi, i);
+    p0 |= byte_of(lo, i);
   }
   *w1 = p1;
   *w0 = p0;
@@ -206,7 +258,6 @@ __device__ __forceinline__ void stage_v_taps(
   s0[r][w] = q0;
 }
 
-template <bool GAMMA>
 __device__ __forceinline__ void store_out(
     const Args& a, int vb, int r0, int hb, int j,
     const int32_t (&pa)[4][4], const int32_t (&pb)[4][4]) {
@@ -222,7 +273,7 @@ __device__ __forceinline__ void store_out(
       const int olane = hb * a.tc + cl;
       if (cl < a.tc && olane < a.lanes_out) {
         a.out[static_cast<size_t>(orow) * a.lanes_out + olane] =
-            finish<GAMMA>(a, pa[i][jj], pb[i][jj], olane);
+            finish<true>(a, pa[i][jj], pb[i][jj], olane);
       }
     }
   }
@@ -230,17 +281,16 @@ __device__ __forceinline__ void store_out(
 
 // Dynamic shared memory of the vh kernel, in 32-bit words.
 constexpr int kVhTapWords = 2 * kRows * kDepth4;            // sv1, sv0
-constexpr int kVhXWords = kDepth4 * kLanes;                 // one input plane
+constexpr int kVhXWords = kDepth4 * kLanes;                 // one limb plane
 constexpr int kVhLimbWords = 2 * kRows * (kLanes / 4);      // sl1, sl0
 constexpr int kVhHWords = 2 * (kLanes / 4) * kLanes;        // sh1, sh0
 constexpr int kTableWords = 2 * 256;                        // q13
-template <bool GAMMA, bool PRE>
+template <bool PRE>
 constexpr size_t vh_smem_bytes() {
-  return (kVhTapWords + (GAMMA ? 2 : 1) * kVhXWords + kVhLimbWords + kVhHWords +
-          (GAMMA && !PRE ? kTableWords : 0)) * 4;
+  return (kVhTapWords + 2 * kVhXWords + kVhLimbWords + kVhHWords + (PRE ? 0 : kTableWords)) * 4;
 }
 
-template <bool GAMMA, bool PRE>
+template <bool PRE>
 __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -251,34 +301,27 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t (*sv1)[kDepth4] = reinterpret_cast<uint32_t (*)[kDepth4]>(smem);  // V tap limbs
   uint32_t (*sv0)[kDepth4] = sv1 + kRows;
-  // Input tile, packed along rows: xs, or with gamma the xq1 / xq0 planes.
+  // Input tile, packed along rows: the xq1 / xq0 planes.
   uint32_t (*sx1)[kLanes] = reinterpret_cast<uint32_t (*)[kLanes]>(smem + kVhTapWords);
-  uint32_t (*sx0)[kLanes] = sx1 + (GAMMA ? kDepth4 : 0);
+  uint32_t (*sx0)[kLanes] = sx1 + kDepth4;
   // x1/x0 limbs, packed along lanes.
   uint32_t (*sl1)[kLanes / 4] = reinterpret_cast<uint32_t (*)[kLanes / 4]>(
-      smem + kVhTapWords + (GAMMA ? 2 : 1) * kVhXWords);
+      smem + kVhTapWords + 2 * kVhXWords);
   uint32_t (*sl0)[kLanes / 4] = sl1 + kRows;
   uint32_t (*sh1)[kLanes] = reinterpret_cast<uint32_t (*)[kLanes]>(sl0 + kRows);  // H taps
   uint32_t (*sh0)[kLanes] = sh1 + kLanes / 4;
   int32_t (*q13)[256] = reinterpret_cast<int32_t (*)[256]>(sh0 + kLanes / 4);
-  if (GAMMA && !PRE) k1::fill_q13_table(a.epi, q13);
+  if (!PRE) k1::fill_q13_table(a.epi, q13);
 
   const int k_lo = a.k_range[2 * blockIdx.y];
   const int k_hi = a.k_range[2 * blockIdx.y + 1];
   const int row0 = a.offs_v[vb];
   const int lane0 = a.offs_l[hb] + a.rel[j];
-  int32_t comp[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int tr = r0 + 4 * ty + i;
-    comp[i] = (!GAMMA && tr < a.tv) ? a.v_comp[vb * a.tv + tr] : 0;
-  }
 
   int32_t pa[4][4] = {}, pb[4][4] = {};
   for (int seg = 0; seg < a.win_c; seg += kLanes) {
     // ---- first (vertical) pass over this 128-lane segment ----------
-    // m1/m0: products with xs (no gamma), or m1 = q1v.xq1, m0 = q1v.xq0
-    // and m2 = q0v.xq1 (gamma).
+    // m1 = q1v.xq1, m0 = q1v.xq0, m2 = q0v.xq1.
     int32_t m1[4][4] = {}, m0[4][4] = {}, m2[4][4] = {};
     for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
       __syncthreads();
@@ -287,9 +330,9 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
       for (int e = tid; e < kDepth4 * kLanes; e += kThreads) {
         const int k4 = e / kLanes, l = e % kLanes;
         uint32_t w1, w0;
-        pack4<GAMMA, PRE>(a, q13, row0 + k0 + 4 * k4, lane0 + seg + l, 1, 0, &w1, &w0);
+        pack4<PRE>(a, q13, row0 + k0 + 4 * k4, lane0 + seg + l, 1, 0, &w1, &w0);
         sx1[k4][l] = w1;
-        if (GAMMA) sx0[k4][l] = w0;
+        sx0[k4][l] = w0;
       }
       __syncthreads();
 #pragma unroll
@@ -297,26 +340,18 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
         const uint4 xb = *reinterpret_cast<const uint4*>(&sx1[k4][4 * tx]);
         const int xv[4] = {static_cast<int>(xb.x), static_cast<int>(xb.y),
                            static_cast<int>(xb.z), static_cast<int>(xb.w)};
-        int xl[4] = {0, 0, 0, 0};
-        if (GAMMA) {
-          const uint4 xc = *reinterpret_cast<const uint4*>(&sx0[k4][4 * tx]);
-          xl[0] = static_cast<int>(xc.x); xl[1] = static_cast<int>(xc.y);
-          xl[2] = static_cast<int>(xc.z); xl[3] = static_cast<int>(xc.w);
-        }
+        const uint4 xc = *reinterpret_cast<const uint4*>(&sx0[k4][4 * tx]);
+        const int xl[4] = {static_cast<int>(xc.x), static_cast<int>(xc.y),
+                           static_cast<int>(xc.z), static_cast<int>(xc.w)};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int q1 = static_cast<int>(sv1[4 * ty + i][k4]);
           const int q0 = static_cast<int>(sv0[4 * ty + i][k4]);
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
-            if (GAMMA) {
-              m1[i][jj] = __dp4a(q1, xv[jj], m1[i][jj]);
-              m0[i][jj] = __dp4a(q1, xl[jj], m0[i][jj]);
-              m2[i][jj] = __dp4a(q0, xv[jj], m2[i][jj]);
-            } else {
-              m1[i][jj] = __dp4a(q1, xv[jj], m1[i][jj]);
-              m0[i][jj] = __dp4a(q0, xv[jj], m0[i][jj]);
-            }
+            m1[i][jj] = __dp4a(q1, xv[jj], m1[i][jj]);
+            m0[i][jj] = __dp4a(q1, xl[jj], m0[i][jj]);
+            m2[i][jj] = __dp4a(q0, xv[jj], m2[i][jj]);
           }
         }
       }
@@ -328,8 +363,7 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
       uint32_t w1 = 0, w0 = 0;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const int32_t fq = GAMMA ? m1[i][jj] * 16384 + (m0[i][jj] + m2[i][jj]) * 128
-                                 : m1[i][jj] * 128 + m0[i][jj] + comp[i];
+        const int32_t fq = m1[i][jj] * 16384 + (m0[i][jj] + m2[i][jj]) * 128;
         const int32_t x15 = k1::requant(fq, a.sh);
         const int32_t x1 = k1::limb_hi(x15);
         w1 |= byte_of(x1, jj);
@@ -371,10 +405,10 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
       }
     }
   }
-  store_out<GAMMA>(a, vb, r0, hb, j, pa, pb);
+  store_out(a, vb, r0, hb, j, pa, pb);
 }
 
-template <bool GAMMA, bool PRE>
+template <bool PRE>
 __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -382,33 +416,27 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   const int r0 = sl * kRows;
   const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
 
-  // Input tile packed along lanes: xs, or with gamma the xq1 / xq0 planes.
-  __shared__ uint32_t sxa[GAMMA ? 2 : 1][kRows][kDepth4];
+  // Input tile packed along lanes: the xq1 / xq0 planes.
+  __shared__ uint32_t sxa[2][kRows][kDepth4];
   __shared__ __align__(16) uint32_t st1[kDepth4][kLanes];    // H taps, packed
   __shared__ __align__(16) uint32_t st0[kDepth4][kLanes];
   __shared__ __align__(16) uint32_t sl1[kDepth4][kLanes];    // x1/x0, packed along rows
   __shared__ __align__(16) uint32_t sl0[kDepth4][kLanes];
   __shared__ uint32_t sv1[kRows][kDepth4];                   // V tap limbs
   __shared__ uint32_t sv0[kRows][kDepth4];
-  __shared__ int32_t q13[GAMMA && !PRE ? 2 : 1][256];        // gamma_in_q13 table
-  if (GAMMA && !PRE) k1::fill_q13_table(a.epi, q13);
+  __shared__ int32_t q13[PRE ? 1 : 2][256];                  // gamma_in_q13 table
+  if (!PRE) k1::fill_q13_table(a.epi, q13);
 
   const int k_lo = a.k_range[2 * blockIdx.y];
   const int k_hi = a.k_range[2 * blockIdx.y + 1];
   const int row0 = a.offs_v[vb];
   const int lane0 = a.offs_l[hb] + a.rel[j];
-  int32_t comp[4];
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    comp[jj] = GAMMA ? 0 : a.h_comp[chunk * kLanes + 4 * tx + jj];
-  }
   const size_t tap_base = static_cast<size_t>(chunk) * (a.win_c / 4) * kLanes / 4;
 
   int32_t pa[4][4] = {}, pb[4][4] = {};
   for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
     // ---- first (horizontal) pass for window rows k0..k0+31 ---------
-    // f1/f0: products with xs (no gamma), or f1 = xq1.h1, f0 = xq0.h1
-    // and f2 = xq1.h0 (gamma).
+    // f1 = xq1.h1, f0 = xq0.h1, f2 = xq1.h0.
     int32_t f1[4][4] = {}, f0[4][4] = {}, f2[4][4] = {};
     for (int m0 = 0; m0 < a.win_c; m0 += kDepth) {
       __syncthreads();
@@ -417,9 +445,9 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
         static_assert(kRows * kDepth4 == kThreads, "one staged word per thread");
         const int r = tid / kDepth4, l4 = tid % kDepth4;
         uint32_t w1, w0;
-        pack4<GAMMA, PRE>(a, q13, row0 + k0 + r, lane0 + m0 + 4 * l4, 0, 1, &w1, &w0);
+        pack4<PRE>(a, q13, row0 + k0 + r, lane0 + m0 + 4 * l4, 0, 1, &w1, &w0);
         sxa[0][r][l4] = w1;
-        if (GAMMA) sxa[GAMMA ? 1 : 0][r][l4] = w0;
+        sxa[1][r][l4] = w0;
       }
       {
         const uint4* g1 = reinterpret_cast<const uint4*>(a.h1p) + tap_base + m0 / 4 * kLanes / 4;
@@ -439,16 +467,12 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int xv = static_cast<int>(sxa[0][4 * ty + i][m4]);
-          const int xl = GAMMA ? static_cast<int>(sxa[GAMMA ? 1 : 0][4 * ty + i][m4]) : 0;
+          const int xl = static_cast<int>(sxa[1][4 * ty + i][m4]);
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
             f1[i][jj] = __dp4a(xv, h1[jj], f1[i][jj]);
-            if (GAMMA) {
-              f0[i][jj] = __dp4a(xl, h1[jj], f0[i][jj]);
-              f2[i][jj] = __dp4a(xv, h0[jj], f2[i][jj]);
-            } else {
-              f0[i][jj] = __dp4a(xv, h0[jj], f0[i][jj]);
-            }
+            f0[i][jj] = __dp4a(xl, h1[jj], f0[i][jj]);
+            f2[i][jj] = __dp4a(xv, h0[jj], f2[i][jj]);
           }
         }
       }
@@ -460,8 +484,7 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
       uint32_t w1 = 0, w0 = 0;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int32_t fq = GAMMA ? f1[i][jj] * 16384 + (f0[i][jj] + f2[i][jj]) * 128
-                                 : f1[i][jj] * 128 + f0[i][jj] + comp[jj];
+        const int32_t fq = f1[i][jj] * 16384 + (f0[i][jj] + f2[i][jj]) * 128;
         const int32_t x15 = k1::requant(fq, a.sh);
         const int32_t x1 = k1::limb_hi(x15);
         w1 |= byte_of(x1, i);
@@ -494,20 +517,623 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
       }
     }
   }
-  store_out<GAMMA>(a, vb, r0, hb, j, pa, pb);
+  store_out(a, vb, r0, hb, j, pa, pb);
 }
 
-template <bool GAMMA, bool PRE>
-cudaError_t launch(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
+// ---------------------------------------------------------------------------
+// Tensor-core kernels (no gamma): building blocks
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// Four 8x8 b16 matrices (8 rows of 16 bytes each); thread l names row
+// (l & 15) at byte column (l >> 4) * 16 of a [16][32]-byte tile, so r[0..3]
+// are its (rows 0-7, bytes 0-15), (8-15, 0-15), (0-7, 16-31), (8-15,
+// 16-31) quarters: the A fragment of m16n8k32 s8, or on a [N][K] tile the
+// B fragments {r0, r2} of rows 0-7 and {r1, r3} of rows 8-15.
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const uint8_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a * b, m16n8k32, s8 operands, s32 accumulators (wrapping).
+__device__ __forceinline__ void mma8(int32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                     uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The first-pass sums of two neighbouring elements requantized and split
+// into their s8 limbs, two bytes a plane.
+__device__ __forceinline__ void limbs2(int32_t fa, int32_t fb, int sh, uint8_t* x1, uint8_t* x0) {
+  const int32_t qa = k1::requant(fa, sh), qb = k1::requant(fb, sh);
+  const int32_t ha = k1::limb_hi(qa), hb = k1::limb_hi(qb);
+  *reinterpret_cast<uint16_t*>(x1) = static_cast<uint16_t>((ha & 0xff) | ((hb & 0xff) << 8));
+  *reinterpret_cast<uint16_t*>(x0) =
+      static_cast<uint16_t>(((qa - 128 * ha) & 0xff) | (((qb - 128 * hb) & 0xff) << 8));
+}
+
+// Output element (row tr of V block vb, lane cl of lane block hb).
+__device__ __forceinline__ void store1(const Args& a, int vb, int tr, int hb, int cl,
+                                       int32_t pa, int32_t pb) {
+  const int orow = vb * a.tv + tr, olane = hb * a.tc + cl;
+  if (tr < a.tv && orow < a.rows_out && cl < a.tc && olane < a.lanes_out) {
+    a.out[static_cast<size_t>(orow) * a.lanes_out + olane] = finish<false>(a, pa, pb, olane);
+  }
+}
+
+// Image word: 4 lanes l..l+3 of row r, zero past the edge.
+__device__ __forceinline__ uint32_t load_word(const Args& a, int r, int l) {
+  if (r >= a.rows_in) return 0u;
+  const uint8_t* p = a.x + static_cast<size_t>(r) * a.lanes_in + l;
+  if (a.vec4) return l < a.lanes_in ? __ldg(reinterpret_cast<const uint32_t*>(p)) : 0u;
+  uint32_t v = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (l + e < a.lanes_in) v |= static_cast<uint32_t>(__ldg(p + e)) << (8 * e);
+  }
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// vh on the tensor cores
+// ---------------------------------------------------------------------------
+
+struct VhMma {
+  static constexpr int kSeg = kLanes;                // window lanes per segment
+  static constexpr int kStep = 2 * kDepth;           // rows / lanes per step
+  static constexpr int kWn = 4;                      // warps across lanes (2 x 4 warps)
+  static constexpr int kTapLd = kStep + 16;          // V-tap row stride, bytes
+  static constexpr int kXLd = kSeg + 8;              // image row stride, words
+  static constexpr int kHLd = kLanes + 8;            // lane-tap row stride, words
+  static constexpr int kW4 = kStep / 4;              // word rows of a step
+  static constexpr int kSxWords = 2 * kW4 * kHLd;    // >= kW4 * kXLd
+  static constexpr int kILd = kSeg + 16;             // intermediate row stride, bytes
+  static constexpr int kSv = 2 * 2 * kRows * kTapLd;
+  static constexpr int kSx = 2 * kSxWords * 4;
+  static constexpr size_t kBytes = kSv + kSx + 2 * kRows * kILd;
+  // 4 x 4-byte blocks of a step's image tile per thread.
+  static constexpr int kBlocks = kW4 * (kSeg / 4) / kThreads;
+
+  // sv [2 buf][2 limb][kRows][kTapLd] V taps; sx [2 buf] image words
+  // [kW4][kXLd] (first pass) or lane-tap words [2 limb][kW4][kHLd] (second
+  // pass); si [2 limb][kRows][kILd] the intermediate's limbs.
+  __device__ static uint8_t* sv(uint8_t* sm, int b, int p, int r) {
+    return sm + ((b * 2 + p) * kRows + r) * kTapLd;
+  }
+  __device__ static uint32_t* sx(uint8_t* sm, int b) {
+    return reinterpret_cast<uint32_t*>(sm + kSv) + b * kSxWords;
+  }
+  __device__ static uint8_t* si(uint8_t* sm, int p, int r) {
+    return sm + kSv + kSx + (p * kRows + r) * kILd;
+  }
+
+  // V taps of rows r0..r0+31 over k0..k0+n-1 (rows past the block: 0).
+  __device__ static void stage_v(const Args& a, uint8_t* sm, int b, int vb, int r0, int k0, int n) {
+    const int per = n / 16;
+    for (int c = threadIdx.x; c < 2 * kRows * per; c += kThreads) {
+      const int p = c / (kRows * per), r = (c / per) % kRows, part = c % per;
+      const bool valid = r0 + r < a.tv;
+      const size_t row = static_cast<size_t>(vb) * a.tv + (valid ? r0 + r : 0);
+      cp16(sv(sm, b, p, r) + part * 16, (p ? a.v0 : a.v1) + row * a.wv + k0 + part * 16, valid);
+    }
+  }
+
+  // Lane-tap words of window lanes l0..l0+n-1 of chunk ``chunk``.
+  __device__ static void stage_h(const Args& a, uint8_t* sm, int b, int chunk, int l0, int n) {
+    uint32_t* s = sx(sm, b);
+    const int rows = n / 4;
+    for (int c = threadIdx.x; c < 2 * rows * 32; c += kThreads) {
+      const int p = c / (rows * 32), row = (c / 32) % rows, part = c % 32;
+      const size_t w = (static_cast<size_t>(chunk) * (a.win_c / 4) + l0 / 4 + row) * kLanes + part * 4;
+      cp16(s + (p * kW4 + row) * kHLd + part * 4, (p ? a.h0p : a.h1p) + w, true);
+    }
+  }
+
+  // Thread block q's 4 x 4 bytes: word row k4, lanes 4 l4..4 l4 + 3.
+  __device__ static int blk_k4(int i) { return (threadIdx.x + i * kThreads) / (kSeg / 4); }
+  __device__ static int blk_l4(int i) { return (threadIdx.x + i * kThreads) % (kSeg / 4); }
+
+  // The image words of rows row + 4 k4 .. + 3 at lanes lane + 4 l4 .. + 3
+  // of this thread's blocks (the first n rows, w lanes), into registers.
+  __device__ static void load_x(const Args& a, int row, int lane, int n, int w,
+                                uint32_t (&raw)[kBlocks][4]) {
+#pragma unroll
+    for (int i = 0; i < kBlocks; ++i) {
+      const int k4 = blk_k4(i), l4 = blk_l4(i);
+      if (4 * k4 >= n || 4 * l4 >= w) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) raw[i][e] = load_word(a, row + 4 * k4 + e, lane + 4 * l4);
+    }
+  }
+
+  // The registers of load_x transposed into words of 4 rows (one word a
+  // lane), shifted to s8 (x ^ 0x80), into buffer b.
+  __device__ static void store_x(uint8_t* sm, int b, int n, int w,
+                                 const uint32_t (&raw)[kBlocks][4]) {
+#pragma unroll
+    for (int i = 0; i < kBlocks; ++i) {
+      const int k4 = blk_k4(i), l4 = blk_l4(i);
+      if (4 * k4 >= n || 4 * l4 >= w) continue;
+      const uint32_t lo01 = __byte_perm(raw[i][0], raw[i][1], 0x5140);
+      const uint32_t hi01 = __byte_perm(raw[i][0], raw[i][1], 0x7362);
+      const uint32_t lo23 = __byte_perm(raw[i][2], raw[i][3], 0x5140);
+      const uint32_t hi23 = __byte_perm(raw[i][2], raw[i][3], 0x7362);
+      uint4 v;
+      v.x = __byte_perm(lo01, lo23, 0x5410) ^ 0x80808080u;
+      v.y = __byte_perm(lo01, lo23, 0x7632) ^ 0x80808080u;
+      v.z = __byte_perm(hi01, hi23, 0x5410) ^ 0x80808080u;
+      v.w = __byte_perm(hi01, hi23, 0x7632) ^ 0x80808080u;
+      *reinterpret_cast<uint4*>(sx(sm, b) + k4 * kXLd + 4 * l4) = v;
+    }
+  }
+};
+
+// One block: output rows r0..r0+31 of V block vb x the 128 lanes of chunk
+// j of lane block hb.  The work is one sequence of steps of up to 64 rows
+// or lanes (two 32-deep MMA steps): per lane segment, the first pass's
+// steps over slice_range (V taps x image words into m1 / m0, which the
+// segment's last such step requantizes into the intermediate limbs) and
+// then the second pass's steps over the segment's lanes (limbs x lane taps
+// into pa / pb).  While a step's MMAs run, the next step's taps are on
+// their way by cp.async and its image words in registers, into the other
+// buffer.
+__global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
+  using K = VhMma;
+  extern __shared__ __align__(16) uint8_t sm[];
+
+  const int chunk = blockIdx.x;
+  const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
+  const int vb = blockIdx.y / a.n_slices_r, slice = blockIdx.y % a.n_slices_r;
+  const int r0 = slice * kRows;
+  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
+  const int wm = warp / K::kWn, wn = warp % K::kWn;
+  const int arow = lid & 15, acol = (lid >> 4) * 16;  // ldmatrix address of this thread
+  const int g = lid / 4, t = lid % 4;                 // fragment row / column group
+  const int k_lo = a.slice_range[2 * blockIdx.y];
+  const int k_hi = a.slice_range[2 * blockIdx.y + 1];
+  const int h_lo = a.h_range[2 * chunk];
+  const int h_hi = a.h_range[2 * chunk + 1];
+  const int row0 = a.offs_v[vb] + k_lo;
+  const int lane0 = a.offs_l[hb] + a.rel[j];
+  const int kw = k_hi - k_lo;
+  const int nv = (kw + K::kStep - 1) / K::kStep;  // first-pass steps per segment
+  int32_t comp[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int tr = r0 + 16 * wm + g + 8 * h;
+    comp[h] = tr < a.tv ? a.v_comp[vb * a.tv + tr] : 0;
+  }
+
+  int32_t pa[4][4] = {}, pb[4][4] = {};
+  // No nonzero V tap or lane tap: the block's sums are 0.
+  if (nv > 0 && h_lo < h_hi) {
+    int32_t m1[4][4] = {}, m0[4][4] = {};
+    uint32_t raw[K::kBlocks][4];
+    int seg = h_lo, i = 0, b = 0;
+    {
+      const int w = min(K::kSeg, h_hi - seg), n = min(K::kStep, kw);
+      K::stage_v(a, sm, 0, vb, r0, k_lo, n);
+      cp_commit();
+      K::load_x(a, row0, lane0 + seg, n, w, raw);
+      K::store_x(sm, 0, n, w, raw);
+      cp_wait_all();
+      __syncthreads();
+    }
+    while (true) {
+      const int w = min(K::kSeg, h_hi - seg);  // a multiple of 32
+      // The next step: (nseg, ni), ni < nv a first-pass step.
+      int nseg = seg, ni = i + 1;
+      if (ni == nv + (w + K::kStep - 1) / K::kStep) {
+        nseg = seg + K::kSeg;
+        ni = 0;
+      }
+      const bool more = nseg < h_hi;
+      const int nw = min(K::kSeg, h_hi - nseg);
+      const int nn = ni < nv ? min(K::kStep, kw - ni * K::kStep)
+                             : min(K::kStep, nw - (ni - nv) * K::kStep);
+      if (more) {
+        if (ni < nv) {
+          K::stage_v(a, sm, b ^ 1, vb, r0, k_lo + ni * K::kStep, nn);
+          cp_commit();
+          K::load_x(a, row0 + ni * K::kStep, lane0 + nseg, nn, nw, raw);
+        } else {
+          K::stage_h(a, sm, b ^ 1, chunk, nseg + (ni - nv) * K::kStep, nn);
+          cp_commit();
+        }
+      }
+      if (i < nv) {
+        // ---- first (vertical) pass step: warps past the segment idle ----
+        const int n = min(K::kStep, kw - i * K::kStep);
+        if (32 * wn < w) {
+          const uint32_t* x = K::sx(sm, b);
+          for (int kk = 0; kk < n; kk += kDepth) {
+            uint32_t q1[4], q0[4];
+            ldsm(q1, K::sv(sm, b, 0, 16 * wm + arow) + kk + acol);
+            ldsm(q0, K::sv(sm, b, 1, 16 * wm + arow) + kk + acol);
+            const uint32_t* xk = x + kk / 4 * K::kXLd;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int col = 32 * wn + 8 * c + g;
+              const uint32_t b0 = xk[t * K::kXLd + col], b1 = xk[(t + 4) * K::kXLd + col];
+              mma8(m1[c], q1, b0, b1);
+              mma8(m0[c], q0, b0, b1);
+            }
+          }
+          if (i == nv - 1) {
+            // The segment's intermediate, requantized into shared memory
+            // (the last second-pass step before ended with a barrier).
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int col = 32 * wn + 8 * c + 2 * t;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = 16 * wm + g + 8 * h;
+                limbs2(m1[c][2 * h] * 128 + m0[c][2 * h] + comp[h],
+                       m1[c][2 * h + 1] * 128 + m0[c][2 * h + 1] + comp[h], a.sh,
+                       K::si(sm, 0, r) + col, K::si(sm, 1, r) + col);
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  m1[c][2 * h + e] = 0;
+                  m0[c][2 * h + e] = 0;
+                }
+              }
+            }
+          }
+        }
+      } else {
+        // ---- second (horizontal) pass step ---------------------------
+        const int l0 = (i - nv) * K::kStep;
+        const int n = min(K::kStep, w - l0);
+        for (int kk = 0; kk < n; kk += kDepth) {
+          uint32_t x1[4], x0[4];
+          ldsm(x1, K::si(sm, 0, 16 * wm + arow) + l0 + kk + acol);
+          ldsm(x0, K::si(sm, 1, 16 * wm + arow) + l0 + kk + acol);
+          const uint32_t* h1 = K::sx(sm, b) + kk / 4 * K::kHLd;
+          const uint32_t* h0 = h1 + K::kW4 * K::kHLd;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = 32 * wn + 8 * c + g;
+            const uint32_t b10 = h1[t * K::kHLd + col], b11 = h1[(t + 4) * K::kHLd + col];
+            const uint32_t b00 = h0[t * K::kHLd + col], b01 = h0[(t + 4) * K::kHLd + col];
+            mma8(pa[c], x1, b10, b11);
+            mma8(pb[c], x0, b10, b11);
+            mma8(pb[c], x1, b00, b01);
+          }
+        }
+      }
+      if (more) {
+        if (ni < nv) K::store_x(sm, b ^ 1, nn, nw, raw);
+        cp_wait_all();
+      }
+      __syncthreads();
+      if (!more) break;
+      seg = nseg;
+      i = ni;
+      b ^= 1;
+    }
+  }
+
+  // ---- epilogue: accumulator (row g (+8), lanes 2t, 2t+1) -> output ---
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int tr = r0 + 16 * wm + g + 8 * h;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        store1(a, vb, tr, hb, j * kLanes + 32 * wn + 8 * c + 2 * t + e,
+               pa[c][2 * h + e], pb[c][2 * h + e]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// hv on the tensor cores (computed transposed)
+// ---------------------------------------------------------------------------
+
+constexpr int kPiece = 128;          // window lanes of lane taps staged at once
+constexpr int kPieceLd = kPiece + 16;  // their row stride, bytes (also the image tile's)
+constexpr int kHvSt = 2 * kLanes * kPieceLd;  // lane taps H^T, both limbs
+constexpr int kHvSx = 2 * 32 * kPieceLd;      // image tiles, two buffers
+
+// Shared memory of the hv kernel for an intermediate of kwin rows:
+//   st [2 limb][128 n][kPieceLd]         lane taps H^T
+//   sx [2 buf][32 rows][kPieceLd]        image tile (raw u8)
+//   xt [2 limb][128 n][kwin + 16]        intermediate limbs XT[n][k]
+//   sv [2 buf][2 limb][32 rows][kwin + 16]  V taps of a sub-tile
+__host__ __device__ constexpr size_t hv_mma_smem_bytes(int kwin) {
+  return kHvSt + kHvSx + static_cast<size_t>(6) * 64 * (kwin + 16);
+}
+
+struct HvMma {
+  __device__ static uint8_t* st(uint8_t* sm, int p, int n) { return sm + (p * kLanes + n) * kPieceLd; }
+  __device__ static uint8_t* sx(uint8_t* sm, int b, int r) { return sm + kHvSt + (b * 32 + r) * kPieceLd; }
+  __device__ static uint8_t* xt(uint8_t* sm, int kld, int p, int n) {
+    return sm + kHvSt + kHvSx + (p * kLanes + n) * kld;
+  }
+  __device__ static uint8_t* sv(uint8_t* sm, int kld, int b, int p, int r) {
+    return sm + kHvSt + kHvSx + 2 * kLanes * kld + ((b * 2 + p) * 32 + r) * kld;
+  }
+
+  // Lane taps H^T of window lanes m0..m0+mw-1 of chunk ``chunk``.
+  __device__ static void stage_taps(const Args& a, uint8_t* sm, int chunk, int m0, int mw) {
+    const int per = mw / 16;
+    for (int c = threadIdx.x; c < 2 * kLanes * per; c += kThreads) {
+      const int p = c / (kLanes * per), n = (c / per) % kLanes, part = c % per;
+      const size_t off = (static_cast<size_t>(chunk) * kLanes + n) * a.win_c + m0 + part * 16;
+      cp16(st(sm, p, n) + part * 16, (p ? a.h0t : a.h1t) + off, true);
+    }
+  }
+
+  // Image rows row..row+31, lanes lane..lane+mw-1, raw, zero past the edge.
+  __device__ static void stage_img(const Args& a, uint8_t* sm, int b, int row, int lane, int mw) {
+    if (a.vec16) {
+      const int per = mw / 16;
+      for (int c = threadIdx.x; c < 32 * per; c += kThreads) {
+        const int r = c / per, l = lane + (c % per) * 16;
+        const bool valid = row + r < a.rows_in && l < a.lanes_in;
+        const size_t off = valid ? static_cast<size_t>(row + r) * a.lanes_in + l : 0;
+        cp16(sx(sm, b, r) + (c % per) * 16, a.x + off, valid);
+      }
+    } else {
+      const int per = mw / 4;
+      for (int c = threadIdx.x; c < 32 * per; c += kThreads) {
+        const int r = c / per, q = c % per;
+        *reinterpret_cast<uint32_t*>(sx(sm, b, r) + 4 * q) = load_word(a, row + r, lane + 4 * q);
+      }
+    }
+  }
+
+  // V taps of rows r0..r0+31 over window rows lo..hi-1.
+  __device__ static void stage_v(const Args& a, uint8_t* sm, int kld, int b, int vb, int r0,
+                                 int lo, int hi) {
+    const int per = (hi - lo) / 16;
+    for (int c = threadIdx.x; c < 2 * 32 * per; c += kThreads) {
+      const int p = c / (32 * per), r = (c / per) % 32, part = c % per;
+      const bool valid = r0 + r < a.tv;
+      const size_t row = static_cast<size_t>(vb) * a.tv + (valid ? r0 + r : 0);
+      cp16(sv(sm, kld, b, p, r) + part * 16, (p ? a.v0 : a.v1) + row * a.wv + lo + part * 16, valid);
+    }
+  }
+};
+
+// One block: output rows r0..r0+R-1 of V block vb x the 128 lanes of chunk
+// j of lane block hb; warp w owns lanes 16 w..16 w + 15 of every product.
+// Per window of at most kwin rows of the slice's nonzero V-tap range:
+// phase 1 fills the intermediate XT[lane][window row] (first pass per
+// 32-row group, over the chunk's nonzero lane range in pieces of 128, the
+// next step's image tile in flight), phase 2 runs the second pass per
+// 32-row sub-tile over its own nonzero range (k_range), the next
+// sub-tile's V taps in flight, and stores it after the last window (the
+// host gives several windows only with R = 32).
+template <int R>
+__global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
+  using K = HvMma;
+  constexpr int kSub = R / 32;
+  extern __shared__ __align__(16) uint8_t sm[];
+
+  const int chunk = blockIdx.x;
+  const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
+  const int vb = blockIdx.y / a.n_slices_r, slice = blockIdx.y % a.n_slices_r;
+  const int r0 = slice * R;
+  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
+  const int arow = lid & 15, acol = (lid >> 4) * 16;
+  const int g = lid / 4, t = lid % 4;
+  const int kb_lo = a.slice_range[2 * blockIdx.y];
+  const int kb_hi = a.slice_range[2 * blockIdx.y + 1];
+  const int h_lo = a.h_range[2 * chunk];
+  const int hw = a.h_range[2 * chunk + 1] - h_lo;
+  const int row0 = a.offs_v[vb];
+  const int lane0 = a.offs_l[hb] + a.rel[j] + h_lo;
+  const int kld = a.kwin + 16;
+  const int n_mc = (hw + kPiece - 1) / kPiece;  // lane-tap pieces
+  const bool work = kb_lo < kb_hi && hw > 0;
+  const int n_win = work ? (kb_hi - kb_lo + a.kwin - 1) / a.kwin : 1;
+  int32_t comp[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) comp[h] = a.h_comp[chunk * kLanes + 16 * warp + g + 8 * h];
+
+  int32_t pa[4][4] = {}, pb[4][4] = {};
+  for (int win = 0; win < n_win; ++win) {
+    const int w0 = kb_lo + win * a.kwin, w1 = min(kb_hi, w0 + a.kwin);
+    // Sub-tile sub's nonzero V-tap rows inside the window (none: lo = hi).
+    const auto sub_range = [&](int sub, int& lo, int& hi) {
+      const int s32 = slice * kSub + sub;
+      lo = hi = 0;
+      if (work && s32 < a.n_slices) {
+        const int* kr = a.k_range + 2 * (vb * a.n_slices + s32);
+        lo = max(kr[0], w0);
+        hi = min(kr[1], w1);
+        if (hi <= lo) lo = hi = 0;
+      }
+    };
+    int lo, hi;
+    sub_range(0, lo, hi);
+    if (work) {
+      // ---- phase 1: first (horizontal) pass into XT ------------------
+      // Its prologue also stages the first sub-tile's V taps for phase 2.
+      const int n_steps = (w1 - w0) / kDepth * n_mc;
+      if (n_mc == 1) K::stage_taps(a, sm, chunk, h_lo, hw);
+      K::stage_img(a, sm, 0, row0 + w0, lane0, min(kPiece, hw));
+      K::stage_v(a, sm, kld, 0, vb, r0, lo, hi);
+      cp_commit();
+      cp_wait_all();
+      __syncthreads();
+      int32_t f1[4][4] = {}, f0[4][4] = {};
+      for (int s = 0, b = 0; s < n_steps; ++s, b ^= 1) {
+        const int gi = s / n_mc, ci = s % n_mc;
+        const int mw = min(kPiece, hw - ci * kPiece);
+        if (n_mc > 1) {
+          // The taps of this piece (the step before ended with a barrier).
+          K::stage_taps(a, sm, chunk, h_lo + ci * kPiece, mw);
+          cp_commit();
+          cp_wait_all();
+          __syncthreads();
+        }
+        if (s + 1 < n_steps) {
+          const int ng = (s + 1) / n_mc, nc = (s + 1) % n_mc;
+          K::stage_img(a, sm, b ^ 1, row0 + w0 + ng * kDepth, lane0 + nc * kPiece,
+                       min(kPiece, hw - nc * kPiece));
+          cp_commit();
+        }
+        for (int kk = 0; kk < mw; kk += kDepth) {
+          uint32_t h1[4], h0[4];
+          ldsm(h1, K::st(sm, 0, 16 * warp + arow) + kk + acol);
+          ldsm(h0, K::st(sm, 1, 16 * warp + arow) + kk + acol);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            uint32_t xb[4];
+            ldsm(xb, K::sx(sm, b, 16 * half + arow) + kk + acol);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) xb[e] ^= 0x80808080u;  // s8(x - 128)
+            mma8(f1[2 * half], h1, xb[0], xb[2]);
+            mma8(f0[2 * half], h0, xb[0], xb[2]);
+            mma8(f1[2 * half + 1], h1, xb[1], xb[3]);
+            mma8(f0[2 * half + 1], h0, xb[1], xb[3]);
+          }
+        }
+        if (ci == n_mc - 1) {
+          // Group gi done: F^T (lane g (+8), rows 2t, 2t+1 of tile jt)
+          // requantized into XT's columns of those rows.
+#pragma unroll
+          for (int jt = 0; jt < 4; ++jt) {
+            const int col = gi * kDepth + 8 * jt + 2 * t;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int n = 16 * warp + g + 8 * h;
+              limbs2(f1[jt][2 * h] * 128 + f0[jt][2 * h] + comp[h],
+                     f1[jt][2 * h + 1] * 128 + f0[jt][2 * h + 1] + comp[h], a.sh,
+                     K::xt(sm, kld, 0, n) + col, K::xt(sm, kld, 1, n) + col);
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                f1[jt][2 * h + e] = 0;
+                f0[jt][2 * h + e] = 0;
+              }
+            }
+          }
+        }
+        cp_wait_all();
+        __syncthreads();
+      }
+    }
+    // ---- phase 2: second (vertical) pass per 32-row sub-tile ---------
+#pragma unroll 1
+    for (int sub = 0; sub < kSub; ++sub) {
+      const int b = sub & 1;
+      int nlo = 0, nhi = 0;
+      if (sub + 1 < kSub) {
+        sub_range(sub + 1, nlo, nhi);
+        K::stage_v(a, sm, kld, b ^ 1, vb, r0 + 32 * (sub + 1), nlo, nhi);
+        cp_commit();
+        cp_wait_one();
+      } else {
+        cp_wait_all();
+      }
+      __syncthreads();
+      for (int kk = lo; kk < hi; kk += kDepth) {
+        uint32_t x1[4], x0[4];
+        ldsm(x1, K::xt(sm, kld, 0, 16 * warp + arow) + kk - w0 + acol);
+        ldsm(x0, K::xt(sm, kld, 1, 16 * warp + arow) + kk - w0 + acol);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t q1[4], q0[4];
+          ldsm(q1, K::sv(sm, kld, b, 0, 16 * half + arow) + kk - lo + acol);
+          ldsm(q0, K::sv(sm, kld, b, 1, 16 * half + arow) + kk - lo + acol);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            int32_t (&da)[4] = pa[2 * half + q];
+            int32_t (&db)[4] = pb[2 * half + q];
+            mma8(da, x1, q1[q], q1[q + 2]);
+            mma8(db, x0, q1[q], q1[q + 2]);
+            mma8(db, x1, q0[q], q0[q + 2]);
+          }
+        }
+      }
+      if (win == n_win - 1) {
+        // Accumulator (lane g (+8), rows 2t, 2t+1 of tile jt) -> output.
+#pragma unroll
+        for (int jt = 0; jt < 4; ++jt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            store1(a, vb, r0 + 32 * sub + 8 * jt + 2 * t + (e & 1), hb,
+                   j * kLanes + 16 * warp + g + 8 * (e >> 1), pa[jt][e], pb[jt][e]);
+            pa[jt][e] = 0;
+            pb[jt][e] = 0;
+          }
+        }
+      }
+      __syncthreads();
+      lo = nlo;
+      hi = nhi;
+    }
+  }
+}
+
+cudaError_t launch_vh_mma(const Args& a, dim3 grid, cudaStream_t s) {
+  constexpr size_t bytes = VhMma::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_int8_vh_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  fused_int8_vh_mma<<<grid, kThreads, bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_hv_mma(const Args& a, dim3 grid, cudaStream_t s) {
+  const size_t bytes = hv_mma_smem_bytes(a.kwin);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_int8_hv_mma<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  fused_int8_hv_mma<R><<<grid, kThreads, bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+// The tensor-core kernels, at the host's slice height ``rows`` (vh: 32).
+cudaError_t launch_mma(bool hv, int rows, const Args& a, dim3 grid, cudaStream_t s) {
   if (hv) {
-    fused_int8_hv<GAMMA, PRE><<<grid, kThreads, 0, s>>>(a);
+    if (a.kwin < kDepth || a.kwin > 256 || a.kwin % kDepth != 0) return cudaErrorInvalidValue;
+    if (rows == 32) return launch_hv_mma<32>(a, grid, s);
+    if (rows == 64) return launch_hv_mma<64>(a, grid, s);
+    if (rows == 128) return launch_hv_mma<128>(a, grid, s);
+    return cudaErrorInvalidValue;
+  }
+  return rows == kRows ? launch_vh_mma(a, grid, s) : cudaErrorInvalidValue;
+}
+
+// The dp4a gamma kernels (PRE: K5's limb planes in place of the image).
+template <bool PRE>
+cudaError_t launch_gamma(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
+  if (hv) {
+    fused_int8_hv<PRE><<<grid, kThreads, 0, s>>>(a);
   } else {
-    constexpr size_t bytes = vh_smem_bytes<GAMMA, PRE>();
+    constexpr size_t bytes = vh_smem_bytes<PRE>();
     cudaError_t e = cudaFuncSetAttribute(
-        fused_int8_vh<GAMMA, PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_int8_vh<PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
-    fused_int8_vh<GAMMA, PRE><<<grid, kThreads, bytes, s>>>(a);
+    fused_int8_vh<PRE><<<grid, kThreads, bytes, s>>>(a);
   }
   return cudaGetLastError();
 }
@@ -524,6 +1150,8 @@ extern "C" int avir_fused_int8(
     const void* offs_l, const void* rel,
     int bh, int n_ch, int win_c, int tc,
     const void* k_range, int n_slices,
+    int rows, const void* slice_range, int n_slices_r, const void* h_range,
+    const void* h1t, const void* h0t, int kwin, int lane_align,
     int sh, float rec,
     int gamma, int alpha_lane, float in_gamma_mult, float out_gamma_mult,
     float scale, int even,
@@ -552,6 +1180,15 @@ extern "C" int avir_fused_int8(
   a.tc = tc;
   a.k_range = static_cast<const int32_t*>(k_range);
   a.n_slices = n_slices;
+  a.slice_range = static_cast<const int32_t*>(slice_range);
+  a.n_slices_r = n_slices_r;
+  a.h_range = static_cast<const int32_t*>(h_range);
+  a.h1t = static_cast<const int8_t*>(h1t);
+  a.h0t = static_cast<const int8_t*>(h0t);
+  a.kwin = kwin;
+  const uintptr_t xp = reinterpret_cast<uintptr_t>(x);
+  a.vec4 = lane_align % 4 == 0 && lanes_in % 4 == 0 && xp % 4 == 0;
+  a.vec16 = lane_align % 16 == 0 && lanes_in % 16 == 0 && xp % 16 == 0;
   a.sh = sh;
   a.rec = rec;
   a.epi.alpha_lane = alpha_lane;
@@ -562,11 +1199,13 @@ extern "C" int avir_fused_int8(
   a.epi.trunc_bits = 0;
   a.epi.tm = 1.0f;
   a.epi.out_max = 255.0f;
-  const dim3 grid(bh * n_ch, bv * n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_lo != nullptr && !gamma) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = !gamma          ? launch<false, false>(hv, a, grid, s)
-                        : x_lo != nullptr ? launch<true, true>(hv, a, grid, s)
-                                          : launch<true, false>(hv, a, grid, s);
+  // Without gamma: the tensor-core kernels over R-row slices; with gamma
+  // the dp4a kernels over 32-row slices.
+  const cudaError_t e =
+      !gamma            ? launch_mma(hv, rows, a, dim3(bh * n_ch, bv * n_slices_r), s)
+      : x_lo != nullptr ? launch_gamma<true>(hv, a, dim3(bh * n_ch, bv * n_slices), s)
+                        : launch_gamma<false>(hv, a, dim3(bh * n_ch, bv * n_slices), s);
   return static_cast<int>(e);
 }

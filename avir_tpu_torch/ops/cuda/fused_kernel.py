@@ -18,9 +18,12 @@ in place of the u8 image and its in-kernel polynomial.
 ``prepare_fused_int8`` turns the two operators into device tensors once
 per executor: the chunked lane taps (the unchunked form becomes
 ``ceil(TC/128)`` chunks at offset 0 over the whole window), the same taps
-packed four-along-the-contraction for the kernel, the row/column sums
-that undo the input's -128 shift (unused with gamma), and each 32-row
-slice's range of nonzero V taps.
+packed four-along-the-contraction for the kernels that read them (the
+gamma kernels and the vh tensor-core kernel) or transposed (the hv
+tensor-core kernel), the row/column sums that undo the input's -128 shift
+(unused with gamma), each 32-row slice's range of nonzero V taps, and for
+the tensor-core kernels (no gamma) the slice height ``slice_rows`` picks,
+its slices' ranges and each chunk's range of nonzero lane taps.
 
 ``apply_fused_int8`` launches the kernel on a CUDA tensor and runs
 ``apply_fused_int8_reference`` on a CPU tensor.  The reference does the
@@ -235,14 +238,27 @@ class FusedInt8Operands:
     rel: torch.Tensor      # int32 [n_ch]
     h1: torch.Tensor       # int8 [Bh, n_ch, win_c, 128]
     h0: torch.Tensor
-    h1p: torch.Tensor      # int32 [Bh, n_ch, win_c/4, 128], 4 taps per word
-    h0p: torch.Tensor
+    h1p: torch.Tensor | None  # int32 [Bh, n_ch, win_c/4, 128], 4 taps per word
+    h0p: torch.Tensor | None  # (gamma, or vh)
     h_comp: torch.Tensor   # int32 [Bh, n_ch, 128]: 128*128*colsum(h1) + 128*colsum(h0)
                            # (no gamma)
-    k_range: torch.Tensor  # int32 [Bv, n_slices, 2] nonzero V-tap rows
+    k_range: torch.Tensor  # int32 [Bv, n_slices, 2] nonzero V-tap rows, 32-row slices
     # The input is K5's two s8 limb planes of the linearized image
     # (ops/cuda/gamma_prologue.py), not the u8 image (gamma only).
     gamma_pre: bool = False
+    # The tensor-core kernels (no gamma; the gamma kernels run 32-row
+    # slices over k_range): output rows per thread block (slice_rows),
+    # that slice's nonzero V-tap rows, each chunk's nonzero lane-tap rows,
+    # the hv kernel's lane taps as [..., 128, win_c] and its intermediate's
+    # rows, and the largest power of two (up to 16) dividing every chunk's
+    # first window lane.
+    rows: int = _ROWS
+    slice_range: torch.Tensor | None = None  # int32 [Bv, n_slices_r, 2]
+    h_range: torch.Tensor | None = None      # int32 [Bh, n_ch, 2]
+    h1t: torch.Tensor | None = None          # int8 [Bh, n_ch, 128, win_c] (hv)
+    h0t: torch.Tensor | None = None
+    kwin: int = 0
+    lane_align: int = 1
 
     @property
     def device(self) -> torch.device:
@@ -293,6 +309,111 @@ def _k_ranges(v1: np.ndarray, v0: np.ndarray, rows: int = _ROWS) -> np.ndarray:
     out = np.stack([lo, hi], axis=2)
     out[~any_nz] = 0
     return out.astype(np.int32)
+
+
+def h_ranges(h1: np.ndarray, h0: np.ndarray) -> np.ndarray:
+    """[Bh, n_ch, 2]: per chunk of lane taps [Bh, n_ch, win_c, 128], the
+    window rows [lo, hi) holding its nonzero taps, rounded out to 32."""
+    nz = ((h1 != 0) | (h0 != 0)).any(axis=3)  # [Bh, n_ch, win_c]
+    win_c = nz.shape[2]
+    first = np.argmax(nz, axis=2)
+    last = win_c - 1 - np.argmax(nz[:, :, ::-1], axis=2)
+    out = np.stack(
+        [first // 32 * 32, np.minimum(-(-(last + 1) // 32) * 32, win_c)], axis=2
+    )
+    out[~nz.any(axis=2)] = 0
+    return out.astype(np.int32)
+
+
+# The hv kernel's intermediate holds at most this many window rows; a
+# taller slice range runs in windows of it, at 32-row slices.
+KWIN_MAX = 256
+
+
+def issued_macs(order: str, rows: int, slice_range: np.ndarray,
+                k_range: np.ndarray, h_range: np.ndarray) -> int:
+    """s8 MACs the tensor-core kernel issues at slice height ``rows``:
+    every block (an R-row slice with nonzero V taps x a chunk with nonzero
+    lane taps) multiplies dense tap blocks over those ranges, two limb
+    products in the first pass and three in the second.  vh: the first
+    pass R x slice rows x chunk lanes, the second R x chunk lanes x 128;
+    hv: the first pass slice rows x 128 x chunk lanes, the second per
+    32-row sub-tile over its own 32-row range (``k_range``).  A count for
+    chip_smoke.py's report: slice_rows does not read it."""
+    kw = (slice_range[..., 1] - slice_range[..., 0]).astype(np.int64)  # [Bv, S]
+    hw = (h_range[..., 1] - h_range[..., 0]).astype(np.int64).ravel()
+    active = kw > 0
+    sum_hw, n_ch = int(hw.sum()), int((hw > 0).sum())
+    if order == "vh":
+        return 2 * rows * int(kw.sum()) * sum_hw + 3 * rows * int(active.sum()) * 128 * sum_hw
+    k32 = (k_range[..., 1] - k_range[..., 0]).astype(np.int64)  # [Bv, S32]
+    sub = rows // 32
+    bv, s32 = k32.shape
+    pad = -(-s32 // sub) * sub - s32
+    k32 = np.pad(k32, ((0, 0), (0, pad))).reshape(bv, -1, sub)
+    second = int((k32.sum(axis=2) * active).sum())
+    return 2 * 128 * int(kw.sum()) * sum_hw + 3 * 32 * 128 * second * n_ch
+
+
+def slice_rows(order: str, v1: np.ndarray, v0: np.ndarray, n_chunks: int,
+               sms: int) -> int:
+    """The tensor-core kernel's output rows per thread block.  vh: 32.  hv:
+    the tallest of 128 and 64 rows (up to the V block's rows) whose grid of
+    ``n_chunks`` lane chunks x slices keeps at least two thread blocks per
+    SM of a card with ``sms`` SMs and whose slices' nonzero V-tap ranges fit
+    the intermediate (KWIN_MAX rows), else 32.  A taller slice recomputes
+    fewer window rows in the first pass; too few blocks leave SMs idle."""
+    if order == "vh":
+        return _ROWS
+    bv, tv, _ = v1.shape
+    for rows in (128, 64):
+        if rows <= -(-tv // 32) * 32 and n_chunks * bv * -(-tv // rows) >= 2 * sms:
+            sr = _k_ranges(v1, v0, rows)
+            if (sr[..., 1] - sr[..., 0]).max() <= KWIN_MAX:
+                return rows
+    return _ROWS
+
+
+def _sm_count(device: torch.device | str) -> int:
+    """SMs of the card the operands live on; 0 on the CPU, whose plain
+    version reads no tiling (so no block count limits the height)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _slice_fields(v1: np.ndarray, v0: np.ndarray, rows: int) -> tuple[np.ndarray, int]:
+    """(slice_range, kwin) at ``rows``-row slices: the hv kernel's
+    intermediate holds the tallest slice range, up to KWIN_MAX rows."""
+    sr = _k_ranges(v1, v0, rows)
+    return sr, max(32, min(KWIN_MAX, int((sr[..., 1] - sr[..., 0]).max())))
+
+
+def at_rows(ops: FusedInt8Operands, rows: int) -> FusedInt8Operands:
+    """``ops`` of the hv tensor-core kernel with its slices set to ``rows``
+    rows (32, 64 or 128) in place of slice_rows' choice: the same function,
+    another tiling (for the card tests and chip_smoke.py, which hold every
+    height to the plain version).  The vh kernel runs 32 rows only."""
+    if ops.epi.gamma or rows not in ((_ROWS,) if ops.order == "vh" else (32, 64, 128)):
+        raise ValueError(f"no {rows}-row slices in the {ops.launch_key} kernel")
+    v1, v0 = ops.v1.cpu().numpy(), ops.v0.cpu().numpy()
+    sr, kwin = _slice_fields(v1, v0, rows)
+    if rows > 32 and (sr[..., 1] - sr[..., 0]).max() > KWIN_MAX:
+        raise ValueError(f"{rows}-row slice ranges exceed {KWIN_MAX} rows")
+    return dataclasses.replace(
+        ops, rows=rows, slice_range=torch.from_numpy(sr).to(ops.device), kwin=kwin
+    )
+
+
+def _lane_align(lop: LaneBlockedOp, rel) -> int:
+    """The largest power of two up to 16 dividing every chunk's first
+    window lane (offs_l + rel)."""
+    starts = np.asarray(lop.offs_l, dtype=np.int64)[:, None] + np.asarray(rel, dtype=np.int64)
+    align = 16
+    while align > 1 and (starts % align).any():
+        align //= 2
+    return align
 
 
 def prepare_fused_int8(
@@ -346,6 +467,21 @@ def prepare_fused_int8(
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(device=device, dtype=dtype)
 
+    # The packed lane taps for the kernels that read them; the tensor-core
+    # kernels' fields without gamma.
+    h1p = h0p = None
+    if gamma or order == "vh":
+        h1p, h0p = dev(_pack4(h1)), dev(_pack4(h0))
+    mma = {}
+    if not gamma:
+        hr = h_ranges(h1, h0)
+        rows = slice_rows(order, v1, v0, hr.shape[0] * hr.shape[1], _sm_count(device))
+        sr, kwin = _slice_fields(v1, v0, rows)
+        mma = dict(rows=rows, slice_range=dev(sr), h_range=dev(hr), kwin=kwin,
+                   lane_align=_lane_align(lop, rel))
+        if order == "hv":
+            mma.update(h1t=dev(np.swapaxes(h1, 2, 3)), h0t=dev(np.swapaxes(h0, 2, 3)))
+
     return FusedInt8Operands(
         order=order,
         rows_in=vop.n_in,
@@ -367,11 +503,12 @@ def prepare_fused_int8(
         rel=dev(np.asarray(rel), torch.int32),
         h1=dev(h1),
         h0=dev(h0),
-        h1p=dev(_pack4(h1)),
-        h0p=dev(_pack4(h0)),
+        h1p=h1p,
+        h0p=h0p,
         h_comp=dev(cs * 128, torch.int32),
         k_range=dev(_k_ranges(v1, v0)),
         gamma_pre=bool(gamma_pre),
+        **mma,
     )
 
 
@@ -507,6 +644,8 @@ _ARGTYPES = [
     _P, _P, _P, _P, _P,    # h1p, h0p, h_comp, offs_l, rel
     _I, _I, _I, _I,        # bh, n_ch, win_c, tc
     _P, _I,                # k_range, n_slices
+    _I, _P, _I, _P,        # rows, slice_range, n_slices_r, h_range
+    _P, _P, _I, _I,        # h1t, h0t, kwin, lane_align
     _I, ctypes.c_float,    # sh, rec
     _I, _I, ctypes.c_float, ctypes.c_float,  # gamma, alpha_lane, in/out gamma mults
     ctypes.c_float, _I,    # scale, even
@@ -558,24 +697,31 @@ def apply_fused_int8(
     bv, tv, wv = ops.v1.shape
     bh, n_ch, win_c, _ = ops.h1.shape
     n_slices = ops.k_range.shape[1]
-    if bv * n_slices > 65535:
+    n_slices_r = 0 if ops.slice_range is None else ops.slice_range.shape[1]
+    if bv * max(n_slices, n_slices_r) > 65535:
         raise ValueError("too many output row blocks for one launch")
     out = torch.empty((ops.rows_out, ops.lanes_out), dtype=torch.uint8, device=x.device)
     fn = _library()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
             1 if ops.order == "hv" else 0,
-            x.data_ptr(), None if x_lo is None else x_lo.data_ptr(),
+            x.data_ptr(), ptr(x_lo),
             rows_in, lanes_in,
             out.data_ptr(), ops.rows_out, ops.lanes_out,
             ops.v1.data_ptr(), ops.v0.data_ptr(), ops.v_comp.data_ptr(),
             ops.offs_v.data_ptr(),
             bv, tv, wv,
-            ops.h1p.data_ptr(), ops.h0p.data_ptr(), ops.h_comp.data_ptr(),
+            ptr(ops.h1p), ptr(ops.h0p), ops.h_comp.data_ptr(),
             ops.offs_l.data_ptr(), ops.rel.data_ptr(),
             bh, n_ch, win_c, ops.tc,
             ops.k_range.data_ptr(), n_slices,
+            ops.rows, ptr(ops.slice_range), n_slices_r, ptr(ops.h_range),
+            ptr(ops.h1t), ptr(ops.h0t), ops.kwin, ops.lane_align,
             ops.sh, 2.0 ** ops.out_exp,
             *ops.epi.launch_args(),
             stream,

@@ -51,6 +51,7 @@ from .fused_kernel import (
     _k_ranges,
     _variants,
     finish_reference,
+    h_ranges,
 )
 
 # Launches of each kernel variant of this module, counted by the wrapper:
@@ -118,22 +119,6 @@ def _chunked_lane_taps(lop: LaneBlockedOp):
         return t.to(torch.bfloat16).contiguous()
 
     return chunk(lop.taps_hi), chunk(lop.taps_lo), (0,) * n_ch, wc
-
-
-def _h_ranges(hi: torch.Tensor, lo: torch.Tensor) -> np.ndarray:
-    """[Bh, n_ch, 2]: per chunk, the window rows [lo, hi) holding its
-    nonzero taps, rounded out to 32."""
-    nz = ((hi != 0) | (lo != 0)).any(dim=3).numpy()  # [Bh, n_ch, win_c]
-    win_c = nz.shape[2]
-    any_nz = nz.any(axis=2)
-    first = np.argmax(nz, axis=2)
-    last = win_c - 1 - np.argmax(nz[:, :, ::-1], axis=2)
-    out = np.stack(
-        [first // 32 * 32, np.minimum(-(-(last + 1) // 32) * 32, win_c)],
-        axis=2,
-    )
-    out[~any_nz] = 0
-    return out.astype(np.int32)
 
 
 def prepare_fused_split(
@@ -212,7 +197,7 @@ def prepare_fused_split(
         thl=dev(lo),
         rows=rows,
         k_range=dev(k_range),
-        h_range=dev(_h_ranges(hi, lo)),
+        h_range=dev(h_ranges((hi != 0).numpy(), (lo != 0).numpy())),
     )
 
 

@@ -38,13 +38,12 @@ import torch
 from ..banded import BlockedBandedOp, assert_full_f32
 from ..gamma import _srgb_to_linear, f32
 from ..lanes import LaneBlockedOp
-from .fused_kernel import _k_ranges, Epilogue, finish_reference
+from .fused_kernel import _k_ranges, Epilogue, finish_reference, h_ranges
 from .fused_split import (
     _IN_KINDS,
     _OUT_KINDS,
     MODES,
     _chunked_lane_taps,
-    _h_ranges,
     to_float32,
     vh_passes,
 )
@@ -204,7 +203,7 @@ def prepare_planar(
         thh=dev(hi),
         thl=dev(lo),
         k_range=dev(_k_ranges((vop.taps_hi != 0).numpy(), (vop.taps_lo != 0).numpy())),
-        h_range=dev(_h_ranges(hi, lo)),
+        h_range=dev(h_ranges((hi != 0).numpy(), (lo != 0).numpy())),
     )
 
 

@@ -8,8 +8,10 @@ Phases (any failure exits non-zero before the last line):
      all started together) and prints the build time;
   2. holds each kernel against its plain PyTorch version on the card, on
      small cases:
-       - K1 int8: both pass orders, C in {1, 3, 4}, chunked and unchunked
-         lane forms and ragged edges: bit-equal;
+       - K1 int8: both pass orders, C in {1, 2, 3, 4}, chunked and
+         unchunked lane forms, ragged edges and the edges of the
+         tensor-core tiling, each at every slice height its order takes
+         (INT8_ROWS): bit-equal;
        - K1 split-bf16: both orders (vh also on upsizes of both axes),
          split2/split3 mode pairs, u8/u16/f32 in, f32/u8/u16 out with
          trunc_bits 0, 2 and 4, C in {1, 2, 3, 4}, chunked and unchunked
@@ -33,9 +35,15 @@ Phases (any failure exits non-zero before the last line):
   3. drives the main path through ``avir_tpu_torch.ImageResizer.resize``
      (and ``LancIR.resize``), with the launch counts set to 0 just before
      each first call and read just after:
-       - 7680x4320 -> 1920x1080 and 1920x1080 -> 3840x2160 u8 RGB (K1
-         int8): bit-equal to the plain version, within 1 LSB / >= 60 dB
-         of the float64 host oracle;
+       - 7680x4320 -> 1920x1080, 1920x1080 -> 3840x2160 and 640x480 ->
+         1024x768 u8 RGB (K1 int8, one launch): bit-equal to the plain
+         version, within 1 LSB / >= 60 dB of the float64 host oracle; the
+         MACs the kernel issues beside the band MACs of its bound, the
+         first pass's reads per input byte in this tiling and the one
+         before, the kernel at every slice height it takes (bit-equal,
+         timed beside slice_rows' choice in SWEEP_TURNS alternating
+         turns), and the exact route (and at
+         the downsize the split route) timed as yardsticks;
        - 8k_to_1080p_errdiff, 7680x4320 -> 1920x1080 u8 RGB with
          dither="errdiff" (K1 split2/split3 to a float32 pre-dither
          image, then one K4 launch): the pre-dither image within
@@ -89,10 +97,11 @@ Phases (any failure exits non-zero before the last line):
   5. prints the kernels line (every kernel of KERNELS, one entry each at
      its first main-path shape) and, last, the device line.
 
-``python3 chip_smoke.py --kernel-times DIR`` times K1 split vh (plain,
-gamma, even) at its four main-path cells on the package under DIR instead
-(one JSON line), so that two versions of the kernel can be compared in
-turns within one chip call.
+``python3 chip_smoke.py --kernel-times DIR`` times K1 int8 without gamma
+(vh, vh even, hv) at its four main-path cells on the package under DIR
+instead (one JSON line, with output hashes and, at the two downsizes, the
+split route beside it), so that two versions of the kernel can be
+compared in turns within one chip call.
 """
 
 from __future__ import annotations
@@ -121,6 +130,8 @@ MAIN_PATH = (
     # (name, src_w, src_h, new_w, new_h, c)
     ("8k_to_1080p", 7680, 4320, 1920, 1080, 3),
     ("1080p_to_4k", 1920, 1080, 3840, 2160, 3),
+    # __graft_entry__.py's configuration.
+    ("640x480_to_1024x768", 640, 480, 1024, 768, 3),
 )
 KERNEL_CASES = (
     # (src_w, src_h, new_w, new_h, c, lane tile, order)
@@ -137,7 +148,24 @@ KERNEL_CASES = (
     (96, 80, 70, 101, 3, None, "hv"),
     (1031, 517, 263, 129, 3, None, "vh"),
     (333, 251, 1001, 777, 3, None, "hv"),
+    # The edges of the tensor-core kernels' tiling, tests/torch_cases.py's
+    # edge_* cases: rows_out not a multiple of any slice height, C = 2, a
+    # downsize by more than 4, odd lanes_in, an hv at 128-row slices with a
+    # ragged last slice, an hv slice range above 256 rows (windows).
+    (300, 250, 170, 150, 3, None, "vh"),
+    (97, 83, 61, 45, 2, None, "vh"),
+    (1031, 517, 200, 97, 3, None, "vh"),
+    (45, 31, 97, 70, 3, None, "hv"),
+    (53, 37, 90, 71, 2, None, "hv"),
+    (150, 100, 400, 300, 3, None, "hv"),
+    (20, 1200, 500, 50, 1, None, "hv"),
 )
+# Slice heights each K1 int8 case also runs at (fused_kernel.py:at_rows),
+# whatever slice_rows picks: vh takes 32, hv also 64 and 128.
+INT8_ROWS = {"vh": (32,), "hv": (32, 64, 128)}
+# Turns of the slice-height sweep at the main-path cells: each turn times
+# every height once (20 launches each), so that the heights alternate.
+SWEEP_TURNS = 5
 SPLIT_CASES = (
     # (src_w, src_h, new_w, new_h, c, lane tile, order, mode_v, mode_h,
     #  in type, out type, trunc_bits)
@@ -269,6 +297,8 @@ INT8_EPI_CASES = (
     (1031, 517, 263, 129, 4, None, "vh", "biased", 1.0, True, 3),
     (333, 251, 1001, 777, 4, None, "hv", "biased", 1.0, True, 3),
     (1031, 517, 263, 129, 3, None, "vh", "even", 1.0, False, -1),
+    (300, 250, 170, 150, 3, None, "vh", "even", 0.75, False, -1),
+    (150, 100, 400, 300, 3, None, "hv", "even", 0.75, False, -1),
 )
 SPLIT_EPI_CASES = (
     # SPLIT_CASES' fields plus round_mode, scale, gamma, alpha_index
@@ -431,19 +461,13 @@ K4_REPEATS = 10
 # Elements of an unfused errdiff shape's output held to the serial float64
 # error diffusion (its top rows; the whole of a 1080p frame).
 ERRDIFF_ORACLE_ELEMS = 1920 * 1080 * 3
-# --kernel-times: K1 split vh at its four main-path cells: (name, entry
-# point, src_w, src_h, new_w, new_h, c, in dtype, out dtype, plan
-# keywords, executor keywords).
-KT_SPLIT_CELLS = (
-    ("8k_to_1080p_errdiff", "avir", 7680, 4320, 1920, 1080, 3, np.uint8,
-     np.uint8, {}, {"errdiff": True}),
-    ("1080p_to_4k_u16", "avir", 1920, 1080, 3840, 2160, 3, np.uint16,
-     np.uint16, {"res_bit_depth": 16}, {}),
-    ("1080p_to_4k_u16_gamma_rgba", "avir", 1920, 1080, 3840, 2160, 4,
-     np.uint16, np.uint16,
-     {"res_bit_depth": 16, "use_srgb_gamma": True, "alpha_index": 3}, {}),
-    ("lancir_4k_u16_to_1080p_u8", "lancir", 3840, 2160, 1920, 1080, 3,
-     np.uint16, np.uint8, {}, {}),
+# --kernel-times: K1 int8 (no gamma) at its four main-path cells, u8 RGB:
+# (name, entry point, src_w, src_h, new_w, new_h).
+KT_INT8_CELLS = (
+    ("8k_to_1080p", "avir", 7680, 4320, 1920, 1080),
+    ("lancir_8k_to_1080p", "lancir", 7680, 4320, 1920, 1080),
+    ("1080p_to_4k", "avir", 1920, 1080, 3840, 2160),
+    ("640x480_to_1024x768", "avir", 640, 480, 1024, 768),
 )
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
@@ -531,6 +555,88 @@ def _first_pass_reads(ops) -> dict[str, float]:
     bh, n_ch, win_c, _ = ops.h1.shape
     lanes = bh * n_ch * win_c / ops.lanes_in
     return {"rows": rows, "lanes": lanes, "total": rows * lanes}
+
+
+def _int8_counts(ops) -> dict:
+    """K1 int8 without gamma: the slice height, the s8 MACs the
+    tensor-core kernel issues (fused_kernel.py:issued_macs) and those the
+    dp4a kernel before it issued (32-row slices, dense over the whole
+    win_c window: vh per 128-lane segment, hv per 32-row group), and the
+    image bytes the first pass reads per input byte in both tilings (each
+    block reads its slice's nonzero V-tap rows over its chunk's nonzero
+    lane range; before, over the whole window)."""
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+
+    kr = ops.k_range.cpu().numpy().astype(np.int64)
+    sr = ops.slice_range.cpu().numpy().astype(np.int64)
+    hr = ops.h_range.cpu().numpy().astype(np.int64)
+    bh, n_ch, win_c, _ = ops.h1.shape
+    k32 = int((kr[..., 1] - kr[..., 0]).sum())
+    if ops.order == "vh":
+        before = (2 * 32 * k32 * win_c + 3 * 32 * 128 * win_c * kr[..., 0].size) * bh * n_ch
+    else:
+        before = (2 * 128 * win_c + 3 * 32 * 128) * k32 * bh * n_ch
+    rows = int((sr[..., 1] - sr[..., 0]).sum()) / ops.rows_in
+    lanes = int((hr[..., 1] - hr[..., 0]).sum()) / ops.lanes_in
+    return {
+        "slice_rows": ops.rows,
+        "macs_issued": fk.issued_macs(ops.order, ops.rows, sr, kr, hr),
+        "macs_issued_before": int(before),
+        "first_pass_reads_per_input": {
+            "rows": rows, "lanes": lanes, "total": rows * lanes,
+            "before": _first_pass_reads(ops)["total"],
+        },
+    }
+
+
+# Yardsticks of K1 int8: (precision, the route it takes).
+EXACT_ROUTE = ("exact", "exact")
+SPLIT_ROUTE = ("fast", "split")
+
+
+def _height_sweep(ops, x, got, flush) -> dict:
+    """K1 int8 at every slice height its order takes (fused_kernel.py:
+    at_rows), timed in this run beside slice_rows' choice, in SWEEP_TURNS
+    turns that alternate the heights: {rows: ms of each turn, bit-equal
+    to ``got``, MACs issued}."""
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+
+    tiled = {}
+    for rows in INT8_ROWS[ops.order]:
+        try:
+            o = fk.at_rows(ops, rows)
+        except ValueError:  # an hv range above the intermediate's rows
+            continue
+        y = fk.apply_fused_int8(o, x)
+        torch.cuda.synchronize()
+        tiled[rows] = (o, {
+            "ms": [],
+            "bit_equal": bool(torch.equal(y, got)),
+            "macs_issued": _int8_counts(o)["macs_issued"],
+        })
+    for _ in range(SWEEP_TURNS):
+        for o, rec in tiled.values():
+            rec["ms"].append(_time_ms(lambda: fk.apply_fused_int8(o, x), 20, flush))
+    return {rows: rec for rows, (_, rec) in tiled.items()}
+
+
+def _yardsticks(make, plan, x, got, routes, dev, flush) -> dict:
+    """The same resize on other routes (``routes``: EXACT_ROUTE, float32
+    torch.bmm passes; SPLIT_ROUTE, K1 split vh at a downsize), each timed
+    in this run beside K1 int8, with its largest difference from K1 int8's
+    output ``got`` in LSB."""
+    out = {}
+    for precision, route in routes:
+        fn = make(plan, precision=precision, device=dev)
+        if fn.route != route:
+            _fail(f"precision={precision!r} took the {fn.route} route, not {route}")
+        y = fn(x)
+        torch.cuda.synchronize()
+        out[f"{route}_route_ms"] = _time_ms(lambda: fn(x), 20, flush)
+        out[f"max_lsb_vs_{route}_route"] = int((y.int() - got.int()).abs().max())
+        if route == "split":
+            out["split_route_kernel"] = fn.ops.launch_key
+    return out
 
 
 def _k1_bound(h, v, c: int, order: str, in_bytes: int, out_bytes: int,
@@ -1091,6 +1197,14 @@ def _epi_shape(name, entry, sw, sh, nw, nh, c, in_dt, out_dt, kw, key,
         "d2h_copy_ms": _time_ms(got.cpu, 5, flush), **extra,
         "card": smi,
     }
+    if mod is fk and not gamma:
+        # The tensor-core kernels: their counts, and the split route at a
+        # downsize as a yardstick.
+        heights = _height_sweep(ops, x, got, flush)
+        ok = ok and all(h["bit_equal"] for h in heights.values())
+        report.update({"band_macs": nops // 2, **_int8_counts(ops), "slice_heights": heights})
+        if ops.order == "vh":
+            report.update(_yardsticks(make, plan, x, got, (SPLIT_ROUTE,), dev, flush))
     if mod is fs:
         report.update({"mode_v": ops.mode_v, "mode_h": ops.mode_h,
                        "band_macs": nops // 2,
@@ -1998,11 +2112,12 @@ def _card() -> str:
 
 
 def kernel_times(root: str) -> int:
-    """K1 split vh at its four main-path cells (KT_SPLIT_CELLS), timed on
-    the package under ``root`` through the calls that the versions being
-    compared share (the executors' ``prepare_fused_split`` operands,
-    ``apply_fused_split``), so that two versions run in turns in one chip
-    call:
+    """K1 int8 (no gamma) at its four main-path cells (KT_INT8_CELLS),
+    timed on the package under ``root`` through the calls that the versions
+    being compared share (the executors' ``prepare_fused_int8`` operands,
+    ``apply_fused_int8``), so that two versions run in turns in one chip
+    call; at the two downsizes also the split route (precision="fast", K1
+    split vh) of the same resize as a yardstick:
 
         python3 chip_smoke.py --kernel-times DIR
 
@@ -2015,11 +2130,11 @@ def kernel_times(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     from avir_tpu_torch.models.runtime import make_avir_executor, make_lancir_executor
     from avir_tpu_torch.ops.cuda import build
-    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
     from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
     from avir_tpu_torch.plan.plan import build_resize_plan
 
-    build.build(["fused_split"])
+    build.build(["fused_int8", "fused_split"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
@@ -2030,24 +2145,28 @@ def kernel_times(root: str) -> int:
         return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
     times = {}
-    for name, entry, sw, sh, nw, nh, c, in_dt, out_dt, pkw, ekw in KT_SPLIT_CELLS:
+    for name, entry, sw, sh, nw, nh in KT_INT8_CELLS:
         if entry == "lancir":
-            fn = make_lancir_executor(
-                build_lancir_plan(sw, sh, nw, nh, c, in_dt, out_dt), device=dev
-            )
+            plan = build_lancir_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8)
+            make = make_lancir_executor
         else:
-            plan = build_resize_plan(sw, sh, nw, nh, c, in_dt, out_dt, **pkw)
-            fn = make_avir_executor(plan, device=dev, **ekw)
-        ops = fn.ops
-        src = gen.integers(0, np.iinfo(in_dt).max + 1, (sh, sw * c), dtype=in_dt)
+            plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8)
+            make = make_avir_executor
+        ops = make(plan, device=dev).ops
+        src = gen.integers(0, 256, (sh, sw * 3), dtype=np.uint8)
         x = torch.from_numpy(src).to(dev)
-        got = fs.apply_fused_split(ops, x)
-        want = fs.apply_fused_split_reference(ops, x)
-        times[f"{ops.launch_key} {name}"] = {
-            "ms": _time_ms(lambda: fs.apply_fused_split(ops, x), 20, flush),
-            "max_abs_err_vs_plain": float((got.double() - want.double()).abs().max()),
+        got = fk.apply_fused_int8(ops, x)
+        want = fk.apply_fused_int8_reference(ops, x)
+        cell = {
+            "ms": _time_ms(lambda: fk.apply_fused_int8(ops, x), 20, flush),
+            "max_abs_err_vs_plain": int((got.int() - want.int()).abs().max()),
             "sha": sha(got),
         }
+        if ops.order == "vh":
+            split = make(plan, precision="fast", device=dev)
+            cell["split_route_ms"] = _time_ms(lambda: split(x), 20, flush)
+            cell["split_route_kernel"] = split.ops.launch_key
+        times[f"{ops.launch_key} {name}"] = cell
     print(json.dumps({"kernel_times": times, "root": root, "card": _card()}))
     return 0
 
@@ -2089,7 +2208,7 @@ def main() -> int:
                       "built": sorted(report)}))
     for name, info in report.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
 
     dev = torch.device("cuda")
@@ -2112,15 +2231,21 @@ def main() -> int:
         x = torch.from_numpy(
             gen.integers(0, 256, (sh, sw * c), dtype=np.uint8)
         ).to(dev)
-        got = fk.apply_fused_int8(ops, x)
-        torch.cuda.synchronize()
         want = fk.apply_fused_int8_reference(ops, x)
         torch.cuda.synchronize()
-        err = int((got.int() - want.int()).abs().max())
-        case = f"{sw}x{sh}->{nw}x{nh} C={c} tile={tile} {order}"
-        print(json.dumps({"case": case, "max_abs_err": err}))
-        if err != 0:
-            _fail(f"kernel != plain on {case}")
+        # The slice height slice_rows picked, then every other one.
+        for rows in (ops.rows, *(r for r in INT8_ROWS[order] if r != ops.rows)):
+            try:
+                rops = fk.at_rows(ops, rows)
+            except ValueError:  # an hv range above the intermediate's rows
+                continue
+            got = fk.apply_fused_int8(rops, x)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            case = f"{sw}x{sh}->{nw}x{nh} C={c} tile={tile} {order} rows={rows}"
+            print(json.dumps({"case": case, "max_abs_err": err}))
+            if err != 0:
+                _fail(f"kernel != plain on {case}")
 
     for case_t in SPLIT_CASES:
         sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb = case_t
@@ -2188,6 +2313,15 @@ def main() -> int:
     # ---- 3./4. main path, checks and timing ----------------------------
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     entries = []
+    seen = set()
+
+    def add(new: list[dict]) -> None:
+        # One entry per kernel: its first main-path shape.
+        for e in new:
+            if e["name"] not in seen:
+                seen.add(e["name"])
+                entries.append(e)
+
     for name, sw, sh, nw, nh, c in MAIN_PATH:
         src = gen.integers(0, 256, (sh, sw, c), dtype=np.uint8)
         order = "vh" if nw * nh <= sw * sh else "hv"
@@ -2200,8 +2334,8 @@ def main() -> int:
         first_s = time.perf_counter() - t0
         counts = _counts(mods)
         print(json.dumps({"main_path": name, "launches": counts}))
-        if counts[kname] < 1:
-            _fail(f"{name}: {kname} was not launched on the main path")
+        if counts[kname] != 1 or sum(counts.values()) != 1:
+            _fail(f"{name}: {kname} was not launched once on the main path: {counts}")
         # Host wall time of a resize whose executor is cached: numpy in,
         # host->device copy, one kernel, device->host copy, numpy out.
         walls = []
@@ -2236,12 +2370,19 @@ def main() -> int:
         )
         d2h_ms = _time_ms(lambda: got.cpu(), 5, flush)
         bound_ms, bound_by, nbytes, nops = _bound(plan, c, order)
+        yard = _yardsticks(
+            make_avir_executor, plan, x, got,
+            (EXACT_ROUTE, SPLIT_ROUTE) if order == "vh" else (EXACT_ROUTE,), dev, flush,
+        )
+        heights = _height_sweep(ops, x, got, flush)
+        ok = ok and all(h["bit_equal"] for h in heights.values())
         print(json.dumps({
             "shape": name, "kernel": kname, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "int8_ops": nops, "max_abs_err_vs_plain": err,
+            "int8_ops": nops, "band_macs": nops // 2, **_int8_counts(ops),
+            "max_abs_err_vs_plain": err,
             "max_lsb_vs_f64_oracle": lsb, "psnr_vs_f64_oracle_db": psnr,
-            "first_pass_reads_per_input": _first_pass_reads(ops),
+            **yard, "slice_heights": heights,
             "resize_first_call_s": first_s,
             "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
             "h2d_copy_ms": h2d_ms, "d2h_copy_ms": d2h_ms,
@@ -2252,21 +2393,12 @@ def main() -> int:
                 f"{name}: shape {out.shape}, kernel-vs-plain {err}, same as "
                 f"resize {same_as_resize}, oracle {lsb} LSB / {psnr} dB"
             )
-        entries.append({
+        add([{
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": KERNELS[kname], "launches": counts[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        })
-
-    seen = {e["name"] for e in entries}
-
-    def add(new: list[dict]) -> None:
-        # One entry per kernel: its first main-path shape.
-        for e in new:
-            if e["name"] not in seen:
-                seen.add(e["name"])
-                entries.append(e)
+        }])
 
     for name, sw, sh, nw, nh, c, in_dt, bits, dith in NEW_SHAPES:
         add(_new_shape(

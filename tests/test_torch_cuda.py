@@ -84,6 +84,36 @@ def test_int8_kernel_matches_plain_on_card(name, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 64, 128])
+@pytest.mark.parametrize("name", [n for n in FUSED_CASES if n.startswith("edge")])
+def test_int8_kernel_every_slice_height_on_card(name, rows, cuda_device):
+    """The tensor-core kernels at every slice height they take (vh 32, hv
+    also 64 and 128), whatever slice_rows would pick: bit-equal to the
+    plain version."""
+    sw, sh, nw, nh, c, tile = FUSED_CASES[name]
+    order = order_of(sw, sh, nw, nh)
+    if order == "vh" and rows != 32:
+        pytest.skip("the vh kernel takes 32-row slices")
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8)
+    ops = fk.prepare_fused_int8(
+        block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile),
+        order, cuda_device,
+    )
+    try:
+        ops = fk.at_rows(ops, rows)
+    except ValueError:
+        pytest.skip(f"{rows}-row slice ranges exceed the hv intermediate")
+    x = torch.from_numpy(
+        np.random.default_rng(sum(map(ord, name)) + rows).integers(
+            0, 256, (sh, sw * c), dtype=np.uint8
+        )
+    ).to(cuda_device)
+    got = fk.apply_fused_int8(ops, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.apply_fused_int8_reference(ops, x))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", list(SPLIT_CASES))
 def test_split_kernel_matches_plain_on_card(name, cuda_device):
     sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb = SPLIT_CASES[name]

@@ -144,3 +144,216 @@ def test_pack4_layout():
     for k in range(8):
         got = (p[0, k // 4] >> (8 * (k % 4))) & 0xFF
         np.testing.assert_array_equal(got, q[0, k].view(np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# Operands of the tensor-core kernels (no gamma)
+# ---------------------------------------------------------------------------
+
+EDGE = [n for n in CASES if n.startswith("edge")]
+
+
+def _ops(name):
+    sw, sh, nw, nh, c, tile = CASES[name]
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8)
+    return fk.prepare_fused_int8(
+        block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile),
+        _order(sw, sh, nw, nh), "cpu",
+    )
+
+
+@pytest.mark.parametrize("name", ["down_c3", "up_c4_tc", "edge_down5_c3", "edge_up128_c3"])
+def test_h_range_covers_every_nonzero_tap(name):
+    """Each chunk's h_range holds every nonzero lane tap, 32-aligned."""
+    ops = _ops(name)
+    nz = ((ops.h1 != 0) | (ops.h0 != 0)).any(dim=3).numpy()  # [Bh, n_ch, win_c]
+    rng = ops.h_range.numpy()
+    win_c = nz.shape[2]
+    lanes = np.arange(win_c)
+    inside = (lanes >= rng[..., :1]) & (lanes < rng[..., 1:])
+    assert not (nz & ~inside).any()
+    assert (rng[..., 0] % 32 == 0).all()
+    assert ((rng[..., 1] % 32 == 0) | (rng[..., 1] == win_c)).all()
+
+
+@pytest.mark.parametrize("rows", [32, 64, 128])
+@pytest.mark.parametrize("name", ["down_c3", "edge_rows_c3", "edge_up_c2", "edge_up128_c3"])
+def test_slice_range_covers_every_nonzero_tap(name, rows):
+    """Each R-row slice's range holds every nonzero V tap of its rows,
+    32-aligned; the 32-row k_range (which K6 and the gamma kernels read)
+    is the same at every R.  The vh kernel takes 32-row slices only
+    (at_rows refuses the others), so there the ranges are _k_ranges'."""
+    ops = _ops(name)
+    v1, v0 = ops.v1.numpy(), ops.v0.numpy()
+    nz = (v1 != 0) | (v0 != 0)  # [Bv, Tv, Wv]
+    bv, tv, wv = nz.shape
+    if ops.order == "vh" and rows != 32:
+        with pytest.raises(ValueError, match=f"no {rows}-row slices"):
+            fk.at_rows(ops, rows)
+        sr = fk._k_ranges(v1, v0, rows)
+    else:
+        ops = fk.at_rows(ops, rows)
+        sr = ops.slice_range.numpy()
+        assert ops.rows == rows
+    assert sr.shape == (bv, -(-tv // rows), 2)
+    cols = np.arange(wv)
+    for s in range(sr.shape[1]):
+        used = nz[:, s * rows : (s + 1) * rows].any(axis=1)
+        inside = (cols >= sr[:, s, :1]) & (cols < sr[:, s, 1:])
+        assert not (used & ~inside).any()
+    assert (sr % 32 == 0).all()
+    np.testing.assert_array_equal(ops.k_range.numpy(), fk._k_ranges(v1, v0, 32))
+    assert ops.k_range.shape[1] == -(-tv // 32)
+
+
+def test_k_range_of_the_gamma_kernels_and_k6_unchanged():
+    """The gamma operands (which the dp4a kernels and K6's schedule read)
+    keep 32-row k_range slices over the dense taps and the packed lane
+    taps, and none of the tensor-core kernels' fields is made for them."""
+    plan = build_resize_plan(200, 150, 80, 60, 3, np.uint8, np.uint8, use_srgb_gamma=True)
+    vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, 3)
+    for order in ("vh", "hv"):
+        ops = fk.prepare_fused_int8(vop, lop, order, "cpu", gamma=True)
+        kr = ops.k_range.numpy()
+        nz = (ops.v1.numpy() != 0) | (ops.v0.numpy() != 0)
+        bv, tv, wv = nz.shape
+        assert kr.shape == (bv, -(-tv // 32), 2)
+        for b in range(bv):
+            for s in range(kr.shape[1]):
+                used = np.flatnonzero(nz[b, 32 * s : 32 * s + 32].any(axis=0))
+                if used.size:
+                    assert kr[b, s, 0] == used[0] // 32 * 32
+                    assert kr[b, s, 1] == min(-(-(used[-1] + 1) // 32) * 32, wv)
+                else:
+                    assert tuple(kr[b, s]) == (0, 0)
+        assert ops.h1t is None and ops.h0t is None
+        assert ops.slice_range is None and ops.h_range is None and ops.rows == 32
+        assert ops.h1p is not None and ops.h0p is not None
+        with pytest.raises(ValueError, match="no 32-row slices"):
+            fk.at_rows(ops, 32)
+
+
+def test_hv_lane_taps_transposed():
+    ops = _ops("edge_up128_c3")
+    assert ops.order == "hv"
+    assert torch.equal(ops.h1t, ops.h1.transpose(2, 3))
+    assert torch.equal(ops.h0t, ops.h0.transpose(2, 3))
+    assert ops.h1t.is_contiguous() and ops.lane_align == 16
+    assert ops.h1p is None and ops.h0p is None  # read by no hv kernel without gamma
+
+
+@pytest.mark.parametrize("name", ["down_c3", "up_c4", "edge_down_c2", "edge_up128_c3"])
+def test_issued_macs_counts_every_block(name):
+    """issued_macs against a count over the kernel's blocks and steps."""
+    ops = _ops(name)
+    sr, kr, hr = (t.numpy().astype(np.int64) for t in (ops.slice_range, ops.k_range, ops.h_range))
+    rows, n_s32 = ops.rows, kr.shape[1]
+    want = 0
+    for b in range(sr.shape[0]):
+        for s in range(sr.shape[1]):
+            kw = sr[b, s, 1] - sr[b, s, 0]
+            for hw in (hr[..., 1] - hr[..., 0]).ravel():
+                if kw <= 0 or hw <= 0:
+                    continue
+                if ops.order == "vh":
+                    want += 2 * rows * kw * hw + 3 * rows * hw * 128
+                else:
+                    want += 2 * kw * 128 * hw
+                    for sub in range(rows // 32):
+                        s32 = s * rows // 32 + sub
+                        if s32 < n_s32:
+                            want += 3 * 32 * (kr[b, s32, 1] - kr[b, s32, 0]) * 128
+    assert fk.issued_macs(ops.order, rows, sr, kr, hr) == want
+
+
+# The H100 SXM's SMs: the card on which PERF.md measured every slice height.
+H100_SMS = 132
+
+
+def _rule(ops, sms):
+    n_chunks = ops.h_range.shape[0] * ops.h_range.shape[1]
+    return fk.slice_rows(ops.order, ops.v1.numpy(), ops.v0.numpy(), n_chunks, sms)
+
+
+def test_slice_rule_picks_recorded_heights():
+    """slice_rows at the four K1 int8 main-path cells on an H100 (PERF.md
+    §6): 32-row slices at the two 8K downsizes, 128 at 1080p -> 4K, and 64
+    at 640x480 -> 1024x768, where 128 rows would leave fewer than two
+    blocks per SM.  CPU operands take the tallest viable height."""
+    from avir_tpu_torch.models.runtime import make_avir_executor, make_lancir_executor
+    from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
+
+    cells = {
+        "8k_to_1080p": (make_avir_executor, build_resize_plan, (7680, 4320, 1920, 1080), 32),
+        "lancir_8k_to_1080p": (make_lancir_executor, build_lancir_plan, (7680, 4320, 1920, 1080), 32),
+        "1080p_to_4k": (make_avir_executor, build_resize_plan, (1920, 1080, 3840, 2160), 128),
+        "640x480_to_1024x768": (make_avir_executor, build_resize_plan, (640, 480, 1024, 768), 64),
+    }
+    for name, (make, build, size, rows) in cells.items():
+        fn = make(build(*size, 3, np.uint8, np.uint8), device="cpu")
+        assert fn.route == "int8", name
+        assert _rule(fn.ops, H100_SMS) == rows, name
+        assert fn.ops.rows == (128 if fn.ops.order == "hv" else 32), name
+    bh, n_ch = fn.ops.h_range.shape[:2]
+    assert bh * n_ch * fn.ops.v1.shape[0] * -(-fn.ops.v1.shape[1] // 128) < 2 * H100_SMS
+
+
+def test_slice_rule_takes_the_tallest_viable_height_and_caps_hv_windows():
+    """vh runs 32 rows; hv the tallest height that fits the V block, keeps
+    two blocks per SM and whose ranges fit the intermediate; an hv whose
+    taller slices exceed the intermediate's rows runs at 32 rows in
+    windows (at_rows refuses the taller ones)."""
+    for name in ("down_c3", "up_c3", "edge_rows_c3", "edge_up128_c3"):
+        ops = _ops(name)
+        v1, v0 = ops.v1.numpy(), ops.v0.numpy()
+        bv, tv, _ = v1.shape
+        n_chunks = ops.h_range.shape[0] * ops.h_range.shape[1]
+        for sms in (0, 1, 4, H100_SMS):
+            got = _rule(ops, sms)
+            if ops.order == "vh":
+                assert got == 32, name
+                continue
+            for rows in (64, 128):
+                sr = fk._k_ranges(v1, v0, rows)
+                viable = (
+                    rows <= -(-tv // 32) * 32
+                    and n_chunks * bv * sr.shape[1] >= 2 * sms
+                    and (sr[..., 1] - sr[..., 0]).max() <= fk.KWIN_MAX
+                )
+                if rows >= got:
+                    assert viable == (rows == got), (name, sms, rows)
+    ops = _ops("edge_hv_windows_c1")
+    span = (ops.slice_range.numpy()[..., 1] - ops.slice_range.numpy()[..., 0]).max()
+    assert ops.order == "hv" and ops.rows == 32 and span > fk.KWIN_MAX
+    assert ops.kwin == fk.KWIN_MAX
+    with pytest.raises(ValueError, match="exceed"):
+        fk.at_rows(ops, 64)
+
+
+def test_edge_cases_reach_their_edges():
+    """The edge_* cases cover what their names promise: rows_out not a
+    multiple of any slice height, nonzero lane ranges that end inside a
+    32-deep MMA step, C = 2 in both orders, a downsize by more than 4, odd
+    lanes_in (rows not 16-byte aligned), an hv at 128-row slices with a
+    ragged last slice, and an hv in several windows."""
+    seen = set()
+    for name in EDGE:
+        sw, sh, nw, nh, c, _ = CASES[name]
+        ops = _ops(name)
+        hnz = ((ops.h1 != 0) | (ops.h0 != 0)).any(dim=3).numpy()
+        ends = [np.flatnonzero(w)[-1] + 1 for w in hnz.reshape(-1, hnz.shape[2]) if w.any()]
+        span = (ops.slice_range.numpy()[..., 1] - ops.slice_range.numpy()[..., 0]).max()
+        seen |= {
+            *(["rows_out"] if all(ops.rows_out % r for r in (32, 64, 128)) else []),
+            *(["lane_end"] if any(e % 32 for e in ends) else []),
+            *([f"c2_{ops.order}"] if c == 2 else []),
+            *(["down_gt4"] if sw > 4 * nw and sh > 4 * nh else []),
+            *(["odd_lanes_in"] if ops.lanes_in % 2 else []),
+            *(["hv128_ragged"] if ops.order == "hv" and ops.rows_out % 128
+              and ops.v1.shape[1] >= 128 and span <= fk.KWIN_MAX else []),
+            *(["hv_windows"] if ops.order == "hv" and span > fk.KWIN_MAX else []),
+        }
+    assert seen == {
+        "rows_out", "lane_end", "c2_vh", "c2_hv", "down_gt4", "odd_lanes_in",
+        "hv128_ragged", "hv_windows",
+    }

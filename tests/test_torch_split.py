@@ -33,7 +33,7 @@ from torch_cases import IN_BYTES, NP_TYPES, SPLIT_CASES, split_source
 
 from avir_tpu_torch.ops.banded import apply_blocked, block_banded
 from avir_tpu_torch.ops.cuda import fused_split as fs
-from avir_tpu_torch.ops.cuda.fused_kernel import _k_ranges
+from avir_tpu_torch.ops.cuda.fused_kernel import _k_ranges, h_ranges
 from avir_tpu_torch.ops.lanes import lane_block_banded
 from avir_tpu_torch.plan.plan import build_resize_plan
 
@@ -111,7 +111,7 @@ def test_h_ranges_cover_every_nonzero_tap():
     plan = build_resize_plan(300, 20, 1400, 41, 3, np.uint8, np.uint8)
     lop = lane_block_banded(plan.h.op, 3)
     hi, lo, _, win_c = fs._chunked_lane_taps(lop)
-    rng = fs._h_ranges(hi, lo)
+    rng = h_ranges((hi != 0).numpy(), (lo != 0).numpy())
     nz = ((hi != 0) | (lo != 0)).any(dim=3).numpy()
     rows = np.arange(win_c)
     inside = (rows >= rng[..., :1]) & (rows < rng[..., 1:])

@@ -18,6 +18,19 @@ FUSED_CASES = {
     "up_c4": (500, 20, 1200, 41, 4, None),      # chunked (wide tile)
     "up_c4_tc": (29, 21, 71, 45, 4, 48),        # TC = 192, unchunked
     "down_c3_tc": (120, 80, 70, 50, 3, 50),     # TC = 150, unchunked
+    # Edges of the tensor-core kernels' tiling (test_torch_fused.py checks
+    # each case has them): rows_out not a multiple of any slice height,
+    # nonzero lane ranges ending inside a 32-deep MMA step, C = 2, a
+    # downsize by more than 4, odd lanes_in (rows not 16-byte aligned), an
+    # hv upsize at 128-row slices with a ragged last slice, and an hv whose
+    # slice range exceeds the intermediate's 256 rows (windows).
+    "edge_rows_c3": (300, 250, 170, 150, 3, None),
+    "edge_down_c2": (97, 83, 61, 45, 2, None),
+    "edge_down5_c3": (1031, 517, 200, 97, 3, None),
+    "edge_up_odd_c3": (45, 31, 97, 70, 3, None),
+    "edge_up_c2": (53, 37, 90, 71, 2, None),
+    "edge_up128_c3": (150, 100, 400, 300, 3, None),
+    "edge_hv_windows_c1": (20, 1200, 500, 50, 1, None),
 }
 
 # K1 split-bf16: (src_w, src_h, new_w, new_h, c, lane tile or None,
@@ -73,6 +86,9 @@ INT8_EPI_CASES = {
     "gamma_up_c3": (300, 20, 1400, 41, 3, None, "hv", "biased", 1.0, True, -1),
     "gamma_up_c4a": (500, 20, 1200, 41, 4, None, "hv", "biased", 1.0, True, 3),
     "gamma_up_c4a_tc": (29, 21, 71, 45, 4, 48, "hv", "biased", 1.0, True, 3),
+    # LANCIR's scale on the tensor-core kernels' edge cases, both orders.
+    "even_scale_edge_down": (300, 250, 170, 150, 3, None, "vh", "even", 0.75, False, -1),
+    "even_scale_edge_up": (150, 100, 400, 300, 3, None, "hv", "even", 0.75, False, -1),
 }
 
 # K1 split-bf16 epilogue variants: SPLIT_CASES' fields plus round_mode,
