@@ -1,11 +1,10 @@
 """Host-side (NumPy, float64) execution of a ResizePlan.
 
-A copy of the JAX package's ``models/host_reference.py`` (the parts the
-port needs): the semantics specification for the device kernels, slow
-but exact.  Tests and ``chip_smoke.py`` hold the port's outputs to it.
-``execute_lancir_numpy`` is also the public LANCIR ``precision="f64"``
-route (``models/lancir.py``); ``execute_plan_numpy`` is not wired as the
-AVIR ``precision="f64"`` route yet (ROADMAP.md Queue 1 items 4 and 10).
+A copy of the JAX package's ``models/host_reference.py``: the semantics
+specification for the device kernels, slow but exact.  Tests and
+``chip_smoke.py`` hold the port's outputs to it.  ``execute_plan_numpy``
+and ``execute_lancir_numpy`` are also the public ``precision="f64"`` /
+``engine="host"`` routes (``models/avir.py``, ``models/lancir.py``).
 """
 
 from __future__ import annotations
@@ -122,6 +121,43 @@ def execute_plan_numpy(
         x = default_dither(x, trunc_bits, plan.out_type_max)
     dtype = np.uint8 if out_bits == 8 else np.uint16
     return x.astype(dtype)
+
+
+def execute_plan_rows_numpy(
+    plan: ResizePlan, src: np.ndarray, rows
+) -> np.ndarray:
+    """Float64 oracle for a subset of output rows: equal to
+    ``execute_plan_numpy(plan, src)[rows]``, in the caller's row order,
+    at a cost that scales with ``len(rows)`` (only the input rows that feed
+    them go through the horizontal pass).  Default dither only: error
+    diffusion carries a whole-image recurrence."""
+    rows = np.asarray(rows, dtype=np.int64)
+    vop = plan.v.op
+    idx = (
+        vop.starts[rows].astype(np.int64)[:, None]
+        + np.arange(vop.width)[None, :]
+    )
+    need = np.unique(idx.ravel())
+    x = src[need].astype(np.float64)
+    if plan.use_srgb_gamma:
+        x = srgb_to_linear_np(x * plan.in_gamma_mult, plan.alpha_index)
+    x = np.moveaxis(x, 1, 0)  # [W, len(need), C]
+    x = apply_banded_numpy(plan.h.op, x)
+    x = np.moveaxis(x, 0, 1)  # [len(need), new_w, C]
+
+    # Vertical pass on the sampled rows, starts remapped into ``need``.
+    pos = np.searchsorted(need, idx.ravel()).reshape(idx.shape)
+    x = np.einsum("ow,owrc->orc", vop.taps[rows], x[pos])
+
+    if plan.use_srgb_gamma:
+        x = linear_to_srgb_np(x, plan.alpha_index) * (
+            plan.out_gamma_mult if plan.out_gamma_mult != 0.0 else 1.0
+        )
+    if plan.is_out_float:
+        return x.astype(np.float64 if plan.out_float64 else np.float32)
+    out_bits = 8 if plan.out_type_max == 255.0 else 16
+    x = default_dither(x, out_bits - plan.res_bit_depth, plan.out_type_max)
+    return x.astype(np.uint8 if out_bits == 8 else np.uint16)
 
 
 def execute_lancir_numpy(plan, src: np.ndarray) -> np.ndarray:

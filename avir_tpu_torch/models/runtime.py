@@ -25,7 +25,10 @@ float output).  AVIR routing:
     writes float32 (after gamma-out) for float output and for error
     diffusion;
   - error diffusion runs the wavefront scan K4
-    (``ops/cuda/wavefront.py``) on the float32 pre-dither image.
+    (``ops/cuda/wavefront.py``) on the float32 pre-dither image, its sums
+    in the wavefront's order (``errdiff_impl="wavefront"``, the JAX
+    package's ``errdiff_dither_wavefront_jnp``) or in the sequential
+    scan's (``errdiff_impl="scan"``, its ``errdiff_dither_jnp``).
 
 Fused or unfused, and the fused pass order (``choose_fused``, the JAX
 package's rule of ``ops/pallas/fused_kernel.py:choose_fused`` with its
@@ -76,9 +79,12 @@ Error diffusion excludes the int8 mode, as in the JAX package
 its residual back, which turns the int8 route's ~2^-14 tap noise into
 extra +-1 flips, so the pre-dither image must be full precision.
 
-Configurations this port does not carry yet raise NotImplementedError
-naming the ROADMAP.md item that will bring them; none is computed by
-another route.
+``return_predither=True`` (the custom-ditherer slot of
+``ImageResizer.resize``) returns the float32 image after gamma-out and
+before the dither stage, on the routes error diffusion takes: never K1's
+int8 mode.  No kernel assumes a channel count: the lane operators carry
+C in their lane dimension, and the alpha bypass applies to C = 4 only, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -161,16 +167,6 @@ def in_exact_bf16(plan: ResizePlan) -> bool:
         and plan.in_type_max == 255.0
         and not plan.use_srgb_gamma
     )
-
-
-def unsupported_reason(plan: ResizePlan, precision: str) -> str | None:
-    """Why the port cannot run this plan yet (with its ROADMAP.md
-    item), or None when it can."""
-    if precision == "f64":
-        return "precision='f64', the host oracle route (ROADMAP.md Queue 1 items 4 and 10)"
-    if not 1 <= plan.el_count <= 4:
-        return f"{plan.el_count} channels (ROADMAP.md Queue 1 item 4)"
-    return None
 
 
 def choose_fused(
@@ -298,17 +294,20 @@ def make_avir_executor(
     errdiff: bool = False,
     precision: str = "auto",
     device=None,
+    return_predither: bool = False,
+    errdiff_impl: str = "wavefront",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build a resize function [H, W*C] -> [new_h, new_w*C] on ``device``
     for ``plan`` (see the module docstring for the routing).  ``errdiff``
-    selects error diffusion for integer output.  The returned function
-    carries its route as ``run.route`` ("int8", "split", "unfused" or
-    "exact"), the pass order as ``run.order`` and its kernels' operands
-    as ``run.ops`` (K1's, ``UnfusedOperands`` for "unfused", None for
-    "exact")."""
-    reason = unsupported_reason(plan, precision)
-    if reason is not None:
-        raise NotImplementedError(f"not ported yet: {reason}")
+    selects error diffusion for integer output, on K4 in the sum order of
+    ``errdiff_impl`` ("wavefront" or "scan"); ``return_predither`` makes
+    the function return the float32 image before the dither stage.  The
+    returned function carries its route as ``run.route`` ("int8", "split",
+    "unfused" or "exact"), the pass order as ``run.order`` and its
+    kernels' operands as ``run.ops`` (K1's, ``UnfusedOperands`` for
+    "unfused", None for "exact")."""
+    if errdiff_impl not in ("wavefront", "scan"):
+        raise ValueError(f"unknown errdiff_impl {errdiff_impl!r}")
     device = resolve_device(device)
     in_bytes = 4 if plan.is_in_float else (1 if plan.in_type_max == 255.0 else 2)
     c = plan.el_count
@@ -318,6 +317,7 @@ def make_avir_executor(
     out_bits = 8 if plan.out_type_max == 255.0 else 16
     trunc_bits = 0 if plan.is_out_float else out_bits - plan.res_bit_depth
     errdiff = errdiff and not plan.is_out_float
+    pre_only = return_predither and not plan.is_out_float
     gamma = plan.use_srgb_gamma
     gamma_kw = dict(
         gamma=gamma,
@@ -332,17 +332,19 @@ def make_avir_executor(
         and plan.in_type_max == 255.0
         and out_dt == torch.uint8
         and not errdiff
+        and not pre_only
         and trunc_bits == 0
     )
 
     def quantize(x: torch.Tensor) -> torch.Tensor:
         """The dither stage on the float32 image [new_h, new_w*C]."""
-        if plan.is_out_float:
+        if plan.is_out_float or pre_only:
             return x
         if errdiff:
             x3 = x.reshape(vop.n_out, lop.n_out, c).contiguous()
             return errdiff_wavefront(
-                x3, trunc_bits, plan.out_type_max, out_dtype=out_dt
+                x3, trunc_bits, plan.out_type_max, out_dtype=out_dt,
+                scan_order=errdiff_impl == "scan",
             ).reshape(vop.n_out, -1)
         return default_dither(x, trunc_bits, plan.out_type_max).to(
             torch.int32
@@ -430,7 +432,7 @@ def make_avir_executor(
         return run
 
     mode_v, mode_h = (mode1, mode2) if order == "vh" else (mode2, mode1)
-    fuse_quant = not plan.is_out_float and not errdiff
+    fuse_quant = not plan.is_out_float and not errdiff and not pre_only
     ops = prepare_fused_split(
         vop, lop, order, mode_v, mode_h, device,
         out_dtype=out_dt if fuse_quant else torch.float32,
@@ -458,10 +460,6 @@ def make_lancir_executor(
     ``run.route``, ``run.order`` and ``run.ops`` as in
     ``make_avir_executor``; ``precision="f64"`` is the host oracle's
     (models/lancir.py), not an executor's."""
-    if not 1 <= plan.el_count <= 4:
-        raise NotImplementedError(
-            f"not ported yet: {plan.el_count} channels (ROADMAP.md Queue 1 item 4)"
-        )
     device = resolve_device(device)
     in_bytes = plan.in_itemsize
     c = plan.el_count

@@ -9,6 +9,16 @@
 // t = 2y + x, takes
 //
 //   cur = ((((s + wr*n(y,x-1)) + wl*n(y-1,x+1)) + wc*n(y-1,x)) + wn*n(y-1,x-1))
+//
+// or, in the sum order of the JAX package's sequential nested scan
+// (ops/dither.py:errdiff_dither_jnp, dither="errdiff-device"; SCAN):
+//
+//   cur = (s + ((wc*n(y-1,x) + wl*n(y-1,x+1)) + wn*n(y-1,x-1))) + wr*n(y,x-1)
+//
+// The two orders round differently, even at trunc_bits=0: isolated pixels
+// of a small 16-bit image differ by one step, and a flip carries through
+// the diffused noise (10% of a 1080p u8 image, PERF.md §6).  Then
+//
 //   z0  = round_biased(cur * tmi) * tm      (or round_biased(cur) when
 //                                            tm == tmi == 1: bit-identical)
 //   out = clamp(z0, 0, out_max) ;  n(y,x) = cur - z0, 0 outside 0 <= x < W
@@ -134,8 +144,9 @@ __device__ __forceinline__ void store(const Args& a, size_t i, float z0) {
   }
 }
 
-// R*C threads, one per (row, channel).  OUT: the output type (store).
-template <int OUT>
+// R*C threads, one per (row, channel).  OUT: the output type (store);
+// SCAN: the sequential scan's sum order (see the top of the file).
+template <int OUT, bool SCAN>
 __global__ void __launch_bounds__(kMaxThreads) wavefront(const Args a) {
   __shared__ float ring[4][kMaxThreads];
   __shared__ int group;
@@ -187,10 +198,17 @@ __global__ void __launch_bounds__(kMaxThreads) wavefront(const Args a) {
       const float d3 = y == 0 ? hp2 : ring[(t + 1) & 3][up];
       hp2 = hp1;
       hp1 = d1;
-      float cur = __fadd_rn(s_cur[k], __fmul_rn(a.wr, n1));
-      cur = __fadd_rn(cur, __fmul_rn(a.wl, d1));
-      cur = __fadd_rn(cur, __fmul_rn(a.wc, d2));
-      cur = __fadd_rn(cur, __fmul_rn(a.wn, d3));
+      float cur;
+      if constexpr (SCAN) {
+        float up3 = __fadd_rn(__fmul_rn(a.wc, d2), __fmul_rn(a.wl, d1));
+        up3 = __fadd_rn(up3, __fmul_rn(a.wn, d3));
+        cur = __fadd_rn(__fadd_rn(s_cur[k], up3), __fmul_rn(a.wr, n1));
+      } else {
+        cur = __fadd_rn(s_cur[k], __fmul_rn(a.wr, n1));
+        cur = __fadd_rn(cur, __fmul_rn(a.wl, d1));
+        cur = __fadd_rn(cur, __fmul_rn(a.wc, d2));
+        cur = __fadd_rn(cur, __fmul_rn(a.wn, d3));
+      }
       const float z0 = unit ? round_biased(cur)
                             : __fmul_rn(round_biased(__fmul_rn(cur, a.tmi)), a.tm);
       const bool valid = active && x >= 0 && x < a.w;
@@ -226,7 +244,7 @@ extern "C" int avir_wavefront(
     int h, int w, int c, int rows,
     void* noise, void* ticket,
     float tm, float tmi, float out_max,
-    float wr, float wl, float wc, float wn,
+    float wr, float wl, float wc, float wn, int scan,
     void* stream) {
   const int threads = rows * c;
   if (h < 1 || w < 1 || c < 1 || rows < 1 || threads > kMaxThreads || out_kind < 0 ||
@@ -256,12 +274,20 @@ extern "C" int avir_wavefront(
   a.wl = wl;
   a.wc = wc;
   a.wn = wn;
-  if (out_kind == 0) {
-    wavefront<0><<<groups, threads, 0, s>>>(a);
+  if (scan) {
+    if (out_kind == 0) {
+      wavefront<0, true><<<groups, threads, 0, s>>>(a);
+    } else if (out_kind == 1) {
+      wavefront<1, true><<<groups, threads, 0, s>>>(a);
+    } else {
+      wavefront<2, true><<<groups, threads, 0, s>>>(a);
+    }
+  } else if (out_kind == 0) {
+    wavefront<0, false><<<groups, threads, 0, s>>>(a);
   } else if (out_kind == 1) {
-    wavefront<1><<<groups, threads, 0, s>>>(a);
+    wavefront<1, false><<<groups, threads, 0, s>>>(a);
   } else {
-    wavefront<2><<<groups, threads, 0, s>>>(a);
+    wavefront<2, false><<<groups, threads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

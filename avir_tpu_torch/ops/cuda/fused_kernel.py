@@ -550,6 +550,9 @@ def apply_fused_int8_reference(
     )  # [Bh, n_ch, win_c]
     acc = torch.empty((bv, tv, bh, n_ch * _LANES), dtype=torch.float32, device=dev)
 
+    # The windows may end before the image does (an operator that reads a
+    # subset of the lanes or rows): what lies past the pad is never read.
+    r, l = min(ops.rows_in, ops.rows_pad), min(ops.lanes_in, ops.lanes_pad)
     if ops.gamma_pre:
         # K5's planes already hold the two limbs, zero past the image.
         _check_planes(ops, x, x_lo)
@@ -560,14 +563,14 @@ def apply_fused_int8_reference(
         # 13-bit linear light as two limbs, read from the kernel's table of
         # every u8 value (row 1 on the alpha lane); padding reads 0 -> 0.
         xi = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.long, device=dev)
-        xi[: ops.rows_in, : ops.lanes_in] = x
+        xi[:r, :l] = x[:r, :l]
         lane = torch.arange(ops.lanes_pad, device=dev)
         row = ((lane & 3) == epi.alpha_lane).long().expand_as(xi)
         xq = gamma_q13_table(epi.in_gamma_mult).to(dev)[row, xi]
         xq1, xq0 = (q.to(torch.float64) for q in _int8_limbs(xq))
     else:
         xs = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float64, device=dev)
-        xs[: ops.rows_in, : ops.lanes_in] = x
+        xs[:r, :l] = x[:r, :l]
         xs -= 128.0  # s8(x ^ 0x80) == x - 128; padding reads 0 -> -128
 
     if ops.order == "vh":

@@ -258,7 +258,10 @@ def apply_fused_split_reference(
     if dev.type == "cuda":
         assert_full_f32()
     xs = torch.zeros((ops.rows_pad, ops.lanes_pad), dtype=torch.float32, device=dev)
-    xs[: ops.rows_in, : ops.lanes_in] = to_float32(x)
+    # The windows may end before the image does (an operator that reads a
+    # subset of the lanes or rows): what lies past the pad is never read.
+    r, l = min(ops.rows_in, ops.rows_pad), min(ops.lanes_in, ops.lanes_pad)
+    xs[:r, :l] = to_float32(x[:r, :l])
     epi = ops.epi
     if epi.gamma:  # padding stays 0
         xs = _srgb_to_linear(xs * f32(epi.in_gamma_mult), epi.c, epi.alpha_index)

@@ -13,9 +13,19 @@ of channel ch, at diagonal step t = 2y + x, takes
                           is discarded, avir.h:4504-4524)
 
 every product and sum rounded on its own in float32, with
-``tmi = float32(1) / float32(tm)``.  Rows go in blocks; row 0 of a block
-reads the previous block's last-row noise, so blocked and single-block
-runs give the same bits.
+``tmi = float32(1) / float32(tm)``.  With ``scan_order=True`` the sums
+take the order of the JAX package's sequential nested scan
+(``ops/dither.py:errdiff_dither_jnp``, ``dither="errdiff-device"``):
+
+    cur = (s + ((W_NEXT_CENTER*n(y-1, x) + W_NEXT_LEFT*n(y-1, x+1))
+                + W_NEXT_RIGHT*n(y-1, x-1))) + W_CUR_RIGHT*n(y, x-1)
+
+which gives that scan's bits; the two orders differ by one quantization
+step even at ``trunc_bits=0`` (isolated pixels of a small 16-bit image;
+a flip carries through the diffused noise, to 10% of a 1080p u8 image),
+as the JAX package's own two engines do.  Rows go in blocks; row 0 of a
+block reads the previous block's last-row noise, so blocked and
+single-block runs give the same bits.
 
 ``errdiff_wavefront`` launches the kernel (``csrc/wavefront.cu``) once per
 image on a CUDA tensor: ``block_rows`` rows form a group, one thread block
@@ -101,6 +111,7 @@ def _wavefront_rows(
     tm: torch.Tensor,
     tmi: torch.Tensor,
     out_max: float,
+    scan_order: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize one row block [R, W, C] (float32) given the previous
     block's last-row noise ``n_last`` [W, C] (zeros at the top).  Returns
@@ -130,10 +141,15 @@ def _wavefront_rows(
         d1 = torch.cat([nl[t + 2][None], p1[:-1]])  # (y-1, x+1)
         d2 = torch.cat([nl[t + 1][None], p2[:-1]])  # (y-1, x)
         d3 = torch.cat([nl[t][None], p3[:-1]])      # (y-1, x-1)
-        cur = S[t] + wr * p1                        # (y, x-1)
-        cur = cur + wl * d1
-        cur = cur + wc * d2
-        cur = cur + wn * d3
+        if scan_order:
+            up3 = wc * d2 + wl * d1
+            up3 = up3 + wn * d3
+            cur = (S[t] + up3) + wr * p1
+        else:
+            cur = S[t] + wr * p1                    # (y, x-1)
+            cur = cur + wl * d1
+            cur = cur + wc * d2
+            cur = cur + wn * d3
         z0 = round_biased(cur * tmi) * tm
         noise = torch.where(valid[t][:, None], cur - z0, 0.0)
         out[t] = torch.clamp(z0, 0.0, out_max)
@@ -148,6 +164,7 @@ def errdiff_wavefront_reference(
     trunc_bits: int,
     out_max: float,
     block_rows: int | None = None,
+    scan_order: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch wavefront error diffusion of the float32 image
     ``img`` [H, W, C] -> float32 [H, W, C], on the device of ``img``."""
@@ -161,7 +178,8 @@ def errdiff_wavefront_reference(
     outs = []
     for y0 in range(0, h, rb):
         q, n_last = _wavefront_rows(
-            img[y0 : y0 + rb].float(), n_last, tm, tmi, float(out_max)
+            img[y0 : y0 + rb].float(), n_last, tm, tmi, float(out_max),
+            scan_order,
         )
         outs.append(q)
     return torch.cat(outs)
@@ -178,6 +196,7 @@ _ARGTYPES = [
     _P, _P,                # noise words [groups, W*C], ticket
     _F, _F, _F,            # tm, tmi, out_max
     _F, _F, _F, _F,        # weights: cur right, next left, center, right
+    _I,                    # the sequential scan's sum order
     _P,                    # stream
 ]
 
@@ -199,16 +218,20 @@ def errdiff_wavefront(
     out_max: float,
     out_dtype: torch.dtype = torch.float32,
     block_rows: int | None = None,
+    scan_order: bool = False,
 ) -> torch.Tensor:
     """Wavefront error diffusion of the float32 image ``img`` [H, W, C]
-    -> [H, W, C] of ``out_dtype`` (float32, uint8 or uint16).  A CUDA
-    tensor launches the kernel once, with ``block_rows`` rows per group
-    (``group_rows_for``); a CPU tensor runs the plain version with
+    -> [H, W, C] of ``out_dtype`` (float32, uint8 or uint16), in the
+    sequential scan's sum order with ``scan_order`` (module docstring).
+    A CUDA tensor launches the kernel once, with ``block_rows`` rows per
+    group (``group_rows_for``); a CPU tensor runs the plain version with
     ``block_rows`` rows per block."""
     if out_dtype not in _OUT_KINDS:
         raise ValueError(f"unsupported output dtype {out_dtype}")
     if img.device.type == "cpu":
-        out = errdiff_wavefront_reference(img, trunc_bits, out_max, block_rows)
+        out = errdiff_wavefront_reference(
+            img, trunc_bits, out_max, block_rows, scan_order
+        )
         return out if out_dtype == torch.float32 else out.to(out_dtype)
     if img.device.type != "cuda":
         raise ValueError(f"image on {img.device}: must be a CUDA or CPU tensor")
@@ -240,7 +263,7 @@ def errdiff_wavefront(
         err = fn(
             img.data_ptr(), out.data_ptr(), _OUT_KINDS[out_dtype],
             h, w, c, rb, noise.data_ptr(), ticket.data_ptr(),
-            tm, tmi, float(out_max), *weights,
+            tm, tmi, float(out_max), *weights, int(scan_order),
             stream,
         )
     if err != 0:

@@ -8,18 +8,19 @@ Phases (any failure exits non-zero before the last line):
      all started together) and prints the build time;
   2. holds each kernel against its plain PyTorch version on the card, on
      small cases:
-       - K1 int8: both pass orders, C in {1, 2, 3, 4}, chunked and
+       - K1 int8: both pass orders, C in {1, 2, 3, 4, 5, 8}, chunked and
          unchunked lane forms, ragged edges and the edges of the
          tensor-core tiling, each at every slice height its order takes
          (INT8_ROWS): bit-equal;
        - K1 split-bf16: both orders (vh also on upsizes of both axes),
          split2/split3 mode pairs, u8/u16/f32 in, f32/u8/u16 out with
-         trunc_bits 0, 2 and 4, C in {1, 2, 3, 4}, chunked and unchunked
+         trunc_bits 0, 2 and 4, C in {1, 2, 3, 4, 5, 8}, chunked and unchunked
          lanes, and the edges of the vh kernel's tensor-core tiling
          (SPLIT_VH_EDGE_CASES): float32 within max|plain| * 1e-4, integers
          within 1 LSB (one quantization step when trunc_bits > 0);
-       - K4 wavefront: C in {1, 2, 3, 4}, one and several row groups (one
-         launch each), W = 1, 8- and 16-bit steps: bit-equal;
+       - K4 wavefront: C in {1, 2, 3, 4, 5, 8}, one and several row
+         groups (one launch each), W = 1, 8- and 16-bit steps, both sum
+         orders (the wavefront's and the sequential scan's): bit-equal;
        - K1's epilogue variants: round-half-even with LANCIR's scale, and
          sRGB gamma with the C=4 alpha bypass, in int8 vh/hv (bit-equal;
          the linearization read from the kernel's shared table) and split
@@ -84,6 +85,27 @@ Phases (any failure exits non-zero before the last line):
          RGB split2/split3) and
          1080p_to_4k_u16_gamma_rgba_planar (split3/split3, gamma, alpha
          3): the split gate of their plain versions;
+  3b. drives the rest of the single-card public API, each phase with the
+     launch counts set to 0 just before it and read just after:
+       - batch_1080p_to_4k, batch_8k_to_1080p (with LancIR.resize_batch of
+         2 frames) and batch_1080p_to_4k_u16_out (into a caller's reused
+         ``out=``): ``ImageResizer.resize_batch`` of 8 / 4 / 4 frames
+         through pinned staging, each frame bit-equal to ``resize`` of it,
+         K1 launched once per frame; the wall per frame beside the single
+         resize's, the per-frame copies through pinned buffers beside the
+         pageable ones, and the batch's device trace (torch.profiler: busy
+         and idle share, gaps between the frames' kernels);
+       - device_fn_8k_to_1080p: ``make_resize_fn`` on a CUDA tensor, one
+         K1 launch, a CUDA tensor out, bit-equal to ``resize``; device ms
+         per call beside the kernel's;
+       - errdiff_device_720p_to_1080p: ``dither="errdiff-device"``, one K4
+         launch in the sequential scan's sum order, bit-equal to its plain
+         version on the same pre-dither image, beside ``dither="errdiff"``
+         (the wavefront's order) and the pixels where the two differ;
+       - cli_1080p_to_4k: ``python -m avir_tpu_torch.cli``'s ``main`` on a
+         PNG written by the native binding, on the card (the phase fails if
+         the binding does not load), the output PNG decoding to
+         ``resize``'s bits;
   4. times each kernel at its main-path shape with CUDA events (L2
      flushed before every launch) beside its bound and its plain
      version's time, plus the host wall time of a cached resize and its
@@ -159,6 +181,9 @@ KERNEL_CASES = (
     (53, 37, 90, 71, 2, None, "hv"),
     (150, 100, 400, 300, 3, None, "hv"),
     (20, 1200, 500, 50, 1, None, "hv"),
+    # More than 4 channels.
+    (90, 60, 40, 27, 5, None, "vh"),
+    (30, 20, 61, 47, 8, None, "hv"),
 )
 # Slice heights each K1 int8 case also runs at (fused_kernel.py:at_rows),
 # whatever slice_rows picks: vh takes 32, hv also 64 and 128.
@@ -183,6 +208,8 @@ SPLIT_CASES = (
     (96, 80, 70, 101, 1, None, "hv", "split3", "split2", "u8", "u8", 4),
     (1031, 517, 263, 129, 3, None, "vh", "split2", "split3", "u8", "f32", 0),
     (333, 251, 1001, 777, 3, None, "hv", "split3", "split3", "u16", "u16", 0),
+    (90, 60, 40, 27, 5, None, "vh", "split3", "split3", "u16", "u16", 0),
+    (30, 20, 61, 47, 8, None, "hv", "split2", "split3", "u8", "f32", 0),
 )
 WAVEFRONT_CASES = (
     # (h, w, c, trunc_bits, out_max, block_rows)
@@ -195,6 +222,8 @@ WAVEFRONT_CASES = (
     (18, 27, 4, 4, 65535.0, None),
     (77, 64, 3, 4, 65535.0, 10),
     (22, 30, 3, 2, 255.0, 7),
+    (16, 21, 5, 0, 255.0, None),
+    (14, 19, 8, 2, 255.0, None),
 )
 NEW_SHAPES = (
     # (name, src_w, src_h, new_w, new_h, c, in dtype, res_bit_depth, dither)
@@ -2103,6 +2132,302 @@ def _planar_shape(name, sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, k1_key,
     return entries
 
 
+# The public API beyond resize: resize_batch through pinned
+# staging, make_resize_fn on a CUDA tensor, errdiff-device on K4, the CLI.
+API_BATCH_SHAPES = (
+    # (name, src_w, src_h, new_w, new_h, frames, in dtype, res_bit_depth,
+    #  K1 launch key, LancIR frames, into a caller's out=)
+    ("batch_1080p_to_4k", 1920, 1080, 3840, 2160, 8, np.uint8, 8,
+     "fused_int8_hv", 0, False),
+    ("batch_8k_to_1080p", 7680, 4320, 1920, 1080, 4, np.uint8, 8,
+     "fused_int8_vh", 2, False),
+    ("batch_1080p_to_4k_u16_out", 1920, 1080, 3840, 2160, 4, np.uint16, 16,
+     "fused_split_vh", 0, True),
+)
+# PERF.md §5 (measured on one H100): the u16 upsize's d2h into fresh host
+# pages, the figure batch_1080p_to_4k_u16_out's reused pages answer.
+U16_FRESH_D2H_MS = 37.94
+# (name, src_w, src_h, new_w, new_h) of the other API phases.
+DEVICE_FN_SHAPE = ("device_fn_8k_to_1080p", 7680, 4320, 1920, 1080)
+ERRDIFF_DEVICE_SHAPE = ("errdiff_device_720p_to_1080p", 1280, 720, 1920, 1080)
+CLI_SHAPE = ("cli_1080p_to_4k", 1920, 1080, 3840, 2160)
+
+
+def _host_ms(fn, n: int = 3) -> float:
+    """Median host wall ms of fn()."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def _trace(fn) -> dict:
+    """Device timeline of one fn() from torch.profiler: kernels and copies,
+    their busy time, the span from the first device event to the last, the
+    idle share of that span, and the gaps between consecutive kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [
+        e for e in prof.events()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ]
+    if not evs:
+        return {"trace": "not measured: the profiler recorded no device events"}
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in evs)
+    copies = [x for x in spans if "memcpy" in x[2].lower()]
+    kernels = [x for x in spans if "memcpy" not in x[2].lower()
+               and "memset" not in x[2].lower()]
+    busy, cur_s, cur_e = 0.0, None, None
+    for s0, e0, _ in spans:
+        if cur_e is None or s0 > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    gaps = [b[0] - a[1] for a, b in zip(kernels, kernels[1:])]
+    return {
+        "device_span_ms": span / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / span if span else None,
+        "kernels": len(kernels),
+        "kernel_ms": sum(e - s0 for s0, e, _ in kernels) / 1e3,
+        "copies": len(copies),
+        "copy_ms": sum(e - s0 for s0, e, _ in copies) / 1e3,
+        "kernel_gap_ms_mean": (sum(gaps) / len(gaps) / 1e3) if gaps else None,
+        "kernel_gap_ms_max": (max(gaps) / 1e3) if gaps else None,
+    }
+
+
+def _staging_copies(frame: np.ndarray, dev_out: torch.Tensor, flush) -> dict:
+    """Per-frame copies through pinned buffers of the batch staging's
+    shapes (device ms, CUDA events), beside the pageable copies of resize,
+    and the host memcpys into and out of the pinned buffers (host ms)."""
+    pin_in = torch.empty(frame.shape, dtype=torch.from_numpy(frame[:1, :1]).dtype,
+                         pin_memory=True)
+    pin_out = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
+    d_in = torch.empty(frame.shape, dtype=pin_in.dtype, device=dev_out.device)
+    host_out = np.empty(dev_out.shape, dtype=pin_out.numpy().dtype)
+    src_t = torch.from_numpy(frame)
+    return {
+        "h2d_pinned_ms": _time_ms(lambda: d_in.copy_(pin_in, non_blocking=True), 5, flush),
+        "d2h_pinned_ms": _time_ms(lambda: pin_out.copy_(dev_out, non_blocking=True), 5, flush),
+        "h2d_pageable_ms": _time_ms(lambda: src_t.to(dev_out.device), 5, flush),
+        "d2h_pageable_ms": _time_ms(dev_out.cpu, 5, flush),
+        "host_into_pinned_ms": _host_ms(lambda: pin_in.copy_(src_t)),
+        "host_out_of_pinned_ms": _host_ms(
+            lambda: torch.from_numpy(host_out).copy_(pin_out)
+        ),
+    }
+
+
+def _batch_phase(name, sw, sh, nw, nh, n, in_dt, bits, kname, lancir_n,
+                 use_out, gen, dev, flush, smi, mods) -> None:
+    """resize_batch of n frames: each frame bit-equal to resize of that
+    frame, K1 launched once per frame, the wall per frame beside the single
+    resize's, the pinned copies per frame, and the batch's device trace;
+    LancIR.resize_batch of lancir_n frames alike."""
+    import avir_tpu_torch
+    from avir_tpu_torch.utils.benchmarking import wall_ms
+
+    frames = gen.integers(0, np.iinfo(in_dt).max + 1, (n, sh, sw, 3), dtype=in_dt)
+    rz = avir_tpu_torch.ImageResizer(res_bit_depth=bits)
+    rz.resize(frames[0], nw, nh)  # executor built, kernels loaded
+    out = np.empty((n, nh, nw, 3), dtype=in_dt) if use_out else None
+    _zero(mods)
+    t0 = time.perf_counter()
+    got = rz.resize_batch(frames, nw, nh, out=out)
+    first_s = time.perf_counter() - t0
+    counts = _counts(mods)
+    print(json.dumps({"main_path": name, "launches": counts}))
+    if counts[kname] != n or sum(counts.values()) != n:
+        _fail(f"{name}: {kname} was not launched once per frame: {counts}")
+    singles, single_walls = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        singles.append(rz.resize(f, nw, nh))
+        single_walls.append(1e3 * (time.perf_counter() - t0))
+    equal = [bool(np.array_equal(got[i], singles[i])) for i in range(n)]
+    batch_ms = wall_ms(lambda: rz.resize_batch(frames, nw, nh, out=out), n=3)
+    # The same batch into pages already written (the first result): a
+    # result without out= lands in fresh pages the copies fault in.
+    reused_ms = wall_ms(lambda: rz.resize_batch(frames, nw, nh, out=got), n=3)
+    x = torch.from_numpy(frames[0].reshape(sh, -1)).to(dev)
+    y = rz._route(sh, sw, 3, np.dtype(in_dt), nw, nh, device=dev).fn(x)
+    report = {
+        "shape": name, "frames": n, "kernel": kname,
+        "frames_bit_equal_to_resize": f"{sum(equal)}/{n}",
+        "out_is_callers": bool(out is None or got is out),
+        "batch_first_call_s": first_s,
+        "batch_wall_ms_per_frame": batch_ms / n,
+        "batch_into_reused_out_wall_ms_per_frame": reused_ms / n,
+        "single_resize_wall_ms": sorted(single_walls)[n // 2],
+        **_staging_copies(frames[0], y, flush),
+        "batch_trace": _trace(lambda: rz.resize_batch(frames, nw, nh, out=out)),
+        "card": smi,
+    }
+    if use_out:
+        report["d2h_fresh_pages_ref_ms"] = U16_FRESH_D2H_MS
+    ok = all(equal) and report["out_is_callers"]
+    if lancir_n:
+        lz = avir_tpu_torch.LancIR()
+        lf = frames[:lancir_n]
+        lz.resize(lf[0], nw, nh)
+        _zero(mods)
+        lgot = lz.resize_batch(lf, nw, nh)
+        lcounts = _counts(mods)
+        lequal = [bool(np.array_equal(lgot[i], lz.resize(lf[i], nw, nh)))
+                  for i in range(lancir_n)]
+        lms = wall_ms(lambda: lz.resize_batch(lf, nw, nh), n=3)
+        lsingle = _host_ms(lambda: lz.resize(lf[0], nw, nh))
+        report["lancir"] = {
+            "frames": lancir_n, "launches": lcounts,
+            "frames_bit_equal_to_resize": f"{sum(lequal)}/{lancir_n}",
+            "batch_wall_ms_per_frame": lms / lancir_n,
+            "single_resize_wall_ms": lsingle,
+        }
+        ok = ok and all(lequal) and lcounts["fused_int8_vh_even"] == lancir_n \
+            and sum(lcounts.values()) == lancir_n
+    print(json.dumps(report))
+    if not ok:
+        _fail(f"{name}: report {report}")
+
+
+def _device_fn_phase(gen, dev, flush, smi, mods) -> None:
+    """make_resize_fn at 8K -> 1080p u8 RGB on a CUDA tensor: a CUDA tensor
+    out, one K1 launch, resize's bits; ms per call beside the kernel's."""
+    import avir_tpu_torch
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.utils.benchmarking import device_ms, wall_ms
+
+    name, sw, sh, nw, nh = DEVICE_FN_SHAPE
+    src = gen.integers(0, 256, (sh, sw, 3), dtype=np.uint8)
+    fn = avir_tpu_torch.make_resize_fn((sh, sw, 3), np.uint8, nw, nh, flat=True)
+    x = torch.from_numpy(src.reshape(sh, -1)).to(dev)
+    fn(x)
+    torch.cuda.synchronize()
+    _zero(mods)
+    y = fn(x)
+    torch.cuda.synchronize()
+    counts = _counts(mods)
+    print(json.dumps({"main_path": name, "launches": counts}))
+    if counts["fused_int8_vh"] != 1 or sum(counts.values()) != 1:
+        _fail(f"{name}: fused_int8_vh was not launched once: {counts}")
+    want = avir_tpu_torch.resize(src, nw, nh)
+    same = bool(np.array_equal(y.cpu().numpy().reshape(nh, nw, 3), want))
+    ops = fn.run.ops
+    call_ms, breakdown = device_ms(fn, x, n=20)
+    kernel_ms, _ = device_ms(lambda t: fk.apply_fused_int8(ops, t), x, n=20)
+    report = {
+        "shape": name, "output_is_cuda": bool(y.is_cuda), "bit_equal_to_resize": same,
+        "call_device_ms": call_ms, "kernel_device_ms": kernel_ms,
+        "call_host_wall_ms": wall_ms(fn, x, n=10),
+        "kernel_ms_l2_flushed": _time_ms(lambda: fk.apply_fused_int8(ops, x), 20, flush),
+        "profiler_breakdown_ms": breakdown,
+        "card": smi,
+    }
+    print(json.dumps(report))
+    if not (same and y.is_cuda):
+        _fail(f"{name}: report {report}")
+
+
+def _errdiff_device_phase(gen, dev, flush, smi, mods) -> None:
+    """dither="errdiff-device" at 720p -> 1080p u8 RGB: one K4 launch in the
+    sequential scan's sum order, bit-equal to its plain version on the same
+    pre-dither image; beside dither="errdiff" (the wavefront's order) with
+    the pixels where the two differ."""
+    import avir_tpu_torch
+    from avir_tpu_torch.models.runtime import make_avir_executor
+    from avir_tpu_torch.ops.cuda import wavefront as wf
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    name, sw, sh, nw, nh = ERRDIFF_DEVICE_SHAPE
+    src = gen.integers(0, 256, (sh, sw, 3), dtype=np.uint8)
+    rz = avir_tpu_torch.ImageResizer()
+    rz.resize(src, nw, nh, dither="errdiff-device")
+    _zero(mods)
+    got = rz.resize(src, nw, nh, dither="errdiff-device")
+    counts = _counts(mods)
+    print(json.dumps({"main_path": name, "launches": counts}))
+    if counts["wavefront"] != 1:
+        _fail(f"{name}: K4 was not launched once: {counts}")
+    plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8)
+    pre = make_avir_executor(plan, device=dev, return_predither=True)(
+        torch.from_numpy(src.reshape(sh, -1)).to(dev)
+    ).reshape(nh, nw, 3)
+    q = wf.errdiff_wavefront(pre, 0, 255.0, out_dtype=torch.uint8, scan_order=True)
+    plain = wf.errdiff_wavefront_reference(pre, 0, 255.0, scan_order=True).to(torch.uint8)
+    torch.cuda.synchronize()
+    k4_equal = bool(torch.equal(q, plain))
+    same = bool(np.array_equal(q.cpu().numpy(), got))
+    wav = rz.resize(src, nw, nh, dither="errdiff")
+    diff = np.abs(got.astype(np.int16) - wav.astype(np.int16))
+    report = {
+        "shape": name, "k4_scan_order_bit_equal_to_plain": k4_equal,
+        "resize_equals_k4": same,
+        "pixels_differing_from_errdiff": int((diff > 0).sum()),
+        "max_diff_from_errdiff": int(diff.max()),
+        "k4_scan_order_ms": _time_ms(
+            lambda: wf.errdiff_wavefront(pre, 0, 255.0, out_dtype=torch.uint8,
+                                         scan_order=True), 10, flush),
+        "k4_wavefront_order_ms": _time_ms(
+            lambda: wf.errdiff_wavefront(pre, 0, 255.0, out_dtype=torch.uint8),
+            10, flush),
+        "resize_wall_ms": _host_ms(
+            lambda: rz.resize(src, nw, nh, dither="errdiff-device"), 5),
+        "card": smi,
+    }
+    print(json.dumps(report))
+    if not (k4_equal and same and diff.max() <= 1):
+        _fail(f"{name}: report {report}")
+
+
+def _cli_phase(gen, smi, mods) -> None:
+    """The CLI on the card: a 1080p PNG written by the native binding,
+    resized to 4K; the output PNG decodes to resize's bits."""
+    import pathlib
+
+    import avir_tpu_torch
+    from avir_tpu_torch import cli, native
+
+    name, sw, sh, nw, nh = CLI_SHAPE
+    if not native.have_native():
+        _fail(f"{name}: the native binding did not load (and could not be built)")
+    d = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    d.mkdir(parents=True, exist_ok=True)
+    src = gen.integers(0, 256, (sh, sw, 3), dtype=np.uint8)
+    inp, outp = d / "in.png", d / "out.png"
+    t0 = time.perf_counter()
+    inp.write_bytes(native.png_encode(src))
+    encode_s = time.perf_counter() - t0
+    _zero(mods)
+    t0 = time.perf_counter()
+    rc = cli.main([str(inp), str(outp), f"--out-size={nw}x{nh}"])
+    cli_s = time.perf_counter() - t0
+    counts = _counts(mods)
+    print(json.dumps({"main_path": name, "launches": counts}))
+    if rc != 0 or counts["fused_int8_hv"] != 1 or sum(counts.values()) != 1:
+        _fail(f"{name}: rc {rc}, launches {counts}")
+    dec = native.png_decode(outp.read_bytes())
+    same = bool(np.array_equal(dec, avir_tpu_torch.resize(src, nw, nh)))
+    report = {
+        "shape": name, "decoded_equals_resize": same,
+        "native_library": str(native.library_path().relative_to(d.parents[1])),
+        "png_encode_s": encode_s, "cli_call_s": cli_s, "card": smi,
+    }
+    print(json.dumps(report))
+    if not same:
+        _fail(f"{name}: report {report}")
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2282,16 +2607,21 @@ def main() -> int:
         img = torch.from_numpy(
             (gen.random((h, w, c)) * om).astype(np.float32)
         ).to(dev)
-        got = wf.errdiff_wavefront(img, tb, om, block_rows=rows)
-        torch.cuda.synchronize()
-        want = wf.errdiff_wavefront_reference(img, tb, om, block_rows=rows)
-        err = float((got - want).abs().max())
-        case = f"wavefront {h}x{w}x{c} tb={tb} max={om} rows={rows}"
-        print(json.dumps({"case": case, "max_abs_err": err}))
-        # Bit-equal expected everywhere (same float32 operations in the
-        # same order); the gate is the reference's own engine tolerance.
-        if not err <= (0.0 if tb == 0 else om / (int(om) >> tb)):
-            _fail(f"wavefront kernel != plain on {case}")
+        # Both sum orders: the wavefront's and the sequential scan's
+        # (dither="errdiff-device").
+        for scan in (False, True):
+            got = wf.errdiff_wavefront(img, tb, om, block_rows=rows, scan_order=scan)
+            torch.cuda.synchronize()
+            want = wf.errdiff_wavefront_reference(
+                img, tb, om, block_rows=rows, scan_order=scan
+            )
+            err = float((got - want).abs().max())
+            case = f"wavefront {h}x{w}x{c} tb={tb} max={om} rows={rows} scan={scan}"
+            print(json.dumps({"case": case, "max_abs_err": err}))
+            # Bit-equal expected everywhere (same float32 operations in the
+            # same order); the gate is the reference's own engine tolerance.
+            if not err <= (0.0 if tb == 0 else om / (int(om) >> tb)):
+                _fail(f"wavefront kernel != plain on {case}")
 
     _epi_cases(gen, dev)
     _unfused_cases(gen, dev)
@@ -2413,6 +2743,11 @@ def main() -> int:
     for shapes, drive in ((RING_SHAPES, _ring_shape), (PLANAR_SHAPES, _planar_shape)):
         for shape in shapes:
             add(drive(*shape, gen, dev, flush, smi, mods))
+    for shape in API_BATCH_SHAPES:
+        _batch_phase(*shape, gen, dev, flush, smi, mods)
+    _device_fn_phase(gen, dev, flush, smi, mods)
+    _errdiff_device_phase(gen, dev, flush, smi, mods)
+    _cli_phase(gen, smi, mods)
     missing = sorted(set(KERNELS) - seen)
     if missing:
         _fail(f"kernels without an entry: {missing}")

@@ -394,3 +394,153 @@ def test_planar_kernels_match_plain_on_card(name, cuda_device):
         assert got.shape == want.shape == ops.out_shape
         diff = (got.double() - want.double()).abs().max().item()
         assert diff <= split_tol(tout, want.double().abs().max().item(), out_max, tb, 1.0, g)
+
+
+# ---------------------------------------------------------------------------
+# The public API beyond resize: batch staging, device functions,
+# errdiff-device (K4 in the sequential scan's sum order), lane subsets
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", [False, True])
+@pytest.mark.parametrize("h, w, c, tb, om", WAVEFRONT_CASES)
+def test_wavefront_sum_orders_match_plain_on_card(h, w, c, tb, om, scan, cuda_device):
+    img = torch.from_numpy(float_image(h, w, c, om, h * 3 + w)).to(cuda_device)
+    for rows in (None, 3):
+        got = wf.errdiff_wavefront(img, tb, om, block_rows=rows, scan_order=scan)
+        torch.cuda.synchronize()
+        want = wf.errdiff_wavefront_reference(
+            img, tb, om, block_rows=rows, scan_order=scan
+        )
+        assert torch.equal(got, want)
+
+
+def _frames(n, h, w, c, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == np.float32:
+        return rng.random((n, h, w, c), dtype=np.float32)
+    return rng.integers(0, np.iinfo(dtype).max + 1, (n, h, w, c), dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kw, dtype, c",
+    [
+        ({}, np.uint8, 3),
+        ({"res_bit_depth": 16}, np.uint16, 3),
+        ({"dither": "errdiff"}, np.uint8, 4),
+        ({"out_dtype": np.float32}, np.float32, 5),
+    ],
+)
+def test_resize_batch_equals_single_resizes_on_card(kw, dtype, c, cuda_device):
+    """Each frame of resize_batch is resize of that frame, bit for bit; the
+    kernels launch once per frame; the pinned staging buffers of the first
+    call are the ones of the second."""
+    import avir_tpu_torch
+
+    frames = _frames(5, 67, 93, c, dtype, c)
+    kw = dict(kw)
+    rz = avir_tpu_torch.ImageResizer(res_bit_depth=kw.pop("res_bit_depth", 8))
+    singles = np.stack([rz.resize(f, 61, 41, **kw) for f in frames])
+    got = rz.resize_batch(frames, 61, 41, **kw)
+    np.testing.assert_array_equal(got, singles)
+    runner = rz._cache.get_or_build(
+        ("batch",) + rz._route(67, 93, c, np.dtype(dtype), 61, 41, **kw).key,
+        lambda: None,
+    )
+    ptrs = [t.data_ptr() for ts in runner.staging.values() for t in ts]
+    assert all(t.is_pinned() for t in runner.staging["in_host"] + runner.staging["out_host"])
+    out = np.empty_like(singles)
+    assert rz.resize_batch(frames[::-1], 61, 41, out=out, **kw) is out
+    np.testing.assert_array_equal(out, singles[::-1])
+    assert [t.data_ptr() for ts in runner.staging.values() for t in ts] == ptrs
+
+
+@pytest.mark.cuda
+def test_lancir_resize_batch_on_card(cuda_device):
+    import avir_tpu_torch
+
+    frames = _frames(3, 80, 120, 3, np.uint8, 9)
+    lz = avir_tpu_torch.LancIR()
+    got = lz.resize_batch(frames, 50, 30)
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], lz.resize(frames[i], 50, 30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [False, True])
+def test_make_resize_fn_on_card(flat, cuda_device):
+    """A function on CUDA tensors: no host synchronisation (sync debug mode
+    "error"), one K1 launch, a CUDA tensor out, resize's bits."""
+    import avir_tpu_torch
+
+    src = _frames(1, 90, 120, 3, np.uint8, 2)[0]
+    fn = avir_tpu_torch.make_resize_fn((90, 120, 3), np.uint8, 50, 40, flat=flat)
+    x = torch.from_numpy(src.reshape(90, -1) if flat else src).to(cuda_device)
+    fn(x)  # the kernel's library loads on the first call
+    torch.cuda.synchronize()
+    before = dict(fk.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = fn(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert y.is_cuda
+    assert sum(fk.launches.values()) - sum(before.values()) == 1
+    want = avir_tpu_torch.resize(src, 50, 40)
+    np.testing.assert_array_equal(y.cpu().numpy().reshape(want.shape), want)
+
+
+@pytest.mark.cuda
+def test_make_lancir_resize_fn_on_card(cuda_device):
+    import avir_tpu_torch
+
+    src = _frames(1, 90, 120, 3, np.uint8, 3)[0]
+    fn = avir_tpu_torch.make_lancir_resize_fn((90, 120, 3), np.uint8, 50, 40)
+    y = fn(torch.from_numpy(src).to(cuda_device))
+    assert y.is_cuda
+    np.testing.assert_array_equal(y.cpu().numpy(), avir_tpu_torch.lancir_resize(src, 50, 40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, bits", [(np.uint8, 8), (np.uint16, 16)])
+def test_errdiff_device_runs_k4_once_on_card(dtype, bits, cuda_device):
+    """dither="errdiff-device" launches K4 once, in the sequential scan's
+    sum order: bit-equal to the plain version of that order on the same
+    pre-dither image, within one step of dither="errdiff"."""
+    import avir_tpu_torch
+
+    src = _frames(1, 60, 80, 3, dtype, 4)[0]
+    rz = avir_tpu_torch.ImageResizer(res_bit_depth=bits)
+    rz.resize(src, 96, 72, dither="errdiff-device")
+    before = wf.launches["wavefront"]
+    got = rz.resize(src, 96, 72, dither="errdiff-device")
+    assert wf.launches["wavefront"] == before + 1
+    pre = rz._route(60, 80, 3, np.dtype(dtype), 96, 72, dither=lambda *a: a[0]).fn(
+        torch.from_numpy(src.reshape(60, -1)).to(cuda_device)
+    )
+    om = 255.0 if dtype == np.uint8 else 65535.0
+    want = wf.errdiff_wavefront_reference(
+        pre.reshape(72, 96, 3), 0, om, scan_order=True
+    ).cpu().numpy()
+    np.testing.assert_array_equal(got, want.astype(dtype))
+    other = rz.resize(src, 96, 72, dither="errdiff")
+    assert np.abs(got.astype(np.int64) - other.astype(np.int64)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_lane_subset_operator_on_card(cuda_device):
+    """A zoom whose windows end before the image does (85x60 -> 19x88 at
+    k=0.2836, float in, u16 out): the card within the split gate of the
+    plain version."""
+    import avir_tpu_torch
+
+    src = np.random.default_rng(8).random((60, 85, 2), dtype=np.float32)
+    kw = dict(k=0.2836, ox=0.711, oy=-1.365, out_dtype=np.uint16)
+    rz = avir_tpu_torch.ImageResizer(
+        res_bit_depth=16, params=avir_tpu_torch.preset("high")
+    )
+    got = rz.resize(src, 19, 88, **kw)
+    want = rz.resize(src, 19, 88, device="cpu", **kw)
+    assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= 1

@@ -33,3 +33,25 @@ def test_no_file_imports_jax_or_the_jax_package():
     for path in files:
         bad = _FORBIDDEN.findall(path.read_text())
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_api_modules_load_no_jax():
+    """The modules of the public API beyond resize (batch staging, native
+    binding, plan cache, timing helpers, metrology, CLI) load neither JAX
+    nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import avir_tpu_torch.cli, avir_tpu_torch.metrology\n"
+        "import avir_tpu_torch.native, avir_tpu_torch.plan.cache\n"
+        "import avir_tpu_torch.utils.benchmarking, avir_tpu_torch.models.batch\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'avir_tpu' or "
+        "m.startswith('avir_tpu.'))\n"
+        "print(','.join(bad))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == ""

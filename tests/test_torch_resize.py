@@ -167,11 +167,20 @@ def test_resize_grayscale_2d():
     ],
 )
 def test_unsupported_configs_raise(kwargs, src_dtype, c):
-    """What the port does not carry yet raises, gamma or not (sRGB gamma
-    itself runs: tests/test_torch_gamma.py)."""
-    src = np.zeros((20, 30, c), dtype=src_dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        avir_tpu_torch.resize(src, 15, 10, device="cpu", **kwargs)
+    """The configurations that raised NotImplementedError until the rest of
+    the public API was ported now run, gamma or not, and agree with the
+    JAX package: the float64 host route to its bits (float: 5e-7), the
+    device routes within 1 LSB (2 with error diffusion).  Unknown spellings
+    still raise ValueError (tests/test_torch_api.py)."""
+    src = xorshift128_fill((20, 30, c), src_dtype, 3)
+    out = avir_tpu_torch.resize(src, 15, 10, device="cpu", **kwargs)
+    ref = avir_tpu.resize(src, 15, 10, **kwargs)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    diff = np.abs(out.astype(np.float64) - ref.astype(np.float64)).max()
+    if kwargs.get("precision") == "f64" or kwargs.get("engine") == "host":
+        assert diff <= (5e-7 if out.dtype.kind == "f" else 0)
+    else:
+        assert diff <= (2 if kwargs.get("dither") == "errdiff-device" else 1)
 
 
 def test_int8_infeasible_operator_raises(monkeypatch):

@@ -31,6 +31,11 @@ FUSED_CASES = {
     "edge_up_c2": (53, 37, 90, 71, 2, None),
     "edge_up128_c3": (150, 100, 400, 300, 3, None),
     "edge_hv_windows_c1": (20, 1200, 500, 50, 1, None),
+    # More than 4 channels: the lane operators carry C in their lanes.
+    "c5_down": (90, 60, 40, 27, 5, None),
+    "c5_up": (33, 21, 70, 45, 5, None),
+    "c8_down": (100, 70, 45, 31, 8, None),
+    "c8_up": (30, 20, 61, 47, 8, None),
 }
 
 # K1 split-bf16: (src_w, src_h, new_w, new_h, c, lane tile or None,
@@ -66,6 +71,11 @@ SPLIT_CASES = {
     "vh_edge_tb4_u16_u16": (150, 120, 90, 70, 3, None, "vh", "split3", "split3", "u16", "u16", 4),
     "vh_edge_down5_u8_u8": (1031, 517, 200, 97, 3, None, "vh", "split2", "split3", "u8", "u8", 0),
     "vh_edge_up_c2_f32_f32": (45, 31, 97, 70, 2, None, "vh", "split3", "split3", "f32", "f32", 0),
+    # More than 4 channels.
+    "c5_down_u16_u16": (90, 60, 40, 27, 5, None, "vh", "split3", "split3", "u16", "u16", 0),
+    "c5_up_vh_f32_u8_tb2": (33, 21, 70, 45, 5, None, "vh", "split3", "split3", "f32", "u8", 2),
+    "c8_up_u8_f32": (30, 20, 61, 47, 8, None, "hv", "split2", "split3", "u8", "f32", 0),
+    "c8_down_u8_u8": (100, 70, 45, 31, 8, None, "vh", "split2", "split3", "u8", "u8", 0),
 }
 
 # K1 int8 epilogue variants: (src_w, src_h, new_w, new_h, c, lane tile
@@ -165,6 +175,7 @@ BANDED_CASES = {
     "down_c3_u8_exact": (150, 97, 61, 40, 3, "u8", "exact"),
     "up_c4_u8_exact": (40, 30, 64, 101, 4, "f32", "exact"),
     "down_c1_u16_split2": (150, 97, 61, 40, 1, "u16", "split2"),
+    "down_c8_u8_split3": (150, 97, 61, 40, 8, "u8", "split3"),
 }
 
 # K3 (lane pass) on the card: the same fields; the pass runs over the
@@ -176,6 +187,8 @@ LANES_CASES = {
     "down_c3_f32_split2": (150, 97, 61, 40, 3, "f32", "split2"),
     "down_c4_u8_split3": (150, 97, 61, 40, 4, "u8", "split3"),
     "up_c3_wide_f32_split3": (300, 20, 1400, 41, 3, "f32", "split3"),
+    "up_c5_u8_split3": (53, 37, 90, 71, 5, "u8", "split3"),
+    "down_c8_f32_split2": (150, 97, 61, 40, 8, "f32", "split2"),
 }
 
 # K4: (h, w, c, trunc_bits, out_max)
@@ -187,6 +200,8 @@ WAVEFRONT_CASES = [
     (19, 31, 1, 0, 65535.0),
     (22, 30, 3, 2, 255.0),
     (18, 27, 4, 4, 65535.0),
+    (16, 21, 5, 0, 255.0),
+    (14, 19, 8, 2, 255.0),
 ]
 
 # K4 at the kernel's row-group sizes: (h, w, c, trunc_bits, out_max, out
