@@ -106,6 +106,27 @@ Phases (any failure exits non-zero before the last line):
          PNG written by the native binding, on the card (the phase fails if
          the binding does not load), the output PNG decoding to
          ``resize``'s bits;
+  3c. drives the row-strip mesh (``avir_tpu_torch.parallel``, MESH_CASES):
+     world A, four gloo processes time-sharing the one card
+     (``torch.multiprocessing.spawn``, a free port, a rendezvous timeout,
+     a join limit): 8K -> 1080p over sp 4 (K1 int8 vh per rank), 4 frames
+     of 1080p -> 4K over dp 2 x sp 2 (int8 vh per strip), 720p -> 1080p
+     errdiff over sp 4 (K1 split vh, one all-gather, K4 on every rank),
+     LANCIR 8K -> 1080p (int8 vh even), 640x16 -> 320x5 (the all-gather
+     fallback on ``torch.bmm``) and 8K -> 1080p with ``halo_overlap``
+     (border, interior and border launches, bit-equal to the first case);
+     then world B, NCCL with one process on 8K -> 1080p, and with
+     min(cards, 4) processes where there are two cards or more.  Every
+     rank sets the launch counts to 0 just before its executor call and
+     reads them just after, holds each K1 launch of its strip to the plain
+     version (int8 bit-equal, split within the split gate), and prints its
+     strip kernel ms, halo ms and bytes and gather ms and bytes; rank 0
+     holds the assembled image within 1 LSB of the single-card ``resize``
+     (with the count of differing pixels) and, at 8K, within 1 LSB and
+     >= 60 dB of the float64 oracle.  A worker's failure fails the script.
+     Then the per-launch overhead of K1 and the scaling model's table
+     (``parallel/scaling_model.py``: data-sheet links, this run's K1 time;
+     a model, not a measurement);
   4. times each kernel at its main-path shape with CUDA events (L2
      flushed before every launch) beside its bound and its plain
      version's time, plus the host wall time of a cached resize and its
@@ -128,6 +149,7 @@ compared in turns within one chip call.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -2428,6 +2450,321 @@ def _cli_phase(gen, smi, mods) -> None:
         _fail(f"{name}: report {report}")
 
 
+# ---- the row-strip mesh (avir_tpu_torch/parallel/) ----------------------
+
+MESH_CASES = (
+    # (name, entry, src_w, src_h, new_w, new_h, frames, dp, sp, executor
+    #  kwargs, the K1 launch key of each strip (None: the library route),
+    #  the case whose assembled bits it must equal)
+    ("mesh_8k_to_1080p_sp4", "avir", 7680, 4320, 1920, 1080, 0, 1, 4, {},
+     "fused_int8_vh", None),
+    ("mesh_1080p_to_4k_dp2_sp2", "avir", 1920, 1080, 3840, 2160, 4, 2, 2, {},
+     "fused_int8_vh", None),
+    ("mesh_720p_to_1080p_errdiff_sp4", "avir", 1280, 720, 1920, 1080, 0, 1, 4,
+     {"dither": "errdiff"}, "fused_split_vh", None),
+    ("mesh_lancir_8k_to_1080p_sp4", "lancir", 7680, 4320, 1920, 1080, 0, 1, 4,
+     {}, "fused_int8_vh_even", None),
+    # An extreme downsize on small strips: the all-gather fallback (the
+    # library route), with a rank that owns only padding rows.
+    ("mesh_all_gather_sp4", "avir", 640, 16, 320, 5, 0, 1, 4, {}, None, None),
+    ("mesh_8k_to_1080p_sp4_overlap", "avir", 7680, 4320, 1920, 1080, 0, 1, 4,
+     {"halo_overlap": True}, "fused_int8_vh", "mesh_8k_to_1080p_sp4"),
+)
+MESH_WORLD = 4          # gloo processes sharing the one card
+MESH_JOIN_S = 600       # the most a world may take before it is killed
+MESH_INIT_S = 120       # rendezvous and collective timeout
+MESH_TIMED = 10         # launches / exchanges per timing
+
+
+def _mesh_src_file(root, case):
+    return root / f"{case[0]}_src.npy"
+
+
+def _mesh_inputs(root, cases, gen, main_src, main_oracle) -> None:
+    """The mesh cases' inputs ([frames, H, W*3] or [H, W*3] u8), the port's
+    single-card result of each (the public entry points on the card) and,
+    for the 8K case, the float64 oracle of the main path's 8K image."""
+    import avir_tpu_torch
+
+    root.mkdir(parents=True, exist_ok=True)
+    for case in cases:
+        name, entry, sw, sh, nw, nh, frames = case[:7]
+        shape = ((frames,) if frames else ()) + (sh, sw, 3)
+        if (sw, sh, frames) == (7680, 4320, 0):
+            src = main_src
+        else:
+            src = gen.integers(0, 256, shape, dtype=np.uint8)
+        np.save(_mesh_src_file(root, case), src.reshape(*shape[:-3], sh, sw * 3))
+        kw = case[9]
+        one = (
+            (lambda im: avir_tpu_torch.resize(im, nw, nh, dither=kw.get("dither", "default")))
+            if entry == "avir" else (lambda im: avir_tpu_torch.lancir_resize(im, nw, nh))
+        )
+        single = np.stack([one(im) for im in src]) if frames else one(src)
+        np.save(root / f"{name}_single.npy", single.reshape(*single.shape[:-3], nh, nw * 3))
+    np.save(root / "mesh_8k_to_1080p_sp4_oracle.npy", main_oracle.reshape(len(main_oracle), -1))
+
+
+def _mesh_case(case, mesh, root, backend: str, world: int, done: dict) -> None:
+    """One case on one rank: drive the executor with the launch counts set
+    to 0 just before and read just after; hold each K1 launch of the
+    rank's strip body to its plain version; time the strip's kernels, the
+    halo exchange and the executor's own gather; and on rank 0 check the
+    assembled image."""
+    import torch.distributed as dist
+
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.cuda import wavefront as wf
+    from avir_tpu_torch.parallel import comm, sharded
+    from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    name, entry, sw, sh, nw, nh, frames, _, sp, kw, key, twin = case
+    mods = (fk, fs, wf)
+    rank = dist.get_rank()
+    build = build_resize_plan if entry == "avir" else build_lancir_plan
+    plan = build(sw, sh, nw, nh, 3, np.uint8, np.uint8)
+    make = (
+        sharded.make_sharded_avir_executor if entry == "avir"
+        else sharded.make_sharded_lancir_executor
+    )
+    fn = make(plan, mesh, **kw)
+    flat = sharded.pad_rows(np.load(_mesh_src_file(root, case), mmap_mode="r"), sp)
+    x = torch.from_numpy(np.array(sharded.local_strip(mesh, flat))).to(mesh.device)
+    torch.cuda.synchronize()
+    dist.barrier()
+    _zero(mods)
+    t0 = time.perf_counter()
+    y = fn(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {k: v for k, v in _counts(mods).items() if v}
+    n_local = frames // mesh.dp if frames else 1
+    want = {}
+    if key is not None:
+        want[key] = n_local * len(fn.strip.parts)
+    if "dither" in kw:
+        want["wavefront"] = n_local
+    if counts != want:
+        raise RuntimeError(f"{name} rank {rank}: launches {counts}, expected {want}")
+    sv = fn.svop
+    report = {
+        "mesh_case": name, "backend": backend, "world": world, "rank": rank,
+        "route": fn.route, "launches": counts, "strip_rows": sv.strip,
+        "halo_lo": sv.halo_lo, "halo_hi": sv.halo_hi, "first_call_s": first_s,
+    }
+    # As the main path flushes: the 256 MB zeroing also covers the host's
+    # launch preparation, which would otherwise sit inside the events.
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=mesh.device)
+    if fn.strip is not None:
+        # The rank's first frame, its halos cut from the whole input.
+        frame = torch.from_numpy(np.array(flat[mesh.dp_index * n_local] if frames else flat))
+        xf = frame[mesh.sp_index * sv.strip : (mesh.sp_index + 1) * sv.strip].to(mesh.device)
+        h_lo, h_hi = (h.to(mesh.device) for h in sharded.halo_rows(frame, sv, mesh.sp_index))
+        ext = fn.strip.ext(xf, h_lo, h_hi)
+        errs = []
+        for ops, on_ext in fn.strip.parts:
+            inp = ext if on_ext else xf
+            if fn.route == "int8":
+                got, plain = fk.apply_fused_int8(ops, inp), fk.apply_fused_int8_reference(ops, inp)
+                err, tol = int((got.int() - plain.int()).abs().max()), 0
+            else:
+                got, plain = fs.apply_fused_split(ops, inp), fs.apply_fused_split_reference(ops, inp)
+                err = float((got.double() - plain.double()).abs().max())
+                tol = float(plain.abs().max()) * 1e-4 if got.dtype == torch.float32 else 1.0
+            if not err <= tol:
+                raise RuntimeError(f"{name} rank {rank}: strip kernel vs plain {err} > {tol}")
+            errs.append(err)
+        dist.barrier()
+        report["max_abs_err_vs_plain"] = max(errs)
+        report["strip_kernel_ms"] = _time_ms(
+            lambda: [sharded._k1(ops, ext if on_ext else xf) for ops, on_ext in fn.strip.parts],
+            MESH_TIMED, flush,
+        )
+        report["ext_rows"] = fn.strip.ext_rows
+    # The halo exchange on this rank's strips (all its frames), and the
+    # executor's own gather: the pre-dither float32 rows for errdiff, the
+    # H-passed float32 strip for the all-gather fallback.
+    if not sv.use_all_gather:
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED):
+            h_lo, h_hi = comm.exchange_halos(x, sv, mesh.sp_group)
+        torch.cuda.synchronize()
+        report["halo_ms"] = 1e3 * (time.perf_counter() - t0) / MESH_TIMED
+        report["halo_bytes_received"] = (h_lo.numel() + h_hi.numel()) * x.element_size()
+    gathered = None
+    if "dither" in kw:
+        gathered = torch.zeros((n_local, sv.m, nw * 3), dtype=torch.float32, device=mesh.device)
+    elif sv.use_all_gather:
+        gathered = torch.zeros((sv.strip, nw * 3), dtype=torch.float32, device=mesh.device)
+    if gathered is not None:
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(MESH_TIMED):
+            comm.all_gather_rows(gathered, mesh.sp_group)
+        torch.cuda.synchronize()
+        report["gather_ms"] = 1e3 * (time.perf_counter() - t0) / MESH_TIMED
+        report["gather_bytes_sent"] = gathered.numel() * 4
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn(x)
+    torch.cuda.synchronize()
+    report["step_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+    full = sharded.assemble(mesh, y, nh)
+    if rank == 0:
+        got = full.cpu().numpy()
+        single = np.load(root / f"{name}_single.npy")
+        diff = np.abs(got.astype(np.int16) - single.astype(np.int16))
+        report["shape"] = list(got.shape)
+        report["max_lsb_vs_single_card"] = int(diff.max())
+        report["pixels_differing_from_single_card"] = int(
+            diff.reshape(*diff.shape[:-1], -1, 3).any(axis=-1).sum()
+        )
+        report["pixels"] = int(np.prod(got.shape) // 3)
+        ok = got.shape == single.shape and diff.max() <= 1
+        oracle = root / f"{name}_oracle.npy"
+        if oracle.exists():
+            o = np.load(oracle)
+            report["max_lsb_vs_f64_oracle"] = int(np.abs(got.astype(np.int16) - o.astype(np.int16)).max())
+            report["psnr_vs_f64_oracle_db"] = _psnr(got, o)
+            ok = ok and report["max_lsb_vs_f64_oracle"] <= 1 and report["psnr_vs_f64_oracle_db"] >= 60.0
+        if twin is not None:
+            report["bit_equal_to"] = {twin: bool(np.array_equal(got, done[twin]))}
+            ok = ok and report["bit_equal_to"][twin]
+        done[name] = got
+        if not ok:
+            raise RuntimeError(f"{name}: assembled image failed its checks: {report}")
+    print(json.dumps(report), flush=True)
+
+
+def _mesh_worker(rank: int, world: int, backend: str, init: str, cases, root: str) -> None:
+    """One rank of a mesh world (torch.multiprocessing.spawn's target):
+    gloo ranks share card 0, NCCL ranks take one card each."""
+    import datetime
+    import pathlib
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0 if backend == "gloo" else rank % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from avir_tpu_torch.parallel import multihost
+
+    multihost.initialize(
+        backend, init_method=init, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=MESH_INIT_S),
+    )
+    try:
+        meshes, done = {}, {}
+        for case in cases:
+            dp, sp = case[7], case[8]
+            if (dp, sp) not in meshes:
+                # device=None: the mesh's default, cuda:(local rank % cards).
+                meshes[dp, sp] = multihost.make_dp_sp_mesh(sp=sp)
+            _mesh_case(case, meshes[dp, sp], pathlib.Path(root), backend, world, done)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_world(backend: str, world: int, cases, root) -> float:
+    """Run ``cases`` on a world of ``world`` spawned processes; a worker's
+    failure (or the time limit) fails the script.  Returns seconds."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.spawn(
+        _mesh_worker,
+        args=(world, backend, f"tcp://127.0.0.1:{_free_port()}", cases, str(root)),
+        nprocs=world, join=False,
+    )
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > MESH_JOIN_S:
+            for p in ctx.processes:
+                p.kill()
+            _fail(f"mesh world ({backend} x {world}) exceeded {MESH_JOIN_S} s")
+    return time.perf_counter() - t0
+
+
+def _launch_overhead_us(dev) -> float:
+    """Device us per K1 int8 launch on a tiny strip (64x32 -> 32x16 u8
+    RGB), CUDA events around 200 back-to-back launches: the per-launch
+    overhead the scaling model's T_DISPATCH stands for."""
+    from avir_tpu_torch.models.runtime import make_avir_executor
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    ops = make_avir_executor(build_resize_plan(64, 32, 32, 16, 3, np.uint8, np.uint8), device=dev).ops
+    x = torch.zeros((32, 64 * 3), dtype=torch.uint8, device=dev)
+    for _ in range(10):
+        fk.apply_fused_int8(ops, x)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(200):
+        fk.apply_fused_int8(ops, x)
+    e1.record()
+    e1.synchronize()
+    return 1e3 * e0.elapsed_time(e1) / 200
+
+
+def _mesh_phase(gen, dev, smi, main_src, main_oracle, t_chip_ms: float) -> None:
+    """The row-strip mesh: world A, 4 gloo processes time-sharing the one
+    card (every case); world B, NCCL with one process (the 8K case), and
+    with two cards or more NCCL over min(cards, 4) processes (the 8K case
+    and, on four, the dp x sp batch).  Then the launch overhead and the
+    scaling model's table (a model: data-sheet links, this run's K1 time)."""
+    import pathlib
+
+    from avir_tpu_torch.parallel import scaling_model
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+    t0 = time.perf_counter()
+    _mesh_inputs(root, MESH_CASES, gen, main_src, main_oracle)
+    prep_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    worlds = {"gloo x4": _mesh_world("gloo", MESH_WORLD, MESH_CASES, root)}
+    (case_a,) = [c for c in MESH_CASES if c[0] == "mesh_8k_to_1080p_sp4"]
+    one = case_a[:8] + (1,) + case_a[9:]
+    worlds["nccl x1"] = _mesh_world("nccl", 1, (one,), root)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = min(cards, 4)
+        cases = [case_a[:8] + (n,) + case_a[9:]]
+        if n == 4:
+            cases += [c for c in MESH_CASES if c[0] == "mesh_1080p_to_4k_dp2_sp2"]
+        worlds[f"nccl x{n}"] = _mesh_world("nccl", n, tuple(cases), root)
+    overhead = _launch_overhead_us(dev)
+    plan = build_resize_plan(7680, 4320, 1920, 1080, 3, np.uint8, np.uint8)
+    pts = scaling_model.model_scaling(
+        plan, t_chip_ms * 1e-3, n_devs=(2, 4, 8), t_dispatch=overhead * 1e-6
+    )
+    print(scaling_model.format_table(pts))
+    print(json.dumps({
+        "mesh_phase": {"inputs_s": prep_s, "worlds_s": worlds},
+        "launch_overhead_us": overhead,
+        "scaling_model_8k_to_1080p": {
+            "note": "a model: NVLink 4 data-sheet links, this run's whole-image K1 ms",
+            "t_chip_ms": t_chip_ms,
+            "points": [dataclasses.asdict(p) for p in pts],
+        },
+        "card": smi,
+        "label": "world A: four processes time-share one card and gloo copies "
+                 "halos through the host; not a scaling figure",
+    }))
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2706,6 +3043,8 @@ def main() -> int:
         )
         heights = _height_sweep(ops, x, got, flush)
         ok = ok and all(h["bit_equal"] for h in heights.values())
+        if name == "8k_to_1080p":
+            mesh_in = (src, oracle, ms)  # the mesh phase's 8K image
         print(json.dumps({
             "shape": name, "kernel": kname, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
@@ -2748,6 +3087,7 @@ def main() -> int:
     _device_fn_phase(gen, dev, flush, smi, mods)
     _errdiff_device_phase(gen, dev, flush, smi, mods)
     _cli_phase(gen, smi, mods)
+    _mesh_phase(gen, dev, smi, *mesh_in)
     missing = sorted(set(KERNELS) - seen)
     if missing:
         _fail(f"kernels without an entry: {missing}")

@@ -544,3 +544,52 @@ def test_lane_subset_operator_on_card(cuda_device):
     got = rz.resize(src, 19, 88, **kw)
     want = rz.resize(src, 19, 88, device="cpu", **kw)
     assert np.abs(got.astype(np.int64) - want.astype(np.int64)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["int8", "split", "int8_overlap"])
+@pytest.mark.parametrize("d", range(4))
+def test_sharded_strip_kernels_match_plain_on_card(route, d, cuda_device):
+    """Rank d's strip of a 4-rank row mesh (parallel/sharded.py) on the
+    card: each K1 launch of its strip body (K1 int8 vh, or split vh at
+    precision="fast"; with halo_overlap the border, interior and border
+    launches) against its plain version on the same ext buffer or strip,
+    int8 bit-equal, split within 1 LSB; and the strip's rows the same on
+    the card as on the CPU (split: within 1 LSB)."""
+    from avir_tpu_torch.parallel import sharded
+    from avir_tpu_torch.parallel.multihost import DpSpMesh
+
+    sw, sh, nw, nh = (32, 1536, 16, 768) if route == "int8_overlap" else (96, 256, 64, 160)
+    plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8)
+    kw = dict(
+        int8={}, split=dict(precision="fast"),
+        int8_overlap=dict(pallas_tile=64, halo_overlap=True),
+    )[route]
+    fns = {
+        dev: sharded.make_sharded_avir_executor(
+            plan, DpSpMesh(1, 4, 0, d, None, None, torch.device(dev)), **kw
+        )
+        for dev in (cuda_device, "cpu")
+    }
+    fn = fns[cuda_device]
+    assert fn.route == route.split("_")[0]
+    flat = torch.from_numpy(
+        np.random.default_rng(10 + d).integers(0, 256, (sh, sw * 3), dtype=np.uint8)
+    )
+    sv = fn.svop
+    x = flat[d * sv.strip : (d + 1) * sv.strip].contiguous()
+    halos = sharded.halo_rows(flat, sv, d)
+    ext = fn.strip.ext(x, *halos)
+    assert len(fn.strip.parts) == (3 if route == "int8_overlap" else 1)
+    for ops, on_ext in fn.strip.parts:
+        inp = (ext if on_ext else x).to(cuda_device)
+        if route == "split":
+            got = fs.apply_fused_split(ops, inp)
+            want = fs.apply_fused_split_reference(ops, inp)
+            assert (got.int() - want.int()).abs().max().item() <= 1
+        else:
+            got = fk.apply_fused_int8(ops, inp)
+            assert torch.equal(got, fk.apply_fused_int8_reference(ops, inp))
+    rows = fn.strip(x.to(cuda_device), *(h.to(cuda_device) for h in halos))
+    plain = fns["cpu"].strip(x, *halos)
+    assert (rows.cpu().int() - plain.int()).abs().max().item() <= (route == "split")
