@@ -50,4 +50,6 @@ __all__ = [
     "LancIR",
     "lancir_resize",
     "make_lancir_resize_fn",
+    "metrology",
+    "native",
 ]

@@ -1,9 +1,11 @@
-"""Multi-process setup of the row-strip mesh.
+"""Multi-process setup of the sharded meshes.
 
 Counterpart of the JAX package's ``parallel/multihost.py``: start
 ``torch.distributed`` and build the (dp, sp) mesh that
-``parallel/sharded.py``'s executors run on, with the row strips (sp) on
-the cards of one host and batch data-parallelism (dp) across hosts.
+``parallel/sharded.py``'s row-strip executors run on, with the row strips
+(sp) on the cards of one host and batch data-parallelism (dp) across
+hosts, or the (dp, sp, cp) mesh of its 2-D (rows x cols) executors, whose
+tiles split the rows over sp and the columns over cp.
 
 Typical use, the same program on every process, started by ``torchrun``
 (which sets ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
@@ -14,6 +16,10 @@ Typical use, the same program on every process, started by ``torchrun``
     mesh = multihost.make_dp_sp_mesh(sp=4)  # rows over 4 cards
     fn = sharded.make_sharded_avir_executor(plan, mesh)
     y = fn(sharded.local_strip(mesh, src))  # this rank's output rows
+
+    mesh2 = multihost.make_dp_sp_cp_mesh(sp=2, cp=2)  # 2 x 2 tiles
+    fn2 = sharded.make_sharded_avir_executor_2d(plan, mesh2)
+    y2 = fn2(sharded.local_tile(mesh2, src2))  # src2: pad_rows + pad_cols
 
 Several processes may share one card only under gloo, whose collectives
 go through host memory (``parallel/comm.py``):
@@ -104,6 +110,31 @@ def mesh_device(
     return device
 
 
+def _initialized() -> tuple[int, int]:
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialized (multihost.initialize)")
+    return dist.get_world_size(), dist.get_rank()
+
+
+def _block_device(world: int, rank: int, block: int, what: str, device):
+    """The rank's device for a mesh whose image groups hold ``block``
+    ranks (``what`` names them in errors), after the host rule."""
+    if block < 1 or world % block:
+        raise ValueError(f"world size {world} not divisible by {what}")
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if block <= local_world and local_world % block:
+        raise ValueError(
+            f"{what} groups would cross host boundaries ({local_world} "
+            "ranks per host): halos would ride the network"
+        )
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    backend = str(dist.get_backend()).lower()
+    dev = mesh_device(backend, local_rank, local_world, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def make_dp_sp_mesh(sp: int | None = None, device=None) -> DpSpMesh:
     """The (dp, sp) mesh of the started process group, with a row-strip
     axis of ``sp`` ranks (default: all) and data parallelism over the
@@ -113,23 +144,9 @@ def make_dp_sp_mesh(sp: int | None = None, device=None) -> DpSpMesh:
     As the JAX helper asserts for its sp axis, an sp group that fits in
     one host must lie in one host (ranks are host-contiguous, as
     ``torchrun`` numbers them), so that halos never cross the network."""
-    if not dist.is_initialized():
-        raise RuntimeError("torch.distributed is not initialized (multihost.initialize)")
-    world, rank = dist.get_world_size(), dist.get_rank()
+    world, rank = _initialized()
     sp = world if sp is None else sp
-    if sp < 1 or world % sp:
-        raise ValueError(f"world size {world} not divisible by sp={sp}")
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    if sp <= local_world and local_world % sp:
-        raise ValueError(
-            f"sp={sp} groups would cross host boundaries ({local_world} "
-            "ranks per host): halos would ride the network"
-        )
-    local_rank = int(os.environ.get("LOCAL_RANK", rank))
-    backend = str(dist.get_backend()).lower()
-    dev = mesh_device(backend, local_rank, local_world, device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    dev = _block_device(world, rank, sp, f"sp={sp}", device)
     dp = world // sp
     # new_group is collective: every rank creates every group, in order.
     rows = [dist.new_group(list(range(i * sp, (i + 1) * sp))) for i in range(dp)]
@@ -137,4 +154,60 @@ def make_dp_sp_mesh(sp: int | None = None, device=None) -> DpSpMesh:
     return DpSpMesh(
         dp=dp, sp=sp, dp_index=rank // sp, sp_index=rank % sp,
         sp_group=rows[rank // sp], dp_group=cols[rank % sp], device=dev,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DpSpCpMesh:
+    """A (dp, sp, cp) mesh of the processes of ``torch.distributed`` for
+    the 2-D (rows x cols) executors, cp minor: rank = (dp_index * sp +
+    sp_index) * cp + cp_index, the layout of ``jax.make_mesh((dp, sp,
+    cp), ("dp", "sp", "cp"))``.  Rank (d, i, j) holds tile (i, j) of an
+    image of frame group d.  Its groups: ``cp_group``, the ranks of its
+    row band (same d and i: the column halos), ``sp_group``, those of its
+    column band (same d and j: the row halos), and ``dp_group``, those of
+    its tile in the other frame groups (same i and j)."""
+
+    dp: int
+    sp: int
+    cp: int
+    dp_index: int
+    sp_index: int
+    cp_index: int
+    sp_group: object
+    cp_group: object
+    dp_group: object
+    device: torch.device
+
+
+def make_dp_sp_cp_mesh(sp: int, cp: int, device=None) -> DpSpCpMesh:
+    """The (dp, sp, cp) mesh of the started process group: tiles of
+    ``sp`` row bands x ``cp`` column bands an image, data parallelism over
+    the rest.  Every rank must call it, in the same order as its other
+    group creations.  An sp x cp block that fits in one host must lie in
+    one host, as ``make_dp_sp_mesh``'s sp group must."""
+    world, rank = _initialized()
+    dev = _block_device(world, rank, sp * cp, f"sp x cp = {sp} x {cp}", device)
+    dp = world // (sp * cp)
+
+    def rank_of(d, i, j):
+        return (d * sp + i) * cp + j
+
+    # new_group is collective: every rank creates every group, in order.
+    groups = {}
+    for d in range(dp):
+        for i in range(sp):
+            groups["cp", d, i] = dist.new_group([rank_of(d, i, j) for j in range(cp)])
+    for d in range(dp):
+        for j in range(cp):
+            groups["sp", d, j] = dist.new_group([rank_of(d, i, j) for i in range(sp)])
+    for i in range(sp):
+        for j in range(cp):
+            groups["dp", i, j] = dist.new_group([rank_of(d, i, j) for d in range(dp)])
+    d, rest = divmod(rank, sp * cp)
+    i, j = divmod(rest, cp)
+    return DpSpCpMesh(
+        dp=dp, sp=sp, cp=cp, dp_index=d, sp_index=i, cp_index=j,
+        sp_group=groups["sp", d, j], cp_group=groups["cp", d, i],
+        dp_group=groups["dp", i, j], device=dev,
     )

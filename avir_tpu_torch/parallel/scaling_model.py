@@ -289,14 +289,19 @@ def model_scaling_2d(
     t_dispatch=T_DISPATCH,
     in_itemsize: int | None = None,
     tile: int = 64,
+    t_rank_s: dict | None = None,
 ) -> list["ScalePoint2D"]:
     """Predict 2-D (rows x cols) intra-image scaling efficiency of
     the library route of a rows x cols mesh (f32 transposed-tile column
-    halos, per-pass exchanges) from the measured single-card time.  The
-    2-D executors themselves are the JAX package's
-    ``make_sharded_avir_executor_2d`` and not yet ported; the model is
-    carried whole, so that its predictions can be read beside the 1-D
-    ones.
+    halos, per-pass exchanges) from the measured single-card time, as the
+    JAX package's model does for ``make_sharded_avir_executor_2d``.
+
+    ``t_rank_s`` maps a grid (r, s) to a measured per-rank compute time in
+    seconds: the slowest rank's K1 launches on its doubly extended tile
+    (chip_smoke.py times every rank's ``Tile.compute`` alone on one
+    card).  Where given it replaces the MAC-apportioned compute term and
+    its dispatches; the halo terms stay the library route's (the kernel
+    route moves raw integer bytes instead, fewer of them for u8).
 
     Differences from the 1-D model:
 
@@ -354,6 +359,8 @@ def model_scaling_2d(
         t_comp = (
             t_chip_s * (M_h_dev + M_v_dev) / M1 + t_dispatch * 2
         )
+        if t_rank_s is not None and (r, s) in t_rank_s:
+            t_comp = t_rank_s[r, s]
         # Column halos (raw integer bytes, 1/r of the rows).
         if svh.use_all_gather:
             ag = (s - 1) / s * w * hs * c * in_itemsize

@@ -127,6 +127,24 @@ Phases (any failure exits non-zero before the last line):
      Then the per-launch overhead of K1 and the scaling model's table
      (``parallel/scaling_model.py``: data-sheet links, this run's K1 time;
      a model, not a measurement);
+  3d. drives the 2-D (rows x cols) mesh (MESH2D_CASES): world A again,
+     four gloo processes on the one card: 8K -> 1080p on 1 x 4 tiles
+     (``suggest_grid``'s choice at n = 4) and on 2 x 2, also with
+     ``halo_overlap`` (three launches, bit-equal to 2 x 2), LANCIR 8K ->
+     1080p on 2 x 2 (int8 vh even), 720p -> 1080p errdiff on 2 x 2 (K1
+     split vh, a gather over cp then sp, K4 on every rank), 70x90 ->
+     50x62 gamma RGBA (the alpha bypass on odd tiles) and u8 RGB on 1 x 4
+     (tiles whose lanes are no multiple of 16); then NCCL with one process
+     on 8K as one tile.  Every rank sets the launch counts to 0 just
+     before its executor call and reads them just after, holds each K1
+     launch of its tile body to the plain version on its own tiles, and
+     prints its K1 ms a tile, column- and row-halo ms and bytes, the
+     gather's, and each launch's input width and load path; rank 0 checks
+     the assembled image as in 3c.  Then every rank's ``Tile.compute``
+     alone on the card at 8K on the 1x2, 1x4, 2x2 and 4x1 grids (tiles
+     cut from the padded image; the assembled tiles must give the single
+     card's bits), whose slowest rank is the 2-D scaling model's compute
+     term, printed beside the 1-D table;
   4. times each kernel at its main-path shape with CUDA events (L2
      flushed before every launch) beside its bound and its plain
      version's time, plus the host wall time of a cached resize and its
@@ -2563,19 +2581,10 @@ def _mesh_case(case, mesh, root, backend: str, world: int, done: dict) -> None:
         xf = frame[mesh.sp_index * sv.strip : (mesh.sp_index + 1) * sv.strip].to(mesh.device)
         h_lo, h_hi = (h.to(mesh.device) for h in sharded.halo_rows(frame, sv, mesh.sp_index))
         ext = fn.strip.ext(xf, h_lo, h_hi)
-        errs = []
-        for ops, on_ext in fn.strip.parts:
-            inp = ext if on_ext else xf
-            if fn.route == "int8":
-                got, plain = fk.apply_fused_int8(ops, inp), fk.apply_fused_int8_reference(ops, inp)
-                err, tol = int((got.int() - plain.int()).abs().max()), 0
-            else:
-                got, plain = fs.apply_fused_split(ops, inp), fs.apply_fused_split_reference(ops, inp)
-                err = float((got.double() - plain.double()).abs().max())
-                tol = float(plain.abs().max()) * 1e-4 if got.dtype == torch.float32 else 1.0
-            if not err <= tol:
-                raise RuntimeError(f"{name} rank {rank}: strip kernel vs plain {err} > {tol}")
-            errs.append(err)
+        errs = [
+            _mesh_vs_plain(fn.route, ops, ext if on_ext else xf, f"{name} rank {rank}")
+            for ops, on_ext in fn.strip.parts
+        ]
         dist.barrier()
         report["max_abs_err_vs_plain"] = max(errs)
         report["strip_kernel_ms"] = _time_ms(
@@ -2587,12 +2596,7 @@ def _mesh_case(case, mesh, root, backend: str, world: int, done: dict) -> None:
     # executor's own gather: the pre-dither float32 rows for errdiff, the
     # H-passed float32 strip for the all-gather fallback.
     if not sv.use_all_gather:
-        dist.barrier()
-        t0 = time.perf_counter()
-        for _ in range(MESH_TIMED):
-            h_lo, h_hi = comm.exchange_halos(x, sv, mesh.sp_group)
-        torch.cuda.synchronize()
-        report["halo_ms"] = 1e3 * (time.perf_counter() - t0) / MESH_TIMED
+        report["halo_ms"], (h_lo, h_hi) = _collective_ms(lambda: comm.exchange_halos(x, sv, mesh.sp_group))
         report["halo_bytes_received"] = (h_lo.numel() + h_hi.numel()) * x.element_size()
     gathered = None
     if "dither" in kw:
@@ -2600,12 +2604,7 @@ def _mesh_case(case, mesh, root, backend: str, world: int, done: dict) -> None:
     elif sv.use_all_gather:
         gathered = torch.zeros((sv.strip, nw * 3), dtype=torch.float32, device=mesh.device)
     if gathered is not None:
-        dist.barrier()
-        t0 = time.perf_counter()
-        for _ in range(MESH_TIMED):
-            comm.all_gather_rows(gathered, mesh.sp_group)
-        torch.cuda.synchronize()
-        report["gather_ms"] = 1e3 * (time.perf_counter() - t0) / MESH_TIMED
+        report["gather_ms"], _ = _collective_ms(lambda: comm.all_gather_rows(gathered, mesh.sp_group))
         report["gather_bytes_sent"] = gathered.numel() * 4
     dist.barrier()
     t0 = time.perf_counter()
@@ -2615,34 +2614,74 @@ def _mesh_case(case, mesh, root, backend: str, world: int, done: dict) -> None:
     report["step_ms"] = 1e3 * (time.perf_counter() - t0) / 3
     full = sharded.assemble(mesh, y, nh)
     if rank == 0:
-        got = full.cpu().numpy()
-        single = np.load(root / f"{name}_single.npy")
-        diff = np.abs(got.astype(np.int16) - single.astype(np.int16))
-        report["shape"] = list(got.shape)
-        report["max_lsb_vs_single_card"] = int(diff.max())
-        report["pixels_differing_from_single_card"] = int(
-            diff.reshape(*diff.shape[:-1], -1, 3).any(axis=-1).sum()
-        )
-        report["pixels"] = int(np.prod(got.shape) // 3)
-        ok = got.shape == single.shape and diff.max() <= 1
-        oracle = root / f"{name}_oracle.npy"
-        if oracle.exists():
-            o = np.load(oracle)
-            report["max_lsb_vs_f64_oracle"] = int(np.abs(got.astype(np.int16) - o.astype(np.int16)).max())
-            report["psnr_vs_f64_oracle_db"] = _psnr(got, o)
-            ok = ok and report["max_lsb_vs_f64_oracle"] <= 1 and report["psnr_vs_f64_oracle_db"] >= 60.0
-        if twin is not None:
-            report["bit_equal_to"] = {twin: bool(np.array_equal(got, done[twin]))}
-            ok = ok and report["bit_equal_to"][twin]
-        done[name] = got
-        if not ok:
-            raise RuntimeError(f"{name}: assembled image failed its checks: {report}")
+        _check_assembled(name, full.cpu().numpy(), 3, root, done, twin, report)
     print(json.dumps(report), flush=True)
 
 
-def _mesh_worker(rank: int, world: int, backend: str, init: str, cases, root: str) -> None:
-    """One rank of a mesh world (torch.multiprocessing.spawn's target):
-    gloo ranks share card 0, NCCL ranks take one card each."""
+def _mesh_vs_plain(route: str, ops, inp: torch.Tensor, where: str) -> float:
+    """One K1 launch of a rank's body against its plain version on the
+    same input: int8 bit-equal, split within the split gate."""
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+
+    if route == "int8":
+        got, plain = fk.apply_fused_int8(ops, inp), fk.apply_fused_int8_reference(ops, inp)
+        err, tol = int((got.int() - plain.int()).abs().max()), 0
+    else:
+        got, plain = fs.apply_fused_split(ops, inp), fs.apply_fused_split_reference(ops, inp)
+        err = float((got.double() - plain.double()).abs().max())
+        tol = float(plain.abs().max()) * 1e-4 if got.dtype == torch.float32 else 1.0
+    if not err <= tol:
+        raise RuntimeError(f"{where}: kernel vs plain {err} > {tol}")
+    return err
+
+
+def _collective_ms(fn) -> tuple:
+    """(host ms per call, last result) of a collective ``fn`` that every
+    rank calls MESH_TIMED times after a barrier, ending synchronized."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TIMED):
+        out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / MESH_TIMED, out
+
+
+def _check_assembled(name, got: np.ndarray, c: int, root, done: dict, twin, report: dict) -> None:
+    """Rank 0's checks of a mesh case's assembled image: within 1 LSB of
+    the single card's (with the pixels that differ), within 1 LSB and
+    >= 60 dB of the float64 oracle where there is one, and bit-equal to
+    ``twin``'s image where one is named; the figures go into ``report``."""
+    single = np.load(root / f"{name}_single.npy")
+    diff = np.abs(got.astype(np.int16) - single.astype(np.int16))
+    report["shape"] = list(got.shape)
+    report["max_lsb_vs_single_card"] = int(diff.max())
+    report["pixels_differing_from_single_card"] = int(
+        diff.reshape(*diff.shape[:-1], -1, c).any(axis=-1).sum()
+    )
+    report["pixels"] = int(np.prod(got.shape) // c)
+    ok = got.shape == single.shape and diff.max() <= 1
+    oracle = root / f"{name}_oracle.npy"
+    if oracle.exists():
+        o = np.load(oracle)
+        report["max_lsb_vs_f64_oracle"] = int(np.abs(got.astype(np.int16) - o.astype(np.int16)).max())
+        report["psnr_vs_f64_oracle_db"] = _psnr(got, o)
+        ok = ok and report["max_lsb_vs_f64_oracle"] <= 1 and report["psnr_vs_f64_oracle_db"] >= 60.0
+    if twin is not None:
+        report["bit_equal_to"] = {twin: bool(np.array_equal(got, done[twin]))}
+        ok = ok and report["bit_equal_to"][twin]
+    done[name] = got
+    if not ok:
+        raise RuntimeError(f"{name}: assembled image failed its checks: {report}")
+
+
+def _mesh_worker(rank: int, world: int, backend: str, init: str, cases, root: str,
+                 two_d: bool = False) -> None:
+    """One rank of a mesh world (torch.multiprocessing.spawn's target), on
+    the row-strip mesh or with ``two_d`` the 2-D one: gloo ranks share
+    card 0, NCCL ranks take one card each."""
     import datetime
     import pathlib
 
@@ -2660,11 +2699,16 @@ def _mesh_worker(rank: int, world: int, backend: str, init: str, cases, root: st
     try:
         meshes, done = {}, {}
         for case in cases:
-            dp, sp = case[7], case[8]
-            if (dp, sp) not in meshes:
+            grid = case[9][1:] if two_d else case[7:9]
+            if grid not in meshes:
                 # device=None: the mesh's default, cuda:(local rank % cards).
-                meshes[dp, sp] = multihost.make_dp_sp_mesh(sp=sp)
-            _mesh_case(case, meshes[dp, sp], pathlib.Path(root), backend, world, done)
+                meshes[grid] = (
+                    multihost.make_dp_sp_cp_mesh(*grid) if two_d
+                    else multihost.make_dp_sp_mesh(sp=grid[1])
+                )
+            (_mesh2d_case if two_d else _mesh_case)(
+                case, meshes[grid], pathlib.Path(root), backend, world, done
+            )
     finally:
         dist.destroy_process_group()
 
@@ -2677,15 +2721,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _mesh_world(backend: str, world: int, cases, root) -> float:
-    """Run ``cases`` on a world of ``world`` spawned processes; a worker's
-    failure (or the time limit) fails the script.  Returns seconds."""
+def _mesh_world(backend: str, world: int, cases, root, two_d: bool = False) -> float:
+    """Run ``cases`` on a world of ``world`` spawned processes (on the 2-D
+    mesh with ``two_d``); a worker's failure (or the time limit) fails the
+    script.  Returns seconds."""
     import torch.multiprocessing as mp
 
     t0 = time.perf_counter()
     ctx = mp.spawn(
         _mesh_worker,
-        args=(world, backend, f"tcp://127.0.0.1:{_free_port()}", cases, str(root)),
+        args=(world, backend, f"tcp://127.0.0.1:{_free_port()}", cases, str(root), two_d),
         nprocs=world, join=False,
     )
     while not ctx.join(timeout=5):
@@ -2718,7 +2763,7 @@ def _launch_overhead_us(dev) -> float:
     return 1e3 * e0.elapsed_time(e1) / 200
 
 
-def _mesh_phase(gen, dev, smi, main_src, main_oracle, t_chip_ms: float) -> None:
+def _mesh_phase(gen, dev, smi, main_src, main_oracle, t_chip_ms: float) -> tuple:
     """The row-strip mesh: world A, 4 gloo processes time-sharing the one
     card (every case); world B, NCCL with one process (the 8K case), and
     with two cards or more NCCL over min(cards, 4) processes (the 8K case
@@ -2757,6 +2802,254 @@ def _mesh_phase(gen, dev, smi, main_src, main_oracle, t_chip_ms: float) -> None:
         "scaling_model_8k_to_1080p": {
             "note": "a model: NVLink 4 data-sheet links, this run's whole-image K1 ms",
             "t_chip_ms": t_chip_ms,
+            "points": [dataclasses.asdict(p) for p in pts],
+        },
+        "card": smi,
+        "label": "world A: four processes time-share one card and gloo copies "
+                 "halos through the host; not a scaling figure",
+    }))
+    return overhead, pts
+
+
+# ---- the 2-D (rows x cols) mesh (avir_tpu_torch/parallel/, 2-D half) ---
+
+MESH2D_CASES = (
+    # (name, entry, src_w, src_h, new_w, new_h, c, plan kwargs, frames,
+    #  (dp, sp, cp), executor kwargs, the K1 launch key of each tile, the
+    #  case whose assembled bits it must equal)
+    # suggest_grid's choice at n = 4 (pure columns).
+    ("mesh2d_8k_to_1080p_1x4", "avir", 7680, 4320, 1920, 1080, 3, {}, 0, (1, 1, 4), {},
+     "fused_int8_vh", None),
+    ("mesh2d_8k_to_1080p_2x2", "avir", 7680, 4320, 1920, 1080, 3, {}, 0, (1, 2, 2), {},
+     "fused_int8_vh", None),
+    ("mesh2d_8k_to_1080p_2x2_overlap", "avir", 7680, 4320, 1920, 1080, 3, {}, 0, (1, 2, 2),
+     {"halo_overlap": True}, "fused_int8_vh", "mesh2d_8k_to_1080p_2x2"),
+    ("mesh2d_lancir_8k_to_1080p_2x2", "lancir", 7680, 4320, 1920, 1080, 3, {}, 0, (1, 2, 2), {},
+     "fused_int8_vh_even", None),
+    ("mesh2d_720p_to_1080p_errdiff_2x2", "avir", 1280, 720, 1920, 1080, 3, {}, 0, (1, 2, 2),
+     {"dither": "errdiff"}, "fused_split_vh", None),
+    # Odd shapes: the C = 4 alpha bypass on tiles of gamma RGBA, and u8 RGB
+    # tiles whose lanes are no multiple of 16 (K1's narrow loads).
+    ("mesh2d_gamma_rgba_odd_2x2", "avir", 70, 90, 50, 62, 4,
+     {"use_srgb_gamma": True, "alpha_index": 3}, 0, (1, 2, 2), {}, "fused_int8_vh_gamma", None),
+    ("mesh2d_odd_u8_1x4", "avir", 70, 90, 50, 62, 3, {}, 0, (1, 1, 4), {}, "fused_int8_vh", None),
+)
+# Grids whose every rank's Tile.compute is timed alone on the one card at
+# 8K -> 1080p, for the scaling model's measured compute term.
+MESH2D_ALONE_GRIDS = ((1, 2), (1, 4), (2, 2), (4, 1))
+
+
+def _mesh2d_src_file(root, case):
+    return root / f"mesh2d_{case[2]}x{case[3]}x{case[6]}_{case[9][1]}x{case[9][2]}_src.npy"
+
+
+def _mesh2d_plan(case):
+    from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    _, entry, sw, sh, nw, nh, c, plan_kw = case[:8]
+    build = build_resize_plan if entry == "avir" else build_lancir_plan
+    return build(sw, sh, nw, nh, c, np.uint8, np.uint8, **plan_kw)
+
+
+def _mesh2d_inputs(root, cases, gen, main_src, main_oracle) -> None:
+    """The 2-D cases' padded inputs ([H_pad, W_pad*C] u8), the port's
+    single-card result of each (the public entry points on the card) and,
+    for 8K -> 1080p on 1 x 4 and as one tile, the float64 oracle."""
+    import avir_tpu_torch
+    from avir_tpu_torch.parallel import sharded
+
+    root.mkdir(parents=True, exist_ok=True)
+    srcs = {(7680, 4320, 3): main_src}
+    for case in cases:
+        name, entry, sw, sh, nw, nh, c, plan_kw, _, (_, sp, cp), kw = case[:11]
+        if (sw, sh, c) not in srcs:
+            srcs[sw, sh, c] = gen.integers(0, 256, (sh, sw, c), dtype=np.uint8)
+        src = srcs[sw, sh, c]
+        path = _mesh2d_src_file(root, case)
+        if not path.exists():
+            np.save(path, sharded.pad_cols(sharded.pad_rows(src.reshape(sh, sw * c), sp), cp, c))
+        if entry == "avir":
+            single = avir_tpu_torch.resize(src, nw, nh, dither=kw.get("dither", "default"), **plan_kw)
+        else:
+            single = avir_tpu_torch.lancir_resize(src, nw, nh)
+        np.save(root / f"{name}_single.npy", single.reshape(nh, nw * c))
+    for name in ("mesh2d_8k_to_1080p_1x4", "mesh2d_8k_to_1080p_1x1"):
+        np.save(root / f"{name}_oracle.npy", main_oracle.reshape(len(main_oracle), -1))
+
+
+def _mesh2d_case(case, mesh, root, backend: str, world: int, done: dict) -> None:
+    """One 2-D case on one rank: drive the executor with the launch counts
+    set to 0 just before and read just after; hold each K1 launch of the
+    rank's tile body to its plain version on the rank's own tiles; time
+    the tile's kernels, the column and row halo exchanges and the
+    executor's own gather; and on rank 0 check the assembled image."""
+    import torch.distributed as dist
+
+    from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.cuda import wavefront as wf
+    from avir_tpu_torch.parallel import comm, sharded
+
+    name, entry, sw, sh, nw, nh, c, _, frames, _, kw, key, twin = case
+    mods = (fk, fs, wf)
+    rank, i, j = dist.get_rank(), mesh.sp_index, mesh.cp_index
+    plan = _mesh2d_plan(case)
+    make = (
+        sharded.make_sharded_avir_executor_2d if entry == "avir"
+        else sharded.make_sharded_lancir_executor_2d
+    )
+    fn = make(plan, mesh, **kw)
+    flat = np.load(_mesh2d_src_file(root, case), mmap_mode="r")
+    x = torch.from_numpy(np.array(sharded.local_tile(mesh, flat))).to(mesh.device)
+    torch.cuda.synchronize()
+    dist.barrier()
+    _zero(mods)
+    t0 = time.perf_counter()
+    y = fn(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {k: v for k, v in _counts(mods).items() if v}
+    want = {key: len(fn.tile.parts)}
+    if "dither" in kw:
+        want["wavefront"] = 1
+    if counts != want:
+        raise RuntimeError(f"{name} rank {rank}: launches {counts}, expected {want}")
+    sv, sl = fn.svop, fn.slb
+    report = {
+        "mesh2d_case": name, "backend": backend, "world": world, "rank": rank,
+        "tile": [i, j], "route": fn.route, "launches": counts, "tile_shape": list(x.shape),
+        "row_halos": [sv.halo_lo, sv.halo_hi], "col_halo_lanes": [sl.halo_lo, sl.halo_hi],
+        "first_call_s": first_s,
+    }
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=mesh.device)
+    tiles = {
+        on: torch.from_numpy(np.array(t)).to(mesh.device)
+        for on, t in zip(("x", "xc", "ext"), sharded.halo_tiles(np.asarray(flat), sv, sl, i, j))
+    }
+    errs, parts = [], []
+    for ops, on in fn.tile.parts:
+        errs.append(_mesh_vs_plain(fn.route, ops, tiles[on], f"{name} rank {rank} on {on}"))
+        part = {"input": on, "rows_in": ops.rows_in, "lanes_in": ops.lanes_in}
+        if getattr(ops, "h_range", None) is not None:
+            # Chunks whose lane taps are all zero (output lanes past the
+            # rank's pixels), and the tensor-core int8 kernel's load width.
+            hr = ops.h_range.cpu().numpy()
+            part.update(empty_chunks=int((hr[..., 1] <= hr[..., 0]).sum()), chunks=int(hr[..., 0].size))
+        if fn.route == "int8" and not ops.epi.gamma:
+            part.update(lane_align=ops.lane_align,
+                        wide_loads=bool(ops.lane_align % 16 == 0 and ops.lanes_in % 16 == 0))
+        parts.append(part)
+    dist.barrier()
+    report["max_abs_err_vs_plain"] = max(errs)
+    report["parts"] = parts
+    report["k1_ms_per_tile"] = _time_ms(
+        lambda: fn.tile.compute(tiles["x"], tiles["xc"], tiles["ext"]), MESH_TIMED, flush
+    )
+    # The two exchanges on this rank's tile, then the executor's gather of
+    # the pre-dither float32 tiles (errdiff).
+    report["col_halo_ms"], (c_lo, c_hi) = _collective_ms(
+        lambda: comm.exchange_col_halos(x, sl, mesh.cp_group)
+    )
+    report["col_halo_bytes_received"] = (c_lo.numel() + c_hi.numel()) * x.element_size()
+    xc = sharded._cat_lanes([c_lo, x, c_hi])
+    report["row_halo_ms"], (r_lo, r_hi) = _collective_ms(lambda: comm.exchange_halos(xc, sv, mesh.sp_group))
+    report["row_halo_bytes_received"] = (r_lo.numel() + r_hi.numel()) * x.element_size()
+    if "dither" in kw:
+        z = torch.zeros((1, sv.m, sl.m * c), dtype=torch.float32, device=mesh.device)
+        report["gather_ms"], _ = _collective_ms(lambda: comm.all_gather_tiles(z, mesh.cp_group, mesh.sp_group))
+        report["gather_bytes_sent"] = z.numel() * 4
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn(x)
+    torch.cuda.synchronize()
+    report["step_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+    full = sharded.assemble_2d(mesh, y, nh, nw * c)
+    if rank == 0:
+        _check_assembled(name, full.cpu().numpy(), c, root, done, twin, report)
+    print(json.dumps(report), flush=True)
+
+
+def _mesh2d_alone(plan, src, single, grid, dev, flush) -> dict:
+    """Every rank's ``Tile.compute`` of an r x s grid alone on the one card
+    (tiles and halos cut from the padded image, as tools/probe_strip2d_tpu.py
+    does on one TPU there): CUDA-event ms per rank, and the pixels where the
+    assembled ranks differ from the single card's ``single``."""
+    from avir_tpu_torch.parallel import sharded
+    from avir_tpu_torch.parallel.multihost import DpSpCpMesh
+
+    r, s = grid
+    sh, sw, c = src.shape
+    flat = sharded.pad_cols(sharded.pad_rows(src.reshape(sh, sw * c), r), s, c)
+    ms, rows = [], []
+    for i in range(r):
+        row = []
+        for j in range(s):
+            mesh = DpSpCpMesh(1, r, s, 0, i, j, None, None, None, dev)
+            fn = sharded.make_sharded_avir_executor_2d(plan, mesh)
+            tiles = [torch.from_numpy(t).to(dev) for t in sharded.halo_tiles(flat, fn.svop, fn.slb, i, j)]
+            row.append(fn.tile.compute(*tiles).cpu().numpy())
+            ms.append(_time_ms(lambda: fn.tile.compute(*tiles), MESH_TIMED, flush))
+        rows.append(np.concatenate(row, axis=1))
+    got = np.concatenate(rows, axis=0)[: plan.new_h, : plan.new_w * c]
+    diff = np.abs(got.astype(np.int16) - single.reshape(got.shape).astype(np.int16))
+    return {
+        "grid": [r, s], "rank_ms": ms, "max_rank_ms": max(ms),
+        "pixels_differing_from_single_card": int(diff.reshape(*diff.shape[:-1], -1, c).any(axis=-1).sum()),
+        "col_halo_lanes": [fn.slb.halo_lo, fn.slb.halo_hi],
+        "row_halos": [fn.svop.halo_lo, fn.svop.halo_hi],
+    }
+
+
+def _mesh2d_phase(gen, dev, smi, main_src, main_oracle, t_chip_ms: float,
+                  overhead_us: float, pts_1d) -> None:
+    """The 2-D (rows x cols) mesh: world A, 4 gloo processes time-sharing
+    the one card (every case of MESH2D_CASES), then NCCL with one process
+    on 8K -> 1080p as one tile; then every rank's tile body alone on the
+    card at 8K for MESH2D_ALONE_GRIDS, whose slowest rank is the 2-D
+    scaling model's compute term (with this run's launch overhead),
+    printed beside the 1-D table."""
+    import pathlib
+
+    from avir_tpu_torch.parallel import scaling_model, sharded
+    from avir_tpu_torch.plan.plan import build_resize_plan
+
+    root = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_mesh2d"
+    t0 = time.perf_counter()
+    plan = build_resize_plan(7680, 4320, 1920, 1080, 3, np.uint8, np.uint8)
+    if sharded.suggest_grid(plan, 4) != (1, 4):
+        _fail(f"suggest_grid(8K, 4) = {sharded.suggest_grid(plan, 4)}, expected (1, 4)")
+    # 8K -> 1080p as one tile.
+    one = ("mesh2d_8k_to_1080p_1x1",) + MESH2D_CASES[0][1:9] + ((1, 1, 1),) + MESH2D_CASES[0][10:]
+    _mesh2d_inputs(root, MESH2D_CASES + (one,), gen, main_src, main_oracle)
+    prep_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    worlds = {"gloo x4": _mesh_world("gloo", MESH_WORLD, MESH2D_CASES, root, two_d=True)}
+    worlds["nccl x1"] = _mesh_world("nccl", 1, (one,), root, two_d=True)
+    t0 = time.perf_counter()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    single = np.load(root / "mesh2d_8k_to_1080p_1x4_single.npy")
+    alone = [_mesh2d_alone(plan, main_src, single, g, dev, flush) for g in MESH2D_ALONE_GRIDS]
+    alone_s = time.perf_counter() - t0
+    for a in alone:
+        print(json.dumps({"mesh2d_alone_8k_to_1080p": a, "card": smi}))
+        if a["pixels_differing_from_single_card"]:
+            _fail(f"2-D tiles alone at {a['grid']} differ from the single card")
+    t_rank = {tuple(a["grid"]): a["max_rank_ms"] * 1e-3 for a in alone}
+    grids = ((1, 2), (2, 1), (1, 4), (2, 2), (4, 1), (1, 8), (2, 4))
+    pts = scaling_model.model_scaling_2d(
+        plan, t_chip_ms * 1e-3, grids=grids, t_dispatch=overhead_us * 1e-6, t_rank_s=t_rank,
+    )
+    print(scaling_model.format_table(pts_1d))
+    print(scaling_model.format_table_2d(pts))
+    print(json.dumps({
+        "mesh2d_phase": {"inputs_s": prep_s, "worlds_s": worlds, "alone_s": alone_s},
+        "scaling_model_2d_8k_to_1080p": {
+            "note": "a model: NVLink 4 data-sheet links and the library route's halos; "
+                    "compute measured alone per rank where the grid has a measurement",
+            "t_chip_ms": t_chip_ms, "launch_overhead_us": overhead_us,
+            "measured_grids": sorted(t_rank),
             "points": [dataclasses.asdict(p) for p in pts],
         },
         "card": smi,
@@ -3087,7 +3380,8 @@ def main() -> int:
     _device_fn_phase(gen, dev, flush, smi, mods)
     _errdiff_device_phase(gen, dev, flush, smi, mods)
     _cli_phase(gen, smi, mods)
-    _mesh_phase(gen, dev, smi, *mesh_in)
+    overhead, pts_1d = _mesh_phase(gen, dev, smi, *mesh_in)
+    _mesh2d_phase(gen, dev, smi, *mesh_in, overhead, pts_1d)
     missing = sorted(set(KERNELS) - seen)
     if missing:
         _fail(f"kernels without an entry: {missing}")

@@ -593,3 +593,52 @@ def test_sharded_strip_kernels_match_plain_on_card(route, d, cuda_device):
     rows = fn.strip(x.to(cuda_device), *(h.to(cuda_device) for h in halos))
     plain = fns["cpu"].strip(x, *halos)
     assert (rows.cpu().int() - plain.int()).abs().max().item() <= (route == "split")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["int8_2x2", "split_2x2", "int8_overlap", "int8_odd_1x4", "gamma_rgba"])
+def test_sharded_tile_kernels_match_plain_on_card(case, cuda_device):
+    """Every tile of a 4-rank 2-D mesh (parallel/sharded.py) on the card:
+    each K1 launch of its tile body (int8 vh, split vh at precision="fast",
+    the three launches of halo_overlap, tiles whose lanes are no multiple
+    of 16, int8 vh gamma with the alpha bypass) against its plain version
+    on the same tile, int8 bit-equal, split within 1 LSB; and the tile's
+    output the same on the card as on the CPU (split: within 1 LSB)."""
+    from avir_tpu_torch.parallel import sharded
+    from avir_tpu_torch.parallel.multihost import DpSpCpMesh
+
+    (sw, sh, nw, nh, c), plan_kw, kw, (sp, cp) = {
+        "int8_2x2": ((256, 192, 128, 96, 3), {}, {}, (2, 2)),
+        "split_2x2": ((256, 192, 128, 96, 3), {}, dict(precision="fast"), (2, 2)),
+        "int8_overlap": ((1200, 400, 600, 200, 3), {}, dict(pallas_tile=32, halo_overlap=True), (2, 2)),
+        "int8_odd_1x4": ((70, 90, 50, 62, 3), {}, {}, (1, 4)),
+        "gamma_rgba": ((70, 90, 50, 62, 4), dict(use_srgb_gamma=True, alpha_index=3), {}, (2, 2)),
+    }[case]
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8, **plan_kw)
+    src = np.random.default_rng(20).integers(0, 256, (sh, sw * c), dtype=np.uint8)
+    flat = sharded.pad_cols(sharded.pad_rows(src, sp), cp, c)
+    for i in range(sp):
+        for j in range(cp):
+            fns = {
+                dev: sharded.make_sharded_avir_executor_2d(
+                    plan, DpSpCpMesh(1, sp, cp, 0, i, j, None, None, None, torch.device(dev)), **kw
+                )
+                for dev in (cuda_device, "cpu")
+            }
+            fn = fns[cuda_device]
+            assert fn.route == case.split("_")[0].replace("gamma", "int8")
+            tiles = [torch.from_numpy(t) for t in sharded.halo_tiles(flat, fn.svop, fn.slb, i, j)]
+            on_card = dict(zip(("x", "xc", "ext"), (t.to(cuda_device) for t in tiles)))
+            assert len(fn.tile.parts) == (3 if case == "int8_overlap" else 1)
+            for ops, on in fn.tile.parts:
+                inp = on_card[on]
+                if fn.route == "split":
+                    got = fs.apply_fused_split(ops, inp)
+                    want = fs.apply_fused_split_reference(ops, inp)
+                    assert (got.int() - want.int()).abs().max().item() <= 1
+                else:
+                    got = fk.apply_fused_int8(ops, inp)
+                    assert torch.equal(got, fk.apply_fused_int8_reference(ops, inp)), (i, j, on)
+            out = fn.tile.compute(*on_card.values())
+            plain = fns["cpu"].tile.compute(*tiles)
+            assert (out.cpu().int() - plain.int()).abs().max().item() <= (fn.route == "split")

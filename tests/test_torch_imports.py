@@ -55,3 +55,21 @@ def test_api_modules_load_no_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == ""
+
+
+def test_all_covers_the_jax_package_all():
+    """Every public name of the JAX package is a public name of the port."""
+    import avir_tpu
+
+    import avir_tpu_torch
+
+    assert set(avir_tpu.__all__) <= set(avir_tpu_torch.__all__)
+
+
+def test_star_import_binds_metrology_and_native():
+    ns = {}
+    exec("from avir_tpu_torch import *", ns)
+    import avir_tpu_torch
+
+    assert ns["metrology"] is avir_tpu_torch.metrology
+    assert ns["native"] is avir_tpu_torch.native

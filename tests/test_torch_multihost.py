@@ -94,3 +94,52 @@ def test_unknown_backend_raises(monkeypatch):
     monkeypatch.setattr(dist, "get_backend", lambda group=None: "mpi")
     with pytest.raises(ValueError, match="unknown backend 'mpi'"):
         comm._backend(None)
+
+
+def test_dp_sp_cp_mesh_shapes_groups_and_rank_order(seen):
+    """rank = (dp_index * sp + sp_index) * cp + cp_index, cp minor, as
+    jax.make_mesh((dp, sp, cp), ("dp", "sp", "cp")) lays the devices
+    (tests/mesh/sharded_mesh.py:449); cp_group is the rank's row band,
+    sp_group its column band, dp_group its tile in the other frame groups."""
+    for rank, s in enumerate(seen):
+        for sp, cp in ((2, 2), (1, 2), (1, 4)):
+            dp = WORLD // (sp * cp)
+            d, rest = divmod(rank, sp * cp)
+            i, j = divmod(rest, cp)
+
+            def rank_of(d_, i_, j_):
+                return (d_ * sp + i_) * cp + j_
+
+            assert s[f"dp_sp_cp_{sp}x{cp}"] == dict(
+                dp=dp, sp=sp, cp=cp, index=[d, i, j], device="cpu",
+                cp_peers=[rank_of(d, i, q) for q in range(cp)],
+                sp_peers=[rank_of(d, q, j) for q in range(sp)],
+                dp_peers=[rank_of(q, i, j) for q in range(dp)],
+            )
+
+
+def test_u16_column_halos_and_tile_gather(seen):
+    """On the 2 x 2 mesh rank r's tile holds 40000 + 1000 r + i (3 rows of
+    7 lanes): its low column halo is the last 2 lanes of its left
+    neighbour in the row band, its high one the first 3 of its right one,
+    zeros on the edges; the tile gather is the 6 x 14 image."""
+    def tile(r):
+        return [[40000 + 1000 * r + 7 * i + k for k in range(7)] for i in range(3)]
+
+    for r, s in enumerate(seen):
+        h = s["col_halos"]
+        j = r % 2
+        left = [row[5:] for row in tile(r - 1)] if j == 1 else [[0, 0]] * 3
+        right = [row[:3] for row in tile(r + 1)] if j == 0 else [[0, 0, 0]] * 3
+        assert h["dtype"] == "torch.uint16"
+        assert h["c_lo"] == left and h["c_hi"] == right
+        assert h["batched_equal"]
+        rows = [tile(2 * i)[k] + tile(2 * i + 1)[k] for i in range(2) for k in range(3)]
+        assert h["tiles"] == rows
+
+
+def test_dp_sp_cp_mesh_needs_a_world(monkeypatch):
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="not initialized"):
+        multihost.make_dp_sp_cp_mesh(2, 2)

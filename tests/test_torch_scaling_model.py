@@ -3,7 +3,7 @@ against the JAX package's: run with the JAX package's TPU link constants
 passed in, every ScalePoint is equal (the model's arithmetic and the
 planner it reads are the same); run with its own defaults, the constants
 are the H100 data-sheet ones.  The JAX cases of tests/test_scaling_model.py
-that do not need ``suggest_grid`` (the 2-D half, not ported yet)."""
+that do not need ``suggest_grid`` (tests/test_torch_sharded_2d.py holds it)."""
 
 import dataclasses
 import inspect
@@ -112,3 +112,17 @@ def test_defaults_are_the_h100_fabric():
         assert params["t_dispatch"].default == sm.T_DISPATCH
     names = set(vars(sm))
     assert not {n for n in names if "V5E" in n or "DCN" in n or "ICI" in n}
+
+
+def test_model_scaling_2d_takes_measured_rank_compute():
+    """A measured per-rank compute time replaces the modeled compute term
+    of its grid and of no other; the halo terms stay as they were."""
+    port, _ = _plans("avir_small")
+    base = sm.model_scaling_2d(port, 1e-3, grids=((1, 2), (2, 2)))
+    got = sm.model_scaling_2d(port, 1e-3, grids=((1, 2), (2, 2)), t_rank_s={(2, 2): 400e-6})
+    assert dataclasses.asdict(got[0]) == dataclasses.asdict(base[0])
+    p, q = got[1], base[1]
+    assert p.t_comp_us == pytest.approx(400.0)
+    assert (p.t_exposed_col_us, p.t_exposed_row_us) == (q.t_exposed_col_us, q.t_exposed_row_us)
+    assert p.t_step_us == pytest.approx(400.0 + p.t_exposed_col_us + p.t_exposed_row_us)
+    assert p.efficiency == pytest.approx(1e-3 / (4 * p.t_step_us * 1e-6))

@@ -1,14 +1,17 @@
-"""One rank of the port's row-strip mesh on the CPU, for the gloo worlds of
-tests/test_torch_sharded.py and tests/test_torch_multihost.py (not a test
-module itself):
+"""One rank of the port's meshes on the CPU, for the gloo worlds of
+tests/test_torch_sharded.py, tests/test_torch_sharded_2d.py and
+tests/test_torch_multihost.py (not a test module itself):
 
     python tests/torch_mesh_worker.py SUITE INIT_METHOD RANK WORLD OUTDIR
 
-``sharded`` runs every case of ``CASES`` through the port's sharded
+``sharded`` runs every case of ``CASES`` through the port's row-strip
 executors on ``device="cpu"`` (the kernels' plain versions) and rank 0
-writes each assembled image to OUTDIR/<case>.npy; ``multihost`` writes
-what each rank saw of the mesh helpers and collectives to
-OUTDIR/multihost_<rank>.json.  Imports no JAX."""
+writes each assembled image to OUTDIR/<case>.npy; ``sharded2d`` does the
+same with ``CASES_2D`` on the 2-D (rows x cols) executors, and each rank
+also writes its route and its count of K1 calls a frame to
+OUTDIR/<case>_r<rank>.json; ``multihost`` writes what each rank saw of the
+mesh helpers and collectives to OUTDIR/multihost_<rank>.json.  Imports no
+JAX."""
 
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import datetime
 import json
 import pathlib
 import sys
+import types
 from unittest import mock
 
 import numpy as np
@@ -52,6 +56,44 @@ CASES = (
     ("lancir_f32", "lancir", (64, 128, 48, 96, 3), "u8", "f32", {}, {}, (1, 4), 0, 25),
 )
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
+
+# The 2-D mesh: (name, kind, (src_w, src_h, new_w, new_h, c), in type, out
+# type, plan kwargs, executor kwargs, (dp, sp, cp), frames, seed).
+CASES_2D = (
+    # lanes_pad % C != 0 at cp = 2 (the tile is not padded to it).
+    ("avir_int8_2x2", "avir", (256, 192, 128, 96, 3), "u8", "u8", {}, {}, (1, 2, 2), 0, 808),
+    ("avir_int8_1x4", "avir", (256, 192, 128, 96, 3), "u8", "u8", {}, {}, (1, 1, 4), 0, 811),
+    # halo_lo rounded to C only; a tile whose lanes are not a multiple of 4.
+    ("avir_int8_odd_1x4", "avir", (70, 90, 50, 62, 3), "u8", "u8", {}, {}, (1, 1, 4), 0, 812),
+    # Interior blocks on both axes: three launches.
+    ("avir_int8_overlap", "avir", (1200, 400, 600, 200, 3), "u8", "u8", {},
+     dict(pallas_tile=32, halo_overlap=True), (1, 2, 2), 0, 914),
+    ("avir_gamma_rgba_odd", "avir", (70, 90, 50, 62, 4), "u8", "u8",
+     dict(use_srgb_gamma=True, alpha_index=3), {}, (1, 2, 2), 0, 912),
+    ("avir_gamma_rgba_up", "avir", (70, 90, 110, 130, 4), "u8", "u8",
+     dict(use_srgb_gamma=True, alpha_index=3), {}, (1, 2, 2), 0, 909),
+    ("avir_u16_up", "avir", (128, 96, 192, 256, 4), "u16", "u16",
+     dict(res_bit_depth=16), {}, (1, 2, 2), 0, 913),
+    ("avir_u16_gamma_rgba_odd", "avir", (70, 90, 50, 62, 4), "u16", "u16",
+     dict(res_bit_depth=16, use_srgb_gamma=True, alpha_index=0), {}, (1, 2, 2), 0, 915),
+    ("avir_f32_odd", "avir", (70, 90, 50, 62, 3), "f32", "f32", {}, {}, (1, 2, 2), 0, 916),
+    ("avir_errdiff_batch", "avir", (48, 64, 24, 32, 3), "u8", "u8", {},
+     dict(dither="errdiff"), (2, 1, 2), 2, 5),
+    ("avir_errdiff_device_u16", "avir", (64, 128, 32, 64, 3), "u16", "u16",
+     dict(res_bit_depth=12), dict(dither="errdiff-device"), (1, 2, 2), 0, 917),
+    # The library route: precision="exact", and an axis whose halos exceed
+    # its strips (the all-gather), with ranks that own only padding.
+    ("avir_exact", "avir", (256, 192, 128, 96, 3), "u8", "u8", {},
+     dict(precision="exact"), (1, 2, 2), 0, 918),
+    ("avir_all_gather_rows", "avir", (64, 16, 32, 5, 3), "u8", "u8", {}, {}, (1, 4, 1), 0, 919),
+    ("avir_all_gather_cols", "avir", (16, 64, 5, 32, 3), "u8", "u8", {}, {}, (1, 1, 4), 0, 924),
+    ("lancir_int8", "lancir", (256, 192, 128, 96, 3), "u8", "u8", {}, {}, (1, 2, 2), 0, 920),
+    ("lancir_u16_odd", "lancir", (70, 90, 110, 130, 4), "u16", "u16", {}, {}, (1, 2, 2), 0, 921),
+    ("lancir_batch", "lancir", (48, 64, 24, 32, 3), "u8", "u8", {}, {}, (2, 1, 2), 2, 930),
+    ("lancir_exact", "lancir", (256, 192, 128, 96, 3), "u8", "u8", {},
+     dict(precision="exact"), (1, 2, 2), 0, 922),
+    ("lancir_f32", "lancir", (64, 128, 48, 96, 3), "u8", "f32", {}, {}, (1, 2, 2), 0, 923),
+)
 
 
 def source(case) -> np.ndarray:
@@ -105,6 +147,59 @@ def _sharded(outdir: pathlib.Path) -> None:
         if dist.get_rank() == 0:
             np.save(outdir / f"{name}.npy", full.numpy())
             (outdir / f"{name}.json").write_text(json.dumps({"route": fn.route}))
+
+
+def make_executor_2d(case, plan, mesh):
+    from avir_tpu_torch.parallel import sharded
+
+    kind, ex_kw = case[1], case[6]
+    make = (
+        sharded.make_sharded_avir_executor_2d if kind == "avir"
+        else sharded.make_sharded_lancir_executor_2d
+    )
+    return make(plan, mesh, **ex_kw)
+
+
+def flat_2d(case) -> np.ndarray:
+    """The case's input as [frames, H_pad, W_pad*C] or [H_pad, W_pad*C]."""
+    from avir_tpu_torch.parallel import sharded
+
+    _, _, (sw, sh, _, _, c), *_, (_, sp, cp), _, _ = case
+    src = source(case)
+    return sharded.pad_cols(sharded.pad_rows(src.reshape(*src.shape[:-2], sw * c), sp), cp, c)
+
+
+def _sharded_2d(outdir: pathlib.Path, rank: int) -> None:
+    import torch
+
+    from avir_tpu_torch.parallel import multihost, sharded
+
+    k1 = sharded._k1
+    calls = [0]
+
+    def counted(ops, x):
+        calls[0] += 1
+        return k1(ops, x)
+
+    sharded._k1 = counted
+    meshes = {}
+    for case in CASES_2D:
+        name, _, (sw, sh, nw, nh, c), *_, (dp, sp, cp), frames, _ = case
+        if (dp, sp, cp) not in meshes:
+            meshes[dp, sp, cp] = multihost.make_dp_sp_cp_mesh(sp=sp, cp=cp, device="cpu")
+        mesh = meshes[dp, sp, cp]
+        fn = make_executor_2d(case, port_plan(case), mesh)
+        calls[0] = 0
+        y = fn(torch.from_numpy(np.ascontiguousarray(sharded.local_tile(mesh, flat_2d(case)))))
+        per_frame = calls[0] / (frames // dp if frames else 1)
+        full = sharded.assemble_2d(mesh, y, nh, nw * c)
+        (outdir / f"{name}_r{rank}.json").write_text(json.dumps({
+            "route": fn.route, "k1_calls_a_frame": per_frame,
+            "parts": None if fn.tile is None else [on for _, on in fn.tile.parts],
+            "tile_out": list(y.shape),
+        }))
+        if rank == 0:
+            np.save(outdir / f"{name}.npy", full.numpy())
 
 
 def _multihost(outdir: pathlib.Path, rank: int) -> None:
@@ -161,6 +256,31 @@ def _multihost(outdir: pathlib.Path, rank: int) -> None:
         seen["nccl_cpu"] = "no error"
     except ValueError as e:
         seen["nccl_cpu"] = f"ValueError: {e}"
+    # The (dp, sp, cp) meshes, cp minor, and the 2-D collectives: column
+    # halos of u16 lanes above 32767 over the row band, and a tile gather.
+    for sp, cp in ((2, 2), (1, 2), (1, 4)):
+        m2 = multihost.make_dp_sp_cp_mesh(sp=sp, cp=cp, device="cpu")
+        me = torch.tensor([[rank]])
+        seen[f"dp_sp_cp_{sp}x{cp}"] = dict(
+            dp=m2.dp, sp=m2.sp, cp=m2.cp, index=[m2.dp_index, m2.sp_index, m2.cp_index],
+            device=str(m2.device),
+            cp_peers=comm.all_gather_rows(me, m2.cp_group).ravel().tolist(),
+            sp_peers=comm.all_gather_rows(me, m2.sp_group).ravel().tolist(),
+            dp_peers=comm.all_gather_rows(me, m2.dp_group).ravel().tolist(),
+        )
+    m2 = multihost.make_dp_sp_cp_mesh(sp=2, cp=2, device="cpu")
+    t = (40000 + 1000 * rank + torch.arange(3 * 7, dtype=torch.int32)).reshape(3, 7).to(torch.uint16)
+    slb = types.SimpleNamespace(halo_lo=2, halo_hi=3)
+    c_lo, c_hi = comm.exchange_col_halos(t, slb, m2.cp_group)
+    p_lo, p_hi = comm.exchange_col_halos(t[None].expand(2, 3, 7), slb, m2.cp_group, async_op=True).wait()
+    seen["col_halos"] = dict(
+        dtype=str(c_lo.dtype), c_lo=c_lo.to(torch.int32).tolist(), c_hi=c_hi.to(torch.int32).tolist(),
+        batched_equal=bool(
+            torch.equal(p_lo[1].view(torch.int16), c_lo.view(torch.int16))
+            and torch.equal(p_hi[0].view(torch.int16), c_hi.view(torch.int16))
+        ),
+        tiles=comm.all_gather_tiles(t, m2.cp_group, m2.sp_group).to(torch.int32).tolist(),
+    )
     (outdir / f"multihost_{rank}.json").write_text(json.dumps(seen))
 
 
@@ -180,6 +300,8 @@ def main(argv) -> int:
     try:
         if suite == "sharded":
             _sharded(outdir)
+        elif suite == "sharded2d":
+            _sharded_2d(outdir, rank)
         elif suite == "multihost":
             _multihost(outdir, rank)
         else:
