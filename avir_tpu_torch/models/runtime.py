@@ -54,7 +54,8 @@ The int8 gamma route reads ``AVIR_TPU_GAMMA_ROUTE`` when the executor is
 built (``models/runtime.py:402-449`` there):
   - unset or "auto": the shift-ring kernel K6 (``ops/cuda/fused_ring.py``)
     on the V operator's uniform blocking when ``ring_viable`` holds (a
-    uniform-stride downsize; launch key ``fused_ring_vh_gamma``,
+    uniform-stride downsize) and its cluster plan fits (no chunk window of
+    more than 16 segments; launch key ``fused_ring_vh_gamma``,
     ``run.order`` "vh"), else K1 with the in-kernel linearization.  This
     differs from the JAX package, whose "auto" is always the in-kernel
     route: on the H100 the ring route is the faster one where it runs
@@ -253,7 +254,9 @@ def gamma_route() -> str:
 def _ring_operands(plan: ResizePlan, lop: LaneBlockedOp, order: str, device):
     """K6's operands for an int8 gamma plan, or None when the ring route is
     not viable (``models/runtime.py:414-423`` there): the V operator by
-    uniform blocking, with limbs, and ``ring_viable``."""
+    uniform blocking, with limbs, and ``ring_viable``; and K6's cluster plan
+    fits the card (``prepare_fused_ring`` refuses a chunk window of more
+    than 16 segments)."""
     if order != "vh":
         return None
     try:
@@ -262,10 +265,13 @@ def _ring_operands(plan: ResizePlan, lop: LaneBlockedOp, order: str, device):
         return None
     if vop_ring.taps_q1 is None or not ring_viable(vop_ring, lop, True, order):
         return None
-    return prepare_fused_ring(
-        vop_ring, lop, device, alpha_index=plan.alpha_index,
-        in_gamma_mult=plan.in_gamma_mult, out_gamma_mult=plan.out_gamma_mult,
-    )
+    try:
+        return prepare_fused_ring(
+            vop_ring, lop, device, alpha_index=plan.alpha_index,
+            in_gamma_mult=plan.in_gamma_mult, out_gamma_mult=plan.out_gamma_mult,
+        )
+    except ValueError:
+        return None
 
 
 def separable_pass_exact(
@@ -414,7 +420,8 @@ def make_avir_executor(
             if route == "ring":
                 warnings.warn(
                     f"{GAMMA_ROUTE_ENV}=ring not viable for this config (needs a "
-                    "uniform-stride int8 downsize); falling back to the in-kernel route"
+                    "uniform-stride int8 downsize whose lane windows span at most "
+                    "16 segments); falling back to the in-kernel route"
                 )
         pre = route == "prologue"
         ops = prepare_fused_int8(vop, lop, order, device, gamma_pre=pre, **gamma_kw)

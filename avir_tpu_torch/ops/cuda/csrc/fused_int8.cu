@@ -31,8 +31,7 @@
 //               gamma from limb planes (GAMMA_PRE: the template's PRE,
 //               _kernel's x_lo input there): xq1 and xq0 read from the two
 //               s8 planes of the prologue kernel K5 (gamma_prologue.cu),
-//               which computed them with the same gamma_in_q13; the rest
-//               of the kernel is unchanged.
+//               which computed them with the same gamma_in_q13.
 //   vh (downsize), per output row r and lane l:
 //     fq  = 128*sum q1v*xs + sum q0v*xs + v_comp[r]   (v_comp: row sums)
 //         gamma: 2^14*sum q1v*xq1 + 2^7*(sum q1v*xq0 + sum q0v*xq1)
@@ -123,21 +122,43 @@
 // bits do not depend on the tiling: the kernels equal the plain version
 // and the dp4a kernels they replace.
 //
-// With gamma (fused_int8_vh / fused_int8_hv<PRE>: the in-kernel and
-// limb-plane gamma routes), the dp4a design:
-// A thread block owns 32 output rows (a slice of one V block) and one
-// 128-lane output chunk of one lane block; 256 threads each own 4 rows x
-// 4 lanes.  Products are dp4a (4 s8 MACs into s32) from shared memory.
-// Operands are staged "packed along the contraction": a 32-bit word holds
-// 4 consecutive contraction elements, so V taps (row-major) and the
-// horizontal taps (packed on the host, [win_c/4][128] words) load as they
-// are, and the image tile is transposed into that form as it is stored.
+// vh from K5's limb planes (fused_int8_vh_mma<true>).  Replaces
+// avir_tpu/ops/pallas/fused_kernel.py:422 apply_fused_pallas with x_lo
+// (:461-516: the linearize-once route's second kernel, after K5).  It is
+// the tensor-core vh kernel above with a second input plane: the first
+// pass loads both s8 planes as 32-bit words (4 lanes of one row), turns
+// them 4 x 4 by byte permutes into B words of 4 rows (no ^ 0x80: the
+// planes are s8 already) in the buffer the image words use (two planes
+// of [16][136] words fill it), and makes three MMAs a 32-deep step: m1 =
+// q1 xq1 and m0 = q0 xq1 (one B fragment), then m0 += q1 xq0; it
+// requantizes fq = 2^14 m1 + 2^7 m0 (no v_comp) and ends in K1's gamma-out
+// epilogue (k1::finish_int with gamma, the C=4 alpha bypass).  The second
+// pass is unchanged.  int8_feasible bounds 2^14 * 64 q_abs1 + 2^7 * 64
+// (q_abs1 + q_abs0) + 2^26 below 2^31: no partial sum of m1 or m0 and no
+// fq wraps; the second pass's sums may wrap, as without gamma.  What
+// bounds it: two planes read once (2 x 99.5 MB at 8K) and the output
+// written once, 0.061 ms at 3.35 TB/s; the design reads the planes about
+// twice, as the image without gamma, and issues one product more a step.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py --kernel-times):
+// 0.45-0.46 ms at 7680x4320 -> 1920x1080, 7x the bound, against 2.06-2.08
+// for the dp4a vh design below, which it replaces.
+//
+// With gamma from the image (fused_int8_vh, fused_int8_hv<false>: the
+// in-kernel route) and hv from the limb planes (fused_int8_hv<true>), the
+// dp4a design: a thread block owns 32 output rows (a slice of one V block)
+// and one 128-lane output chunk of one lane block; 256 threads each own 4
+// rows x 4 lanes.  Products are dp4a (4 s8 MACs into s32) from shared
+// memory.  Operands are staged "packed along the contraction": a 32-bit
+// word holds 4 consecutive contraction elements, so V taps (row-major) and
+// the horizontal taps (packed on the host, [win_c/4][128] words) load as
+// they are, and the image tile is transposed into that form as it is
+// stored.
 //   vh: for each 128-lane segment of the chunk's win_c-lane window, the
 //       first pass computes x15 for the 32 rows x 128 lanes over the
 //       slice's nonzero V-tap rows, then the second pass adds that
 //       segment's share of pa/pb.  Each input byte is read ~3 times at
-//       7680x4320 -> 1920x1080.  Dynamic shared memory: 50 KB with
-//       gamma's second input plane, 52 KB with its table.
+//       7680x4320 -> 1920x1080.  Dynamic shared memory: 52 KB with the
+//       table.
 //   hv: for each 32-row segment of the slice's nonzero V-tap rows, the
 //       first pass computes x15 for those window rows x 128 chunk lanes
 //       over the win_c window lanes, then the second pass adds the
@@ -145,15 +166,18 @@
 //       3840x2160.
 //   With gamma the first pass makes 3 products instead of 2.  These
 //   kernels run on the CUDA cores (dp4a) over dense tap blocks, bound by
-//   dp4a issue; moving them onto the tensor-core kernels above is the
-//   next step (PERF.md).
+//   dp4a issue; moving them onto the tensor-core kernels above is queued
+//   (ROADMAP.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "k1_common.cuh"
+#include "mma_s8.cuh"
 
 namespace {
+
+using namespace mma_s8;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 32;    // output rows per block
@@ -285,12 +309,12 @@ constexpr int kVhXWords = kDepth4 * kLanes;                 // one limb plane
 constexpr int kVhLimbWords = 2 * kRows * (kLanes / 4);      // sl1, sl0
 constexpr int kVhHWords = 2 * (kLanes / 4) * kLanes;        // sh1, sh0
 constexpr int kTableWords = 2 * 256;                        // q13
-template <bool PRE>
 constexpr size_t vh_smem_bytes() {
-  return (kVhTapWords + 2 * kVhXWords + kVhLimbWords + kVhHWords + (PRE ? 0 : kTableWords)) * 4;
+  return (kVhTapWords + 2 * kVhXWords + kVhLimbWords + kVhHWords + kTableWords) * 4;
 }
 
-template <bool PRE>
+// vh with the in-kernel linearization (the limb-plane input runs on the
+// tensor cores, fused_int8_vh_mma<true>).
 __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -311,7 +335,7 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   uint32_t (*sh1)[kLanes] = reinterpret_cast<uint32_t (*)[kLanes]>(sl0 + kRows);  // H taps
   uint32_t (*sh0)[kLanes] = sh1 + kLanes / 4;
   int32_t (*q13)[256] = reinterpret_cast<int32_t (*)[256]>(sh0 + kLanes / 4);
-  if (!PRE) k1::fill_q13_table(a.epi, q13);
+  k1::fill_q13_table(a.epi, q13);
 
   const int k_lo = a.k_range[2 * blockIdx.y];
   const int k_hi = a.k_range[2 * blockIdx.y + 1];
@@ -330,7 +354,7 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
       for (int e = tid; e < kDepth4 * kLanes; e += kThreads) {
         const int k4 = e / kLanes, l = e % kLanes;
         uint32_t w1, w0;
-        pack4<PRE>(a, q13, row0 + k0 + 4 * k4, lane0 + seg + l, 1, 0, &w1, &w0);
+        pack4<false>(a, q13, row0 + k0 + 4 * k4, lane0 + seg + l, 1, 0, &w1, &w0);
         sx1[k4][l] = w1;
         sx0[k4][l] = w0;
       }
@@ -521,71 +545,25 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernels (no gamma): building blocks
+// Tensor-core kernels: building blocks (mma_s8.cuh) and the edges
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-// Four 8x8 b16 matrices (8 rows of 16 bytes each); thread l names row
-// (l & 15) at byte column (l >> 4) * 16 of a [16][32]-byte tile, so r[0..3]
-// are its (rows 0-7, bytes 0-15), (8-15, 0-15), (0-7, 16-31), (8-15,
-// 16-31) quarters: the A fragment of m16n8k32 s8, or on a [N][K] tile the
-// B fragments {r0, r2} of rows 0-7 and {r1, r3} of rows 8-15.
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const uint8_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a * b, m16n8k32, s8 operands, s32 accumulators (wrapping).
-__device__ __forceinline__ void mma8(int32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                     uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The first-pass sums of two neighbouring elements requantized and split
-// into their s8 limbs, two bytes a plane.
-__device__ __forceinline__ void limbs2(int32_t fa, int32_t fb, int sh, uint8_t* x1, uint8_t* x0) {
-  const int32_t qa = k1::requant(fa, sh), qb = k1::requant(fb, sh);
-  const int32_t ha = k1::limb_hi(qa), hb = k1::limb_hi(qb);
-  *reinterpret_cast<uint16_t*>(x1) = static_cast<uint16_t>((ha & 0xff) | ((hb & 0xff) << 8));
-  *reinterpret_cast<uint16_t*>(x0) =
-      static_cast<uint16_t>(((qa - 128 * ha) & 0xff) | (((qb - 128 * hb) & 0xff) << 8));
-}
-
 // Output element (row tr of V block vb, lane cl of lane block hb).
+template <bool GAMMA>
 __device__ __forceinline__ void store1(const Args& a, int vb, int tr, int hb, int cl,
                                        int32_t pa, int32_t pb) {
   const int orow = vb * a.tv + tr, olane = hb * a.tc + cl;
   if (tr < a.tv && orow < a.rows_out && cl < a.tc && olane < a.lanes_out) {
-    a.out[static_cast<size_t>(orow) * a.lanes_out + olane] = finish<false>(a, pa, pb, olane);
+    a.out[static_cast<size_t>(orow) * a.lanes_out + olane] = finish<GAMMA>(a, pa, pb, olane);
   }
 }
 
-// Image word: 4 lanes l..l+3 of row r, zero past the edge.
-__device__ __forceinline__ uint32_t load_word(const Args& a, int r, int l) {
+// Word of 4 lanes l..l+3 of row r of the image (or of a limb plane, ``x``
+// of the image's extent), zero past the edge.
+__device__ __forceinline__ uint32_t load_word(const Args& a, int r, int l,
+                                              const uint8_t* x = nullptr) {
   if (r >= a.rows_in) return 0u;
-  const uint8_t* p = a.x + static_cast<size_t>(r) * a.lanes_in + l;
+  const uint8_t* p = (x ? x : a.x) + static_cast<size_t>(r) * a.lanes_in + l;
   if (a.vec4) return l < a.lanes_in ? __ldg(reinterpret_cast<const uint32_t*>(p)) : 0u;
   uint32_t v = 0;
 #pragma unroll
@@ -607,17 +585,19 @@ struct VhMma {
   static constexpr int kXLd = kSeg + 8;              // image row stride, words
   static constexpr int kHLd = kLanes + 8;            // lane-tap row stride, words
   static constexpr int kW4 = kStep / 4;              // word rows of a step
-  static constexpr int kSxWords = 2 * kW4 * kHLd;    // >= kW4 * kXLd
+  static constexpr int kSxWords = 2 * kW4 * kHLd;    // >= 2 * kW4 * kXLd
   static constexpr int kILd = kSeg + 16;             // intermediate row stride, bytes
   static constexpr int kSv = 2 * 2 * kRows * kTapLd;
   static constexpr int kSx = 2 * kSxWords * 4;
   static constexpr size_t kBytes = kSv + kSx + 2 * kRows * kILd;
   // 4 x 4-byte blocks of a step's image tile per thread.
   static constexpr int kBlocks = kW4 * (kSeg / 4) / kThreads;
+  static_assert(2 * kW4 * kXLd <= kSxWords, "two limb planes fit a buffer");
 
   // sv [2 buf][2 limb][kRows][kTapLd] V taps; sx [2 buf] image words
-  // [kW4][kXLd] (first pass) or lane-tap words [2 limb][kW4][kHLd] (second
-  // pass); si [2 limb][kRows][kILd] the intermediate's limbs.
+  // [kW4][kXLd] (first pass; PRE: [2 limb][kW4][kXLd]) or lane-tap words
+  // [2 limb][kW4][kHLd] (second pass); si [2 limb][kRows][kILd] the
+  // intermediate's limbs.
   __device__ static uint8_t* sv(uint8_t* sm, int b, int p, int r) {
     return sm + ((b * 2 + p) * kRows + r) * kTapLd;
   }
@@ -654,37 +634,46 @@ struct VhMma {
   __device__ static int blk_k4(int i) { return (threadIdx.x + i * kThreads) / (kSeg / 4); }
   __device__ static int blk_l4(int i) { return (threadIdx.x + i * kThreads) % (kSeg / 4); }
 
-  // The image words of rows row + 4 k4 .. + 3 at lanes lane + 4 l4 .. + 3
-  // of this thread's blocks (the first n rows, w lanes), into registers.
+  // The image words (PRE: the words of both limb planes, hi then lo) of
+  // rows row + 4 k4 .. + 3 at lanes lane + 4 l4 .. + 3 of this thread's
+  // blocks (the first n rows, w lanes), into registers.
+  template <bool PRE>
   __device__ static void load_x(const Args& a, int row, int lane, int n, int w,
-                                uint32_t (&raw)[kBlocks][4]) {
+                                uint32_t (&raw)[PRE ? 2 : 1][kBlocks][4]) {
 #pragma unroll
     for (int i = 0; i < kBlocks; ++i) {
       const int k4 = blk_k4(i), l4 = blk_l4(i);
       if (4 * k4 >= n || 4 * l4 >= w) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) raw[i][e] = load_word(a, row + 4 * k4 + e, lane + 4 * l4);
+      for (int p = 0; p < (PRE ? 2 : 1); ++p) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          raw[p][i][e] = load_word(a, row + 4 * k4 + e, lane + 4 * l4, p ? a.x_lo : a.x);
+        }
+      }
     }
   }
 
   // The registers of load_x transposed into words of 4 rows (one word a
-  // lane), shifted to s8 (x ^ 0x80), into buffer b.
+  // lane) into buffer b: the image shifted to s8 (x ^ 0x80), or (PRE) the
+  // two s8 limb planes as they are.
+  template <bool PRE>
   __device__ static void store_x(uint8_t* sm, int b, int n, int w,
-                                 const uint32_t (&raw)[kBlocks][4]) {
+                                 const uint32_t (&raw)[PRE ? 2 : 1][kBlocks][4]) {
+    constexpr uint32_t kFlip = PRE ? 0u : 0x80808080u;
 #pragma unroll
     for (int i = 0; i < kBlocks; ++i) {
       const int k4 = blk_k4(i), l4 = blk_l4(i);
       if (4 * k4 >= n || 4 * l4 >= w) continue;
-      const uint32_t lo01 = __byte_perm(raw[i][0], raw[i][1], 0x5140);
-      const uint32_t hi01 = __byte_perm(raw[i][0], raw[i][1], 0x7362);
-      const uint32_t lo23 = __byte_perm(raw[i][2], raw[i][3], 0x5140);
-      const uint32_t hi23 = __byte_perm(raw[i][2], raw[i][3], 0x7362);
-      uint4 v;
-      v.x = __byte_perm(lo01, lo23, 0x5410) ^ 0x80808080u;
-      v.y = __byte_perm(lo01, lo23, 0x7632) ^ 0x80808080u;
-      v.z = __byte_perm(hi01, hi23, 0x5410) ^ 0x80808080u;
-      v.w = __byte_perm(hi01, hi23, 0x7632) ^ 0x80808080u;
-      *reinterpret_cast<uint4*>(sx(sm, b) + k4 * kXLd + 4 * l4) = v;
+#pragma unroll
+      for (int p = 0; p < (PRE ? 2 : 1); ++p) {
+        uint4 v = transpose4(raw[p][i][0], raw[p][i][1], raw[p][i][2], raw[p][i][3]);
+        v.x ^= kFlip;
+        v.y ^= kFlip;
+        v.z ^= kFlip;
+        v.w ^= kFlip;
+        *reinterpret_cast<uint4*>(sx(sm, b) + (p * kW4 + k4) * kXLd + 4 * l4) = v;
+      }
     }
   }
 };
@@ -697,7 +686,11 @@ struct VhMma {
 // then the second pass's steps over the segment's lanes (limbs x lane taps
 // into pa / pb).  While a step's MMAs run, the next step's taps are on
 // their way by cp.async and its image words in registers, into the other
-// buffer.
+// buffer.  PRE (gamma from K5's limb planes, the x_lo input): the first
+// pass reads both planes, makes three products, m1 = q1 xq1 and m0 = q0 xq1
+// + q1 xq0 (the first two share the B fragment of xq1), requantizes fq =
+// 2^14 m1 + 2^7 m0, and the epilogue converts back to sRGB.
+template <bool PRE>
 __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
   using K = VhMma;
   extern __shared__ __align__(16) uint8_t sm[];
@@ -718,9 +711,9 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
   const int lane0 = a.offs_l[hb] + a.rel[j];
   const int kw = k_hi - k_lo;
   const int nv = (kw + K::kStep - 1) / K::kStep;  // first-pass steps per segment
-  int32_t comp[2];
+  int32_t comp[2] = {0, 0};  // the -128 shift's row sums (no gamma)
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < 2 && !PRE; ++h) {
     const int tr = r0 + 16 * wm + g + 8 * h;
     comp[h] = tr < a.tv ? a.v_comp[vb * a.tv + tr] : 0;
   }
@@ -729,14 +722,14 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
   // No nonzero V tap or lane tap: the block's sums are 0.
   if (nv > 0 && h_lo < h_hi) {
     int32_t m1[4][4] = {}, m0[4][4] = {};
-    uint32_t raw[K::kBlocks][4];
+    uint32_t raw[PRE ? 2 : 1][K::kBlocks][4];
     int seg = h_lo, i = 0, b = 0;
     {
       const int w = min(K::kSeg, h_hi - seg), n = min(K::kStep, kw);
       K::stage_v(a, sm, 0, vb, r0, k_lo, n);
       cp_commit();
-      K::load_x(a, row0, lane0 + seg, n, w, raw);
-      K::store_x(sm, 0, n, w, raw);
+      K::load_x<PRE>(a, row0, lane0 + seg, n, w, raw);
+      K::store_x<PRE>(sm, 0, n, w, raw);
       cp_wait_all();
       __syncthreads();
     }
@@ -756,7 +749,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
         if (ni < nv) {
           K::stage_v(a, sm, b ^ 1, vb, r0, k_lo + ni * K::kStep, nn);
           cp_commit();
-          K::load_x(a, row0 + ni * K::kStep, lane0 + nseg, nn, nw, raw);
+          K::load_x<PRE>(a, row0 + ni * K::kStep, lane0 + nseg, nn, nw, raw);
         } else {
           K::stage_h(a, sm, b ^ 1, chunk, nseg + (ni - nv) * K::kStep, nn);
           cp_commit();
@@ -778,6 +771,10 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
               const uint32_t b0 = xk[t * K::kXLd + col], b1 = xk[(t + 4) * K::kXLd + col];
               mma8(m1[c], q1, b0, b1);
               mma8(m0[c], q0, b0, b1);
+              if (PRE) {
+                const uint32_t* xl = xk + K::kW4 * K::kXLd;  // the lo plane
+                mma8(m0[c], q1, xl[t * K::kXLd + col], xl[(t + 4) * K::kXLd + col]);
+              }
             }
           }
           if (i == nv - 1) {
@@ -789,8 +786,10 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int r = 16 * wm + g + 8 * h;
-                limbs2(m1[c][2 * h] * 128 + m0[c][2 * h] + comp[h],
-                       m1[c][2 * h + 1] * 128 + m0[c][2 * h + 1] + comp[h], a.sh,
+                // No gamma: fq = 128 m1 + m0 + v_comp; PRE: 2^14 m1 + 2^7 m0.
+                const int32_t s1 = PRE ? 16384 : 128, s0 = PRE ? 128 : 1;
+                limbs2(m1[c][2 * h] * s1 + m0[c][2 * h] * s0 + comp[h],
+                       m1[c][2 * h + 1] * s1 + m0[c][2 * h + 1] * s0 + comp[h], a.sh,
                        K::si(sm, 0, r) + col, K::si(sm, 1, r) + col);
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
@@ -823,7 +822,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
         }
       }
       if (more) {
-        if (ni < nv) K::store_x(sm, b ^ 1, nn, nw, raw);
+        if (ni < nv) K::store_x<PRE>(sm, b ^ 1, nn, nw, raw);
         cp_wait_all();
       }
       __syncthreads();
@@ -842,8 +841,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
     for (int c = 0; c < 4; ++c) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        store1(a, vb, tr, hb, j * kLanes + 32 * wn + 8 * c + 2 * t + e,
-               pa[c][2 * h + e], pb[c][2 * h + e]);
+        store1<PRE>(a, vb, tr, hb, j * kLanes + 32 * wn + 8 * c + 2 * t + e,
+                    pa[c][2 * h + e], pb[c][2 * h + e]);
       }
     }
   }
@@ -1077,7 +1076,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
         for (int jt = 0; jt < 4; ++jt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            store1(a, vb, r0 + 32 * sub + 8 * jt + 2 * t + (e & 1), hb,
+            store1<false>(a, vb, r0 + 32 * sub + 8 * jt + 2 * t + (e & 1), hb,
                    j * kLanes + 16 * warp + g + 8 * (e >> 1), pa[jt][e], pb[jt][e]);
             pa[jt][e] = 0;
             pb[jt][e] = 0;
@@ -1091,12 +1090,13 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
   }
 }
 
+template <bool PRE>
 cudaError_t launch_vh_mma(const Args& a, dim3 grid, cudaStream_t s) {
   constexpr size_t bytes = VhMma::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_int8_vh_mma, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      fused_int8_vh_mma<PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
-  fused_int8_vh_mma<<<grid, kThreads, bytes, s>>>(a);
+  fused_int8_vh_mma<PRE><<<grid, kThreads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1119,21 +1119,21 @@ cudaError_t launch_mma(bool hv, int rows, const Args& a, dim3 grid, cudaStream_t
     if (rows == 128) return launch_hv_mma<128>(a, grid, s);
     return cudaErrorInvalidValue;
   }
-  return rows == kRows ? launch_vh_mma(a, grid, s) : cudaErrorInvalidValue;
+  return rows == kRows ? launch_vh_mma<false>(a, grid, s) : cudaErrorInvalidValue;
 }
 
-// The dp4a gamma kernels (PRE: K5's limb planes in place of the image).
+// The dp4a gamma kernels: vh and hv with the in-kernel linearization, hv
+// (PRE) from K5's limb planes.
 template <bool PRE>
 cudaError_t launch_gamma(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
   if (hv) {
     fused_int8_hv<PRE><<<grid, kThreads, 0, s>>>(a);
   } else {
-    constexpr size_t bytes = vh_smem_bytes<PRE>();
+    constexpr size_t bytes = vh_smem_bytes();
     cudaError_t e = cudaFuncSetAttribute(
-        fused_int8_vh<PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+        fused_int8_vh, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
-    fused_int8_vh<PRE><<<grid, kThreads, bytes, s>>>(a);
+    fused_int8_vh<<<grid, kThreads, bytes, s>>>(a);
   }
   return cudaGetLastError();
 }
@@ -1186,7 +1186,8 @@ extern "C" int avir_fused_int8(
   a.h1t = static_cast<const int8_t*>(h1t);
   a.h0t = static_cast<const int8_t*>(h0t);
   a.kwin = kwin;
-  const uintptr_t xp = reinterpret_cast<uintptr_t>(x);
+  // Both planes' alignment with the limb-plane input.
+  const uintptr_t xp = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(x_lo);
   a.vec4 = lane_align % 4 == 0 && lanes_in % 4 == 0 && xp % 4 == 0;
   a.vec16 = lane_align % 16 == 0 && lanes_in % 16 == 0 && xp % 16 == 0;
   a.sh = sh;
@@ -1201,11 +1202,14 @@ extern "C" int avir_fused_int8(
   a.epi.out_max = 255.0f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_lo != nullptr && !gamma) return static_cast<int>(cudaErrorInvalidValue);
-  // Without gamma: the tensor-core kernels over R-row slices; with gamma
-  // the dp4a kernels over 32-row slices.
+  if (x_lo != nullptr && !hv && rows != kRows) return static_cast<int>(cudaErrorInvalidValue);
+  // Without gamma, and vh from the limb planes: the tensor-core kernels
+  // over R-row slices; the other gamma kernels: dp4a over 32-row slices.
+  const dim3 grid_r(bh * n_ch, bv * n_slices_r), grid32(bh * n_ch, bv * n_slices);
   const cudaError_t e =
-      !gamma            ? launch_mma(hv, rows, a, dim3(bh * n_ch, bv * n_slices_r), s)
-      : x_lo != nullptr ? launch_gamma<true>(hv, a, dim3(bh * n_ch, bv * n_slices), s)
-                        : launch_gamma<false>(hv, a, dim3(bh * n_ch, bv * n_slices), s);
+      !gamma            ? launch_mma(hv, rows, a, grid_r, s)
+      : x_lo == nullptr ? launch_gamma<false>(hv, a, grid32, s)
+      : hv              ? launch_gamma<true>(true, a, grid32, s)
+                        : launch_vh_mma<true>(a, grid_r, s);
   return static_cast<int>(e);
 }

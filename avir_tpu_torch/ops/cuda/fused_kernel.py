@@ -22,8 +22,9 @@ packed four-along-the-contraction for the kernels that read them (the
 gamma kernels and the vh tensor-core kernel) or transposed (the hv
 tensor-core kernel), the row/column sums that undo the input's -128 shift
 (unused with gamma), each 32-row slice's range of nonzero V taps, and for
-the tensor-core kernels (no gamma) the slice height ``slice_rows`` picks,
-its slices' ranges and each chunk's range of nonzero lane taps.
+the tensor-core kernels (no gamma, and vh from K5's limb planes) the
+slice height ``slice_rows`` picks, its slices' ranges and each chunk's
+range of nonzero lane taps.
 
 ``apply_fused_int8`` launches the kernel on a CUDA tensor and runs
 ``apply_fused_int8_reference`` on a CPU tensor.  The reference does the
@@ -246,8 +247,9 @@ class FusedInt8Operands:
     # The input is K5's two s8 limb planes of the linearized image
     # (ops/cuda/gamma_prologue.py), not the u8 image (gamma only).
     gamma_pre: bool = False
-    # The tensor-core kernels (no gamma; the gamma kernels run 32-row
-    # slices over k_range): output rows per thread block (slice_rows),
+    # The tensor-core kernels (no gamma, and vh from the limb planes; the
+    # other gamma kernels run 32-row slices over k_range): output rows per
+    # thread block (slice_rows),
     # that slice's nonzero V-tap rows, each chunk's nonzero lane-tap rows,
     # the hv kernel's lane taps as [..., 128, win_c] and its intermediate's
     # rows, and the largest power of two (up to 16) dividing every chunk's
@@ -468,12 +470,12 @@ def prepare_fused_int8(
         return t.to(device=device, dtype=dtype)
 
     # The packed lane taps for the kernels that read them; the tensor-core
-    # kernels' fields without gamma.
+    # kernels' fields without gamma and for vh from the limb planes.
     h1p = h0p = None
     if gamma or order == "vh":
         h1p, h0p = dev(_pack4(h1)), dev(_pack4(h0))
     mma = {}
-    if not gamma:
+    if not gamma or (gamma_pre and order == "vh"):
         hr = h_ranges(h1, h0)
         rows = slice_rows(order, v1, v0, hr.shape[0] * hr.shape[1], _sm_count(device))
         sr, kwin = _slice_fields(v1, v0, rows)

@@ -9,8 +9,8 @@ sums -> the 15-bit intermediate -> the H pass's limb sums -> sRGB -> u8.
 What differs is where the linearization happens.  K1 linearizes every
 input element each time a thread block stages it (2.98 times per input
 byte at 7680x4320 -> 1920x1080); the ring kernel linearizes each input row
-once per sweep of a thread block down a column of output rows and keeps
-the limb rows in a ring in shared memory.
+of a 128-lane segment once per sweep of a thread block down a column of
+output rows and keeps the limb rows in a ring in shared memory.
 
 The operator is the uniform blocking of the V pass (``block_banded(...,
 uniform=True)``): constant window stride ``delta``, with ``pad_top`` rows
@@ -19,14 +19,23 @@ image, as zeros without a padded copy of the image.
 
 ``prepare_fused_ring`` builds K1 int8's gamma operands on the ring
 operator (``prepare_fused_int8``, so the taps, the shifts and the
-epilogue are K1's) and the kernel's schedule (csrc/fused_ring.cu):
+epilogue are K1's) and the kernel's schedule (csrc/fused_ring.cu), the
+cluster plan:
 
-  - 128-lane input segments, each with the list of (lane chunk, window
-    offset) pairs whose nonzero H taps cover it; a thread block owns one
-    segment, so each input lane is linearized by one block only;
-  - the active 32-row output slices in order, cut into ``parts`` runs; a
-    thread block sweeps one run, linearizing the first slice's whole
-    tap-row range (its preload) and then only each next slice's new rows.
+  - a thread block cluster per 128-lane output chunk, of ``cluster``
+    blocks: the most 128-lane input segments that hold a chunk's nonzero
+    lane taps (its window's nonzero 128-lane groups, ``_pairs``).  Block
+    r of a chunk's cluster owns its r-th such segment (``seg_of``, with
+    its first window lane ``off_of``), or none (-1) where the chunk has
+    fewer; it linearizes that segment, runs the V pass over it and its
+    share of the H pass, and the cluster sums the shares in distributed
+    shared memory.  More than 16 blocks (the H100's largest cluster), or
+    more shared memory than a block can have, is refused (ValueError), and
+    the executor then takes K1's in-kernel route;
+  - the 32-row output slices that hold output rows, in order, cut into
+    ``parts`` runs; a cluster sweeps one run, each block linearizing the
+    first active slice's whole tap-row range (its preload) and then only
+    each next slice's new rows.
 
 ``apply_fused_ring`` launches the kernel on a CUDA tensor and runs
 ``apply_fused_ring_reference`` on a CPU tensor: K1 int8's plain gamma
@@ -56,11 +65,27 @@ from .fused_kernel import (
 # Launches of the ring kernel, counted by the wrapper.
 launches = {"fused_ring_vh_gamma": 0}
 
-# Thread blocks the row parts aim for: eight waves of two blocks on each
-# of the H100's 132 SMs.  Measured at 8K (chip_smoke.py's parts sweep),
-# more blocks in flight gain more than their extra preloads cost: 2.08 ms
-# at 180 blocks, 1.66 at 540, 1.42 at 2,160.
-_TARGET_BLOCKS = 2112
+# Thread blocks the row parts aim for: four waves of two blocks on each of
+# the H100's 132 SMs.  chip_smoke.py's parts sweep (PERF.md) finds the time
+# flat from three parts to sixteen at 8K -> 1080p; one part leaves a second
+# wave of a few clusters, and more parts add preloads.
+_TARGET_BLOCKS = 1056
+# The H100's largest thread block cluster (non-portable above 8) and the
+# most dynamic shared memory a block can have.
+MAX_CLUSTER = 16
+MAX_SMEM = 232_448
+# csrc/fused_ring.cu's shared memory beside the ring and the V taps: the
+# q13 table and its packed limbs, the intermediate's limbs (2 x 32 x 144
+# bytes) and the lane taps (2 x 32 x 136 words), which the shares overlay.
+_SMEM_FIXED = 2 * 256 * (4 + 2) + 2 * 32 * 144 + 2 * 32 * 136 * 4
+
+
+def smem_bytes(ring_rows: int) -> int:
+    """Dynamic shared memory of one ring block (``smem_bytes`` in
+    csrc/fused_ring.cu): the ring's two limb planes (ring_rows / 4 words
+    of 4 rows x 136, 128 lanes padded), a slice's V taps (2 limbs x 32
+    rows x ring_rows + 16 bytes) and the rest."""
+    return 2 * (ring_rows // 4) * 136 * 4 + 2 * 32 * (ring_rows + 16) + _SMEM_FIXED
 
 
 def uniform_delta(offs: np.ndarray) -> int:
@@ -104,11 +129,15 @@ class FusedRingOperands:
     n_pre: int              # the TPU kernel's preload cells
     pad_top: int            # zero rows above the image
     ring_rows: int          # ring capacity (rows, a multiple of 32)
-    segs: torch.Tensor      # int32 [n_seg] 128-lane input segments swept
-    seg_ptr: torch.Tensor   # int32 [n_seg + 1] into pair_chunk / pair_off
-    pair_chunk: torch.Tensor  # int32 [n_pairs] lane chunk hb * n_ch + j
-    pair_off: torch.Tensor    # int32 [n_pairs] segment's row in its window
-    slices: torch.Tensor    # int32 [n_active] active slices vb * n_slices + sl
+    cluster: int            # thread blocks a cluster
+    smem_bytes: int         # dynamic shared memory a block
+    chunk_of: torch.Tensor  # int32 [n_clusters] lane chunk hb * n_ch + j
+    seg_of: torch.Tensor    # int32 [n_clusters * cluster] 128-lane input
+                            # segment of each block, -1: none
+    off_of: torch.Tensor    # int32 [n_clusters * cluster] its first window lane
+    slices: torch.Tensor    # int32 [n_sl, 4] slices with output rows, in
+                            # order: vb * n_slices + sl, its nonzero V-tap
+                            # rows [k_lo, k_hi), its window's first row
     part_ptr: torch.Tensor  # int32 [parts + 1] into slices
 
     @property
@@ -150,6 +179,40 @@ def _pairs(k1: FusedInt8Operands) -> dict[int, list[tuple[int, int]]]:
     return out
 
 
+def cluster_plan(k1: FusedInt8Operands):
+    """(cluster, chunk_of, seg_of, off_of): a cluster for every lane chunk
+    with output lanes; its blocks own the chunk's input segments with
+    nonzero lane taps (``_pairs``) in order, then none (-1)."""
+    by_chunk: dict[int, list[tuple[int, int]]] = {}
+    for seg, pairs in sorted(_pairs(k1).items()):
+        for chunk, off in pairs:
+            by_chunk.setdefault(chunk, []).append((seg, off))
+    bh, n_ch = k1.h1.shape[:2]
+    chunks = [
+        hb * n_ch + j for hb in range(bh) for j in range(n_ch)
+        if hb * k1.tc + j * _LANES < k1.lanes_out
+    ]
+    cluster = max([1] + [len(by_chunk.get(c, ())) for c in chunks])
+    seg_of = np.full((len(chunks), cluster), -1, dtype=np.int64)
+    off_of = np.zeros((len(chunks), cluster), dtype=np.int64)
+    for i, c in enumerate(chunks):
+        for r, (seg, off) in enumerate(by_chunk.get(c, ())):
+            seg_of[i, r], off_of[i, r] = seg, off
+    return cluster, np.asarray(chunks), seg_of.ravel(), off_of.ravel()
+
+
+def resident_clusters(cluster: int, ring_rows: int, device: torch.device) -> int:
+    """Clusters of ``cluster`` ring blocks the card can hold at once (0:
+    it cannot launch one)."""
+    lib = _library_of("avir_fused_ring_max_clusters", [_I, _I, ctypes.POINTER(_I)])
+    count = _I(0)
+    with torch.cuda.device(device):
+        err = lib(cluster, ring_rows, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"fused_ring occupancy query failed: CUDA error {err}")
+    return count.value
+
+
 def prepare_fused_ring(
     vop: BlockedBandedOp,
     lop: LaneBlockedOp,
@@ -162,7 +225,9 @@ def prepare_fused_ring(
     """Operands of the ring resize by the uniformly blocked ``vop``
     (``block_banded(..., uniform=True)``) and ``lop``, with sRGB gamma, on
     ``device``.  ``parts``: runs each column of output slices is cut into
-    (by default enough for ~2,112 thread blocks)."""
+    (by default enough for ~1,056 thread blocks).  Raises ValueError where
+    a chunk's window needs more than MAX_CLUSTER blocks, a block more than
+    MAX_SMEM bytes, or (on a card) the card holds no such cluster."""
     if not ring_viable(vop, lop, True, "vh"):
         raise ValueError("ring kernel needs uniform 32-aligned delta")
     if vop.taps_q1 is None or lop.taps_q1 is None:
@@ -175,15 +240,34 @@ def prepare_fused_ring(
     active = np.nonzero(hi > lo)[0]
     if (np.diff(lo[active]) < 0).any() or (np.diff(hi[active]) < 0).any():
         raise ValueError("slice tap rows are not monotone")
+    if (lo[active] % 32).any():
+        raise ValueError("slice tap rows are not 32-aligned")
     ring_rows = int((hi[active] - lo[active]).max())
-    pairs = _pairs(k1)
-    segs = sorted(pairs)
+    cluster, chunk_of, seg_of, off_of = cluster_plan(k1)
+    if cluster > MAX_CLUSTER:
+        raise ValueError(
+            f"a chunk's window spans {cluster} segments: more than the "
+            f"{MAX_CLUSTER} blocks of a cluster"
+        )
+    smem = smem_bytes(ring_rows)
+    if smem > MAX_SMEM:
+        raise ValueError(f"ring of {ring_rows} rows needs {smem} bytes a block")
+    device = torch.device(device)
+    if device.type == "cuda" and resident_clusters(cluster, ring_rows, device) < 1:
+        raise ValueError(f"the card holds no cluster of {cluster} ring blocks")
+    # Every slice with output rows: its outputs are written even where it
+    # has no nonzero V tap.
+    _, tv, _ = k1.v1.shape
+    n_sl = k1.k_range.shape[1]
+    g = np.arange(lo.size)
+    g = g[(g // n_sl) * tv + (g % n_sl) * 32 < k1.rows_out]
+    kr = k1.k_range.cpu().numpy().reshape(-1, 2)
+    offs = np.asarray(k1.offs_v_host)
+    slices = np.stack([g, kr[g, 0], kr[g, 1], offs[g // n_sl]], axis=1)
     if parts is None:
-        parts = -(-_TARGET_BLOCKS // max(len(segs), 1))
-    parts = max(1, min(int(parts), len(active)))
-    part_ptr = np.linspace(0, len(active), parts + 1).round().astype(np.int64)
-    seg_ptr = np.cumsum([0] + [len(pairs[s]) for s in segs])
-    flat = [p for s in segs for p in pairs[s]]
+        parts = -(-_TARGET_BLOCKS // (len(chunk_of) * cluster))
+    parts = max(1, min(int(parts), len(slices)))
+    part_ptr = np.linspace(0, len(slices), parts + 1).round().astype(np.int64)
     delta = uniform_delta(vop.offs)
 
     def dev(a):
@@ -195,33 +279,37 @@ def prepare_fused_ring(
         n_pre=n_preload(vop.taps_hi.shape[2], delta),
         pad_top=vop.pad_top,
         ring_rows=ring_rows,
-        segs=dev(segs),
-        seg_ptr=dev(seg_ptr),
-        pair_chunk=dev([c for c, _ in flat]),
-        pair_off=dev([o for _, o in flat]),
-        slices=dev(active),
+        cluster=cluster,
+        smem_bytes=smem,
+        chunk_of=dev(chunk_of),
+        seg_of=dev(seg_of),
+        off_of=dev(off_of),
+        slices=dev(slices),
         part_ptr=dev(part_ptr),
     )
 
 
 def linearizations_per_input(ops: FusedRingOperands) -> float:
     """Image elements the kernel linearizes per image element: each
-    thread block linearizes its segment's lanes over its run's first
-    slice's tap rows and every next slice's new rows (padding excluded)."""
+    thread block that owns a segment linearizes its lanes over its run's
+    first active slice's tap rows and every next slice's new rows
+    (padding excluded)."""
     k1 = ops.k1
     lo, hi = _slice_rows(k1)
     top, bottom = ops.pad_top, ops.pad_top + k1.rows_in
     rows = 0
-    p, slices = ops.part_ptr.tolist(), ops.slices.tolist()
+    p, slices = ops.part_ptr.tolist(), ops.slices[:, 0].tolist()
     for a, b in zip(p[:-1], p[1:]):
         done = None
         for g in slices[a:b]:
+            if hi[g] <= lo[g]:
+                continue
             start = lo[g] if done is None else max(done, lo[g])
             rows += max(0, min(hi[g], bottom) - max(start, top))
             done = hi[g]
     lanes = sum(
         max(0, min(_LANES * s + _LANES, k1.lanes_in) - _LANES * s)
-        for s in ops.segs.tolist()
+        for s in ops.seg_of.tolist() if s >= 0
     )
     return rows * lanes / (k1.rows_in * k1.lanes_in)
 
@@ -254,13 +342,14 @@ def apply_fused_ring_reference(
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [
     _P, _I, _I, _I,        # x, rows_in, lanes_in, pad_top
-    _P, _P, _I, _I, _I,    # out, acc (pa/pb), rows_out, lanes_out, tc
+    _P, _I, _I, _I,        # out, rows_out, lanes_out, tc
     _P, _P, _P,            # v1, v0, offs_v
     _I, _I,                # tv, wv
     _P, _P,                # h1p, h0p
     _I, _I,                # n_ch, win_c
     _P, _I,                # k_range, n_slices
-    _P, _I, _P, _P, _P,    # segs, n_seg, seg_ptr, pair_chunk, pair_off
+    _I, _I,                # cluster, n_clusters
+    _P, _P, _P,            # chunk_of, seg_of, off_of
     _P, _P, _I,            # slices, part_ptr, parts
     _I,                    # ring_rows
     _I, _F,                # sh, rec
@@ -269,21 +358,20 @@ _ARGTYPES = [
 ]
 
 
-def _library():
+def _library_of(name: str, argtypes: list):
     from .build import load_library
 
-    lib = load_library("fused_ring")
-    fn = lib.avir_fused_ring
+    fn = getattr(load_library("fused_ring"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
 def apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
     """Ring resize of the u8 image ``x`` [rows_in, lanes_in] -> u8
-    [rows_out, lanes_out].  A CUDA tensor launches the kernel; a CPU
-    tensor runs the plain version."""
+    [rows_out, lanes_out].  A CUDA tensor launches the kernel (one launch);
+    a CPU tensor runs the plain version."""
     k1 = ops.k1
     if x.device.type == "cpu" and ops.device.type == "cpu":
         return apply_fused_ring_reference(ops, x)
@@ -301,27 +389,24 @@ def apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("image must be contiguous")
     _, tv, wv = k1.v1.shape
     _, n_ch, win_c, _ = k1.h1.shape
-    n_seg, parts = ops.segs.shape[0], ops.part_ptr.shape[0] - 1
+    n_clusters, parts = ops.chunk_of.shape[0], ops.part_ptr.shape[0] - 1
     if parts > 65535:
         raise ValueError("too many row parts for one launch")
-    # The H pass adds each segment's share of the two s32 limb sums into
-    # acc; the finishing step turns them into the output.
-    acc = torch.zeros((2, k1.rows_out, k1.lanes_out), dtype=torch.int32, device=x.device)
     out = torch.empty((k1.rows_out, k1.lanes_out), dtype=torch.uint8, device=x.device)
     epi = k1.epi
-    fn = _library()
+    fn = _library_of("avir_fused_ring", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
             x.data_ptr(), k1.rows_in, k1.lanes_in, ops.pad_top,
-            out.data_ptr(), acc.data_ptr(), k1.rows_out, k1.lanes_out, k1.tc,
+            out.data_ptr(), k1.rows_out, k1.lanes_out, k1.tc,
             k1.v1.data_ptr(), k1.v0.data_ptr(), k1.offs_v.data_ptr(),
             tv, wv,
             k1.h1p.data_ptr(), k1.h0p.data_ptr(),
             n_ch, win_c,
             k1.k_range.data_ptr(), k1.k_range.shape[1],
-            ops.segs.data_ptr(), n_seg, ops.seg_ptr.data_ptr(),
-            ops.pair_chunk.data_ptr(), ops.pair_off.data_ptr(),
+            ops.cluster, n_clusters,
+            ops.chunk_of.data_ptr(), ops.seg_of.data_ptr(), ops.off_of.data_ptr(),
             ops.slices.data_ptr(), ops.part_ptr.data_ptr(), parts,
             ops.ring_rows,
             k1.sh, 2.0 ** k1.out_exp,

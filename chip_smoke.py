@@ -27,9 +27,11 @@ Phases (any failure exits non-zero before the last line):
          vh/hv (the split gate above; an integer output whose float32
          difference is amplified, by LANCIR's scale > 1 or by gamma-out,
          takes the float32 gate on its range plus one step);
-       - K2, K3 (max * 1e-5), K5 and K1's limb-plane input (bit-equal);
-       - K6 ring: the JAX package's five ring cases plus C = 1, bit-equal
-         to its plain version and to K1's in-kernel gamma kernel;
+       - K2, K3 (max * 1e-5), K5 and K1's limb-plane input (bit-equal;
+         vh on the tensor cores at the edges of its tiling);
+       - K6 ring: the JAX package's five ring cases plus C = 1 and
+         clusters of 8, 12 and 16 blocks, bit-equal to its plain version
+         and to K1's in-kernel gamma kernel;
        - K7 planar and K8 interleaved: C in {1, 3, 4}, split2/split3,
          u8/u16/f32 in, f32/u8/u16 out, trunc_bits 0 and 2, gamma with
          alpha: the split gate;
@@ -77,10 +79,15 @@ Phases (any failure exits non-zero before the last line):
          2 LSB / >= 60 dB of the float64 gamma oracle (13-bit linear
          light through the sRGB slope);
        - the unfused shapes (K4 checked as at 8k_to_1080p_errdiff), the
-         prologue shape, then the ring route at 8k_to_1080p_gamma_ring
-         and 4k_to_720p_gamma_ring (one K6 launch on the default route,
+         prologue shapes (8k_to_1080p_gamma_prologue, K1's limb-plane vh
+         on the tensor cores; 1080p_to_4k_gamma_prologue, its hv), then
+         the ring route at 8k_to_1080p_gamma_ring and
+         4k_to_720p_gamma_ring (one K6 launch on the default route,
          AVIR_TPU_GAMMA_ROUTE unset; bit-equal to its plain version and
-         to the "ring", in-kernel and prologue routes), and K7/K8 called
+         to the "ring", in-kernel and prologue routes; the cluster size,
+         the linearizations per input element, the shared memory a block,
+         the clusters the card holds at once, ptxas's registers and spills
+         and a sweep of the row parts), and K7/K8 called
          directly (no resize routes to them) at 8k_to_1080p_planar (u8
          RGB split2/split3) and
          1080p_to_4k_u16_gamma_rgba_planar (split3/split3, gamma, alpha
@@ -159,10 +166,13 @@ Phases (any failure exits non-zero before the last line):
      its first main-path shape) and, last, the device line.
 
 ``python3 chip_smoke.py --kernel-times DIR`` times K1 int8 without gamma
-(vh, vh even, hv) at its four main-path cells on the package under DIR
-instead (one JSON line, with output hashes and, at the two downsizes, the
-split route beside it), so that two versions of the kernel can be
-compared in turns within one chip call.
+(vh, vh even, hv) at its four main-path cells, K6 at
+8k_to_1080p_gamma_ring and 4k_to_720p_gamma_ring and K1 int8 from K5's
+limb planes at 8k_to_1080p_gamma_prologue (vh) and
+1080p_to_4k_gamma_prologue (hv) on the package under DIR instead (one
+JSON line, with output hashes and, at the two int8 downsizes, the split
+route beside it), so that two versions of the kernels can be compared in
+turns within one chip call.
 """
 
 from __future__ import annotations
@@ -317,6 +327,9 @@ KERNELS = {
     "fused_int8_vh_gamma_pre": "avir_tpu/ops/pallas/fused_kernel.py:462-516 "
     "(x_lo limb-plane input, gamma_pre) with _int8_passes :191 and "
     "_linear_to_srgb :79; entry apply_fused_pallas :422",
+    "fused_int8_hv_gamma_pre": "avir_tpu/ops/pallas/fused_kernel.py:462-516 "
+    "(x_lo limb-plane input, gamma_pre) with _int8_passes order hv :268 and "
+    "_linear_to_srgb :79; entry apply_fused_pallas :422",
     "fused_ring_vh_gamma": "avir_tpu/ops/pallas/fused_ring_kernel.py:137 "
     "(apply_fused_ring_pallas, _kernel :87)",
     "planar": "avir_tpu/ops/pallas/planar_kernel.py:117 (apply_planar_pallas, "
@@ -343,6 +356,7 @@ SOURCES = {
     "banded_exact": "avir_tpu_torch/ops/cuda/csrc/banded.cu",
     "gamma_prologue": "avir_tpu_torch/ops/cuda/csrc/gamma_prologue.cu",
     "fused_int8_vh_gamma_pre": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
+    "fused_int8_hv_gamma_pre": "avir_tpu_torch/ops/cuda/csrc/fused_int8.cu",
     "fused_ring_vh_gamma": "avir_tpu_torch/ops/cuda/csrc/fused_ring.cu",
     "planar": "avir_tpu_torch/ops/cuda/csrc/planar.cu",
     "planar2": "avir_tpu_torch/ops/cuda/csrc/planar.cu",
@@ -461,8 +475,12 @@ UNFUSED_SHAPES = (
      np.float32, {}, ("hv", "split2", "split3")),
 )
 # The linearize-once gamma route (K5 + K1 int8 limb-plane input):
-# (name, src_w, src_h, new_w, new_h, c), u8 RGB with sRGB gamma.
-PROLOGUE_SHAPE = ("8k_to_1080p_gamma_prologue", 7680, 4320, 1920, 1080, 3)
+# (name, src_w, src_h, new_w, new_h, c), u8 RGB with sRGB gamma; the
+# downsize runs vh (the tensor-core kernel), the upsize hv (dp4a).
+PROLOGUE_SHAPES = (
+    ("8k_to_1080p_gamma_prologue", 7680, 4320, 1920, 1080, 3),
+    ("1080p_to_4k_gamma_prologue", 1920, 1080, 3840, 2160, 3),
+)
 # K2 / K3 small cases: (src_w, src_h, new_w, new_h), cycled over every
 # mode x input type x channel count.
 PASS_SHAPES = ((53, 37, 90, 71), (150, 97, 61, 40), (300, 20, 1400, 41))
@@ -477,10 +495,17 @@ GAMMA_PRE_CASES = (
     (29, 21, 71, 45, 4, 48, "hv", -1),
     (1031, 517, 263, 129, 4, None, "vh", 3),
     (333, 251, 1001, 777, 3, None, "hv", -1),
+    # The vh tensor-core kernel's tiling edges: rows_out off 32, C = 2, a
+    # downsize by more than 4, C = 5.
+    (300, 250, 170, 150, 3, None, "vh", -1),
+    (97, 83, 61, 45, 2, None, "vh", -1),
+    (1031, 517, 200, 97, 3, None, "vh", -1),
+    (90, 60, 40, 27, 5, None, "vh", -1),
 )
 # K6, the shift-ring gamma route: (src_w, src_h, new_w, new_h, c,
 # alpha_index, V tile, uniform blocking); tests/test_pallas_kernel.py:
-# 854-862's five cases plus C = 1.
+# 854-862's five cases plus C = 1, then clusters of 8, 12 and 16 blocks
+# (lanes_in off 4 and off 128, V ranges of 96 / 160 rows, RGBA).
 RING_CASES = (
     (256, 768, 64, 192, 3, -1, 64, False),
     (128, 768, 32, 192, 4, 3, 64, False),
@@ -488,7 +513,14 @@ RING_CASES = (
     (512, 1024, 128, 256, 3, -1, 64, True),
     (256, 960, 128, 480, 4, 3, 64, True),
     (640, 1024, 160, 256, 1, -1, 64, True),
+    (1030, 640, 170, 160, 3, -1, None, True),
+    (1024, 640, 128, 160, 3, -1, None, True),
+    (2048, 640, 128, 160, 1, -1, None, True),
+    (384, 720, 128, 240, 3, -1, None, True),
+    (768, 640, 128, 160, 4, 3, None, True),
 )
+# The ring shapes' sweep of row parts a column is cut into.
+RING_PARTS = (1, 2, 4, 8, 16, 32)
 # K6 at full size through ImageResizer.resize(use_srgb_gamma=True) on the
 # default gamma route, u8 RGB: (name, src_w, src_h, new_w, new_h).
 RING_SHAPES = (
@@ -538,8 +570,46 @@ KT_INT8_CELLS = (
     ("1080p_to_4k", "avir", 1920, 1080, 3840, 2160),
     ("640x480_to_1024x768", "avir", 640, 480, 1024, 768),
 )
+# --kernel-times' gamma cells, u8 RGB with sRGB gamma: (name, route of
+# AVIR_TPU_GAMMA_ROUTE, src_w, src_h, new_w, new_h): K6 on the default
+# route, K5 + K1 int8 from the limb planes on "prologue".
+KT_GAMMA_CELLS = (
+    ("8k_to_1080p_gamma_ring", "auto", 7680, 4320, 1920, 1080),
+    ("4k_to_720p_gamma_ring", "auto", 3840, 2160, 1280, 720),
+    ("8k_to_1080p_gamma_prologue", "prologue", 7680, 4320, 1920, 1080),
+    ("1080p_to_4k_gamma_prologue", "prologue", 1920, 1080, 3840, 2160),
+)
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
+
+
+# ptxas's report of each library this run built ({name: log}).
+BUILD_LOGS: dict[str, str] = {}
+
+
+def _ptxas(lib: str, needle: str):
+    """{kernel: registers and spill bytes} that ptxas gave the kernels of
+    library ``lib`` whose mangled names hold ``needle``, from this run's
+    build."""
+    import re
+
+    log = BUILD_LOGS.get(lib)
+    if log is None:
+        return "not built in this run"
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if needle in m.group(1) else None
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                               spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
 
 
 def _fail(msg: str) -> None:
@@ -1763,11 +1833,13 @@ def _unfused_shape(name, entry, sw, sh, nw, nh, c, out_dt, kw, expect, gen,
     return entries
 
 
-def _prologue_shape(gen, dev, flush, smi, mods) -> list[dict]:
-    """8k_to_1080p_gamma_prologue: ImageResizer.resize with sRGB gamma
-    under AVIR_TPU_GAMMA_ROUTE=prologue: one K5 launch and one K1 int8
-    limb-plane launch, bit-equal to the in-kernel route on the same image;
-    K5 and K1 timed apart beside the in-kernel K1 of the same run."""
+def _prologue_shape(name, sw, sh, nw, nh, c, gen, dev, flush, smi, mods) -> list[dict]:
+    """A PROLOGUE_SHAPES cell: ImageResizer.resize with sRGB gamma under
+    AVIR_TPU_GAMMA_ROUTE=prologue: one K5 launch and one K1 int8
+    limb-plane launch (vh on the tensor cores at the downsize, hv dp4a at
+    the upsize), bit-equal to the in-kernel route on the same image; K5
+    and K1 timed apart beside the in-kernel K1 of the same run, with the
+    ptxas registers and spills of the limb-plane kernel."""
     import os
 
     import avir_tpu_torch
@@ -1776,7 +1848,6 @@ def _prologue_shape(gen, dev, flush, smi, mods) -> list[dict]:
     from avir_tpu_torch.ops.cuda import gamma_prologue as gp
     from avir_tpu_torch.plan.plan import build_resize_plan
 
-    name, sw, sh, nw, nh, c = PROLOGUE_SHAPE
     src = gen.integers(0, 256, (sh, sw, c), dtype=np.uint8)
     api = avir_tpu_torch.ImageResizer()
     plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True)
@@ -1801,7 +1872,7 @@ def _prologue_shape(gen, dev, flush, smi, mods) -> list[dict]:
     key = ops.launch_key
     print(json.dumps({"main_path": name, "launches": {k: v for k, v in counts.items() if v},
                       "route": fn.route, "variant": key}))
-    if (key != "fused_int8_vh_gamma_pre" or counts[key] != 1
+    if (key != f"fused_int8_{fn.order}_gamma_pre" or counts[key] != 1
             or counts["gamma_prologue"] != 1 or sum(counts.values()) != 2):
         _fail(f"{name}: launches {counts}, variant {key}")
 
@@ -1833,7 +1904,7 @@ def _prologue_shape(gen, dev, flush, smi, mods) -> list[dict]:
     k5_bytes = n_in + 2 * rows_p * lanes_p
     t_b, t_o = k5_bytes / HBM_BYTES_PER_S, n_in * GAMMA_IN_OPS["int8"] / F32_OPS_PER_S
     k5_bound = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
-    k1_bound = _k1_bound(plan.h.op, plan.v.op, c, "vh", 2, 1, 2, 3, 3, INT8_OPS_PER_S,
+    k1_bound = _k1_bound(plan.h.op, plan.v.op, c, fn.order, 2, 1, 2, 3, 3, INT8_OPS_PER_S,
                          nh * nw * c * GAMMA_OUT_OPS)
     report = {
         "shape": name, "route": "int8 + prologue", "variant": key,
@@ -1847,6 +1918,8 @@ def _prologue_shape(gen, dev, flush, smi, mods) -> list[dict]:
         "k1_pre_bound_ms": k1_bound[0], "k1_pre_bound_by": k1_bound[1],
         "planes": [rows_p, lanes_p],
         "first_pass_reads_per_input": _first_pass_reads(ops),
+        "ptxas": _ptxas("fused_int8", "fused_int8_vh_mmaILb1E" if fn.order == "vh"
+                        else "fused_int8_hvILb1E"),
         "launches_per_resize": {k: v for k, v in counts.items() if v},
         "resize_first_call_s": first_s,
         "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
@@ -1898,7 +1971,8 @@ def _ring_cases(gen, dev) -> None:
         err_plain = int((got.int() - fr.apply_fused_ring_reference(ops, x).int()).abs().max())
         err_ink = int((got.int() - fk.apply_fused_int8(ink, x).int()).abs().max())
         case = (f"{ops.launch_key} {sw}x{sh}->{nw}x{nh} C={c} tile={tile} "
-                f"uniform={uniform} pad_top={ops.pad_top} alpha={alpha}")
+                f"uniform={uniform} pad_top={ops.pad_top} alpha={alpha} "
+                f"cluster={ops.cluster}")
         print(json.dumps({"case": case, "max_abs_err_vs_plain": err_plain,
                           "max_abs_err_vs_inkernel": err_ink}))
         if err_plain or err_ink:
@@ -2028,12 +2102,12 @@ def _ring_shape(name, sw, sh, nw, nh, gen, dev, flush, smi, mods) -> list[dict]:
     # blocks in flight (the route's default is ops.part_ptr's).
     vop_ring, lop = block_banded(plan.v.op, uniform=True), lane_block_banded(plan.h.op, c)
     sweep = {}
-    for parts in (1, 3, 6, 12, 24):
+    for parts in RING_PARTS:
         o = fr.prepare_fused_ring(vop_ring, lop, dev, in_gamma_mult=plan.in_gamma_mult,
                                   out_gamma_mult=plan.out_gamma_mult, parts=parts)
         sweep[parts] = {
             "ms": _time_ms(lambda: fr.apply_fused_ring(o, x), 10, flush),
-            "blocks": o.segs.shape[0] * (o.part_ptr.shape[0] - 1),
+            "blocks": o.chunk_of.shape[0] * o.cluster * (o.part_ptr.shape[0] - 1),
             "linearizations_per_input": fr.linearizations_per_input(o),
         }
     f32_ops = sh * sw * c * GAMMA_IN_OPS["int8"] + nh * nw * c * GAMMA_OUT_OPS
@@ -2052,7 +2126,11 @@ def _ring_shape(name, sw, sh, nw, nh, gen, dev, flush, smi, mods) -> list[dict]:
         "inkernel_first_pass_reads_per_input": _first_pass_reads(ink.ops),
         "ring_operator": list(k1.v1.shape), "delta": ops.delta, "n_pre": ops.n_pre,
         "pad_top": ops.pad_top, "ring_rows": ops.ring_rows,
-        "segments": ops.segs.shape[0], "pairs": ops.pair_chunk.shape[0],
+        "cluster": ops.cluster, "clusters": ops.chunk_of.shape[0],
+        "blocks_owning_a_segment": int((ops.seg_of >= 0).sum()),
+        "smem_bytes": ops.smem_bytes,
+        "clusters_resident": fr.resident_clusters(ops.cluster, ops.ring_rows, dev),
+        "ptxas": _ptxas("fused_ring", "fused_ring_vh"),
         "parts": ops.part_ptr.shape[0] - 1, "slices": ops.slices.shape[0],
         "parts_sweep": sweep, "ring_route_variant": routes["ring"].ops.launch_key,
         "launches_per_resize": {k: v for k, v in counts.items() if v},
@@ -3067,12 +3145,15 @@ def _card() -> str:
 
 
 def kernel_times(root: str) -> int:
-    """K1 int8 (no gamma) at its four main-path cells (KT_INT8_CELLS),
-    timed on the package under ``root`` through the calls that the versions
-    being compared share (the executors' ``prepare_fused_int8`` operands,
-    ``apply_fused_int8``), so that two versions run in turns in one chip
-    call; at the two downsizes also the split route (precision="fast", K1
-    split vh) of the same resize as a yardstick:
+    """K1 int8 (no gamma) at its four main-path cells (KT_INT8_CELLS), and
+    the gamma kernels at KT_GAMMA_CELLS (K6 at the two ring cells, K1 int8
+    from K5's limb planes, vh and hv, at the two prologue cells), timed on
+    the package under ``root`` through the calls that the versions being
+    compared share (the executors' operands, ``apply_fused_int8``,
+    ``apply_fused_ring``, ``apply_gamma_prologue``), so that two versions
+    run in turns in one chip call; at the two downsizes also the split
+    route (precision="fast", K1 split vh) of the same resize as a
+    yardstick:
 
         python3 chip_smoke.py --kernel-times DIR
 
@@ -3083,13 +3164,19 @@ def kernel_times(root: str) -> int:
     import os
 
     sys.path.insert(0, os.path.abspath(root))
-    from avir_tpu_torch.models.runtime import make_avir_executor, make_lancir_executor
+    from avir_tpu_torch.models.runtime import (
+        GAMMA_ROUTE_ENV,
+        make_avir_executor,
+        make_lancir_executor,
+    )
     from avir_tpu_torch.ops.cuda import build
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
+    from avir_tpu_torch.ops.cuda import fused_ring as fr
+    from avir_tpu_torch.ops.cuda import gamma_prologue as gp
     from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
     from avir_tpu_torch.plan.plan import build_resize_plan
 
-    build.build(["fused_int8", "fused_split"])
+    build.build(["fused_int8", "fused_split", "fused_ring", "gamma_prologue"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
@@ -3122,6 +3209,31 @@ def kernel_times(root: str) -> int:
             cell["split_route_ms"] = _time_ms(lambda: split(x), 20, flush)
             cell["split_route_kernel"] = split.ops.launch_key
         times[f"{ops.launch_key} {name}"] = cell
+    for name, route, sw, sh, nw, nh in KT_GAMMA_CELLS:
+        plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8, use_srgb_gamma=True)
+        os.environ[GAMMA_ROUTE_ENV] = route
+        try:
+            ops = make_avir_executor(plan, device=dev).ops
+        finally:
+            del os.environ[GAMMA_ROUTE_ENV]
+        src = gen.integers(0, 256, (sh, sw * 3), dtype=np.uint8)
+        x = torch.from_numpy(src).to(dev)
+        if route == "prologue":
+            hi, lo = gp.apply_gamma_prologue(
+                x, ops.rows_pad, ops.lanes_pad, 3, -1, plan.in_gamma_mult
+            )
+            args = (ops, hi, lo)
+            kernel, plain = fk.apply_fused_int8, fk.apply_fused_int8_reference
+        else:
+            args = (ops, x)
+            kernel, plain = fr.apply_fused_ring, fr.apply_fused_ring_reference
+        got = kernel(*args)
+        want = plain(*args)
+        times[f"{ops.launch_key} {name}"] = {
+            "ms": _time_ms(lambda: kernel(*args), 20, flush),
+            "max_abs_err_vs_plain": int((got.int() - want.int()).abs().max()),
+            "sha": sha(got),
+        }
     print(json.dumps({"kernel_times": times, "root": root, "card": _card()}))
     return 0
 
@@ -3159,6 +3271,7 @@ def main() -> int:
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     report = build.build()
+    BUILD_LOGS.update({name: info["log"] for name, info in report.items()})
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "built": sorted(report)}))
     for name, info in report.items():
@@ -3371,7 +3484,8 @@ def main() -> int:
         add(_epi_shape(*shape, gen, dev, flush, smi, mods))
     for shape in UNFUSED_SHAPES:
         add(_unfused_shape(*shape, gen, dev, flush, smi, mods))
-    add(_prologue_shape(gen, dev, flush, smi, mods))
+    for shape in PROLOGUE_SHAPES:
+        add(_prologue_shape(*shape, gen, dev, flush, smi, mods))
     for shapes, drive in ((RING_SHAPES, _ring_shape), (PLANAR_SHAPES, _planar_shape)):
         for shape in shapes:
             add(drive(*shape, gen, dev, flush, smi, mods))

@@ -14,6 +14,8 @@ max|plain| * 1e-4, integers within 1 LSB, or one quantization step when
 step).  K2 and K3 (one pass each) sum in another order: float32 within
 max|plain| * 1e-5."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,12 +24,14 @@ from torch_cases import (
     BANDED_CASES,
     FUSED_CASES,
     GAMMA_PRE_CASES,
+    GAMMA_PRE_VH_CASES,
     IN_BYTES,
     LANES_CASES,
     INT8_EPI_CASES,
     NP_TYPES,
     PLANAR_CASES,
     RING_CASES,
+    RING_CLUSTER_CASES,
     SPLIT_CASES,
     SPLIT_EPI_CASES,
     WAVEFRONT_CASES,
@@ -54,6 +58,7 @@ from avir_tpu_torch.ops.lanes import lane_block_banded, narrow_lop
 from avir_tpu_torch.plan.plan import build_resize_plan
 
 _TORCH = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
+_RING = {**RING_CASES, **RING_CLUSTER_CASES}
 
 
 @pytest.fixture
@@ -329,12 +334,10 @@ def test_gamma_prologue_and_limb_input_match_plain_on_card(name, cuda_device):
     assert torch.equal(got, fk.apply_fused_int8(inkernel, x))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", list(RING_CASES))
-def test_ring_kernel_matches_plain_and_inkernel_on_card(name, cuda_device):
-    """K6 bit-equal to its plain version and to K1's in-kernel gamma
-    kernel on the default blocking."""
-    sw, sh, nw, nh, c, alpha, tile, uniform = RING_CASES[name]
+def _ring_case(name, device):
+    """(K6 operands, K1 in-kernel gamma operands on the default blocking,
+    u8 image) of a ring case."""
+    sw, sh, nw, nh, c, alpha, tile, uniform = _RING[name]
     plan = build_resize_plan(
         sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True,
         alpha_index=alpha,
@@ -343,22 +346,114 @@ def test_ring_kernel_matches_plain_and_inkernel_on_card(name, cuda_device):
                out_gamma_mult=plan.out_gamma_mult)
     lop = lane_block_banded(plan.h.op, c)
     ops = fr.prepare_fused_ring(
-        block_banded(plan.v.op, tile=tile, uniform=uniform), lop, cuda_device, **gkw
+        block_banded(plan.v.op, tile=tile, uniform=uniform), lop, device, **gkw
     )
     inkernel = fk.prepare_fused_int8(
-        block_banded(plan.v.op, tile=tile), lop, "vh", cuda_device, gamma=True, **gkw
+        block_banded(plan.v.op, tile=tile), lop, "vh", device, gamma=True, **gkw
     )
     x = torch.from_numpy(
         np.random.default_rng(sum(map(ord, name))).integers(
             0, 256, (sh, sw * c), dtype=np.uint8
         )
-    ).to(cuda_device)
+    ).to(device)
+    return ops, inkernel, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_RING))
+def test_ring_kernel_matches_plain_and_inkernel_on_card(name, cuda_device):
+    """K6 (one launch, clusters of 4 to 16 blocks) bit-equal to its plain
+    version and to K1's in-kernel gamma kernel on the default blocking."""
+    ops, inkernel, x = _ring_case(name, cuda_device)
     before = fr.launches[ops.launch_key]
     got = fr.apply_fused_ring(ops, x)
     torch.cuda.synchronize()
     assert fr.launches[ops.launch_key] == before + 1
     assert torch.equal(got, fr.apply_fused_ring_reference(ops, x))
     assert torch.equal(got, fk.apply_fused_int8(inkernel, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["win8_c3_narrow", "win16_c1"])
+def test_ring_kernel_repeats_bit_equal_on_card(name, cuda_device):
+    """20 launches of one shape give the same bytes, at one part and at
+    many (a race across the cluster barriers would show here)."""
+    ops, _, x = _ring_case(name, cuda_device)
+    want = fr.apply_fused_ring_reference(ops, x)
+    for parts in (1, None):
+        o = ops if parts is None else dataclasses.replace(
+            ops, part_ptr=torch.tensor([0, ops.slices.shape[0]], dtype=torch.int32,
+                                       device=cuda_device))
+        for _ in range(20):
+            assert torch.equal(fr.apply_fused_ring(o, x), want)
+
+
+def _limb_case(sw, sh, nw, nh, c, tile, alpha, device, seed):
+    """(limb-plane operands, in-kernel operands, u8 image, K5's planes) of
+    an int8 gamma vh resize."""
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True,
+        alpha_index=alpha,
+    )
+    gkw = dict(
+        gamma=True, alpha_index=alpha, in_gamma_mult=plan.in_gamma_mult,
+        out_gamma_mult=plan.out_gamma_mult,
+    )
+    vop = block_banded(plan.v.op)
+    lop = lane_block_banded(plan.h.op, c, tile=tile)
+    pre = fk.prepare_fused_int8(vop, lop, "vh", device, gamma_pre=True, **gkw)
+    inkernel = fk.prepare_fused_int8(vop, lop, "vh", device, **gkw)
+    x = torch.from_numpy(
+        np.random.default_rng(seed).integers(0, 256, (sh, sw * c), dtype=np.uint8)
+    ).to(device)
+    hi, lo = gp.apply_gamma_prologue(
+        x, pre.rows_pad, pre.lanes_pad, c, alpha, plan.in_gamma_mult
+    )
+    return pre, inkernel, x, hi, lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GAMMA_PRE_VH_CASES))
+def test_limb_input_vh_tensor_cores_match_plain_on_card(name, cuda_device):
+    """K1 int8 vh from K5's limb planes (the s8 tensor-core kernel) at the
+    edges of its tiling: bit-equal to its plain version and to the
+    in-kernel gamma kernel."""
+    sw, sh, nw, nh, c, tile, alpha = GAMMA_PRE_VH_CASES[name]
+    pre, inkernel, x, hi, lo = _limb_case(
+        sw, sh, nw, nh, c, tile, alpha, cuda_device, sum(map(ord, name))
+    )
+    assert pre.slice_range is not None and pre.rows == 32
+    before = fk.launches[pre.launch_key]
+    got = fk.apply_fused_int8(pre, hi, lo)
+    torch.cuda.synchronize()
+    assert fk.launches[pre.launch_key] == before + 1
+    assert torch.equal(got, fk.apply_fused_int8_reference(pre, hi, lo))
+    assert torch.equal(got, fk.apply_fused_int8(inkernel, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [1, 3, 5])
+def test_limb_input_vh_narrow_planes_on_card(extra, cuda_device):
+    """Planes wider than the windows reach by ``extra`` lanes (a width off
+    a multiple of 4 and 16: the kernel's narrow loads) give the same
+    bytes."""
+    pre, inkernel, x, hi, lo = _limb_case(
+        1031, 517, 200, 97, 3, None, -1, cuda_device, 11
+    )
+    wide = [torch.nn.functional.pad(p, (0, extra)).contiguous() for p in (hi, lo)]
+    got = fk.apply_fused_int8(pre, *wide)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.apply_fused_int8_reference(pre, hi, lo))
+    assert torch.equal(got, fk.apply_fused_int8(inkernel, x))
+
+
+@pytest.mark.cuda
+def test_limb_input_vh_repeats_bit_equal_on_card(cuda_device):
+    """20 launches of the limb-plane vh kernel give the same bytes."""
+    pre, _, _, hi, lo = _limb_case(1031, 517, 200, 97, 4, None, 3, cuda_device, 5)
+    want = fk.apply_fused_int8_reference(pre, hi, lo)
+    for _ in range(20):
+        assert torch.equal(fk.apply_fused_int8(pre, hi, lo), want)
 
 
 @pytest.mark.cuda

@@ -150,6 +150,26 @@ def test_limb_plane_input_checks_its_operands():
         fk.apply_fused_int8(pre, hi[:-1, :-16], lo[:-1, :-16])
 
 
+@pytest.mark.parametrize("name", list(GAMMA_PRE_CASES))
+def test_limb_plane_operands_of_each_kernel(name):
+    """vh from the limb planes runs K1's s8 tensor-core vh kernel: its
+    operands carry that kernel's fields (32-row slices, whose ranges are
+    k_range's, each chunk's nonzero lane range, the lane alignment), as
+    the operands without gamma do; hv keeps the dp4a kernel's, with
+    none of them."""
+    (sw, sh, nw, nh, c, tile, order), _, plan, _ = _case(name)
+    vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile)
+    pre = fk.prepare_fused_int8(vop, lop, order, "cpu", gamma=True, gamma_pre=True)
+    if order == "hv":
+        assert pre.slice_range is None and pre.h_range is None and pre.h1t is None
+        return
+    plain = fk.prepare_fused_int8(vop, lop, order, "cpu")
+    assert pre.rows == plain.rows == 32 and pre.lane_align == plain.lane_align
+    assert torch.equal(pre.slice_range, pre.k_range)
+    assert torch.equal(pre.h_range, plain.h_range) and torch.equal(pre.h1p, plain.h1p)
+    assert pre.launch_key == "fused_int8_vh_gamma_pre"
+
+
 # ---------------------------------------------------------------------------
 # Route selection
 # ---------------------------------------------------------------------------

@@ -24,12 +24,13 @@ from avir_tpu.ops.lanes import lane_block_banded as jax_lane_block_banded
 from avir_tpu.ops.pallas import fused_ring_kernel as jax_ring
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
-from torch_cases import RING_CASES
+from torch_cases import RING_CASES, RING_CLUSTER_CASES
 
 from avir_tpu_torch.models import runtime
 from avir_tpu_torch.ops.banded import block_banded
 from avir_tpu_torch.ops.cuda import fused_kernel as fk
 from avir_tpu_torch.ops.cuda import fused_ring as fr
+from avir_tpu_torch.ops.gamma import _int8_limbs, gamma_q13_table
 from avir_tpu_torch.ops.lanes import lane_block_banded
 from avir_tpu_torch.plan.plan import build_resize_plan
 
@@ -38,6 +39,22 @@ torch.set_num_threads(1)
 # The two shapes of the reference's ring route table (runtime.py:388-395
 # there), u8 RGB with gamma: only their operators are built here.
 FULL_SIZE = {"8k_to_1080p": (7680, 4320, 1920, 1080), "4k_to_720p": (3840, 2160, 1280, 720)}
+
+# K6's cluster plan at full size, on the host (u8 RGB unless C says;
+# RGBA with alpha 3): (src_w, src_h, new_w, new_h, c) -> (blocks a
+# cluster, ring rows, shared memory bytes a block).  "auto" runs K6 at
+# the first five and at RGBA 8K -> 1080p.
+FULL_SIZE_PLANS = {
+    "8k_to_1080p": ((7680, 4320, 1920, 1080, 3), (6, 192, 112_640)),
+    "4k_to_720p": ((3840, 2160, 1280, 720, 3), (5, 160, 101_888)),
+    "8k_to_720p": ((7680, 4320, 1280, 720, 3), (8, 256, 134_144)),
+    "8k_to_540p": ((7680, 4320, 960, 540, 3), (12, 384, 177_152)),
+    "8k_to_360p": ((7680, 4320, 640, 360, 3), (16, 512, 220_160)),
+    "8k_to_1080p_rgba": ((7680, 4320, 1920, 1080, 4), (6, 192, 112_640)),
+    "4k_to_1080p": ((3840, 2160, 1920, 1080, 3), (4, 128, 91_136)),
+}
+AUTO_RING = ("8k_to_1080p", "4k_to_720p", "8k_to_720p", "8k_to_540p", "8k_to_1080p_rgba")
+ALL_RING_CASES = {**RING_CASES, **RING_CLUSTER_CASES}
 
 
 @pytest.fixture(autouse=True)
@@ -196,23 +213,196 @@ def test_ring_plain_matches_pallas_and_inkernel(name):
 
 @pytest.mark.parametrize("name", list(RING_CASES))
 def test_ring_schedule_covers_every_slice(name):
-    """The kernel's schedule: every active slice is in exactly one part,
-    in order; its tap rows fit the ring; every input segment the lane
-    chunks' nonzero taps reach is swept by one column of blocks."""
+    """The kernel's schedule: every slice with output rows is in exactly
+    one part, in order, and the active ones' tap rows fit the ring; every
+    output chunk has one cluster; each block owns one input segment the
+    chunk's nonzero lane taps reach, or none, the owners first."""
     sw, sh, nw, nh, c, alpha, tile, uniform = RING_CASES[name]
     _, plan = _plans(sw, sh, nw, nh, c, alpha)
     ops = fr.prepare_fused_ring(*_ring_ops(plan, c, tile, uniform), "cpu", parts=2)
-    part_ptr, slices, segs = (t.tolist() for t in (ops.part_ptr, ops.slices, ops.segs))
+    part_ptr, slices = ops.part_ptr.tolist(), ops.slices[:, 0].tolist()
     assert part_ptr[0] == 0 and part_ptr[-1] == len(slices) and len(part_ptr) == 3
-    assert slices == sorted(slices)
-    kr = ops.k1.k_range.numpy()
+    k1 = ops.k1
+    _, tv, _ = k1.v1.shape
+    n_sl = k1.k_range.shape[1]
+    assert slices == [g for g in range(k1.v1.shape[0] * n_sl)
+                      if (g // n_sl) * tv + (g % n_sl) * 32 < k1.rows_out]
+    kr = k1.k_range.numpy()
+    np.testing.assert_array_equal(ops.slices[:, 1:3].numpy(), kr.reshape(-1, 2)[slices])
+    assert ops.slices[:, 3].tolist() == [k1.offs_v_host[g // n_sl] for g in slices]
     spans = (kr[..., 1] - kr[..., 0]).ravel()
     assert spans[slices].max() == ops.ring_rows
-    assert ops.ring_rows % 32 == 0 and (spans[slices] > 0).all()
-    assert int(ops.seg_ptr[-1]) == ops.pair_chunk.shape[0] == ops.pair_off.shape[0]
-    assert (ops.pair_off.numpy() % 128 == 0).all()
-    assert len(set(segs)) == len(segs)
-    assert 1.0 <= fr.linearizations_per_input(ops) < 2.0
+    assert ops.ring_rows % 32 == 0
+    bh, n_ch = k1.h1.shape[:2]
+    assert ops.chunk_of.tolist() == [
+        hb * n_ch + j for hb in range(bh) for j in range(n_ch)
+        if hb * k1.tc + j * 128 < k1.lanes_out
+    ]
+    seg = ops.seg_of.numpy().reshape(-1, ops.cluster)
+    owned = seg >= 0
+    assert (owned[:, :-1] >= owned[:, 1:]).all()  # owners first
+    assert owned.any(axis=1).all() and owned.all(axis=0)[0]
+    assert (ops.off_of.numpy() % 128 == 0).all()
+    assert ops.smem_bytes == fr.smem_bytes(ops.ring_rows) <= fr.MAX_SMEM
+    assert 1.0 <= fr.linearizations_per_input(ops) < 4.0
+
+
+@pytest.mark.parametrize("name", list(ALL_RING_CASES))
+def test_cluster_plan_owns_every_pair(name):
+    """Every (segment, chunk) pair of ``_pairs`` (a 128-lane group of a
+    chunk's window with a nonzero lane tap) is owned by exactly one block
+    of that chunk's cluster, at its window offset; no block owns anything
+    else."""
+    sw, sh, nw, nh, c, alpha, tile, uniform = ALL_RING_CASES[name]
+    _, plan = _plans(sw, sh, nw, nh, c, alpha)
+    ops = fr.prepare_fused_ring(*_ring_ops(plan, c, tile, uniform), "cpu")
+    pairs = {(chunk, seg, off) for seg, lst in fr._pairs(ops.k1).items() for chunk, off in lst}
+    seg = ops.seg_of.numpy().reshape(-1, ops.cluster)
+    off = ops.off_of.numpy().reshape(-1, ops.cluster)
+    owned = [
+        (chunk, int(s), int(o))
+        for chunk, ss, oo in zip(ops.chunk_of.tolist(), seg, off)
+        for s, o in zip(ss, oo) if s >= 0
+    ]
+    assert len(owned) == len(set(owned)) == len(pairs)
+    assert set(owned) == pairs
+    assert ops.cluster == max(
+        sum(1 for ch, _, _ in pairs if ch == chunk) for chunk in ops.chunk_of.tolist()
+    )
+
+
+def _cluster_emulation(ops: fr.FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch, cluster by cluster: each
+    block linearizes its segment (the q13 table), runs the V pass over each
+    slice's nonzero tap rows, requantizes and multiplies the limbs by its
+    chunk's lane taps of that segment; the cluster sums the blocks' shares
+    and finishes every output of its chunk.  Each output is written by
+    exactly one cluster."""
+    k1 = ops.k1
+    epi = k1.epi
+    bv, tv, wv = k1.v1.shape
+    n_sl = k1.k_range.shape[1]
+    n = ops.cluster
+    # The padded image's limbs, zero above (pad_top) and past the image.
+    seg_all = ops.seg_of.numpy()
+    lanes_p = 128 * (int(seg_all.max()) + 1)
+    rows_p = max(k1.offs_v_host) + wv
+    xi = torch.zeros((rows_p, lanes_p), dtype=torch.long)
+    r = min(k1.rows_in, rows_p - ops.pad_top)
+    l = min(k1.lanes_in, lanes_p)
+    xi[ops.pad_top : ops.pad_top + r, :l] = x[:r, :l].long()
+    lane = torch.arange(lanes_p)
+    row = ((lane & 3) == epi.alpha_lane).long().expand_as(xi)
+    xq = gamma_q13_table(epi.in_gamma_mult)[row, xi]
+    xq1, xq0 = (q.to(torch.float64) for q in _int8_limbs(xq))
+    v1, v0 = k1.v1.to(torch.float64), k1.v0.to(torch.float64)
+    h1, h0 = k1.h1.to(torch.float64), k1.h0.to(torch.float64)
+    bh, n_ch = k1.h1.shape[:2]
+    acc = torch.zeros((k1.rows_out, k1.lanes_out), dtype=torch.float32)
+    written = torch.zeros((k1.rows_out, k1.lanes_out), dtype=torch.int32)
+    for i, chunk in enumerate(ops.chunk_of.tolist()):
+        hb, j = divmod(chunk, n_ch)
+        for g in ops.slices[:, 0].tolist():
+            vb, r0 = g // n_sl, (g % n_sl) * 32
+            pa = torch.zeros((32, 128), dtype=torch.float64)
+            pb = torch.zeros_like(pa)
+            k_lo, k_hi = k1.k_range.view(-1, 2)[g].tolist()
+            for rank in range(n):
+                seg = int(ops.seg_of[i * n + rank])
+                if seg < 0 or k_lo == k_hi:
+                    continue
+                off = int(ops.off_of[i * n + rank])
+                q1 = torch.zeros((32, k_hi - k_lo), dtype=torch.float64)
+                q0 = torch.zeros_like(q1)
+                rows = slice(r0, min(r0 + 32, tv))
+                q1[: rows.stop - r0] = v1[vb, rows, k_lo:k_hi]
+                q0[: rows.stop - r0] = v0[vb, rows, k_lo:k_hi]
+                win = slice(k1.offs_v_host[vb] + k_lo, k1.offs_v_host[vb] + k_hi)
+                lanes = slice(128 * seg, 128 * seg + 128)
+                w1, w0 = xq1[win, lanes], xq0[win, lanes]
+                fq = (q1 @ w1) * 16384.0 + (q1 @ w0 + q0 @ w1) * 128.0
+                x1, x0 = fk._limbs(fq, k1.sh)
+                t1, t0 = h1[hb, j, off : off + 128], h0[hb, j, off : off + 128]
+                pa += x1 @ t1
+                pb += x0 @ t1 + x1 @ t0
+            out = fk._recombine(pa, pb, k1.out_exp)
+            o_r = vb * tv + r0
+            nr = max(0, min(32, tv - r0, k1.rows_out - o_r))
+            o_l = hb * k1.tc + j * 128
+            nl = max(0, min(128, k1.tc - j * 128, k1.lanes_out - o_l))
+            acc[o_r : o_r + nr, o_l : o_l + nl] = out[:nr, :nl]
+            written[o_r : o_r + nr, o_l : o_l + nl] += 1
+    assert (written == 1).all()
+    return fk.finish_reference(acc, epi).contiguous()
+
+
+@pytest.mark.parametrize("name", list(ALL_RING_CASES))
+def test_cluster_shares_sum_to_the_plain_version(name):
+    """The cluster plan's per-segment shares, summed per chunk as the
+    kernel's clusters sum them, give K6's plain version bit for bit."""
+    sw, sh, nw, nh, c, alpha, tile, uniform = ALL_RING_CASES[name]
+    _, plan = _plans(sw, sh, nw, nh, c, alpha)
+    ops = fr.prepare_fused_ring(
+        *_ring_ops(plan, c, tile, uniform), "cpu", alpha_index=alpha,
+        in_gamma_mult=plan.in_gamma_mult, out_gamma_mult=plan.out_gamma_mult,
+    )
+    x = torch.from_numpy(xorshift128_fill((sh, sw * c), np.uint8, sum(map(ord, name))))
+    assert torch.equal(_cluster_emulation(ops, x), fr.apply_fused_ring_reference(ops, x))
+
+
+@pytest.mark.parametrize("name", list(FULL_SIZE_PLANS))
+def test_cluster_plan_full_size(name):
+    """Blocks a cluster, ring rows and shared memory a block at the seven
+    full-size shapes, on the host only; within the H100's 16 blocks and
+    232,448 bytes."""
+    (sw, sh, nw, nh, c), (cluster, ring_rows, smem) = FULL_SIZE_PLANS[name]
+    alpha = 3 if c == 4 else -1
+    _, plan = _plans(sw, sh, nw, nh, c, alpha)
+    ops = fr.prepare_fused_ring(
+        block_banded(plan.v.op, uniform=True), lane_block_banded(plan.h.op, c), "cpu",
+        alpha_index=alpha,
+    )
+    assert (ops.cluster, ops.ring_rows, ops.smem_bytes) == (cluster, ring_rows, smem)
+    assert ops.cluster <= fr.MAX_CLUSTER and ops.smem_bytes <= fr.MAX_SMEM
+    if name == "8k_to_1080p":
+        assert ops.chunk_of.shape[0] == 45 and int((ops.seg_of >= 0).sum()) == 268
+        assert 1.4 < fr.linearizations_per_input(ops) < 1.8  # K1: 2.98
+
+
+@pytest.mark.parametrize("name", AUTO_RING)
+def test_auto_gamma_route_runs_k6_at_full_size(name, monkeypatch):
+    """Unset ``AVIR_TPU_GAMMA_ROUTE`` ("auto") builds K6's executor at the
+    full-size ring shapes (on the host: operands only, no image)."""
+    (sw, sh, nw, nh, c), _ = FULL_SIZE_PLANS[name]
+    _, plan = _plans(sw, sh, nw, nh, c, 3 if c == 4 else -1)
+    monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        fn = runtime.make_avir_executor(plan, device="cpu")
+    assert (fn.route, fn.order, fn.ops.launch_key) == ("int8", "vh", "fused_ring_vh_gamma")
+
+
+@pytest.mark.parametrize("size, c", [((4096, 640, 128, 160), 1), ((2561, 768, 128, 192), 1)])
+def test_ring_refuses_windows_over_16_segments(size, c, monkeypatch):
+    """A chunk window of more than 16 segments needs a larger cluster than
+    the card has: ``prepare_fused_ring`` refuses it, "auto" takes the
+    in-kernel K1 quietly and "ring" warns, and both give the ring's
+    function (K1's in-kernel bits)."""
+    sw, sh, nw, nh = size
+    _, plan = _plans(sw, sh, nw, nh, c, -1)
+    vop, lop = block_banded(plan.v.op, uniform=True), lane_block_banded(plan.h.op, c)
+    assert fr.ring_viable(vop, lop, True, "vh")
+    with pytest.raises(ValueError, match="more than the 16 blocks"):
+        fr.prepare_fused_ring(vop, lop, "cpu")
+    monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        auto = runtime.make_avir_executor(plan, device="cpu")
+    assert (auto.route, auto.order, auto.ops.launch_key) == ("int8", "vh", "fused_int8_vh_gamma")
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "ring")
+    with pytest.warns(UserWarning, match="ring not viable"):
+        ring = runtime.make_avir_executor(plan, device="cpu")
+    assert ring.ops.launch_key == "fused_int8_vh_gamma"
 
 
 @pytest.mark.parametrize("size, c, alpha", [

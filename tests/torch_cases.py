@@ -150,6 +150,36 @@ RING_CASES = {
     "uniform_c1": (640, 1024, 160, 256, 1, -1, 64, True),
 }
 
+# K6's thread block clusters: ring cases on the executor's blocking
+# (default V tile, uniform) whose largest chunk window spans 8, 12 and 16
+# 128-lane segments (the most a cluster takes), with lanes_in off a multiple
+# of 4 (narrow image loads) or of 128 (a segment partly past the image), V
+# tap ranges of 96 and 160 rows (ending inside a 64-row step) and C = 4
+# with the alpha bypass.  RING_CASES give windows of 4, 5 and 6.
+RING_CLUSTER_CASES = {
+    "win8_c3_narrow": (1030, 640, 170, 160, 3, -1, None, True),
+    "win12_c3": (1024, 640, 128, 160, 3, -1, None, True),
+    "win16_c1": (2048, 640, 128, 160, 1, -1, None, True),
+    "win5_v96_c3": (384, 720, 128, 240, 3, -1, None, True),
+    "win5_c3_partial": (300, 480, 100, 160, 3, -1, None, True),
+    "win_c4a3": (768, 640, 128, 160, 4, 3, None, True),
+    "win_c4a0": (400, 720, 100, 240, 4, 0, None, True),
+}
+
+# K1 int8 vh from K5's limb planes on the tensor cores: (src_w, src_h,
+# new_w, new_h, c, lane tile, alpha_index), downsizes at the edges of the
+# tiling (FUSED_CASES' edge_* shapes: rows_out off 32, C = 2, a downsize
+# by more than 4, nonzero lane ranges ending inside a 64-lane step) and
+# C = 4 with the alpha bypass.
+GAMMA_PRE_VH_CASES = {
+    "edge_rows_c3": (300, 250, 170, 150, 3, None, -1),
+    "edge_down_c2": (97, 83, 61, 45, 2, None, -1),
+    "edge_down5_c3": (1031, 517, 200, 97, 3, None, -1),
+    "c4a3": (181, 77, 60, 33, 4, None, 3),
+    "c4a0_tc": (120, 80, 70, 50, 4, 50, 0),
+    "c5": (90, 60, 40, 27, 5, None, -1),
+}
+
 # K7 (planar input) and K8 (interleaved input): (src_w, src_h, new_w,
 # new_h, c, in type, out type, mode_v, mode_h, trunc_bits, gamma,
 # alpha_index).  The first three are tests/test_pallas_kernel.py:560-750's;
