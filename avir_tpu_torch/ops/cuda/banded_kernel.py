@@ -8,8 +8,9 @@ along the rows of an image [n_in, R] of u8, u16 or float32, converted as
 it is staged, and writes float32 [n_out, R]: ``out[b*T:(b+1)*T] =
 taps[b] @ x[offs[b] : offs[b] + W]`` in mode "split2", "split3" (the
 bf16 hi/lo taps against the input's bf16 split) or "exact" (the float32
-sum of the hi/lo taps in full float32).  It visits only each 32-row
-slice's nonzero tap rows.
+sum of the hi/lo taps in full float32).  It visits only each slice's
+nonzero tap rows: the split modes run on the bf16 tensor cores at
+``SPLIT_ROWS``-row slices, exact on the CUDA cores at 32.
 
 ``apply_banded`` launches the kernel on a CUDA tensor and runs
 ``apply_banded_reference`` (``ops/banded.py:apply_blocked`` on the same
@@ -33,6 +34,14 @@ launches = {f"banded_{m}": 0 for m in ("split2", "split3", "exact")}
 
 _MODES = {"split2": 0, "split3": 1, "exact": 2}
 _IN_KINDS = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
+# Output rows per thread block (csrc: kRows, kExactRows): the split modes'
+# tensor-core kernel 64, the exact kernel 32.
+SPLIT_ROWS = 64
+_EXACT_ROWS = 32
+
+
+def _slice_height(mode: str) -> int:
+    return _EXACT_ROWS if mode == "exact" else SPLIT_ROWS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +53,12 @@ class BandedOperands:
     offs: torch.Tensor     # int32 [B]
     hi: torch.Tensor       # bf16 [B, T, W]
     lo: torch.Tensor
-    k_range: torch.Tensor  # int32 [B, n_slices, 2] nonzero tap rows
+    k_range: torch.Tensor  # int32 [B, n_slices, 2] nonzero tap rows of each slice
+
+    @property
+    def rows(self) -> int:
+        """Output rows per slice (thread block) of this mode's kernel."""
+        return _slice_height(self.mode)
 
     @property
     def device(self) -> torch.device:
@@ -61,15 +75,16 @@ def prepare_banded(
     """Operands of the row pass by ``bop`` in ``mode`` on ``device``."""
     if mode not in BLOCKED_MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    k_range = _k_ranges(
+        (bop.taps_hi != 0).numpy(), (bop.taps_lo != 0).numpy(), _slice_height(mode)
+    )
     return BandedOperands(
         bop=bop,
         mode=mode,
         offs=torch.from_numpy(bop.offs.astype(np.int32)).to(device),
         hi=bop.taps_hi.to(device).contiguous(),
         lo=bop.taps_lo.to(device).contiguous(),
-        k_range=torch.from_numpy(
-            _k_ranges((bop.taps_hi != 0).numpy(), (bop.taps_lo != 0).numpy())
-        ).to(device),
+        k_range=torch.from_numpy(k_range).to(device),
     )
 
 

@@ -63,7 +63,7 @@
 // x0] against q1 (plus x1 q0) in hv.  No .satfinite: a wrapped partial
 // sum still gives the exact total, which int8_feasible keeps inside s32.
 //
-//   vh (fused_int8_vh_mma): a block owns 32 output rows (a slice of one V
+//   vh (fused_int8_vh_mma<false>): a block owns 32 output rows (a slice of one V
 //   block) and one 128-lane output chunk; 8 warps, warp (wm, wn) owns rows
 //   16 wm.. and lanes 32 wn.. of both passes.  The chunk's nonzero lane
 //   range (h_range, 32-aligned) is cut into segments of 128 lanes.  Per
@@ -79,7 +79,7 @@
 //   sequence over two buffers, as in fused_split.cu: while a step's MMAs
 //   run, the next step's taps are in flight by cp.async and its image
 //   words in registers, with one barrier a step.
-//   hv (fused_int8_hv_mma<R>): computed transposed, so that no byte needs
+//   hv (fused_int8_hv_mma<R, false>): computed transposed, so that no byte needs
 //   transposing: F^T[n][k] = sum_m H^T[n][m] X^T[m][k], whose B fragment
 //   is 4 lanes of one image row, and out^T[n][r] = sum_k XT[n][k] V[r][k],
 //   whose A is the intermediate as [lane][row] bytes and whose B is the V
@@ -122,37 +122,52 @@
 // bits do not depend on the tiling: the kernels equal the plain version
 // and the dp4a kernels they replace.
 //
-// vh from K5's limb planes (fused_int8_vh_mma<true>).  Replaces
-// avir_tpu/ops/pallas/fused_kernel.py:422 apply_fused_pallas with x_lo
-// (:461-516: the linearize-once route's second kernel, after K5).  It is
-// the tensor-core vh kernel above with a second input plane: the first
-// pass loads both s8 planes as 32-bit words (4 lanes of one row), turns
-// them 4 x 4 by byte permutes into B words of 4 rows (no ^ 0x80: the
-// planes are s8 already) in the buffer the image words use (two planes
-// of [16][136] words fill it), and makes three MMAs a 32-deep step: m1 =
-// q1 xq1 and m0 = q0 xq1 (one B fragment), then m0 += q1 xq0; it
-// requantizes fq = 2^14 m1 + 2^7 m0 (no v_comp) and ends in K1's gamma-out
-// epilogue (k1::finish_int with gamma, the C=4 alpha bypass).  The second
-// pass is unchanged.  int8_feasible bounds 2^14 * 64 q_abs1 + 2^7 * 64
-// (q_abs1 + q_abs0) + 2^26 below 2^31: no partial sum of m1 or m0 and no
-// fq wraps; the second pass's sums may wrap, as without gamma.  What
-// bounds it: two planes read once (2 x 99.5 MB at 8K) and the output
-// written once, 0.061 ms at 3.35 TB/s; the design reads the planes about
-// twice, as the image without gamma, and issues one product more a step.
-// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py --kernel-times):
-// 0.45-0.46 ms at 7680x4320 -> 1920x1080, 7x the bound, against 2.06-2.08
-// for the dp4a vh design below, which it replaces.
+// From K5's limb planes (PRE: fused_int8_vh_mma<true>, fused_int8_hv_mma<R,
+// true>).  Replaces avir_tpu/ops/pallas/fused_kernel.py:422
+// apply_fused_pallas with x_lo (:462-516: the linearize-once route's second
+// kernel, after K5), in both pass orders.  They are the tensor-core kernels
+// above with a second input plane and a third product in the first pass;
+// the second pass is unchanged, and the epilogue is K1's gamma-out
+// (k1::finish_int with gamma, the C=4 alpha bypass).
+//   vh: the first pass loads both s8 planes as 32-bit words (4 lanes of one
+//   row), turns them 4 x 4 by byte permutes into B words of 4 rows (no ^
+//   0x80: the planes are s8 already) in the buffer the image words use (two
+//   planes of [16][136] words fill it), and makes three MMAs a 32-deep
+//   step: m1 = q1 xq1 and m0 = q0 xq1 (one B fragment), then m0 += q1 xq0;
+//   it requantizes fq = 2^14 m1 + 2^7 m0 (no v_comp).
+//   hv: both planes' tiles are staged raw by cp.async (32-bit word loads
+//   where the planes' rows or windows are not 16-byte aligned) into a
+//   second image buffer of each double-buffer slot ([2 buf][2 plane][32]
+//   [144] bytes, 9,216 bytes more: 110,592 at kwin 128, still two blocks an
+//   SM); no ^ 0x80 and no h_comp; three MMAs a fragment pair, f1 = h1 xq1
+//   and f0 = h0 xq1 (one B fragment), then f0 += h1 xq0; fq = 2^14 f1 + 2^7
+//   f0.  The host picks R with the two planes' shared memory
+//   (fused_kernel.py:slice_rows, planes=2): 128 rows at 1920x1080 ->
+//   3840x2160 and 1280x720 -> 1920x1080, 64 at 640x480 -> 1024x768.
+// int8_feasible bounds 2^14 * 64 q_abs1 + 2^7 * 64 (q_abs1 + q_abs0) + 2^26
+// below 2^31 over the first pass's taps: no partial sum of m1 / f1 or m0 /
+// f0 and no fq wraps; the second pass's sums may wrap, as without gamma.
+// What bounds them: the two planes read once and the output written once,
+// 0.061 ms at 7680x4320 -> 1920x1080 (2 x 99.5 MB + 6.2 MB) and 0.0112 ms
+// at 1920x1080 -> 3840x2160 (2 x 6.2 MB + 24.9 MB) at 3.35 TB/s; the
+// designs stage the planes as often as the image without gamma (about
+// twice at 8K, 3.9 times at 2x upsizes at 128-row slices) and issue one
+// product more a first-pass step.  Measured on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py --kernel-times, PERF.md): vh 0.45-0.49 ms at 8K -> 1080p
+// (7x the bound; the dp4a vh design ran 2.06-2.08); hv 0.249-0.253 ms at
+// 1080p -> 4K (22x; 0.240 / 0.277 / 0.330 ms at 128 / 64 / 32 rows),
+// against 2.28-2.34 for the dp4a hv design it replaces, and the in-kernel
+// hv gamma kernel's 2.35.
 //
-// With gamma from the image (fused_int8_vh, fused_int8_hv<false>: the
-// in-kernel route) and hv from the limb planes (fused_int8_hv<true>), the
-// dp4a design: a thread block owns 32 output rows (a slice of one V block)
-// and one 128-lane output chunk of one lane block; 256 threads each own 4
-// rows x 4 lanes.  Products are dp4a (4 s8 MACs into s32) from shared
-// memory.  Operands are staged "packed along the contraction": a 32-bit
-// word holds 4 consecutive contraction elements, so V taps (row-major) and
-// the horizontal taps (packed on the host, [win_c/4][128] words) load as
-// they are, and the image tile is transposed into that form as it is
-// stored.
+// With gamma from the image (fused_int8_vh, fused_int8_hv: the in-kernel
+// route, redesigned around a shared linearization table and kept on dp4a),
+// a thread block owns 32 output rows (a slice of one V block) and one
+// 128-lane output chunk of one lane block; 256 threads each own 4 rows x 4
+// lanes.  Products are dp4a (4 s8 MACs into s32) from shared memory.
+// Operands are staged "packed along the contraction": a 32-bit word holds
+// 4 consecutive contraction elements, so V taps (row-major) and the
+// horizontal taps (packed on the host, [win_c/4][128] words) load as they
+// are, and the image tile is transposed into that form as it is stored.
 //   vh: for each 128-lane segment of the chunk's win_c-lane window, the
 //       first pass computes x15 for the 32 rows x 128 lanes over the
 //       slice's nonzero V-tap rows, then the second pass adds that
@@ -164,10 +179,9 @@
 //       over the win_c window lanes, then the second pass adds the
 //       segment's share: each input byte is read ~32 times at 1920x1080 ->
 //       3840x2160.
-//   With gamma the first pass makes 3 products instead of 2.  These
-//   kernels run on the CUDA cores (dp4a) over dense tap blocks, bound by
-//   dp4a issue; moving them onto the tensor-core kernels above is queued
-//   (ROADMAP.md).
+//   The first pass makes 3 products.  These kernels run on the CUDA cores
+//   (dp4a) over dense tap blocks, bound by dp4a issue (2.04-2.35 ms at the
+//   two gamma cells, PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -217,21 +231,14 @@ struct Args {
   k1::Epilogue epi;
 };
 
-// Image element as 13-bit linear light in two s8 limbs (hi, lo); zero
-// past the edge.  From the block's table of gamma_in_q13, or (PRE) read
-// from K5's two planes (x, x_lo).
-template <bool PRE>
+// Image element as 13-bit linear light in two s8 limbs (hi, lo), from the
+// block's table of gamma_in_q13; zero past the edge.
 __device__ __forceinline__ void load_limbs(const Args& a, const int32_t (*q13)[256],
                                            int r, int l, int32_t* hi, int32_t* lo) {
   *hi = 0;
   *lo = 0;
   if (r >= a.rows_in || l >= a.lanes_in) return;
   const size_t i = static_cast<size_t>(r) * a.lanes_in + l;
-  if (PRE) {
-    *hi = static_cast<int8_t>(__ldg(a.x + i));
-    *lo = static_cast<int8_t>(__ldg(a.x_lo + i));
-    return;
-  }
   const int32_t q = k1::q13_of(a.epi, q13, __ldg(a.x + i), l);
   *hi = k1::limb_hi(q);
   *lo = q - *hi * 128;
@@ -243,7 +250,6 @@ __device__ __forceinline__ uint32_t byte_of(int32_t v, int i) {
 
 // Four consecutive contraction elements from (r, l), stepping (dr, dl),
 // packed into one word of each limb plane, xq1 and xq0.
-template <bool PRE>
 __device__ __forceinline__ void pack4(const Args& a, const int32_t (*q13)[256],
                                       int r, int l, int dr, int dl,
                                       uint32_t* w1, uint32_t* w0) {
@@ -251,7 +257,7 @@ __device__ __forceinline__ void pack4(const Args& a, const int32_t (*q13)[256],
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     int32_t hi, lo;
-    load_limbs<PRE>(a, q13, r + i * dr, l + i * dl, &hi, &lo);
+    load_limbs(a, q13, r + i * dr, l + i * dl, &hi, &lo);
     p1 |= byte_of(hi, i);
     p0 |= byte_of(lo, i);
   }
@@ -354,7 +360,7 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
       for (int e = tid; e < kDepth4 * kLanes; e += kThreads) {
         const int k4 = e / kLanes, l = e % kLanes;
         uint32_t w1, w0;
-        pack4<false>(a, q13, row0 + k0 + 4 * k4, lane0 + seg + l, 1, 0, &w1, &w0);
+        pack4(a, q13, row0 + k0 + 4 * k4, lane0 + seg + l, 1, 0, &w1, &w0);
         sx1[k4][l] = w1;
         sx0[k4][l] = w0;
       }
@@ -432,7 +438,8 @@ __global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
   store_out(a, vb, r0, hb, j, pa, pb);
 }
 
-template <bool PRE>
+// hv with the in-kernel linearization (the limb-plane input runs on the
+// tensor cores, fused_int8_hv_mma<R, true>).
 __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -448,8 +455,8 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
   __shared__ __align__(16) uint32_t sl0[kDepth4][kLanes];
   __shared__ uint32_t sv1[kRows][kDepth4];                   // V tap limbs
   __shared__ uint32_t sv0[kRows][kDepth4];
-  __shared__ int32_t q13[PRE ? 1 : 2][256];                  // gamma_in_q13 table
-  if (!PRE) k1::fill_q13_table(a.epi, q13);
+  __shared__ int32_t q13[2][256];                            // gamma_in_q13 table
+  k1::fill_q13_table(a.epi, q13);
 
   const int k_lo = a.k_range[2 * blockIdx.y];
   const int k_hi = a.k_range[2 * blockIdx.y + 1];
@@ -469,7 +476,7 @@ __global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
         static_assert(kRows * kDepth4 == kThreads, "one staged word per thread");
         const int r = tid / kDepth4, l4 = tid % kDepth4;
         uint32_t w1, w0;
-        pack4<PRE>(a, q13, row0 + k0 + r, lane0 + m0 + 4 * l4, 0, 1, &w1, &w0);
+        pack4(a, q13, row0 + k0 + r, lane0 + m0 + 4 * l4, 0, 1, &w1, &w0);
         sxa[0][r][l4] = w1;
         sxa[1][r][l4] = w0;
       }
@@ -855,25 +862,34 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
 constexpr int kPiece = 128;          // window lanes of lane taps staged at once
 constexpr int kPieceLd = kPiece + 16;  // their row stride, bytes (also the image tile's)
 constexpr int kHvSt = 2 * kLanes * kPieceLd;  // lane taps H^T, both limbs
-constexpr int kHvSx = 2 * 32 * kPieceLd;      // image tiles, two buffers
+constexpr int kHvSx = 2 * 32 * kPieceLd;      // image tiles of one plane, two buffers
 
-// Shared memory of the hv kernel for an intermediate of kwin rows:
-//   st [2 limb][128 n][kPieceLd]         lane taps H^T
-//   sx [2 buf][32 rows][kPieceLd]        image tile (raw u8)
-//   xt [2 limb][128 n][kwin + 16]        intermediate limbs XT[n][k]
-//   sv [2 buf][2 limb][32 rows][kwin + 16]  V taps of a sub-tile
-__host__ __device__ constexpr size_t hv_mma_smem_bytes(int kwin) {
-  return kHvSt + kHvSx + static_cast<size_t>(6) * 64 * (kwin + 16);
+// Shared memory of the hv kernel for an intermediate of kwin rows and
+// ``planes`` input planes (1: the u8 image; 2: K5's limb planes):
+//   st [2 limb][128 n][kPieceLd]             lane taps H^T
+//   sx [2 buf][planes][32 rows][kPieceLd]    image tile (raw bytes)
+//   xt [2 limb][128 n][kwin + 16]            intermediate limbs XT[n][k]
+//   sv [2 buf][2 limb][32 rows][kwin + 16]   V taps of a sub-tile
+// (fused_kernel.py:hv_smem_bytes mirrors it for the host's choice of R;
+// avir_hv_mma_smem_bytes exports it for the card test that holds the two
+// equal).
+__host__ __device__ constexpr size_t hv_mma_smem_bytes(int kwin, int planes) {
+  return kHvSt + static_cast<size_t>(planes) * kHvSx + static_cast<size_t>(6) * 64 * (kwin + 16);
 }
 
+template <bool PRE>
 struct HvMma {
+  static constexpr int kPlanes = PRE ? 2 : 1;
+  static constexpr int kSx = kPlanes * kHvSx;
   __device__ static uint8_t* st(uint8_t* sm, int p, int n) { return sm + (p * kLanes + n) * kPieceLd; }
-  __device__ static uint8_t* sx(uint8_t* sm, int b, int r) { return sm + kHvSt + (b * 32 + r) * kPieceLd; }
+  __device__ static uint8_t* sx(uint8_t* sm, int b, int p, int r) {
+    return sm + kHvSt + ((b * kPlanes + p) * 32 + r) * kPieceLd;
+  }
   __device__ static uint8_t* xt(uint8_t* sm, int kld, int p, int n) {
-    return sm + kHvSt + kHvSx + (p * kLanes + n) * kld;
+    return sm + kHvSt + kSx + (p * kLanes + n) * kld;
   }
   __device__ static uint8_t* sv(uint8_t* sm, int kld, int b, int p, int r) {
-    return sm + kHvSt + kHvSx + 2 * kLanes * kld + ((b * 2 + p) * 32 + r) * kld;
+    return sm + kHvSt + kSx + 2 * kLanes * kld + ((b * 2 + p) * 32 + r) * kld;
   }
 
   // Lane taps H^T of window lanes m0..m0+mw-1 of chunk ``chunk``.
@@ -886,21 +902,23 @@ struct HvMma {
     }
   }
 
-  // Image rows row..row+31, lanes lane..lane+mw-1, raw, zero past the edge.
+  // Image rows row..row+31, lanes lane..lane+mw-1, raw, zero past the edge
+  // (PRE: both limb planes, x then x_lo).
   __device__ static void stage_img(const Args& a, uint8_t* sm, int b, int row, int lane, int mw) {
     if (a.vec16) {
       const int per = mw / 16;
-      for (int c = threadIdx.x; c < 32 * per; c += kThreads) {
-        const int r = c / per, l = lane + (c % per) * 16;
+      for (int c = threadIdx.x; c < kPlanes * 32 * per; c += kThreads) {
+        const int p = c / (32 * per), r = (c / per) % 32, l = lane + (c % per) * 16;
         const bool valid = row + r < a.rows_in && l < a.lanes_in;
         const size_t off = valid ? static_cast<size_t>(row + r) * a.lanes_in + l : 0;
-        cp16(sx(sm, b, r) + (c % per) * 16, a.x + off, valid);
+        cp16(sx(sm, b, p, r) + (c % per) * 16, (p ? a.x_lo : a.x) + off, valid);
       }
     } else {
       const int per = mw / 4;
-      for (int c = threadIdx.x; c < 32 * per; c += kThreads) {
-        const int r = c / per, q = c % per;
-        *reinterpret_cast<uint32_t*>(sx(sm, b, r) + 4 * q) = load_word(a, row + r, lane + 4 * q);
+      for (int c = threadIdx.x; c < kPlanes * 32 * per; c += kThreads) {
+        const int p = c / (32 * per), r = (c / per) % 32, q = c % per;
+        *reinterpret_cast<uint32_t*>(sx(sm, b, p, r) + 4 * q) =
+            load_word(a, row + r, lane + 4 * q, p ? a.x_lo : a.x);
       }
     }
   }
@@ -926,10 +944,14 @@ struct HvMma {
 // next step's image tile in flight), phase 2 runs the second pass per
 // 32-row sub-tile over its own nonzero range (k_range), the next
 // sub-tile's V taps in flight, and stores it after the last window (the
-// host gives several windows only with R = 32).
-template <int R>
+// host gives several windows only with R = 32).  PRE (gamma from K5's limb
+// planes, the x_lo input): phase 1 stages both planes raw and makes three
+// products a fragment pair, f1 = h1 xq1 and f0 = h0 xq1 (one B fragment),
+// then f0 += h1 xq0; it requantizes fq = 2^14 f1 + 2^7 f0 (no h_comp), and
+// the epilogue converts back to sRGB.
+template <int R, bool PRE>
 __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
-  using K = HvMma;
+  using K = HvMma<PRE>;
   constexpr int kSub = R / 32;
   extern __shared__ __align__(16) uint8_t sm[];
 
@@ -950,9 +972,9 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
   const int n_mc = (hw + kPiece - 1) / kPiece;  // lane-tap pieces
   const bool work = kb_lo < kb_hi && hw > 0;
   const int n_win = work ? (kb_hi - kb_lo + a.kwin - 1) / a.kwin : 1;
-  int32_t comp[2];
+  int32_t comp[2] = {0, 0};  // the -128 shift's column sums (no gamma)
 #pragma unroll
-  for (int h = 0; h < 2; ++h) comp[h] = a.h_comp[chunk * kLanes + 16 * warp + g + 8 * h];
+  for (int h = 0; h < 2 && !PRE; ++h) comp[h] = a.h_comp[chunk * kLanes + 16 * warp + g + 8 * h];
 
   int32_t pa[4][4] = {}, pb[4][4] = {};
   for (int win = 0; win < n_win; ++win) {
@@ -1004,26 +1026,40 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             uint32_t xb[4];
-            ldsm(xb, K::sx(sm, b, 16 * half + arow) + kk + acol);
+            ldsm(xb, K::sx(sm, b, 0, 16 * half + arow) + kk + acol);
+            if (!PRE) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) xb[e] ^= 0x80808080u;  // s8(x - 128)
+              for (int e = 0; e < 4; ++e) xb[e] ^= 0x80808080u;  // s8(x - 128)
+            }
             mma8(f1[2 * half], h1, xb[0], xb[2]);
             mma8(f0[2 * half], h0, xb[0], xb[2]);
             mma8(f1[2 * half + 1], h1, xb[1], xb[3]);
             mma8(f0[2 * half + 1], h0, xb[1], xb[3]);
+            if (PRE) {
+              uint32_t xl[4];  // the lo plane
+              ldsm(xl, K::sx(sm, b, 1, 16 * half + arow) + kk + acol);
+              mma8(f0[2 * half], h1, xl[0], xl[2]);
+              mma8(f0[2 * half + 1], h1, xl[1], xl[3]);
+            }
           }
         }
         if (ci == n_mc - 1) {
           // Group gi done: F^T (lane g (+8), rows 2t, 2t+1 of tile jt)
-          // requantized into XT's columns of those rows.
+          // requantized into XT's columns of those rows.  No gamma: fq =
+          // 128 f1 + f0 + h_comp.  PRE: fq = 2^14 f1 + 2^7 f0, where
+          // int8_feasible's gamma bound (2^14 * 64 q_abs1 + 2^7 * 64
+          // (q_abs1 + q_abs0) + 2^26 < 2^31 over the lane taps) keeps f1, f0
+          // and fq inside s32; the second pass's sums may wrap, as without
+          // gamma.
 #pragma unroll
           for (int jt = 0; jt < 4; ++jt) {
             const int col = gi * kDepth + 8 * jt + 2 * t;
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int n = 16 * warp + g + 8 * h;
-              limbs2(f1[jt][2 * h] * 128 + f0[jt][2 * h] + comp[h],
-                     f1[jt][2 * h + 1] * 128 + f0[jt][2 * h + 1] + comp[h], a.sh,
+              const int32_t s1 = PRE ? 16384 : 128, s0 = PRE ? 128 : 1;
+              limbs2(f1[jt][2 * h] * s1 + f0[jt][2 * h] * s0 + comp[h],
+                     f1[jt][2 * h + 1] * s1 + f0[jt][2 * h + 1] * s0 + comp[h], a.sh,
                      K::xt(sm, kld, 0, n) + col, K::xt(sm, kld, 1, n) + col);
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
@@ -1076,8 +1112,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
         for (int jt = 0; jt < 4; ++jt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            store1<false>(a, vb, r0 + 32 * sub + 8 * jt + 2 * t + (e & 1), hb,
-                   j * kLanes + 16 * warp + g + 8 * (e >> 1), pa[jt][e], pb[jt][e]);
+            store1<PRE>(a, vb, r0 + 32 * sub + 8 * jt + 2 * t + (e & 1), hb,
+                        j * kLanes + 16 * warp + g + 8 * (e >> 1), pa[jt][e], pb[jt][e]);
             pa[jt][e] = 0;
             pb[jt][e] = 0;
           }
@@ -1100,34 +1136,35 @@ cudaError_t launch_vh_mma(const Args& a, dim3 grid, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int R>
+template <int R, bool PRE>
 cudaError_t launch_hv_mma(const Args& a, dim3 grid, cudaStream_t s) {
-  const size_t bytes = hv_mma_smem_bytes(a.kwin);
+  const size_t bytes = hv_mma_smem_bytes(a.kwin, HvMma<PRE>::kPlanes);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_int8_hv_mma<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      fused_int8_hv_mma<R, PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
-  fused_int8_hv_mma<R><<<grid, kThreads, bytes, s>>>(a);
+  fused_int8_hv_mma<R, PRE><<<grid, kThreads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-// The tensor-core kernels, at the host's slice height ``rows`` (vh: 32).
+// The tensor-core kernels, at the host's slice height ``rows`` (vh: 32):
+// without gamma, and (PRE) from K5's limb planes.
+template <bool PRE>
 cudaError_t launch_mma(bool hv, int rows, const Args& a, dim3 grid, cudaStream_t s) {
   if (hv) {
     if (a.kwin < kDepth || a.kwin > 256 || a.kwin % kDepth != 0) return cudaErrorInvalidValue;
-    if (rows == 32) return launch_hv_mma<32>(a, grid, s);
-    if (rows == 64) return launch_hv_mma<64>(a, grid, s);
-    if (rows == 128) return launch_hv_mma<128>(a, grid, s);
+    if (rows == 32) return launch_hv_mma<32, PRE>(a, grid, s);
+    if (rows == 64) return launch_hv_mma<64, PRE>(a, grid, s);
+    if (rows == 128) return launch_hv_mma<128, PRE>(a, grid, s);
     return cudaErrorInvalidValue;
   }
-  return rows == kRows ? launch_vh_mma<false>(a, grid, s) : cudaErrorInvalidValue;
+  return rows == kRows ? launch_vh_mma<PRE>(a, grid, s) : cudaErrorInvalidValue;
 }
 
-// The dp4a gamma kernels: vh and hv with the in-kernel linearization, hv
-// (PRE) from K5's limb planes.
-template <bool PRE>
+// The dp4a gamma kernels: vh and hv with the in-kernel linearization.
 cudaError_t launch_gamma(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
   if (hv) {
-    fused_int8_hv<PRE><<<grid, kThreads, 0, s>>>(a);
+    fused_int8_hv<<<grid, kThreads, 0, s>>>(a);
   } else {
     constexpr size_t bytes = vh_smem_bytes();
     cudaError_t e = cudaFuncSetAttribute(
@@ -1202,14 +1239,18 @@ extern "C" int avir_fused_int8(
   a.epi.out_max = 255.0f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_lo != nullptr && !gamma) return static_cast<int>(cudaErrorInvalidValue);
-  if (x_lo != nullptr && !hv && rows != kRows) return static_cast<int>(cudaErrorInvalidValue);
-  // Without gamma, and vh from the limb planes: the tensor-core kernels
-  // over R-row slices; the other gamma kernels: dp4a over 32-row slices.
+  // Without gamma, and from the limb planes: the tensor-core kernels over
+  // R-row slices; the in-kernel gamma kernels: dp4a over 32-row slices.
   const dim3 grid_r(bh * n_ch, bv * n_slices_r), grid32(bh * n_ch, bv * n_slices);
   const cudaError_t e =
-      !gamma            ? launch_mma(hv, rows, a, grid_r, s)
-      : x_lo == nullptr ? launch_gamma<false>(hv, a, grid32, s)
-      : hv              ? launch_gamma<true>(true, a, grid32, s)
-                        : launch_vh_mma<true>(a, grid_r, s);
+      !gamma            ? launch_mma<false>(hv, rows, a, grid_r, s)
+      : x_lo == nullptr ? launch_gamma(hv, a, grid32, s)
+                        : launch_mma<true>(hv, rows, a, grid_r, s);
   return static_cast<int>(e);
+}
+
+// The hv tensor-core kernel's dynamic shared memory (hv_mma_smem_bytes),
+// for the host's copy of its layout to be checked against.
+extern "C" long long avir_hv_mma_smem_bytes(int kwin, int planes) {
+  return static_cast<long long>(hv_mma_smem_bytes(kwin, planes));
 }

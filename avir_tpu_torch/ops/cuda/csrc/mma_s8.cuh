@@ -1,31 +1,18 @@
 // Building blocks of the s8 tensor-core kernels (fused_int8.cu, fused_ring.cu):
-// cp.async staging, ldmatrix and mma.sync m16n8k32 s8 x s8 -> s32, and the
-// requantization of first-pass sums into the intermediate's s8 limbs.
+// ldmatrix and mma.sync m16n8k32 s8 x s8 -> s32 (cp.async staging from
+// cp_async.cuh), and the requantization of first-pass sums into the
+// intermediate's s8 limbs.
 
 #pragma once
 
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "k1_common.cuh"
 
 namespace mma_s8 {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+using namespace cp_async;
 
 // Four 8x8 b16 matrices (8 rows of 16 bytes each); thread l names row
 // (l & 15) at byte column (l >> 4) * 16 of a [16][32]-byte tile, so r[0..3]

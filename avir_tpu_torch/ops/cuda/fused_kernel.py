@@ -19,12 +19,12 @@ in place of the u8 image and its in-kernel polynomial.
 per executor: the chunked lane taps (the unchunked form becomes
 ``ceil(TC/128)`` chunks at offset 0 over the whole window), the same taps
 packed four-along-the-contraction for the kernels that read them (the
-gamma kernels and the vh tensor-core kernel) or transposed (the hv
+vh kernels and the in-kernel gamma hv kernel) or transposed (the hv
 tensor-core kernel), the row/column sums that undo the input's -128 shift
 (unused with gamma), each 32-row slice's range of nonzero V taps, and for
-the tensor-core kernels (no gamma, and vh from K5's limb planes) the
-slice height ``slice_rows`` picks, its slices' ranges and each chunk's
-range of nonzero lane taps.
+the tensor-core kernels (no gamma, and both orders from K5's limb
+planes) the slice height ``slice_rows`` picks, its slices' ranges and
+each chunk's range of nonzero lane taps.
 
 ``apply_fused_int8`` launches the kernel on a CUDA tensor and runs
 ``apply_fused_int8_reference`` on a CPU tensor.  The reference does the
@@ -240,20 +240,19 @@ class FusedInt8Operands:
     h1: torch.Tensor       # int8 [Bh, n_ch, win_c, 128]
     h0: torch.Tensor
     h1p: torch.Tensor | None  # int32 [Bh, n_ch, win_c/4, 128], 4 taps per word
-    h0p: torch.Tensor | None  # (gamma, or vh)
+    h0p: torch.Tensor | None  # (vh, or hv with the in-kernel gamma)
     h_comp: torch.Tensor   # int32 [Bh, n_ch, 128]: 128*128*colsum(h1) + 128*colsum(h0)
                            # (no gamma)
     k_range: torch.Tensor  # int32 [Bv, n_slices, 2] nonzero V-tap rows, 32-row slices
     # The input is K5's two s8 limb planes of the linearized image
     # (ops/cuda/gamma_prologue.py), not the u8 image (gamma only).
     gamma_pre: bool = False
-    # The tensor-core kernels (no gamma, and vh from the limb planes; the
-    # other gamma kernels run 32-row slices over k_range): output rows per
-    # thread block (slice_rows),
-    # that slice's nonzero V-tap rows, each chunk's nonzero lane-tap rows,
-    # the hv kernel's lane taps as [..., 128, win_c] and its intermediate's
-    # rows, and the largest power of two (up to 16) dividing every chunk's
-    # first window lane.
+    # The tensor-core kernels (no gamma, and from the limb planes; the
+    # in-kernel gamma kernels run 32-row slices over k_range): output rows
+    # per thread block (slice_rows), that slice's nonzero V-tap rows, each
+    # chunk's nonzero lane-tap rows, the hv kernel's lane taps as [..., 128,
+    # win_c] and its intermediate's rows, and the largest power of two (up
+    # to 16) dividing every chunk's first window lane.
     rows: int = _ROWS
     slice_range: torch.Tensor | None = None  # int32 [Bv, n_slices_r, 2]
     h_range: torch.Tensor | None = None      # int32 [Bh, n_ch, 2]
@@ -330,48 +329,77 @@ def h_ranges(h1: np.ndarray, h0: np.ndarray) -> np.ndarray:
 # The hv kernel's intermediate holds at most this many window rows; a
 # taller slice range runs in windows of it, at 32-row slices.
 KWIN_MAX = 256
+# Shared memory of one H100 SM (228 KB; a card's own comes from
+# _sm_smem) and what the runtime keeps of it for each resident block.
+H100_SM_SMEM = 233_472
+BLOCK_SMEM_RESERVED = 1_024
+
+
+def two_blocks_smem(sm_smem: int) -> int:
+    """The most shared memory a block may take for two blocks to share an
+    SM of ``sm_smem`` bytes."""
+    return sm_smem // 2 - BLOCK_SMEM_RESERVED
+
+
+def hv_smem_bytes(kwin: int, planes: int = 1) -> int:
+    """Dynamic shared memory of the hv tensor-core kernel: lane taps 2 x
+    128 x 144 bytes, ``planes`` double-buffered image tiles of 32 x 144
+    bytes (1: the u8 image; 2: K5's limb planes), the intermediate and the
+    V taps 6 x 64 x (kwin + 16).  The layout is csrc/fused_int8.cu's
+    hv_mma_smem_bytes; a change there changes this (the card test
+    test_hv_smem_bytes_match_the_kernel holds the two equal)."""
+    return 2 * _LANES * 144 + planes * 2 * 32 * 144 + 6 * 64 * (kwin + 16)
 
 
 def issued_macs(order: str, rows: int, slice_range: np.ndarray,
-                k_range: np.ndarray, h_range: np.ndarray) -> int:
+                k_range: np.ndarray, h_range: np.ndarray, first: int = 2) -> int:
     """s8 MACs the tensor-core kernel issues at slice height ``rows``:
     every block (an R-row slice with nonzero V taps x a chunk with nonzero
-    lane taps) multiplies dense tap blocks over those ranges, two limb
-    products in the first pass and three in the second.  vh: the first
-    pass R x slice rows x chunk lanes, the second R x chunk lanes x 128;
-    hv: the first pass slice rows x 128 x chunk lanes, the second per
-    32-row sub-tile over its own 32-row range (``k_range``).  A count for
-    chip_smoke.py's report: slice_rows does not read it."""
+    lane taps) multiplies dense tap blocks over those ranges, ``first`` limb
+    products in the first pass (2; 3 from K5's limb planes) and three in
+    the second.  vh: the first pass R x slice rows x chunk lanes, the
+    second R x chunk lanes x 128; hv: the first pass slice rows x 128 x
+    chunk lanes, the second per 32-row sub-tile over its own 32-row range
+    (``k_range``).  A count for chip_smoke.py's report: slice_rows does not
+    read it."""
     kw = (slice_range[..., 1] - slice_range[..., 0]).astype(np.int64)  # [Bv, S]
     hw = (h_range[..., 1] - h_range[..., 0]).astype(np.int64).ravel()
     active = kw > 0
     sum_hw, n_ch = int(hw.sum()), int((hw > 0).sum())
     if order == "vh":
-        return 2 * rows * int(kw.sum()) * sum_hw + 3 * rows * int(active.sum()) * 128 * sum_hw
+        return first * rows * int(kw.sum()) * sum_hw + 3 * rows * int(active.sum()) * 128 * sum_hw
     k32 = (k_range[..., 1] - k_range[..., 0]).astype(np.int64)  # [Bv, S32]
     sub = rows // 32
     bv, s32 = k32.shape
     pad = -(-s32 // sub) * sub - s32
     k32 = np.pad(k32, ((0, 0), (0, pad))).reshape(bv, -1, sub)
     second = int((k32.sum(axis=2) * active).sum())
-    return 2 * 128 * int(kw.sum()) * sum_hw + 3 * 32 * 128 * second * n_ch
+    return first * 128 * int(kw.sum()) * sum_hw + 3 * 32 * 128 * second * n_ch
 
 
 def slice_rows(order: str, v1: np.ndarray, v0: np.ndarray, n_chunks: int,
-               sms: int) -> int:
+               sms: int, planes: int = 1, sm_smem: int = H100_SM_SMEM) -> int:
     """The tensor-core kernel's output rows per thread block.  vh: 32.  hv:
     the tallest of 128 and 64 rows (up to the V block's rows) whose grid of
     ``n_chunks`` lane chunks x slices keeps at least two thread blocks per
     SM of a card with ``sms`` SMs and whose slices' nonzero V-tap ranges fit
     the intermediate (KWIN_MAX rows), else 32.  A taller slice recomputes
-    fewer window rows in the first pass; too few blocks leave SMs idle."""
+    fewer window rows in the first pass; too few blocks leave SMs idle.
+    With K5's two limb planes (``planes`` 2) the height must also let two
+    blocks share an SM's ``sm_smem`` bytes of shared memory (hv_smem_bytes
+    within two_blocks_smem); without gamma the grid and the ranges decide,
+    as measured at the main-path cells (PERF.md)."""
     if order == "vh":
         return _ROWS
     bv, tv, _ = v1.shape
     for rows in (128, 64):
         if rows <= -(-tv // 32) * 32 and n_chunks * bv * -(-tv // rows) >= 2 * sms:
             sr = _k_ranges(v1, v0, rows)
-            if (sr[..., 1] - sr[..., 0]).max() <= KWIN_MAX:
+            span = int((sr[..., 1] - sr[..., 0]).max())
+            if span <= KWIN_MAX and (
+                planes == 1
+                or hv_smem_bytes(max(32, span), planes) <= two_blocks_smem(sm_smem)
+            ):
                 return rows
     return _ROWS
 
@@ -383,6 +411,15 @@ def _sm_count(device: torch.device | str) -> int:
     if device.type != "cuda":
         return 0
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _sm_smem(device: torch.device | str) -> int:
+    """Shared memory of one SM of the card the operands live on; an H100's
+    on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100_SM_SMEM
+    return torch.cuda.get_device_properties(device).shared_memory_per_multiprocessor
 
 
 def _slice_fields(v1: np.ndarray, v0: np.ndarray, rows: int) -> tuple[np.ndarray, int]:
@@ -397,7 +434,9 @@ def at_rows(ops: FusedInt8Operands, rows: int) -> FusedInt8Operands:
     rows (32, 64 or 128) in place of slice_rows' choice: the same function,
     another tiling (for the card tests and chip_smoke.py, which hold every
     height to the plain version).  The vh kernel runs 32 rows only."""
-    if ops.epi.gamma or rows not in ((_ROWS,) if ops.order == "vh" else (32, 64, 128)):
+    if (ops.epi.gamma and not ops.gamma_pre) or rows not in (
+        (_ROWS,) if ops.order == "vh" else (32, 64, 128)
+    ):
         raise ValueError(f"no {rows}-row slices in the {ops.launch_key} kernel")
     v1, v0 = ops.v1.cpu().numpy(), ops.v0.cpu().numpy()
     sr, kwin = _slice_fields(v1, v0, rows)
@@ -469,15 +508,17 @@ def prepare_fused_int8(
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(device=device, dtype=dtype)
 
-    # The packed lane taps for the kernels that read them; the tensor-core
-    # kernels' fields without gamma and for vh from the limb planes.
+    # The packed lane taps for the kernels that read them (vh, and the
+    # in-kernel gamma hv); the tensor-core kernels' fields without gamma and
+    # from the limb planes.
     h1p = h0p = None
-    if gamma or order == "vh":
+    if order == "vh" or (gamma and not gamma_pre):
         h1p, h0p = dev(_pack4(h1)), dev(_pack4(h0))
     mma = {}
-    if not gamma or (gamma_pre and order == "vh"):
+    if not gamma or gamma_pre:
         hr = h_ranges(h1, h0)
-        rows = slice_rows(order, v1, v0, hr.shape[0] * hr.shape[1], _sm_count(device))
+        rows = slice_rows(order, v1, v0, hr.shape[0] * hr.shape[1], _sm_count(device),
+                          planes=2 if gamma_pre else 1, sm_smem=_sm_smem(device))
         sr, kwin = _slice_fields(v1, v0, rows)
         mma = dict(rows=rows, slice_range=dev(sr), h_range=dev(hr), kwin=kwin,
                    lane_align=_lane_align(lop, rel))

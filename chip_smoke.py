@@ -27,8 +27,8 @@ Phases (any failure exits non-zero before the last line):
          vh/hv (the split gate above; an integer output whose float32
          difference is amplified, by LANCIR's scale > 1 or by gamma-out,
          takes the float32 gate on its range plus one step);
-       - K2, K3 (max * 1e-5), K5 and K1's limb-plane input (bit-equal;
-         vh on the tensor cores at the edges of its tiling);
+       - K2, K3 (max * 1e-5), K5 and K1's limb-plane input (bit-equal; vh and hv on the
+         tensor cores, hv at every slice height);
        - K6 ring: the JAX package's five ring cases plus C = 1 and
          clusters of 8, 12 and 16 blocks, bit-equal to its plain version
          and to K1's in-kernel gamma kernel;
@@ -78,9 +78,11 @@ Phases (any failure exits non-zero before the last line):
          (K1 int8 hv gamma): bit-equal to the plain version, within
          2 LSB / >= 60 dB of the float64 gamma oracle (13-bit linear
          light through the sRGB slope);
-       - the unfused shapes (K4 checked as at 8k_to_1080p_errdiff), the
+       - the unfused shapes (K4 checked as at 8k_to_1080p_errdiff; K2
+         with ptxas's registers and spills), the
          prologue shapes (8k_to_1080p_gamma_prologue, K1's limb-plane vh
-         on the tensor cores; 1080p_to_4k_gamma_prologue, its hv), then
+         on the tensor cores; 1080p_to_4k_gamma_prologue, its hv, also at
+         every slice height: bit-equal, timed in alternating turns), then
          the ring route at 8k_to_1080p_gamma_ring and
          4k_to_720p_gamma_ring (one K6 launch on the default route,
          AVIR_TPU_GAMMA_ROUTE unset; bit-equal to its plain version and
@@ -169,10 +171,11 @@ Phases (any failure exits non-zero before the last line):
 (vh, vh even, hv) at its four main-path cells, K6 at
 8k_to_1080p_gamma_ring and 4k_to_720p_gamma_ring and K1 int8 from K5's
 limb planes at 8k_to_1080p_gamma_prologue (vh) and
-1080p_to_4k_gamma_prologue (hv) on the package under DIR instead (one
-JSON line, with output hashes and, at the two int8 downsizes, the split
-route beside it), so that two versions of the kernels can be compared in
-turns within one chip call.
+1080p_to_4k_gamma_prologue (hv) and K2 split3 at 720p_to_1080p_errdiff
+and 1080p_to_4k_gamma_errdiff (KT_K2_CELLS) on the package under DIR
+instead (one JSON line, with output hashes and, at the two int8
+downsizes, the split route beside it), so that two versions of the
+kernels can be compared in turns within one chip call.
 """
 
 from __future__ import annotations
@@ -476,7 +479,7 @@ UNFUSED_SHAPES = (
 )
 # The linearize-once gamma route (K5 + K1 int8 limb-plane input):
 # (name, src_w, src_h, new_w, new_h, c), u8 RGB with sRGB gamma; the
-# downsize runs vh (the tensor-core kernel), the upsize hv (dp4a).
+# downsize runs vh, the upsize hv (both on the s8 tensor cores).
 PROLOGUE_SHAPES = (
     ("8k_to_1080p_gamma_prologue", 7680, 4320, 1920, 1080, 3),
     ("1080p_to_4k_gamma_prologue", 1920, 1080, 3840, 2160, 3),
@@ -579,6 +582,13 @@ KT_GAMMA_CELLS = (
     ("8k_to_1080p_gamma_prologue", "prologue", 7680, 4320, 1920, 1080),
     ("1080p_to_4k_gamma_prologue", "prologue", 1920, 1080, 3840, 2160),
 )
+# --kernel-times' K2 cells, u8 RGB through the unfused route with
+# dither="errdiff" (K3, then K2 split3 on its float32 output): (name,
+# src_w, src_h, new_w, new_h, plan keywords).
+KT_K2_CELLS = (
+    ("720p_to_1080p_errdiff", 1280, 720, 1920, 1080, {}),
+    ("1080p_to_4k_gamma_errdiff", 1920, 1080, 3840, 2160, {"use_srgb_gamma": True}),
+)
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
 
@@ -587,10 +597,10 @@ TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
 BUILD_LOGS: dict[str, str] = {}
 
 
-def _ptxas(lib: str, needle: str):
+def _ptxas(lib: str, *needles: str):
     """{kernel: registers and spill bytes} that ptxas gave the kernels of
-    library ``lib`` whose mangled names hold ``needle``, from this run's
-    build."""
+    library ``lib`` whose mangled names hold every one of ``needles``, from
+    this run's build."""
     import re
 
     log = BUILD_LOGS.get(lib)
@@ -600,7 +610,7 @@ def _ptxas(lib: str, needle: str):
     for line in log.splitlines():
         m = re.search(r"entry function '([^']+)'", line)
         if m:
-            cur = m.group(1) if needle in m.group(1) else None
+            cur = m.group(1) if all(n in m.group(1) for n in needles) else None
         elif cur is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m:
@@ -697,13 +707,14 @@ def _first_pass_reads(ops) -> dict[str, float]:
 
 
 def _int8_counts(ops) -> dict:
-    """K1 int8 without gamma: the slice height, the s8 MACs the
-    tensor-core kernel issues (fused_kernel.py:issued_macs) and those the
-    dp4a kernel before it issued (32-row slices, dense over the whole
-    win_c window: vh per 128-lane segment, hv per 32-row group), and the
-    image bytes the first pass reads per input byte in both tilings (each
-    block reads its slice's nonzero V-tap rows over its chunk's nonzero
-    lane range; before, over the whole window)."""
+    """K1 int8 on the tensor cores (without gamma, or from K5's limb
+    planes): the slice height, the s8 MACs the tensor-core kernel issues
+    (fused_kernel.py:issued_macs) and those the dp4a kernel before it
+    issued (32-row slices, dense over the whole win_c window: vh per
+    128-lane segment, hv per 32-row group), and the image bytes the first
+    pass reads per input byte in both tilings (each block reads its
+    slice's nonzero V-tap rows over its chunk's nonzero lane range; before,
+    over the whole window)."""
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
 
     kr = ops.k_range.cpu().numpy().astype(np.int64)
@@ -711,15 +722,16 @@ def _int8_counts(ops) -> dict:
     hr = ops.h_range.cpu().numpy().astype(np.int64)
     bh, n_ch, win_c, _ = ops.h1.shape
     k32 = int((kr[..., 1] - kr[..., 0]).sum())
+    first = 3 if ops.gamma_pre else 2  # limb products of the first pass
     if ops.order == "vh":
-        before = (2 * 32 * k32 * win_c + 3 * 32 * 128 * win_c * kr[..., 0].size) * bh * n_ch
+        before = (first * 32 * k32 * win_c + 3 * 32 * 128 * win_c * kr[..., 0].size) * bh * n_ch
     else:
-        before = (2 * 128 * win_c + 3 * 32 * 128) * k32 * bh * n_ch
+        before = (first * 128 * win_c + 3 * 32 * 128) * k32 * bh * n_ch
     rows = int((sr[..., 1] - sr[..., 0]).sum()) / ops.rows_in
     lanes = int((hr[..., 1] - hr[..., 0]).sum()) / ops.lanes_in
     return {
         "slice_rows": ops.rows,
-        "macs_issued": fk.issued_macs(ops.order, ops.rows, sr, kr, hr),
+        "macs_issued": fk.issued_macs(ops.order, ops.rows, sr, kr, hr, first=first),
         "macs_issued_before": int(before),
         "first_pass_reads_per_input": {
             "rows": rows, "lanes": lanes, "total": rows * lanes,
@@ -737,8 +749,11 @@ def _height_sweep(ops, x, got, flush) -> dict:
     """K1 int8 at every slice height its order takes (fused_kernel.py:
     at_rows), timed in this run beside slice_rows' choice, in SWEEP_TURNS
     turns that alternate the heights: {rows: ms of each turn, bit-equal
-    to ``got``, MACs issued}."""
+    to ``got``, MACs issued}.  ``x`` is the u8 image, or K5's two limb
+    planes as a tuple."""
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
+
+    args = x if isinstance(x, tuple) else (x,)
 
     tiled = {}
     for rows in INT8_ROWS[ops.order]:
@@ -746,7 +761,7 @@ def _height_sweep(ops, x, got, flush) -> dict:
             o = fk.at_rows(ops, rows)
         except ValueError:  # an hv range above the intermediate's rows
             continue
-        y = fk.apply_fused_int8(o, x)
+        y = fk.apply_fused_int8(o, *args)
         torch.cuda.synchronize()
         tiled[rows] = (o, {
             "ms": [],
@@ -755,7 +770,7 @@ def _height_sweep(ops, x, got, flush) -> dict:
         })
     for _ in range(SWEEP_TURNS):
         for o, rec in tiled.values():
-            rec["ms"].append(_time_ms(lambda: fk.apply_fused_int8(o, x), 20, flush))
+            rec["ms"].append(_time_ms(lambda: fk.apply_fused_int8(o, *args), 20, flush))
     return {rows: rec for rows, (_, rec) in tiled.items()}
 
 
@@ -1507,16 +1522,25 @@ def _unfused_cases(gen, dev) -> None:
         torch.cuda.synchronize()
         phi, plo = gp.apply_gamma_prologue_reference(x, *args)
         k5_ok = torch.equal(hi, phi) and torch.equal(lo, plo)
-        got = fk.apply_fused_int8(pre, hi, lo)
-        torch.cuda.synchronize()
-        err_plain = int((got.int() - fk.apply_fused_int8_reference(pre, hi, lo).int()).abs().max())
-        err_ink = int((got.int() - fk.apply_fused_int8(ink, x).int()).abs().max())
-        case = f"{pre.launch_key} {sw}x{sh}->{nw}x{nh} C={c} tile={tile} alpha={alpha}"
-        print(json.dumps({"case": case, "gamma_prologue_bit_equal": k5_ok,
-                          "max_abs_err_vs_plain": err_plain,
-                          "max_abs_err_vs_inkernel": err_ink}))
-        if not (k5_ok and err_plain == 0 and err_ink == 0):
-            _fail(f"gamma_prologue / limb-plane K1 != plain or in-kernel on {case}")
+        want = fk.apply_fused_int8_reference(pre, hi, lo)
+        base = fk.apply_fused_int8(ink, x)
+        # The slice height slice_rows picked, then every other one.
+        for rows in (pre.rows, *(r for r in INT8_ROWS[order] if r != pre.rows)):
+            try:
+                o = fk.at_rows(pre, rows)
+            except ValueError:  # an hv range above the intermediate's rows
+                continue
+            got = fk.apply_fused_int8(o, hi, lo)
+            torch.cuda.synchronize()
+            err_plain = int((got.int() - want.int()).abs().max())
+            err_ink = int((got.int() - base.int()).abs().max())
+            case = (f"{pre.launch_key} {sw}x{sh}->{nw}x{nh} C={c} tile={tile} "
+                    f"alpha={alpha} rows={rows}")
+            print(json.dumps({"case": case, "gamma_prologue_bit_equal": k5_ok,
+                              "max_abs_err_vs_plain": err_plain,
+                              "max_abs_err_vs_inkernel": err_ink}))
+            if not (k5_ok and err_plain == 0 and err_ink == 0):
+                _fail(f"gamma_prologue / limb-plane K1 != plain or in-kernel on {case}")
 
 
 def _pass_bound(op, in_elems: int, out_elems: int, in_bytes: int,
@@ -1773,6 +1797,8 @@ def _unfused_shape(name, entry, sw, sh, nw, nh, c, out_dt, kw, expect, gen,
         "k2_bound_ms": k2_bound[0], "k2_bound_by": k2_bound[1],
         "k2_bytes": k2_bound[2], "k2_bf16_ops": k2_bound[3],
         "k3_kp": ops.lanes.kp, "k3_lane_tile": ops.lanes.lop.tile,
+        "k2_slice_rows": ops.rows.rows,
+        "k2_ptxas": _ptxas("banded", "banded_mma"),
         "launches_per_resize": {k: v for k, v in counts.items() if v},
         "resize_first_call_s": first_s,
         "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
@@ -1836,10 +1862,11 @@ def _unfused_shape(name, entry, sw, sh, nw, nh, c, out_dt, kw, expect, gen,
 def _prologue_shape(name, sw, sh, nw, nh, c, gen, dev, flush, smi, mods) -> list[dict]:
     """A PROLOGUE_SHAPES cell: ImageResizer.resize with sRGB gamma under
     AVIR_TPU_GAMMA_ROUTE=prologue: one K5 launch and one K1 int8
-    limb-plane launch (vh on the tensor cores at the downsize, hv dp4a at
+    limb-plane launch (on the s8 tensor cores: vh at the downsize, hv at
     the upsize), bit-equal to the in-kernel route on the same image; K5
     and K1 timed apart beside the in-kernel K1 of the same run, with the
-    ptxas registers and spills of the limb-plane kernel."""
+    ptxas registers and spills of the limb-plane kernel; hv also at every
+    slice height (bit-equal, timed in SWEEP_TURNS alternating turns)."""
     import os
 
     import avir_tpu_torch
@@ -1906,6 +1933,10 @@ def _prologue_shape(name, sw, sh, nw, nh, c, gen, dev, flush, smi, mods) -> list
     k5_bound = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
     k1_bound = _k1_bound(plan.h.op, plan.v.op, c, fn.order, 2, 1, 2, 3, 3, INT8_OPS_PER_S,
                          nh * nw * c * GAMMA_OUT_OPS)
+    heights = {}
+    if fn.order == "hv":
+        heights = _height_sweep(ops, (hi, lo), want, flush)
+        ok = ok and all(h["bit_equal"] for h in heights.values())
     report = {
         "shape": name, "route": "int8 + prologue", "variant": key,
         "gamma_prologue_bit_equal_to_plain": k5_eq,
@@ -1917,9 +1948,8 @@ def _prologue_shape(name, sw, sh, nw, nh, c, gen, dev, flush, smi, mods) -> list
         "k5_bound_ms": k5_bound[0], "k5_bound_by": k5_bound[1], "k5_bytes": k5_bytes,
         "k1_pre_bound_ms": k1_bound[0], "k1_pre_bound_by": k1_bound[1],
         "planes": [rows_p, lanes_p],
-        "first_pass_reads_per_input": _first_pass_reads(ops),
-        "ptxas": _ptxas("fused_int8", "fused_int8_vh_mmaILb1E" if fn.order == "vh"
-                        else "fused_int8_hvILb1E"),
+        **_int8_counts(ops), "kwin": ops.kwin, "slice_heights": heights,
+        "ptxas": _ptxas("fused_int8", f"fused_int8_{fn.order}_mma", "Lb1E"),
         "launches_per_resize": {k: v for k, v in counts.items() if v},
         "resize_first_call_s": first_s,
         "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],
@@ -3145,21 +3175,23 @@ def _card() -> str:
 
 
 def kernel_times(root: str) -> int:
-    """K1 int8 (no gamma) at its four main-path cells (KT_INT8_CELLS), and
-    the gamma kernels at KT_GAMMA_CELLS (K6 at the two ring cells, K1 int8
-    from K5's limb planes, vh and hv, at the two prologue cells), timed on
-    the package under ``root`` through the calls that the versions being
-    compared share (the executors' operands, ``apply_fused_int8``,
-    ``apply_fused_ring``, ``apply_gamma_prologue``), so that two versions
-    run in turns in one chip call; at the two downsizes also the split
-    route (precision="fast", K1 split vh) of the same resize as a
-    yardstick:
+    """K1 int8 (no gamma) at its four main-path cells (KT_INT8_CELLS), the
+    gamma kernels at KT_GAMMA_CELLS (K6 at the two ring cells, K1 int8
+    from K5's limb planes, vh and hv, at the two prologue cells) and K2 at
+    KT_K2_CELLS (the row pass of two unfused errdiff resizes, on K3's
+    output), timed on the package under ``root`` through the calls that
+    the versions being compared share (the executors' operands,
+    ``apply_fused_int8``, ``apply_fused_ring``, ``apply_gamma_prologue``,
+    ``apply_lanes``, ``apply_banded``), so that two versions run in turns
+    in one chip call; at the two downsizes also the split route
+    (precision="fast", K1 split vh) of the same resize as a yardstick:
 
         python3 chip_smoke.py --kernel-times DIR
 
     Prints one JSON line with each time, the largest difference from the
     plain version and a hash of each output (equal hashes: bit-equal
-    outputs across the versions)."""
+    outputs across the versions; K2 sums float32 in its kernel's order, so
+    its hash changes with its design, and its gate is max|plain| * 1e-5)."""
     import hashlib
     import os
 
@@ -3169,14 +3201,18 @@ def kernel_times(root: str) -> int:
         make_avir_executor,
         make_lancir_executor,
     )
+    from avir_tpu_torch.ops.cuda import banded_kernel as bk
     from avir_tpu_torch.ops.cuda import build
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
     from avir_tpu_torch.ops.cuda import fused_ring as fr
     from avir_tpu_torch.ops.cuda import gamma_prologue as gp
+    from avir_tpu_torch.ops.cuda import lanes_kernel as lk
+    from avir_tpu_torch.ops.gamma import f32, srgb_to_linear_2d
     from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
     from avir_tpu_torch.plan.plan import build_resize_plan
 
-    build.build(["fused_int8", "fused_split", "fused_ring", "gamma_prologue"])
+    build.build(["fused_int8", "fused_split", "fused_ring", "gamma_prologue", "banded",
+                 "lanes"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
@@ -3233,6 +3269,24 @@ def kernel_times(root: str) -> int:
             "ms": _time_ms(lambda: kernel(*args), 20, flush),
             "max_abs_err_vs_plain": int((got.int() - want.int()).abs().max()),
             "sha": sha(got),
+        }
+    for name, sw, sh, nw, nh, kw in KT_K2_CELLS:
+        plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8, **kw)
+        ops = make_avir_executor(plan, errdiff=True, device=dev).ops
+        src = gen.integers(0, 256, (sh, sw * 3), dtype=np.uint8)
+        x = torch.from_numpy(src).to(dev)
+        if plan.use_srgb_gamma:
+            x = srgb_to_linear_2d(x.to(torch.int32).float() * f32(plan.in_gamma_mult),
+                                  3, plan.alpha_index)
+        k2_in = lk.apply_lanes(ops.lanes, x) if ops.order == "hv" else x
+        got = bk.apply_banded(ops.rows, k2_in)
+        want = bk.apply_banded_reference(ops.rows, k2_in)
+        torch.cuda.synchronize()
+        times[f"{ops.rows.launch_key} {name}"] = {
+            "ms": _time_ms(lambda: bk.apply_banded(ops.rows, k2_in), 20, flush),
+            "max_abs_err_vs_plain": float((got - want).abs().max()),
+            "tol": float(want.abs().max()) * 1e-5,
+            "sha": sha(got), "input_sha": sha(k2_in),
         }
     print(json.dumps({"kernel_times": times, "root": root, "card": _card()}))
     return 0

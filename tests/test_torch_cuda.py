@@ -14,6 +14,7 @@ max|plain| * 1e-4, integers within 1 LSB, or one quantization step when
 step).  K2 and K3 (one pass each) sum in another order: float32 within
 max|plain| * 1e-5."""
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -24,6 +25,7 @@ from torch_cases import (
     BANDED_CASES,
     FUSED_CASES,
     GAMMA_PRE_CASES,
+    GAMMA_PRE_HV_CASES,
     GAMMA_PRE_VH_CASES,
     IN_BYTES,
     LANES_CASES,
@@ -388,9 +390,9 @@ def test_ring_kernel_repeats_bit_equal_on_card(name, cuda_device):
             assert torch.equal(fr.apply_fused_ring(o, x), want)
 
 
-def _limb_case(sw, sh, nw, nh, c, tile, alpha, device, seed):
+def _limb_case(sw, sh, nw, nh, c, tile, alpha, device, seed, order="vh"):
     """(limb-plane operands, in-kernel operands, u8 image, K5's planes) of
-    an int8 gamma vh resize."""
+    an int8 gamma resize in pass order ``order``."""
     plan = build_resize_plan(
         sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True,
         alpha_index=alpha,
@@ -401,8 +403,8 @@ def _limb_case(sw, sh, nw, nh, c, tile, alpha, device, seed):
     )
     vop = block_banded(plan.v.op)
     lop = lane_block_banded(plan.h.op, c, tile=tile)
-    pre = fk.prepare_fused_int8(vop, lop, "vh", device, gamma_pre=True, **gkw)
-    inkernel = fk.prepare_fused_int8(vop, lop, "vh", device, **gkw)
+    pre = fk.prepare_fused_int8(vop, lop, order, device, gamma_pre=True, **gkw)
+    inkernel = fk.prepare_fused_int8(vop, lop, order, device, **gkw)
     x = torch.from_numpy(
         np.random.default_rng(seed).integers(0, 256, (sh, sw * c), dtype=np.uint8)
     ).to(device)
@@ -454,6 +456,74 @@ def test_limb_input_vh_repeats_bit_equal_on_card(cuda_device):
     want = fk.apply_fused_int8_reference(pre, hi, lo)
     for _ in range(20):
         assert torch.equal(fk.apply_fused_int8(pre, hi, lo), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 64, 128])
+@pytest.mark.parametrize("name", list(GAMMA_PRE_HV_CASES))
+def test_limb_input_hv_tensor_cores_match_plain_on_card(name, rows, cuda_device):
+    """K1 int8 hv from K5's limb planes (the s8 tensor-core kernel) at every
+    slice height (fk.at_rows), whatever slice_rows would pick: bit-equal to
+    its plain version and to the in-kernel hv gamma kernel."""
+    sw, sh, nw, nh, c, tile, alpha = GAMMA_PRE_HV_CASES[name]
+    pre, inkernel, x, hi, lo = _limb_case(
+        sw, sh, nw, nh, c, tile, alpha, cuda_device, sum(map(ord, name)) + rows, "hv"
+    )
+    try:
+        ops = fk.at_rows(pre, rows)
+    except ValueError:
+        pytest.skip(f"{rows}-row slice ranges exceed the hv intermediate")
+    before = fk.launches[ops.launch_key]
+    got = fk.apply_fused_int8(ops, hi, lo)
+    torch.cuda.synchronize()
+    assert fk.launches[ops.launch_key] == before + 1
+    assert torch.equal(got, fk.apply_fused_int8_reference(pre, hi, lo))
+    assert torch.equal(got, fk.apply_fused_int8(inkernel, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [1, 4, 12])
+def test_limb_input_hv_narrow_planes_on_card(extra, cuda_device):
+    """Planes wider than the windows reach by ``extra`` lanes (a width off a
+    multiple of 16: 32-bit word loads in place of cp.async, byte loads
+    where it is also off 4) give the same bytes, with the alpha lane."""
+    pre, inkernel, x, hi, lo = _limb_case(
+        80, 60, 200, 150, 4, None, 3, cuda_device, 13, "hv"
+    )
+    wide = [torch.nn.functional.pad(p, (0, extra)).contiguous() for p in (hi, lo)]
+    got = fk.apply_fused_int8(pre, *wide)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fk.apply_fused_int8_reference(pre, hi, lo))
+    assert torch.equal(got, fk.apply_fused_int8(inkernel, x))
+
+
+@pytest.mark.cuda
+def test_limb_input_hv_repeats_bit_equal_on_card(cuda_device):
+    """20 launches of the limb-plane hv kernel give the same bytes."""
+    pre, _, _, hi, lo = _limb_case(150, 100, 400, 300, 3, None, -1, cuda_device, 7, "hv")
+    want = fk.apply_fused_int8_reference(pre, hi, lo)
+    for _ in range(20):
+        assert torch.equal(fk.apply_fused_int8(pre, hi, lo), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", [1, 2])
+def test_hv_smem_bytes_match_the_kernel(planes, cuda_device):
+    """The host's copy of the hv tensor-core kernel's shared-memory layout
+    (fk.hv_smem_bytes, which slice_rows reads) equals the kernel's own
+    (csrc: hv_mma_smem_bytes), and the card's SM shared memory is read
+    from the device (an H100's is the value the CPU assumes)."""
+    from avir_tpu_torch.ops.cuda.build import load_library
+
+    fn = load_library("fused_int8").avir_hv_mma_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    for kwin in (32, 64, 128, 160, 256):
+        assert fk.hv_smem_bytes(kwin, planes) == fn(kwin, planes)
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert fk._sm_smem(cuda_device) == props.shared_memory_per_multiprocessor
+    if "H100" in props.name:
+        assert fk._sm_smem(cuda_device) == fk.H100_SM_SMEM
 
 
 @pytest.mark.cuda

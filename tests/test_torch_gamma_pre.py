@@ -28,7 +28,7 @@ from avir_tpu.ops.pallas.gamma_prologue import (
 )
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
-from torch_cases import GAMMA_PRE_CASES
+from torch_cases import GAMMA_PRE_CASES, GAMMA_PRE_HV_CASES
 
 import avir_tpu_torch
 from avir_tpu_torch.models import runtime
@@ -152,22 +152,95 @@ def test_limb_plane_input_checks_its_operands():
 
 @pytest.mark.parametrize("name", list(GAMMA_PRE_CASES))
 def test_limb_plane_operands_of_each_kernel(name):
-    """vh from the limb planes runs K1's s8 tensor-core vh kernel: its
-    operands carry that kernel's fields (32-row slices, whose ranges are
-    k_range's, each chunk's nonzero lane range, the lane alignment), as
-    the operands without gamma do; hv keeps the dp4a kernel's, with
-    none of them."""
+    """Both orders from the limb planes run K1's s8 tensor-core kernels:
+    their operands carry those kernels' fields as the operands without
+    gamma do: each chunk's nonzero lane range, the lane alignment, and vh
+    32-row slices (whose ranges are k_range's) with the packed lane taps,
+    hv the slice height slice_rows picks for two input planes, its ranges,
+    the intermediate's rows and the transposed lane taps."""
     (sw, sh, nw, nh, c, tile, order), _, plan, _ = _case(name)
     vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile)
     pre = fk.prepare_fused_int8(vop, lop, order, "cpu", gamma=True, gamma_pre=True)
-    if order == "hv":
-        assert pre.slice_range is None and pre.h_range is None and pre.h1t is None
-        return
     plain = fk.prepare_fused_int8(vop, lop, order, "cpu")
-    assert pre.rows == plain.rows == 32 and pre.lane_align == plain.lane_align
-    assert torch.equal(pre.slice_range, pre.k_range)
-    assert torch.equal(pre.h_range, plain.h_range) and torch.equal(pre.h1p, plain.h1p)
-    assert pre.launch_key == "fused_int8_vh_gamma_pre"
+    assert pre.lane_align == plain.lane_align
+    assert torch.equal(pre.h_range, plain.h_range)
+    assert pre.launch_key == f"fused_int8_{order}_gamma_pre"
+    if order == "vh":
+        assert pre.rows == plain.rows == 32
+        assert torch.equal(pre.slice_range, pre.k_range)
+        assert torch.equal(pre.h1p, plain.h1p)
+        return
+    v1, v0 = pre.v1.numpy(), pre.v0.numpy()
+    n_chunks = pre.h_range.shape[0] * pre.h_range.shape[1]
+    assert pre.rows == fk.slice_rows("hv", v1, v0, n_chunks, 0, planes=2)
+    sr, kwin = fk._slice_fields(v1, v0, pre.rows)
+    assert torch.equal(pre.slice_range, torch.from_numpy(sr)) and pre.kwin == kwin
+    assert torch.equal(pre.h1t, plain.h1t) and torch.equal(pre.h0t, plain.h0t)
+    assert pre.h1p is None and pre.h0p is None
+
+
+def test_limb_plane_hv_cases_reach_their_edges():
+    """The card cases of the limb-plane hv kernel (GAMMA_PRE_HV_CASES) are
+    int8 gamma hv resizes that cover what their comment promises: a slice
+    range above the intermediate's rows (windows at 32-row slices), C = 4
+    with the alpha lane first and last, lanes_in off a multiple of 4, C = 2
+    and C = 5, and a ragged last slice at 128 rows."""
+    seen = set()
+    for sw, sh, nw, nh, c, tile, alpha in GAMMA_PRE_HV_CASES.values():
+        plan = build_resize_plan(
+            sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True, alpha_index=alpha
+        )
+        vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile)
+        assert runtime.choose_fused(vop, lop, "int8", True, c) == (True, "hv")
+        pre = fk.prepare_fused_int8(
+            vop, lop, "hv", "cpu", gamma=True, gamma_pre=True, alpha_index=alpha
+        )
+        span = int((pre.slice_range[..., 1] - pre.slice_range[..., 0]).max())
+        seen |= {
+            f"c{c}",
+            *([f"alpha{alpha}"] if pre.epi.alpha_lane >= 0 else []),
+            *(["windows"] if span > fk.KWIN_MAX else []),
+            *(["lanes_in_off_4"] if pre.lanes_in % 4 else []),
+            *(["ragged_128"] if pre.rows_out % 128 and pre.v1.shape[1] >= 128
+              and fk.at_rows(pre, 128).rows == 128 else []),
+        }
+    assert seen >= {"c1", "c2", "c3", "c4", "c5", "alpha0", "alpha3", "windows",
+                    "lanes_in_off_4", "ragged_128"}
+
+
+# An H100 SXM's SMs (the card of PERF.md's measurements).
+H100_SMS = 132
+
+
+@pytest.mark.parametrize(
+    "size, rows",
+    [((1920, 1080, 3840, 2160), 128), ((1280, 720, 1920, 1080), 128),
+     ((640, 480, 1024, 768), 64)],
+)
+def test_limb_plane_hv_slice_height_on_an_h100(size, rows, monkeypatch):
+    """The slice height of the limb-plane hv kernel on the prologue route
+    of a u8 RGB gamma upsize, on an H100: slice_rows with two input planes
+    gives the height the kernel launches, the tallest whose grid keeps two
+    blocks per SM and whose shared memory (hv_smem_bytes with both planes'
+    image tiles) lets two blocks share an SM; the same height as without
+    gamma at these sizes (128 rows would leave 640x480 -> 1024x768 with
+    fewer than two blocks per SM)."""
+    monkeypatch.setattr(fk, "_sm_count", lambda device: H100_SMS)
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "prologue")
+    plan = build_resize_plan(*size, 3, np.uint8, np.uint8, use_srgb_gamma=True)
+    fn = runtime.make_avir_executor(plan, device="cpu")
+    ops = fn.ops
+    assert fn.order == "hv" and ops.launch_key == "fused_int8_hv_gamma_pre"
+    n_chunks = ops.h_range.shape[0] * ops.h_range.shape[1]
+    v1, v0 = ops.v1.numpy(), ops.v0.numpy()
+    assert ops.rows == rows == fk.slice_rows("hv", v1, v0, n_chunks, H100_SMS, planes=2)
+    assert fk.hv_smem_bytes(ops.kwin, 2) <= fk.two_blocks_smem(fk.H100_SM_SMEM) == 115_712
+    assert n_chunks * v1.shape[0] * -(-v1.shape[1] // rows) >= 2 * H100_SMS
+    monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV)
+    plain = runtime.make_avir_executor(
+        build_resize_plan(*size, 3, np.uint8, np.uint8), device="cpu"
+    ).ops
+    assert plain.rows == rows
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,7 @@ from avir_tpu.ops.pallas import lanes_kernel as jax_lk
 from avir_tpu.plan.lancir_plan import build_lancir_plan as jax_build_lancir_plan
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
-from torch_cases import IN_BYTES, NP_TYPES, split_source
+from torch_cases import BANDED_CASES, IN_BYTES, NP_TYPES, split_source
 
 import avir_tpu_torch
 from avir_tpu_torch.models import runtime
@@ -153,6 +153,74 @@ def test_row_pass_plain_matches_jax(mode, c, tin):
     _close(got, xla, 1e-5)
     pallas = jax_bk.apply_blocked_pallas(jvop, jnp.asarray(x), mode, interpret=True)
     _close(got, pallas, 1e-5)
+
+
+def _scan_k_range(nz: np.ndarray, rows: int) -> np.ndarray:
+    """Each ``rows``-row slice's nonzero tap rows of ``nz`` [B, T, W],
+    found one slice at a time and rounded out to 32; (0, 0) for none."""
+    b, t, w = nz.shape
+    out = np.zeros((b, -(-t // rows), 2), dtype=np.int64)
+    for bi in range(b):
+        for s in range(out.shape[1]):
+            used = np.flatnonzero(nz[bi, s * rows : (s + 1) * rows].any(axis=0))
+            if used.size:
+                out[bi, s] = used[0] // 32 * 32, min(-(-(used[-1] + 1) // 32) * 32, w)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["split2", "split3", "exact"])
+@pytest.mark.parametrize(
+    "size",
+    [(53, 37, 90, 71), (150, 97, 61, 40), (300, 20, 1400, 41), (40, 300, 64, 900),
+     (1280, 720, 1920, 1080)],
+)
+def test_row_pass_k_range_is_a_scan_of_each_slice(size, mode):
+    """K2's k_range at the slice height its kernel runs (the split modes'
+    tensor-core kernel SPLIT_ROWS = 64 rows, exact 32) equals a direct scan
+    of each slice's nonzero tap rows; the launch grid has B x slices row
+    blocks."""
+    plan = build_resize_plan(*size, 3, np.uint8, np.float32)
+    bop = block_banded(plan.v.op)
+    ops = bk.prepare_banded(bop, mode, "cpu")
+    assert ops.rows == (32 if mode == "exact" else 64) and bk.SPLIT_ROWS == 64
+    nz = (bop.taps_hi != 0).numpy() | (bop.taps_lo != 0).numpy()
+    np.testing.assert_array_equal(ops.k_range.numpy(), _scan_k_range(nz, ops.rows))
+
+
+def test_banded_cases_reach_their_edges():
+    """The card cases of K2 (tests/torch_cases.py BANDED_CASES) cover the
+    edges of its tensor-core tiling: u8, u16 and f32 in both split modes;
+    rows whose width in bytes is off 16 (scalar loads) and on it (16-byte
+    loads); R off a multiple of 8; n_out off the 64-row slices; a slice
+    whose nonzero taps end inside a 16-deep MMA step; several row blocks."""
+    seen = set()
+    for sw, sh, nw, nh, c, tin, mode in BANDED_CASES.values():
+        ib = IN_BYTES[tin]
+        plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+        bop = block_banded(plan.v.op, in_bytes=ib)
+        r = sw * c
+        if mode == "exact":
+            continue
+        ops = bk.prepare_banded(bop, mode, "cpu")
+        nz = (bop.taps_hi != 0).numpy() | (bop.taps_lo != 0).numpy()
+        ends = {
+            int(np.flatnonzero(nz[b, s : s + ops.rows].any(axis=0))[-1]) + 1
+            for b in range(nz.shape[0]) for s in range(0, nz.shape[1], ops.rows)
+            if nz[b, s : s + ops.rows].any()
+        }
+        seen |= {
+            f"{tin}_{mode}",
+            "vector_rows" if (r * ib) % 16 == 0 else "scalar_rows",
+            *(["r_off_8"] if r % 8 else []),
+            *(["n_out_off_slices"] if nh % ops.rows else []),
+            *(["end_inside_mma_step"] if any(e % 16 for e in ends) else []),
+            *(["row_blocks"] if bop.n_blocks > 1 else []),
+        }
+    assert seen == {
+        *(f"{t}_{m}" for t in ("u8", "u16", "f32") for m in ("split2", "split3")),
+        "vector_rows", "scalar_rows", "r_off_8", "n_out_off_slices",
+        "end_inside_mma_step", "row_blocks",
+    }
 
 
 @pytest.mark.parametrize("tin", ["u8", "u16", "f32"])

@@ -180,6 +180,22 @@ GAMMA_PRE_VH_CASES = {
     "c5": (90, 60, 40, 27, 5, None, -1),
 }
 
+# K1 int8 hv from K5's limb planes on the s8 tensor cores (fused_int8.cu:
+# fused_int8_hv_mma<R, true>): (src_w, src_h, new_w, new_h, c, lane tile or
+# None, alpha_index), each run at every slice height (32, 64, 128).  A
+# slice range above the intermediate's 256 rows (windows at R = 32), C = 4
+# with the alpha bypass first and last, lanes_in not a multiple of 4, C = 2
+# and C = 5, an hv at 128-row slices with a ragged last slice.
+GAMMA_PRE_HV_CASES = {
+    "windows_c1": (20, 1200, 500, 50, 1, None, -1),
+    "narrow_c3": (45, 31, 97, 70, 3, None, -1),
+    "c4a3": (80, 60, 200, 150, 4, None, 3),
+    "c4a0_tc": (29, 21, 71, 45, 4, 48, 0),
+    "edge_up128_c3": (150, 100, 400, 300, 3, None, -1),
+    "c2": (53, 37, 90, 71, 2, None, -1),
+    "c5": (30, 20, 61, 47, 5, None, -1),
+}
+
 # K7 (planar input) and K8 (interleaved input): (src_w, src_h, new_w,
 # new_h, c, in type, out type, mode_v, mode_h, trunc_bits, gamma,
 # alpha_index).  The first three are tests/test_pallas_kernel.py:560-750's;
@@ -206,6 +222,17 @@ BANDED_CASES = {
     "up_c4_u8_exact": (40, 30, 64, 101, 4, "f32", "exact"),
     "down_c1_u16_split2": (150, 97, 61, 40, 1, "u16", "split2"),
     "down_c8_u8_split3": (150, 97, 61, 40, 8, "u8", "split3"),
+    # The edges of the split modes' tensor-core tiling (64-row slices x 128
+    # columns, 16 columns a thread by 16-byte loads where the row width
+    # allows): every input type in both split modes, rows whose width in
+    # bytes is off 16 (scalar loads) and on it, R not a multiple of 8,
+    # n_out off the slice height, many row blocks.
+    "up_c3_f32_split2": (53, 37, 90, 71, 3, "f32", "split2"),
+    "wide_c3_u8_split2": (256, 120, 300, 270, 3, "u8", "split2"),
+    "wide_c4_u16_split3": (64, 50, 100, 130, 4, "u16", "split3"),
+    "down_c2_u16_split2": (96, 40, 50, 21, 2, "u16", "split2"),
+    "tall_c1_f32_split2": (40, 300, 64, 900, 1, "f32", "split2"),
+    "tall_c1_u8_split3": (33, 200, 50, 700, 1, "u8", "split3"),
 }
 
 # K3 (lane pass) on the card: the same fields; the pass runs over the
