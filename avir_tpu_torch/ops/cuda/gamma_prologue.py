@@ -12,10 +12,12 @@ polynomial runs once per pixel instead of once per staging.
 
 The planes are [rows_p, lanes_p] with rows_p = max(rows, need_rows) and
 lanes_p = max(lanes, need_lanes) rounded up to a multiple of 16 (the
-kernel stores 4 lanes per word), zero past the image: K1 reads rows up
+kernel stores 16 lanes at a time), zero past the image: K1 reads rows up
 to the V operator's ``n_in_pad`` and lanes up to the lane operator's
 ``lanes_pad``.  (The TPU kernel's 256 x 1536 block padding is its own
-layout and is not carried.)
+layout and is not carried.)  The kernel reads the image by 16-byte loads
+where ``load_path`` says "vector" and byte by byte elsewhere, and
+linearizes from a shared table of K1's q13 values.
 
 ``apply_gamma_prologue`` launches the kernel on a CUDA tensor and runs
 ``apply_gamma_prologue_reference`` on a CPU tensor; the two are
@@ -46,6 +48,14 @@ def alpha_lane(c: int, alpha_index: int) -> int:
     return alpha_index if c == 4 and alpha_index in (0, 3) else -1
 
 
+def load_path(x: torch.Tensor) -> str:
+    """How the kernel reads the image ``x`` [rows, lanes]: "vector" (one
+    16-byte load per 16 lanes) when every row starts 16-byte aligned, else
+    "byte"."""
+    lanes = x.shape[1]
+    return "vector" if lanes % 16 == 0 and x.data_ptr() % 16 == 0 else "byte"
+
+
 def apply_gamma_prologue_reference(
     x: torch.Tensor, need_rows: int, need_lanes: int, c: int,
     alpha_index: int, in_gamma_mult: float,
@@ -66,6 +76,7 @@ _ARGTYPES = [
     _P, _I, _I,          # x, rows, lanes
     _P, _P, _I, _I,      # hi, lo, rows_p, lanes_p
     _I, ctypes.c_float,  # alpha_lane, in_gamma_mult
+    _I,                  # vec
     _P,                  # stream
 ]
 
@@ -108,7 +119,7 @@ def apply_gamma_prologue(
         err = fn(
             x.data_ptr(), rows, lanes, hi.data_ptr(), lo.data_ptr(),
             rows_p, lanes_p, alpha_lane(c, alpha_index), f32(in_gamma_mult),
-            stream,
+            int(load_path(x) == "vector"), stream,
         )
     if err != 0:
         raise RuntimeError(f"gamma_prologue launch failed: CUDA error {err}")

@@ -13,11 +13,12 @@ staged) with a lane-blocked operator (ops/lanes.py) and writes float32
 in mode "split2" (bf16(x) against the bf16 hi + lo taps) or "split3"
 (adds the input residual against hi).
 
-The dense tap blocks are channel-diagonal and banded, so
-``prepare_lanes`` keeps each output lane's nonzero diagonal only: the
-input lane of its first nonzero tap and ``kp`` taps at a stride of C
-lanes (the kernel, ``csrc/lanes.cu``, drops only zero products), plus
-each 128-lane output chunk's input window.
+``prepare_lanes`` takes the lane taps in the chunked form that K1 split
+already builds (``fused_split._chunked_lane_taps``: per 128-lane output
+chunk, its taps over a ``win_c``-lane sub-window at offset ``rel[j]``)
+and each chunk's range of nonzero tap rows (``fused_kernel.h_ranges``);
+the kernel (``csrc/lanes.cu``) multiplies the image by those dense tap
+blocks on the bf16 tensor cores, 64 image rows and one chunk a block.
 
 ``apply_lanes`` launches the kernel on a CUDA tensor and runs
 ``apply_lanes_reference`` on a CPU tensor.  The two sum in other orders,
@@ -34,14 +35,18 @@ import torch
 
 from ..banded import assert_full_f32
 from ..lanes import LaneBlockedOp
-from .fused_split import to_float32
+from .fused_kernel import h_ranges
+from .fused_split import _chunked_lane_taps, to_float32
 
 # Launches of each mode of this kernel, counted by the wrapper.
 launches = {f"lanes_{m}": 0 for m in ("split2", "split3")}
 
 MODES = ("split2", "split3")
-_LANES = 128  # output lanes per thread block (csrc: kLanes)
 _IN_KINDS = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
+# Image rows per thread block (csrc: kRows); the grid's second axis holds
+# at most 65535 of them.
+ROWS = 64
+_MAX_ROW_BLOCKS = 65535
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,15 +55,15 @@ class LanesOperands:
 
     lop: LaneBlockedOp
     mode: str
-    kp: int               # taps per output lane (its nonzero diagonal)
-    first: torch.Tensor   # int32 [Bh, tcp]: input lane of tap 0
-    hi: torch.Tensor      # bf16 [Bh, kp, tcp] compact taps
-    lo: torch.Tensor
-    win: torch.Tensor     # int32 [Bh * n_ch, 2]: chunk input lanes [lo, hi)
+    offs_l: torch.Tensor   # int32 [Bh]: window start of each lane block
+    rel: torch.Tensor      # int32 [n_ch]: chunk offset inside the window
+    thh: torch.Tensor      # bf16 [Bh, n_ch, win_c, 128] chunked lane taps
+    thl: torch.Tensor
+    h_range: torch.Tensor  # int32 [Bh, n_ch, 2]: nonzero tap rows, 32-aligned
 
     @property
     def device(self) -> torch.device:
-        return self.hi.device
+        return self.thh.device
 
     @property
     def launch_key(self) -> str:
@@ -66,54 +71,7 @@ class LanesOperands:
 
     @property
     def n_ch(self) -> int:
-        return self.hi.shape[2] // _LANES
-
-
-def compact_lane_taps(lop: LaneBlockedOp):
-    """(first, hi, lo, kp, win) of the kernel's compact form (see the
-    module docstring), from the dense bf16 tap blocks; raises if a
-    nonzero tap would be dropped."""
-    hi = lop.taps_hi.float().numpy()
-    lo = lop.taps_lo.float().numpy()
-    bh, wc, tc = hi.shape
-    c = lop.c
-    nz = (hi != 0) | (lo != 0)                      # [Bh, WC, TC]
-    used = nz.any(axis=1)                           # [Bh, TC]
-    f_rel = np.argmax(nz, axis=1)
-    l_rel = wc - 1 - np.argmax(nz[:, ::-1, :], axis=1)
-    kp = int(((l_rel - f_rel) // c + 1)[used].max()) if used.any() else 1
-    # Columns without taps (past n_out) take their left neighbour's
-    # window; column 0 of every block has taps.
-    col = np.where(used, np.arange(tc)[None, :], 0)
-    f_rel = np.take_along_axis(f_rel, np.maximum.accumulate(col, axis=1), axis=1)
-
-    rows = f_rel[:, None, :] + c * np.arange(kp)[None, :, None]  # [Bh, kp, TC]
-    inside = rows < wc
-    rows = np.minimum(rows, wc - 1)
-
-    def gather(t):
-        g = np.take_along_axis(t, rows, axis=1)
-        return np.where(inside, g, 0.0).astype(np.float32)
-
-    chi, clo = gather(hi), gather(lo)
-    if int(((chi != 0) | (clo != 0)).sum()) != int(nz.sum()):
-        raise ValueError("lane taps are not channel-diagonal bands")
-
-    n_ch = -(-tc // _LANES)
-    tcp = n_ch * _LANES
-    pad = ((0, 0), (0, 0), (0, tcp - tc))
-    chi, clo = np.pad(chi, pad), np.pad(clo, pad)
-    first = lop.offs_l.astype(np.int64)[:, None] + f_rel
-    first = np.pad(first, ((0, 0), (0, tcp - tc)), mode="edge")  # [Bh, tcp]
-    f3 = first.reshape(bh, n_ch, _LANES)
-    win = np.stack([f3.min(axis=2), f3.max(axis=2) + (kp - 1) * c + 1], axis=2)
-    return (
-        first.astype(np.int32),
-        torch.from_numpy(chi).to(torch.bfloat16),
-        torch.from_numpy(clo).to(torch.bfloat16),
-        kp,
-        win.reshape(bh * n_ch, 2).astype(np.int32),
-    )
+        return self.thh.shape[1]
 
 
 def prepare_lanes(
@@ -124,15 +82,16 @@ def prepare_lanes(
         raise ValueError(f"modes are split2/split3, got {mode!r}")
     if lop.out_idx is not None:
         raise ValueError("lane-subset operators are not supported")
-    first, hi, lo, kp, win = compact_lane_taps(lop)
+    hi, lo, rel, _ = _chunked_lane_taps(lop)
+    h_range = h_ranges((hi != 0).numpy(), (lo != 0).numpy())
     return LanesOperands(
         lop=lop,
         mode=mode,
-        kp=kp,
-        first=torch.from_numpy(first).to(device),
-        hi=hi.to(device),
-        lo=lo.to(device),
-        win=torch.from_numpy(win).to(device),
+        offs_l=torch.from_numpy(lop.offs_l.astype(np.int32)).to(device),
+        rel=torch.tensor(rel, dtype=torch.int32).to(device),
+        thh=hi.to(device).contiguous(),
+        thl=lo.to(device).contiguous(),
+        h_range=torch.from_numpy(h_range).to(device),
     )
 
 
@@ -166,8 +125,8 @@ _ARGTYPES = [
     _I, _I,                  # split3, in_kind
     _P, _I, _I,              # x, rows, lanes_in
     _P, _I,                  # out, lanes_out
-    _P, _P, _P, _P,          # first, hi, lo, win
-    _I, _I, _I, _I, _I, _I,  # bh, n_ch, tc, tcp, kp, c
+    _P, _P, _P, _P, _P,      # thh, thl, offs_l, rel, h_range
+    _I, _I, _I, _I,          # bh, n_ch, win_c, tc
     _P,                      # stream
 ]
 
@@ -182,6 +141,21 @@ def _library():
     return fn
 
 
+def check_input(ops: LanesOperands, x: torch.Tensor) -> None:
+    """Raise ValueError unless the kernel takes ``x``: a contiguous u8,
+    u16 or float32 [rows, n_in*C] whose row blocks fit one launch."""
+    lop = ops.lop
+    if x.dtype not in _IN_KINDS or x.dim() != 2 or x.shape[1] != lop.n_in * lop.c:
+        raise ValueError(
+            f"expected u8/u16/f32 [rows, {lop.n_in * lop.c}], got {x.dtype} "
+            f"{tuple(x.shape)}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("image must be contiguous")
+    if -(-x.shape[0] // ROWS) > _MAX_ROW_BLOCKS:
+        raise ValueError("too many rows for one launch")
+
+
 def apply_lanes(ops: LanesOperands, x: torch.Tensor) -> torch.Tensor:
     """Lane pass of ``x`` [rows, n_in*C] (u8, u16 or float32) -> float32
     [rows, n_out*C].  A CUDA tensor launches the kernel; a CPU tensor
@@ -193,18 +167,10 @@ def apply_lanes(ops: LanesOperands, x: torch.Tensor) -> torch.Tensor:
             f"image on {x.device}, operands on {ops.device}: both must be "
             "on one CUDA device (or both on the CPU)"
         )
+    check_input(ops, x)
     lop = ops.lop
-    if x.dtype not in _IN_KINDS or x.dim() != 2 or x.shape[1] != lop.n_in * lop.c:
-        raise ValueError(
-            f"expected u8/u16/f32 [rows, {lop.n_in * lop.c}], got {x.dtype} "
-            f"{tuple(x.shape)}"
-        )
-    if not x.is_contiguous():
-        raise ValueError("image must be contiguous")
     rows = x.shape[0]
-    bh = lop.n_blocks
-    if -(-rows // 32) > 65535:
-        raise ValueError("too many rows for one launch")
+    bh, n_ch, win_c, _ = ops.thh.shape
     lanes_out = lop.n_out * lop.c
     out = torch.empty((rows, lanes_out), dtype=torch.float32, device=x.device)
     fn = _library()
@@ -214,9 +180,9 @@ def apply_lanes(ops: LanesOperands, x: torch.Tensor) -> torch.Tensor:
             int(ops.mode == "split3"), _IN_KINDS[x.dtype],
             x.data_ptr(), rows, x.shape[1],
             out.data_ptr(), lanes_out,
-            ops.first.data_ptr(), ops.hi.data_ptr(), ops.lo.data_ptr(),
-            ops.win.data_ptr(),
-            bh, ops.n_ch, lop.tile * lop.c, ops.hi.shape[2], ops.kp, lop.c,
+            ops.thh.data_ptr(), ops.thl.data_ptr(), ops.offs_l.data_ptr(),
+            ops.rel.data_ptr(), ops.h_range.data_ptr(),
+            bh, n_ch, win_c, lop.tile * lop.c,
             stream,
         )
     if err != 0:

@@ -27,8 +27,10 @@ Phases (any failure exits non-zero before the last line):
          vh/hv (the split gate above; an integer output whose float32
          difference is amplified, by LANCIR's scale > 1 or by gamma-out,
          takes the float32 gate on its range plus one step);
-       - K2, K3 (max * 1e-5), K5 and K1's limb-plane input (bit-equal; vh and hv on the
-         tensor cores, hv at every slice height);
+       - K2, K3 (max * 1e-5; K3 also at the edges of its tensor-core
+         tiling, K3_EDGE_CASES), K5 (bit-equal, on both load paths) and
+         K1's limb-plane input (bit-equal; vh and hv on the tensor cores, hv at every slice
+         height);
        - K6 ring: the JAX package's five ring cases plus C = 1 and
          clusters of 8, 12 and 16 blocks, bit-equal to its plain version
          and to K1's in-kernel gamma kernel;
@@ -78,11 +80,14 @@ Phases (any failure exits non-zero before the last line):
          (K1 int8 hv gamma): bit-equal to the plain version, within
          2 LSB / >= 60 dB of the float64 gamma oracle (13-bit linear
          light through the sRGB slope);
-       - the unfused shapes (K4 checked as at 8k_to_1080p_errdiff; K2
-         with ptxas's registers and spills), the
-         prologue shapes (8k_to_1080p_gamma_prologue, K1's limb-plane vh
-         on the tensor cores; 1080p_to_4k_gamma_prologue, its hv, also at
-         every slice height: bit-equal, timed in alternating turns), then
+       - the unfused shapes (K4 checked as at 8k_to_1080p_errdiff; K3 with
+         its bound, its load path, the MACs its MMAs issue against the band
+         MACs and ptxas's registers and spills; K2 with ptxas's), the
+         prologue shapes (K5 with its bound, its load path and ptxas's
+         registers and spills, bit-equal; 8k_to_1080p_gamma_prologue, K1's
+         limb-plane vh on the tensor cores; 1080p_to_4k_gamma_prologue,
+         its hv, also at every slice height: bit-equal, timed in
+         alternating turns), then
          the ring route at 8k_to_1080p_gamma_ring and
          4k_to_720p_gamma_ring (one K6 launch on the default route,
          AVIR_TPU_GAMMA_ROUTE unset; bit-equal to its plain version and
@@ -169,12 +174,13 @@ Phases (any failure exits non-zero before the last line):
 
 ``python3 chip_smoke.py --kernel-times DIR`` times K1 int8 without gamma
 (vh, vh even, hv) at its four main-path cells, K6 at
-8k_to_1080p_gamma_ring and 4k_to_720p_gamma_ring and K1 int8 from K5's
-limb planes at 8k_to_1080p_gamma_prologue (vh) and
-1080p_to_4k_gamma_prologue (hv) and K2 split3 at 720p_to_1080p_errdiff
-and 1080p_to_4k_gamma_errdiff (KT_K2_CELLS) on the package under DIR
-instead (one JSON line, with output hashes and, at the two int8
-downsizes, the split route beside it), so that two versions of the
+8k_to_1080p_gamma_ring and 4k_to_720p_gamma_ring, K5 and K1 int8 from
+its limb planes at 8k_to_1080p_gamma_prologue (vh) and
+1080p_to_4k_gamma_prologue (hv), K2 split3 at 720p_to_1080p_errdiff and
+1080p_to_4k_gamma_errdiff (KT_K2_CELLS) and K3 at those two and
+lancir_720p_to_1080p_f32 (KT_K3_CELLS) on the package under DIR instead
+(one JSON line, with output hashes, K3's and K5's bounds and, at the two
+int8 downsizes, the split route beside it), so that two versions of the
 kernels can be compared in turns within one chip call.
 """
 
@@ -487,6 +493,18 @@ PROLOGUE_SHAPES = (
 # K2 / K3 small cases: (src_w, src_h, new_w, new_h), cycled over every
 # mode x input type x channel count.
 PASS_SHAPES = ((53, 37, 90, 71), (150, 97, 61, 40), (300, 20, 1400, 41))
+# K3 at the edges of its tensor-core tiling (tests/torch_cases.py's
+# LANES_CASES edges): (src_w, src_h, new_w, new_h, c, in type, mode): rows
+# off 64 over several row blocks, chunks whose nonzero range is one 32-lane
+# step, C = 2, u8 / u16 / f32 rows on the vector path, a wide f32 upsize,
+# an odd lanes_out.  Inputs from a generator of their own (seed SEED + 3).
+K3_EDGE_CASES = (
+    (20, 70, 200, 90, 1, "u8", "split2"),
+    (64, 130, 101, 70, 2, "u16", "split2"),
+    (128, 100, 200, 60, 1, "u8", "split3"),
+    (640, 66, 1920, 99, 3, "f32", "split2"),
+    (33, 40, 91, 50, 1, "f32", "split3"),
+)
 # K5 + K1 int8 limb-plane input: (src_w, src_h, new_w, new_h, c, lane
 # tile, order, alpha_index).
 GAMMA_PRE_CASES = (
@@ -504,6 +522,11 @@ GAMMA_PRE_CASES = (
     (97, 83, 61, 45, 2, None, "vh", -1),
     (1031, 517, 200, 97, 3, None, "vh", -1),
     (90, 60, 40, 27, 5, None, "vh", -1),
+    # K5's byte path (lanes off 16) with the alpha lane last and first, and
+    # more than 64 16-lane groups a row on the vector path.
+    (81, 64, 40, 30, 4, None, "vh", 3),
+    (43, 29, 90, 61, 4, None, "hv", 0),
+    (448, 40, 200, 20, 3, None, "vh", -1),
 )
 # K6, the shift-ring gamma route: (src_w, src_h, new_w, new_h, c,
 # alpha_index, V tile, uniform blocking); tests/test_pallas_kernel.py:
@@ -588,6 +611,15 @@ KT_GAMMA_CELLS = (
 KT_K2_CELLS = (
     ("720p_to_1080p_errdiff", 1280, 720, 1920, 1080, {}),
     ("1080p_to_4k_gamma_errdiff", 1920, 1080, 3840, 2160, {"use_srgb_gamma": True}),
+)
+# --kernel-times' K3 cells: the three unfused shapes (UNFUSED_SHAPES), K3
+# on the image the route gives it (u8; linear float32 with gamma): (name,
+# entry point, src_w, src_h, new_w, new_h, out dtype, plan keywords).
+KT_K3_CELLS = (
+    ("720p_to_1080p_errdiff", "avir", 1280, 720, 1920, 1080, np.uint8, {}),
+    ("1080p_to_4k_gamma_errdiff", "avir", 1920, 1080, 3840, 2160, np.uint8,
+     {"use_srgb_gamma": True}),
+    ("lancir_720p_to_1080p_f32", "lancir", 1280, 720, 1920, 1080, np.float32, {}),
 )
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 TORCH_TYPES = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
@@ -1467,9 +1499,11 @@ def _image(gen, shape, tin: str) -> np.ndarray:
 
 
 def _unfused_cases(gen, dev) -> None:
-    """K2 and K3 in every mode, u8/u16/f32 in, C in {1, 3, 4}: float32
-    within max|plain| * 1e-5; K5 and K1 int8's limb-plane input: bit-equal
-    to their plain versions, and K1's to the in-kernel gamma kernel."""
+    """K2 and K3 in every mode, u8/u16/f32 in, C in {1, 3, 4}, and K3 at
+    the edges of its tiling (K3_EDGE_CASES): float32 within max|plain| *
+    1e-5; K5 (on both load paths: a copy of the image at an odd address
+    takes the byte path) and K1 int8's limb-plane input: bit-equal to their plain versions, and K1's
+    to the in-kernel gamma kernel."""
     import itertools
 
     from avir_tpu_torch.ops.banded import block_banded
@@ -1505,6 +1539,16 @@ def _unfused_cases(gen, dev) -> None:
             ops = lk.prepare_lanes(lop, mode, dev)
             check(f"lanes_{mode} {sw}x{sh}->{nw}x{nh} C={c} {tin} tile={lop.tile}",
                   lk.apply_lanes(ops, x), lk.apply_lanes_reference(ops, x))
+    egen = np.random.default_rng(SEED + 3)
+    for sw, sh, nw, nh, c, tin, mode in K3_EDGE_CASES:
+        ib = np.dtype(NP_TYPES[tin]).itemsize
+        plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+        x = torch.from_numpy(_image(egen, (sh, sw * c), tin)).to(dev)
+        lop = narrow_lop(plan.h.op, lane_block_banded(plan.h.op, c, in_bytes=ib),
+                         c, in_bytes=ib)
+        ops = lk.prepare_lanes(lop, mode, dev)
+        check(f"lanes_{mode} edge {sw}x{sh}->{nw}x{nh} C={c} {tin} tile={lop.tile}",
+              lk.apply_lanes(ops, x), lk.apply_lanes_reference(ops, x))
 
     for sw, sh, nw, nh, c, tile, order, alpha in GAMMA_PRE_CASES:
         plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8,
@@ -1519,9 +1563,14 @@ def _unfused_cases(gen, dev) -> None:
         x = torch.from_numpy(_image(gen, (sh, sw * c), "u8")).to(dev)
         args = (pre.rows_pad, pre.lanes_pad, c, alpha, plan.in_gamma_mult)
         hi, lo = gp.apply_gamma_prologue(x, *args)
+        # The same image at an odd address (the byte path).
+        odd = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)[1:].view(x.shape)
+        odd.copy_(x)
+        variants = [gp.apply_gamma_prologue(odd, *args)]
         torch.cuda.synchronize()
         phi, plo = gp.apply_gamma_prologue_reference(x, *args)
-        k5_ok = torch.equal(hi, phi) and torch.equal(lo, plo)
+        k5_ok = all(torch.equal(h, phi) and torch.equal(l, plo)
+                    for h, l in [(hi, lo), *variants])
         want = fk.apply_fused_int8_reference(pre, hi, lo)
         base = fk.apply_fused_int8(ink, x)
         # The slice height slice_rows picked, then every other one.
@@ -1554,6 +1603,35 @@ def _pass_bound(op, in_elems: int, out_elems: int, in_bytes: int,
     ops = 2 * out_elems * op.width * products
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes, ops
+
+
+def _k3_macs(ops, rows: int, op) -> dict:
+    """The MACs K3's MMAs issue (64-row blocks x each chunk's h_range x the
+    16-lane groups it does not skip, times the split products) against the
+    band MACs of its bound (``op.width`` per output), for ``rows`` rows."""
+    lop = ops.lop
+    tc, lanes_out = lop.tile * lop.c, lop.n_out * lop.c
+    hr = ops.h_range.cpu().numpy().astype(np.int64)
+    bh, n_ch = hr.shape[:2]
+    col0 = np.arange(bh)[:, None] * tc + 128 * np.arange(n_ch)[None, :]
+    lim = np.minimum(tc - 128 * np.arange(n_ch)[None, :], lanes_out - col0)
+    groups = np.clip(-(-lim // 16), 0, 8)
+    products = 3 if ops.mode == "split3" else 2
+    rows64 = -(-rows // 64) * 64
+    issued = int(rows64 * ((hr[..., 1] - hr[..., 0]) * 16 * groups).sum()) * products
+    band = rows * lanes_out * op.width * products
+    return {"k3_issued_macs": issued, "k3_band_macs": band,
+            "k3_issued_over_band": issued / band,
+            "k3_h_range_lanes": sorted({int(v) for v in (hr[..., 1] - hr[..., 0]).ravel()})}
+
+
+def _k5_bound(n_in: int, rows_p: int, lanes_p: int) -> tuple[float, str, int]:
+    """(bound_ms, bound_by, bytes) of K5: the u8 image read once and the two
+    s8 planes written once; the polynomial's float32 operations once per
+    input element at the CUDA cores' rate."""
+    nbytes = n_in + 2 * rows_p * lanes_p
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, n_in * GAMMA_IN_OPS["int8"] / F32_OPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes
 
 
 def _dense(op) -> np.ndarray:
@@ -1796,7 +1874,11 @@ def _unfused_shape(name, entry, sw, sh, nw, nh, c, out_dt, kw, expect, gen,
         "k3_bytes": k3_bound[2], "k3_bf16_ops": k3_bound[3],
         "k2_bound_ms": k2_bound[0], "k2_bound_by": k2_bound[1],
         "k2_bytes": k2_bound[2], "k2_bf16_ops": k2_bound[3],
-        "k3_kp": ops.lanes.kp, "k3_lane_tile": ops.lanes.lop.tile,
+        "k3_lane_tile": ops.lanes.lop.tile, "k3_input": str(k3_in.dtype),
+        "k3_vector_rows": k3_in.data_ptr() % 16 == 0
+        and (k3_in.shape[1] * k3_in_b) % 16 == 0,
+        **_k3_macs(ops.lanes, k3_in.shape[0], hop),
+        "k3_ptxas": _ptxas("lanes", "lanes_mma"),
         "k2_slice_rows": ops.rows.rows,
         "k2_ptxas": _ptxas("banded", "banded_mma"),
         "launches_per_resize": {k: v for k, v in counts.items() if v},
@@ -1926,11 +2008,8 @@ def _prologue_shape(name, sw, sh, nw, nh, c, gen, dev, flush, smi, mods) -> list
     ink_ms = _time_ms(lambda: fk.apply_fused_int8(iops, x), 20, flush)
     k5_plain_ms = _time_ms(lambda: gp.apply_gamma_prologue_reference(x, *args), 2, flush)
     k1_plain_ms = _time_ms(lambda: fk.apply_fused_int8_reference(ops, hi, lo), 2, flush)
-    n_in = sh * sw * c
     rows_p, lanes_p = hi.shape
-    k5_bytes = n_in + 2 * rows_p * lanes_p
-    t_b, t_o = k5_bytes / HBM_BYTES_PER_S, n_in * GAMMA_IN_OPS["int8"] / F32_OPS_PER_S
-    k5_bound = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+    k5_bound = _k5_bound(sh * sw * c, rows_p, lanes_p)
     k1_bound = _k1_bound(plan.h.op, plan.v.op, c, fn.order, 2, 1, 2, 3, 3, INT8_OPS_PER_S,
                          nh * nw * c * GAMMA_OUT_OPS)
     heights = {}
@@ -1945,7 +2024,9 @@ def _prologue_shape(name, sw, sh, nw, nh, c, gen, dev, flush, smi, mods) -> list
         "k5_ms": k5_ms, "k1_pre_ms": k1_ms, "k5_plus_k1_ms": k5_ms + k1_ms,
         "route_ms": route_ms, "inkernel_k1_ms": ink_ms,
         "k5_plain_ms": k5_plain_ms, "k1_pre_plain_ms": k1_plain_ms,
-        "k5_bound_ms": k5_bound[0], "k5_bound_by": k5_bound[1], "k5_bytes": k5_bytes,
+        "k5_bound_ms": k5_bound[0], "k5_bound_by": k5_bound[1], "k5_bytes": k5_bound[2],
+        "k5_path": gp.load_path(x),
+        "k5_ptxas": _ptxas("gamma_prologue", "gamma_prologue"),
         "k1_pre_bound_ms": k1_bound[0], "k1_pre_bound_by": k1_bound[1],
         "planes": [rows_p, lanes_p],
         **_int8_counts(ops), "kwin": ops.kwin, "slice_heights": heights,
@@ -3176,10 +3257,12 @@ def _card() -> str:
 
 def kernel_times(root: str) -> int:
     """K1 int8 (no gamma) at its four main-path cells (KT_INT8_CELLS), the
-    gamma kernels at KT_GAMMA_CELLS (K6 at the two ring cells, K1 int8
-    from K5's limb planes, vh and hv, at the two prologue cells) and K2 at
+    gamma kernels at KT_GAMMA_CELLS (K6 at the two ring cells; K5 and K1
+    int8 from its limb planes, vh and hv, at the two prologue cells), K2 at
     KT_K2_CELLS (the row pass of two unfused errdiff resizes, on K3's
-    output), timed on the package under ``root`` through the calls that
+    output) and K3 at KT_K3_CELLS (the lane pass of the three unfused
+    resizes, on the image the route gives it), timed on the package under
+    ``root`` through the calls that
     the versions being compared share (the executors' operands,
     ``apply_fused_int8``, ``apply_fused_ring``, ``apply_gamma_prologue``,
     ``apply_lanes``, ``apply_banded``), so that two versions run in turns
@@ -3190,8 +3273,9 @@ def kernel_times(root: str) -> int:
 
     Prints one JSON line with each time, the largest difference from the
     plain version and a hash of each output (equal hashes: bit-equal
-    outputs across the versions; K2 sums float32 in its kernel's order, so
-    its hash changes with its design, and its gate is max|plain| * 1e-5)."""
+    outputs across the versions; K2 and K3 sum float32 in their kernels'
+    order, so their hashes change with their design, and their gate is
+    max|plain| * 1e-5), and K3's and K5's bounds and K5's load path."""
     import hashlib
     import os
 
@@ -3255,9 +3339,18 @@ def kernel_times(root: str) -> int:
         src = gen.integers(0, 256, (sh, sw * 3), dtype=np.uint8)
         x = torch.from_numpy(src).to(dev)
         if route == "prologue":
-            hi, lo = gp.apply_gamma_prologue(
-                x, ops.rows_pad, ops.lanes_pad, 3, -1, plan.in_gamma_mult
-            )
+            k5_args = (x, ops.rows_pad, ops.lanes_pad, 3, -1, plan.in_gamma_mult)
+            hi, lo = gp.apply_gamma_prologue(*k5_args)
+            phi, plo = gp.apply_gamma_prologue_reference(*k5_args)
+            torch.cuda.synchronize()
+            times[f"gamma_prologue {name}"] = {
+                "ms": _time_ms(lambda: gp.apply_gamma_prologue(*k5_args), 20, flush),
+                "max_abs_err_vs_plain": max(int((hi.int() - phi.int()).abs().max()),
+                                            int((lo.int() - plo.int()).abs().max())),
+                "bound_ms": _k5_bound(x.numel(), *hi.shape)[0],
+                "path": gp.load_path(x) if hasattr(gp, "load_path") else "byte",
+                "sha": sha(torch.cat([hi.flatten(), lo.flatten()])),
+            }
             args = (ops, hi, lo)
             kernel, plain = fk.apply_fused_int8, fk.apply_fused_int8_reference
         else:
@@ -3287,6 +3380,31 @@ def kernel_times(root: str) -> int:
             "max_abs_err_vs_plain": float((got - want).abs().max()),
             "tol": float(want.abs().max()) * 1e-5,
             "sha": sha(got), "input_sha": sha(k2_in),
+        }
+    for name, entry, sw, sh, nw, nh, out_dt, kw in KT_K3_CELLS:
+        if entry == "lancir":
+            plan = build_lancir_plan(sw, sh, nw, nh, 3, np.uint8, out_dt)
+            ops, hop = make_lancir_executor(plan, device=dev).ops, plan.h
+        else:
+            plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, out_dt, **kw)
+            ops, hop = make_avir_executor(plan, errdiff=True, device=dev).ops, plan.h.op
+        src = gen.integers(0, 256, (sh, sw * 3), dtype=np.uint8)
+        x = torch.from_numpy(src).to(dev)
+        if kw.get("use_srgb_gamma"):
+            x = srgb_to_linear_2d(x.to(torch.int32).float() * f32(plan.in_gamma_mult),
+                                  3, plan.alpha_index)
+        got = lk.apply_lanes(ops.lanes, x)
+        want = lk.apply_lanes_reference(ops.lanes, x)
+        torch.cuda.synchronize()
+        products = 3 if ops.lanes.mode == "split3" else 2
+        times[f"{ops.lanes.launch_key} {name}"] = {
+            "ms": _time_ms(lambda: lk.apply_lanes(ops.lanes, x), 20, flush),
+            "max_abs_err_vs_plain": float((got - want).abs().max()),
+            "tol": float(want.abs().max()) * 1e-5,
+            "bound_ms": _pass_bound(hop, x.numel(), got.numel(), x.element_size(),
+                                    products)[0],
+            "input": f"{x.dtype} {list(x.shape)}", "order": ops.order,
+            "sha": sha(got), "input_sha": sha(x),
         }
     print(json.dumps({"kernel_times": times, "root": root, "card": _card()}))
     return 0

@@ -336,6 +336,37 @@ def test_gamma_prologue_and_limb_input_match_plain_on_card(name, cuda_device):
     assert torch.equal(got, fk.apply_fused_int8(inkernel, x))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GAMMA_PRE_CASES))
+def test_gamma_prologue_paths_match_plain_on_card(name, cuda_device):
+    """K5 on both load paths (the image as allocated, and a copy at an odd
+    address, which takes the byte path): each bit-equal to the plain
+    version, one launch each."""
+    sw, sh, nw, nh, c, tile, order, alpha = GAMMA_PRE_CASES[name]
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True,
+        alpha_index=alpha,
+    )
+    vop = block_banded(plan.v.op)
+    lop = lane_block_banded(plan.h.op, c, tile=tile)
+    x = torch.from_numpy(
+        np.random.default_rng(sum(map(ord, name)) + 1).integers(
+            0, 256, (sh, sw * c), dtype=np.uint8
+        )
+    ).to(cuda_device)
+    odd = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda_device)[1:]
+    odd = odd.view(x.shape).copy_(x)
+    assert gp.load_path(odd) == "byte"
+    args = (vop.n_in_pad, lop.lanes_pad, c, alpha, plan.in_gamma_mult)
+    want = gp.apply_gamma_prologue_reference(x, *args)
+    for img in (x, odd):
+        before = gp.launches["gamma_prologue"]
+        got = gp.apply_gamma_prologue(img, *args)
+        torch.cuda.synchronize()
+        assert gp.launches["gamma_prologue"] == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def _ring_case(name, device):
     """(K6 operands, K1 in-kernel gamma operands on the default blocking,
     u8 image) of a ring case."""

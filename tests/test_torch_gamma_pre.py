@@ -132,6 +132,49 @@ def test_int8_limb_plane_input_matches_pallas_and_inkernel(name):
     np.testing.assert_array_equal(got, ref)
 
 
+def test_gamma_prologue_load_path():
+    """K5 reads an image by 16-byte loads ("vector") only where every row
+    starts 16-byte aligned: lanes a multiple of 16 and an aligned base;
+    else byte by byte.  An image on neither the card nor the CPU raises."""
+    assert gp.load_path(torch.zeros((3, 5760), dtype=torch.uint8)) == "vector"
+    assert gp.load_path(torch.zeros((3, 600), dtype=torch.uint8)) == "byte"
+    base = torch.zeros(1 + 3 * 5760, dtype=torch.uint8)
+    assert gp.load_path(base[1:].view(3, 5760)) == "byte"
+    assert gp.load_path(torch.zeros((3, 5759), dtype=torch.uint8)) == "byte"
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        gp.apply_gamma_prologue(
+            torch.zeros((3, 5760), dtype=torch.uint8, device="meta"),
+            3, 5760, 3, -1, 1 / 255,
+        )
+
+
+def test_gamma_pre_cases_reach_their_edges():
+    """GAMMA_PRE_CASES (K5 on the card) cover both load paths, C = 4 with
+    the alpha lane at 0 and at 3 on each, planes taller and wider than the
+    image, and more than one block of 16-lane groups (64) on the vector
+    path."""
+    seen = set()
+    for name, (sw, sh, nw, nh, c, tile, order, alpha) in GAMMA_PRE_CASES.items():
+        plan = build_resize_plan(
+            sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True,
+            alpha_index=alpha,
+        )
+        vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile)
+        rows_p, lanes_p = gp.plane_shape(sh, sw * c, vop.n_in_pad, lop.lanes_pad)
+        path = gp.load_path(torch.zeros((sh, sw * c), dtype=torch.uint8))
+        seen |= {
+            path,
+            *([f"{path}_alpha{gp.alpha_lane(c, alpha)}"] if c == 4 else []),
+            *(["rows_p_gt_rows"] if rows_p > sh else []),
+            *(["lanes_p_gt_lanes"] if lanes_p > sw * c else []),
+            *(["groups_gt_64"] if path == "vector" and lanes_p // 16 > 64 else []),
+        }
+    assert seen >= {
+        "vector", "byte", "vector_alpha0", "vector_alpha3", "byte_alpha0",
+        "byte_alpha3", "rows_p_gt_rows", "lanes_p_gt_lanes", "groups_gt_64",
+    }
+
+
 def test_limb_plane_input_checks_its_operands():
     (sw, sh, nw, nh, c, tile, order), _, plan, x = _case("down_c3")
     vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, c)

@@ -36,12 +36,13 @@ from avir_tpu.ops.pallas import lanes_kernel as jax_lk
 from avir_tpu.plan.lancir_plan import build_lancir_plan as jax_build_lancir_plan
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
-from torch_cases import BANDED_CASES, IN_BYTES, NP_TYPES, split_source
+from torch_cases import BANDED_CASES, IN_BYTES, LANES_CASES, NP_TYPES, split_source
 
 import avir_tpu_torch
 from avir_tpu_torch.models import runtime
 from avir_tpu_torch.ops.banded import block_banded
 from avir_tpu_torch.ops.cuda import banded_kernel as bk
+from avir_tpu_torch.ops.cuda import fused_split as fs
 from avir_tpu_torch.ops.cuda import lanes_kernel as lk
 from avir_tpu_torch.ops.lanes import lane_block_banded, narrow_lop, pick_lane_tile
 from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
@@ -229,8 +230,8 @@ def test_banded_cases_reach_their_edges():
 def test_lane_pass_plain_matches_jax(mode, c, tin):
     """K3's plain version against ``apply_lanes_xla`` and interpret-mode
     ``apply_lanes_pallas`` at the base tile: within max|ref| * 1e-5; and
-    the kernel's compact form (each output lane's nonzero diagonal) holds
-    every nonzero tap of the dense blocks."""
+    the kernel's operands (the chunked lane taps over each chunk's nonzero
+    range ``h_range``) hold every nonzero tap of the dense blocks."""
     shape = "up" if c != 4 else "down"
     (sw, sh, nw, nh), jplan, plan, x = _pass_inputs(shape, tin, c)
     ib = IN_BYTES[tin]
@@ -247,15 +248,113 @@ def test_lane_pass_plain_matches_jax(mode, c, tin):
     _close(got, jax_lk.apply_lanes_xla(jlop, jnp.asarray(x, jnp.float32), mode), 1e-5)
     pallas = jax_lk.apply_lanes_pallas(jlop, jnp.asarray(x), mode, interpret=True)
     _close(got, pallas, 1e-5)
-    # The compact form, expanded back, is the dense form.
-    first, hi, _, kp, _ = lk.compact_lane_taps(lop)
-    dense = np.zeros(lop.taps_hi.shape, np.float32)
-    bh, wc, tc = dense.shape
-    for q in range(kp):
-        rows = first[:, :tc] - lop.offs_l[:, None] + q * c
-        b, j = np.nonzero(rows < wc)
-        dense[b, rows[b, j], j] = hi[:, q, :tc].float().numpy()[b, j]
-    np.testing.assert_array_equal(dense, lop.taps_hi.float().numpy())
+    # The chunked taps inside each chunk's h_range, expanded back, are the
+    # dense form: nothing nonzero lies outside a range.
+    for chunked, dense in ((ops.thh, lop.taps_hi), (ops.thl, lop.taps_lo)):
+        np.testing.assert_array_equal(_expand_chunks(ops, chunked), dense.float().numpy())
+
+
+def _expand_chunks(ops, chunked):
+    """The kernel's chunked taps [Bh, n_ch, win_c, 128], read only inside
+    each chunk's h_range, as the dense blocks [Bh, win_l, TC]."""
+    lop = ops.lop
+    bh, n_ch = chunked.shape[:2]
+    tc = lop.tile * lop.c
+    hr = ops.h_range.numpy()
+    assert hr.shape == (bh, n_ch, 2) and (hr % 32 == 0).all()
+    dense = np.zeros((bh, lop.win_l, n_ch * 128), np.float32)
+    taps = chunked.float().numpy()
+    for b in range(bh):
+        for j, r in enumerate(ops.rel.tolist()):
+            lo, hi = hr[b, j]
+            dense[b, r + lo : r + hi, j * 128 : (j + 1) * 128] = taps[b, j, lo:hi]
+    assert not dense[:, :, tc:].any()
+    return dense[:, :, :tc]
+
+
+def _lanes_case(name, device="cpu"):
+    """(lane operator at the base tile, K3 operands) of a LANES_CASES case."""
+    sw, sh, nw, nh, c, tin, mode = LANES_CASES[name]
+    ib = IN_BYTES[tin]
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+    lop = narrow_lop(
+        plan.h.op, lane_block_banded(plan.h.op, c, in_bytes=ib), c, in_bytes=ib
+    )
+    return lop, lk.prepare_lanes(lop, mode, device)
+
+
+@pytest.mark.parametrize("name", list(LANES_CASES))
+def test_lane_operands_are_k1_splits_chunked_form(name):
+    """K3's operands are the chunked lane taps, chunk offsets and nonzero
+    ranges that K1 split builds from the same operator, with the window
+    starts as int32; the taps' window is whole 32-lane steps."""
+    lop, ops = _lanes_case(name)
+    plan = build_resize_plan(*LANES_CASES[name][:5], np.uint8, np.float32)
+    fops = fs.prepare_fused_split(
+        block_banded(plan.v.op), lop, "vh", "split3", "split3", "cpu"
+    )
+    for ours, k1 in ((ops.thh, fops.thh), (ops.thl, fops.thl), (ops.rel, fops.rel),
+                     (ops.h_range, fops.h_range), (ops.offs_l, fops.offs_l)):
+        assert ours.dtype == k1.dtype and torch.equal(ours, k1)
+    bh, n_ch, win_c, lanes = ops.thh.shape
+    assert (bh, lanes) == (lop.n_blocks, 128) and n_ch * 128 >= lop.tile * lop.c
+    assert win_c % 32 == 0 and ops.thh.dtype == torch.bfloat16
+    assert ops.offs_l.dtype == ops.rel.dtype == ops.h_range.dtype == torch.int32
+    assert ops.n_ch == n_ch and ops.launch_key == f"lanes_{ops.mode}"
+
+
+def test_lanes_cases_reach_their_edges():
+    """The card cases of K3 (LANES_CASES) cover what their comment
+    promises: every input type in both modes, rows off 64 over several row
+    blocks, a chunk whose nonzero range is one 32-lane step and a chunk
+    with none, C in {1, 2, 3, 4, 5, 8}, u8 / u16 rows off and on a 16-byte
+    pitch (f32 on it), a wide f32 upsize, and an odd lanes_out."""
+    seen = set()
+    for name, (sw, sh, nw, nh, c, tin, mode) in LANES_CASES.items():
+        lop, ops = _lanes_case(name)
+        hr = ops.h_range.numpy()
+        spans = set((hr[..., 1] - hr[..., 0]).ravel().tolist())
+        vec = (sw * c * IN_BYTES[tin]) % 16 == 0
+        seen |= {
+            f"{tin}_{mode}", f"c{c}", f"{tin}_{'vector' if vec else 'scalar'}",
+            *(["rows_off_64"] if sh % 64 and sh > 64 else []),
+            *(["one_step_chunk"] if 32 in spans else []),
+            *(["empty_chunk"] if 0 in spans else []),
+            *(["wide_f32_up"] if tin == "f32" and nw > sw and lop.n_blocks > 8 else []),
+            *(["odd_lanes_out"] if (nw * c) % 2 else []),
+        }
+    assert seen >= {
+        *(f"{t}_{m}" for t in ("u8", "u16", "f32") for m in ("split2", "split3")),
+        *(f"c{c}" for c in (1, 2, 3, 4, 5, 8)),
+        "u8_vector", "u8_scalar", "u16_vector", "u16_scalar", "f32_vector",
+        "rows_off_64", "one_step_chunk", "empty_chunk", "wide_f32_up",
+        "odd_lanes_out",
+    }
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["width", "float64", "three_dims", "strided", "too_many_rows"],
+)
+def test_lane_pass_checks_its_input(bad):
+    """``check_input`` (the kernel path's checks) refuses what the kernel
+    does not take and passes u8, u16 and float32 images of the operator's
+    width."""
+    lop, ops = _lanes_case("up_c3_u8_split3")
+    width = lop.n_in * lop.c
+    for dt in (torch.uint8, torch.uint16, torch.float32):
+        lk.check_input(ops, torch.zeros((5, width), dtype=dt))
+    x = {
+        "width": torch.zeros((5, width + 1), dtype=torch.uint8),
+        "float64": torch.zeros((5, width), dtype=torch.float64),
+        "three_dims": torch.zeros((5, width, 1), dtype=torch.uint8),
+        "strided": torch.zeros((5, 2 * width), dtype=torch.uint8)[:, ::2],
+        "too_many_rows": torch.empty(
+            (65535 * lk.ROWS + 1, width), dtype=torch.uint8, device="meta"
+        ),
+    }[bad]
+    with pytest.raises(ValueError):
+        lk.check_input(ops, x)
 
 
 # ---------------------------------------------------------------------------
@@ -492,6 +591,6 @@ def test_unfused_kernels_raise_on_mismatched_devices():
     with pytest.raises(ValueError, match="CUDA device"):
         bk.apply_banded(fake, torch.zeros((20, 90), dtype=torch.uint8))
     lops = lk.prepare_lanes(lane_block_banded(plan.h.op, 3, tile=128), "split3", "cpu")
-    fake = lops.__class__(**{**lops.__dict__, "hi": lops.hi.to("meta")})
+    fake = lops.__class__(**{**lops.__dict__, "thh": lops.thh.to("meta")})
     with pytest.raises(ValueError, match="CUDA device"):
         lk.apply_lanes(fake, torch.zeros((20, 90), dtype=torch.uint8))

@@ -135,6 +135,13 @@ GAMMA_PRE_CASES = {
     "up_c3": (300, 20, 1400, 41, 3, None, "hv", -1),
     "up_c4_tc": (29, 21, 71, 45, 4, 48, "hv", -1),
     "up_c1": (45, 31, 97, 70, 1, None, "hv", -1),
+    # K5's edges (test_torch_gamma_pre checks each): the byte path (lanes
+    # off a multiple of 16) with C = 4 and the alpha lane last and first,
+    # and more than one block of 16-lane groups on the vector path.  Every
+    # case has planes wider and taller than the image.
+    "byte_c4a3": (81, 64, 40, 30, 4, None, "vh", 3),
+    "byte_c4a0_up": (43, 29, 90, 61, 4, None, "hv", 0),
+    "wide_vec_c3": (448, 40, 200, 20, 3, None, "vh", -1),
 }
 
 # K6, the shift-ring int8 gamma route: (src_w, src_h, new_w, new_h, c,
@@ -246,6 +253,19 @@ LANES_CASES = {
     "up_c3_wide_f32_split3": (300, 20, 1400, 41, 3, "f32", "split3"),
     "up_c5_u8_split3": (53, 37, 90, 71, 5, "u8", "split3"),
     "down_c8_f32_split2": (150, 97, 61, 40, 8, "f32", "split2"),
+    # The edges of the tensor-core tiling (64 image rows x one 128-lane
+    # chunk a block, 32 window lanes a step, 8 lanes of a row a thread by
+    # vector loads where the row pitch is 16-byte aligned; test_torch_unfused
+    # checks each case has them): rows off 64 over several row blocks,
+    # chunks whose nonzero range is one 32-lane step, C = 2, u8 / u16 / f32
+    # rows on the vector path (the cases above read u8 and u16 rows whose
+    # pitch is off 16 bytes), a wide f32 upsize, and an odd lanes_out
+    # (scalar stores).
+    "big_up_c1_u8_split2": (20, 70, 200, 90, 1, "u8", "split2"),
+    "c2_u16_vec_split2": (64, 130, 101, 70, 2, "u16", "split2"),
+    "c1_u8_vec_split3": (128, 100, 200, 60, 1, "u8", "split3"),
+    "wide_c3_f32_split2": (640, 66, 1920, 99, 3, "f32", "split2"),
+    "odd_out_c1_f32_split3": (33, 40, 91, 50, 1, "f32", "split3"),
 }
 
 # K4: (h, w, c, trunc_bits, out_max)
