@@ -1,5 +1,5 @@
 // Asynchronous global -> shared copies (cp.async), shared by the
-// tensor-core kernels (mma_s8.cuh's users, banded.cu).
+// tensor-core kernels (mma_s8.cuh's users and mma_bf16.cuh's).
 
 #pragma once
 
@@ -15,6 +15,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 16 bytes global -> shared, of which the first ``bytes`` (0..16) are
+// read and the rest are zeros.
+__device__ __forceinline__ void cp16n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 

@@ -52,9 +52,11 @@
 //   - second pass: the segment's lane taps (bf16, 32 window lanes a
 //     step, cp.async) times the intermediate, into the block's output
 //     accumulators.
-// All steps of both passes and all segments form one sequence with double
-// buffers: while a step's MMAs run, the next step's taps are in flight by
-// cp.async and its image rows in registers.  64 rows a block (not 32 or
+// The fragment, copy and image-packing helpers come from mma_bf16.cuh,
+// cp_async.cuh and pack4.cuh (shared with planar.cu).  All steps of both
+// passes and all segments form one sequence with double buffers: while a
+// step's MMAs run, the next step's taps are in flight by cp.async and its
+// image rows in registers.  64 rows a block (not 32 or
 // 128, which were tried): a taller slice stages fewer image elements per
 // output (every block whose window covers an input element recomputes the
 // first pass over it) but multiplies a larger dense V block, and 128 rows
@@ -100,9 +102,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "k1_common.cuh"
+#include "mma_bf16.cuh"
+#include "pack4.cuh"
 
 namespace {
+
+using namespace cp_async;
+using namespace mma_bf16;
 
 constexpr int kThreads = 256;  // hv
 constexpr int kRows = 32;    // output rows per block (hv)
@@ -226,118 +234,6 @@ constexpr int kVhRows = 64;          // output rows per vh block (R)
 constexpr int kVhThreads = 256;      // 8 warps: 4 (rows) x 2 (lanes)
 constexpr int kTapLd = kDepth + 8;   // V-tap row stride in shared memory (bf16)
 constexpr int kTileLd = kLanes + 8;  // 128-lane tile row stride (bf16)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// Four 8x8 bf16 matrices; thread l names row (l & 15) at column (l >> 4) * 8
-// of a 16x16 tile, so r[0..3] are its (rows 0-7, cols 0-7), (8-15, 0-7),
-// (0-7, 8-15), (8-15, 8-15) quarters: an A fragment of m16n8k16, or with
-// .trans on a [K][N] tile the B fragments of two n8 tiles ({r0, r1} for
-// columns 0-7, {r2, r3} for 8-15).
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const uint16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const uint16_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a * b, m16n8k16, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Error-free split of (x, y) into packed bf16 pairs hi = bf16(.), lo =
-// bf16(. - hi), x in the low half.
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(__fsub_rn(x, hf.x), __fsub_rn(y, hf.y)));
-}
-
-// Four consecutive image elements of one row, packed as loaded: u8 in a
-// 32-bit word, u16 in two, f32 in four.  ``load`` reads them with one
-// vector load (16-byte row alignment and 4 in range), ``gather`` the
-// first n of them one by one (the rest 0).
-template <typename T>
-struct Pack4;
-
-template <>
-struct Pack4<uint8_t> {
-  using type = uint32_t;
-  __device__ static type load(const uint8_t* p) { return __ldg(reinterpret_cast<const uint32_t*>(p)); }
-  __device__ static type gather(const uint8_t* p, int n) {
-    uint32_t v = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (e < n) v |= static_cast<uint32_t>(__ldg(p + e)) << (8 * e);
-    }
-    return v;
-  }
-  __device__ static float get(type v, int e) { return static_cast<float>((v >> (8 * e)) & 0xffu); }
-};
-
-template <>
-struct Pack4<uint16_t> {
-  using type = uint2;
-  __device__ static type load(const uint16_t* p) { return __ldg(reinterpret_cast<const uint2*>(p)); }
-  __device__ static type gather(const uint16_t* p, int n) {
-    uint32_t w[2] = {0u, 0u};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (e < n) w[e / 2] |= static_cast<uint32_t>(__ldg(p + e)) << (16 * (e % 2));
-    }
-    return make_uint2(w[0], w[1]);
-  }
-  __device__ static float get(type v, int e) {
-    const uint32_t w = e < 2 ? v.x : v.y;
-    return static_cast<float>((w >> (16 * (e % 2))) & 0xffffu);
-  }
-};
-
-template <>
-struct Pack4<float> {
-  using type = float4;
-  __device__ static type load(const float* p) { return __ldg(reinterpret_cast<const float4*>(p)); }
-  __device__ static type gather(const float* p, int n) {
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (e < n) v[e] = __ldg(p + e);
-    }
-    return make_float4(v[0], v[1], v[2], v[3]);
-  }
-  __device__ static float get(type v, int e) { return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w; }
-};
 
 // Shared memory of the vh kernel, in bf16 elements:
 //   sv [2 buf][2 plane][R][kTapLd]      V taps (hi, lo)

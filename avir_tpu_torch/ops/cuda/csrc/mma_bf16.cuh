@@ -1,6 +1,6 @@
-// Building blocks of the bf16 tensor-core kernels (banded.cu): ldmatrix,
-// mma.sync m16n8k16 bf16 x bf16 -> f32, and the error-free bf16 split of
-// float32 pairs.  fused_split.cu still holds its own copy of these.
+// Building blocks of the bf16 tensor-core kernels (fused_split.cu,
+// banded.cu, lanes.cu, planar.cu): ldmatrix, mma.sync m16n8k16 bf16 x bf16
+// -> f32, and the error-free bf16 split of float32 pairs.
 
 #pragma once
 

@@ -22,9 +22,14 @@ and ``reinterleave`` are plain PyTorch permutes and pads (XLA's there).
 so that both packages answer alike; it says nothing about this card.
 
 ``apply_planar`` launches the kernel (csrc/planar.cu) on a CUDA tensor
-and runs ``apply_planar_reference`` on a CPU tensor.  The two sum in
-other orders, so they agree to float32 rounding (the split gate of
-fused_split.py), not bit for bit.
+and runs ``apply_planar_reference`` on a CPU tensor.  The kernel is K1
+split vh's tensor-core design for one channel: a thread block owns
+``ROWS`` (64) output rows of one V block, one 128-pixel
+chunk of one H block and one channel, and runs both passes on bf16
+``mma.sync`` over the slice's nonzero V-tap rows (``k_range``, built at
+that height) and the chunk's nonzero H-tap rows (``h_range``).  The two
+sum in other orders, so they agree to float32 rounding (the split gate
+of fused_split.py), not bit for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +55,12 @@ from .fused_split import (
 
 # Launches of the kernel, counted by the wrapper.
 launches = {"planar": 0}
+
+# Output rows per thread block (csrc/planar.cu: kRows).
+ROWS = 64
+# K8's raw span tile, [32 rows][raw_row_bytes], beside the 90,112 bytes of
+# the kernel's other shared memory at 64 rows: two blocks an SM.
+RAW_TILE_BYTES = 25_600
 
 
 def plane_stride(vop: BlockedBandedOp) -> int:
@@ -117,7 +128,7 @@ class PlanarOperands:
     rel: torch.Tensor       # int32 [n_ch]
     thh: torch.Tensor       # bf16 [Bh, n_ch, win_c, 128] dense H taps
     thl: torch.Tensor
-    k_range: torch.Tensor   # int32 [Bv, n_slices, 2]
+    k_range: torch.Tensor   # int32 [Bv, n_slices, 2] at ROWS-row slices
     h_range: torch.Tensor   # int32 [Bh, n_ch, 2]
 
     @property
@@ -202,7 +213,7 @@ def prepare_planar(
         rel=dev(np.asarray(rel), torch.int32),
         thh=dev(hi),
         thl=dev(lo),
-        k_range=dev(_k_ranges((vop.taps_hi != 0).numpy(), (vop.taps_lo != 0).numpy())),
+        k_range=dev(_k_ranges((vop.taps_hi != 0).numpy(), (vop.taps_lo != 0).numpy(), ROWS)),
         h_range=dev(h_ranges((hi != 0).numpy(), (lo != 0).numpy())),
     )
 
@@ -260,20 +271,37 @@ def apply_planar_reference(ops: PlanarOperands, xp: torch.Tensor) -> torch.Tenso
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
+
+def raw_row_bytes(ops: PlanarOperands, x: torch.Tensor) -> int:
+    """The row stride in bytes of K8's raw span tile for the image ``x``: a
+    step's 128-pixel span of all C channels, plus the lead to the 16-byte
+    boundary before it, which the kernel stages once by 16-byte copies and
+    de-interleaves from shared memory.  0 (each block loads its channel at
+    a stride of C) for K7, where 32 rows of it exceed RAW_TILE_BYTES, or
+    where the rows or the base of ``x`` are not 16-byte aligned."""
+    if not ops.interleaved:
+        return 0
+    es = x.element_size()
+    ld = -(-128 * ops.c * es // 16) * 16 + 16
+    if 32 * ld > RAW_TILE_BYTES or x.data_ptr() % 16 or (x.shape[1] * es) % 16:
+        return 0
+    return ld
+
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [
     _I, _I, _I,            # interleaved, split3_v, split3_h
     _I, _I,                # in_kind, out_kind
     _P, _I, _I, _I, _I,    # x, rows_in, lanes_in, c, hp
-    _P, _I, _I,            # out, out_rows, out_lanes
+    _P, _I,                # out, out_lanes
     _P, _P, _P,            # tvh, tvl, offs_v
     _I, _I, _I,            # bv, tv, wv
     _P, _P, _P, _P,        # thh, thl, offs_l, rel
     _I, _I, _I, _I,        # bh, n_ch, win_c, th
     _P, _I, _P,            # k_range, n_slices, h_range
     _F, _F, _I,            # out_max, tm, trunc_bits
-    _I, _I, _I, _F, _F,    # gamma, alpha_ch, alpha_lane_in, in/out gamma mults
-    _F, _I,                # scale, even
+    _I, _I, _I, _F, _F,    # gamma, alpha_in, alpha_out, in/out gamma mults
+    _F, _I, _I,            # scale, even, raw_ld
     _P,                    # stream
 ]
 
@@ -307,8 +335,10 @@ def launch_planar(ops: PlanarOperands, x: torch.Tensor, counts: dict) -> torch.T
     if bv * n_slices > 65535:
         raise ValueError("too many output row blocks for one launch")
     out = torch.empty(ops.out_shape, dtype=ops.out_dtype, device=x.device)
+    # The channel that skips gamma-in: K7's alpha plane; K8's only under
+    # the C = 4 interleaved lane mask (alpha 0 or 3), as the reference.
     alpha_in = ops.alpha if (
-        ops.interleaved and ops.c == 4 and ops.alpha in (0, 3)
+        not ops.interleaved or (ops.c == 4 and ops.alpha in (0, 3))
     ) else -1
     epi = ops.epi
     fn = _library()
@@ -318,7 +348,7 @@ def launch_planar(ops: PlanarOperands, x: torch.Tensor, counts: dict) -> torch.T
             int(ops.interleaved), int(ops.mode_v == "split3"), int(ops.mode_h == "split3"),
             _IN_KINDS[x.dtype], _OUT_KINDS[ops.out_dtype],
             x.data_ptr(), x.shape[0], x.shape[1], ops.c, ops.hp,
-            out.data_ptr(), *ops.out_shape,
+            out.data_ptr(), ops.out_shape[1],
             ops.tvh.data_ptr(), ops.tvl.data_ptr(), ops.offs_v.data_ptr(),
             bv, tv, wv,
             ops.thh.data_ptr(), ops.thl.data_ptr(),
@@ -326,9 +356,9 @@ def launch_planar(ops: PlanarOperands, x: torch.Tensor, counts: dict) -> torch.T
             bh, n_ch, win_c, ops.th,
             ops.k_range.data_ptr(), n_slices, ops.h_range.data_ptr(),
             ops.out_max, ops.tm, ops.trunc_bits,
-            int(epi.gamma), ops.alpha, alpha_in,
+            int(epi.gamma), alpha_in, ops.alpha,
             f32(epi.in_gamma_mult), f32(epi.out_gamma_mult),
-            f32(epi.scale), int(epi.round_mode == "even"),
+            f32(epi.scale), int(epi.round_mode == "even"), raw_row_bytes(ops, x),
             stream,
         )
     if err != 0:

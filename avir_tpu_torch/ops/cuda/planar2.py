@@ -15,10 +15,17 @@ every channel.
 On the TPU the kernel de-interleaves the V result with strided lane
 slices, which Mosaic cannot lower, so the JAX package's routing never
 selects it and only its interpret mode runs (planar2_kernel.py:27-37
-there).  On Hopper a thread block works on one channel and reads its
-pixels at a lane stride of C (csrc/planar.cu, INTERLEAVED); the routing
-still does not select it, as in the reference.  ``planar2_viable`` is the
-JAX package's TPU VMEM budget, ported unchanged for parity.
+there).  On Hopper it is K7's kernel (csrc/planar.cu), a thread block
+per channel, with the de-interleave where the first pass stages its image
+tile: where 32 rows of a step's raw interleaved span fit its tile
+(``planar.raw_row_bytes``: u8 up to C = 6, u16 up to 3, f32 at 1, rows
+16-byte aligned), the block copies that span by 16-byte ``cp.async`` and
+reads its channel from shared memory at a stride of C; otherwise it loads
+its channel's pixels at a stride of C, one element a load.  The C blocks
+of a chunk are neighbours in the grid, so they read the same rows from L2
+together.  The routing still does not select it, as in the reference.
+``planar2_viable`` is the JAX package's TPU VMEM budget, ported
+unchanged for parity.
 
 ``apply_planar2`` launches the kernel on a CUDA tensor and runs
 ``apply_planar2_reference`` on a CPU tensor; they agree to float32

@@ -36,7 +36,11 @@ Phases (any failure exits non-zero before the last line):
          and to K1's in-kernel gamma kernel;
        - K7 planar and K8 interleaved: C in {1, 3, 4}, split2/split3,
          u8/u16/f32 in, f32/u8/u16 out, trunc_bits 0 and 2, gamma with
-         alpha: the split gate;
+         alpha, and the edges of their tensor-core tiling (Tv off the slice
+         height, h_range segments that end inside a 128-pixel segment,
+         windows and rows off 16 bytes, alpha planes that are not the
+         last, a split2 second pass with float32 output): the split gate
+         (with the flip term of a split2 second pass, _planar_tol);
   3. drives the main path through ``avir_tpu_torch.ImageResizer.resize``
      (and ``LancIR.resize``), with the launch counts set to 0 just before
      each first call and read just after:
@@ -98,7 +102,9 @@ Phases (any failure exits non-zero before the last line):
          directly (no resize routes to them) at 8k_to_1080p_planar (u8
          RGB split2/split3) and
          1080p_to_4k_u16_gamma_rgba_planar (split3/split3, gamma, alpha
-         3): the split gate of their plain versions;
+         3): the split gate of their plain versions, ptxas's registers and
+         spills, the MACs the MMAs issue beside the band MACs, the image
+         elements staged per input element and K8's design;
   3b. drives the rest of the single-card public API, each phase with the
      launch counts set to 0 just before it and read just after:
        - batch_1080p_to_4k, batch_8k_to_1080p (with LancIR.resize_batch of
@@ -178,16 +184,20 @@ Phases (any failure exits non-zero before the last line):
 its limb planes at 8k_to_1080p_gamma_prologue (vh) and
 1080p_to_4k_gamma_prologue (hv), K2 split3 at 720p_to_1080p_errdiff and
 1080p_to_4k_gamma_errdiff (KT_K2_CELLS) and K3 at those two and
-lancir_720p_to_1080p_f32 (KT_K3_CELLS) on the package under DIR instead
-(one JSON line, with output hashes, K3's and K5's bounds and, at the two
-int8 downsizes, the split route beside it), so that two versions of the
-kernels can be compared in turns within one chip call.
+lancir_720p_to_1080p_f32 (KT_K3_CELLS) and K7 and K8 at the two planar
+shapes (KT_PLANAR_CELLS, with K1 split of the same resize beside them) on
+the package under DIR instead (one JSON line, with output hashes, K3's,
+K5's, K7's and K8's bounds, ptxas's registers and spills of the planar and
+fused_split libraries and, at the two int8 downsizes, the split route
+beside it), so that two versions of the kernels can be compared in turns
+within one chip call.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -555,18 +565,28 @@ RING_SHAPES = (
 )
 # K7 (planar input) and K8 (interleaved input), small cases: (src_w,
 # src_h, new_w, new_h, c, in type, out type, mode_v, mode_h, trunc_bits,
-# gamma, alpha_index).
+# gamma, alpha_index, extra pixels of K7's plane width).  The last six
+# are the edges of the kernel's tensor-core tiling (tests/torch_cases.py:
+# Tv of 32 and 40, h_range segments ending 32 or 96 pixels in, windows
+# 32 pixels in, rows off 16 bytes and K8's raw span tile, alpha planes
+# not the last, a split2 second pass with float32 output).
 PLANAR_CASES = (
-    (200, 150, 80, 60, 3, "u8", "f32", "split2", "split3", 0, False, -1),
-    (200, 150, 80, 60, 3, "u8", "u8", "split2", "split3", 0, False, -1),
-    (96, 80, 144, 120, 4, "u16", "u16", "split3", "split3", 0, True, 3),
-    (150, 90, 61, 37, 1, "f32", "f32", "split3", "split3", 0, False, -1),
-    (120, 80, 70, 50, 4, "u8", "u8", "split3", "split2", 2, True, 0),
-    (45, 31, 97, 70, 3, "u16", "u8", "split3", "split3", 0, False, -1),
-    (40, 30, 64, 48, 1, "u8", "u16", "split2", "split2", 2, False, -1),
-    (181, 77, 60, 33, 4, "f32", "u16", "split3", "split3", 0, True, 3),
-    (1031, 517, 263, 129, 3, "u8", "u8", "split2", "split3", 0, False, -1),
-    (333, 251, 1001, 777, 4, "u16", "u16", "split3", "split3", 0, True, 3),
+    (200, 150, 80, 60, 3, "u8", "f32", "split2", "split3", 0, False, -1, 0),
+    (200, 150, 80, 60, 3, "u8", "u8", "split2", "split3", 0, False, -1, 0),
+    (96, 80, 144, 120, 4, "u16", "u16", "split3", "split3", 0, True, 3, 0),
+    (150, 90, 61, 37, 1, "f32", "f32", "split3", "split3", 0, False, -1, 0),
+    (120, 80, 70, 50, 4, "u8", "u8", "split3", "split2", 2, True, 0, 0),
+    (45, 31, 97, 70, 3, "u16", "u8", "split3", "split3", 0, False, -1, 0),
+    (40, 30, 64, 48, 1, "u8", "u16", "split2", "split2", 2, False, -1, 0),
+    (181, 77, 60, 33, 4, "f32", "u16", "split3", "split3", 0, True, 3, 0),
+    (1031, 517, 263, 129, 3, "u8", "u8", "split2", "split3", 0, False, -1, 0),
+    (333, 251, 1001, 777, 4, "u16", "u16", "split3", "split3", 0, True, 3, 0),
+    (80, 37, 300, 29, 3, "u8", "u8", "split2", "split3", 0, False, -1, 0),
+    (259, 37, 29, 29, 1, "u8", "f32", "split2", "split3", 0, False, -1, 3),
+    (259, 37, 29, 29, 1, "u8", "f32", "split2", "split2", 0, False, -1, 3),
+    (1000, 333, 90, 40, 1, "f32", "f32", "split3", "split3", 0, False, -1, 0),
+    (200, 37, 150, 29, 3, "u16", "u16", "split3", "split3", 0, True, 1, 2),
+    (131, 90, 97, 70, 4, "u8", "u8", "split2", "split3", 0, True, 0, 1),
 )
 # K7 and K8 at full size, called directly (no resize routes to them, as in
 # the JAX package): (name, src_w, src_h, new_w, new_h, c, in dtype, out
@@ -579,6 +599,8 @@ PLANAR_SHAPES = (
      {"use_srgb_gamma": True, "alpha_index": 3, "res_bit_depth": 16},
      "fused_split_vh_gamma"),
 )
+# --kernel-times' K7 and K8 cells: the two planar shapes.
+KT_PLANAR_CELLS = PLANAR_SHAPES
 # K4's row groups swept at each errdiff cell: warps of (row, channel)
 # threads per group (rows per group = warps * 32 // C).
 K4_GROUP_WARPS = (1, 2, 4, 8, 32)
@@ -2107,41 +2129,75 @@ def _planar_ops(plan, c, mv, mh, out_dt, out_max, tb, g, alpha, dev):
             p2.prepare_planar2(vop, pop, c, dev, alpha_index=alpha, **kw))
 
 
+def _unaligned_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied to a base one element past a 16-byte boundary: the same
+    image on K8's strided loads (planar.raw_row_bytes gives 0)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
 def _planar_cases(gen, dev) -> None:
-    """K7 and K8 against their plain versions: the split gate."""
+    """K7 and K8 against their plain versions, K8 by its raw span tile
+    (where the case allows one) and by strided loads (an unaligned copy):
+    the split gate, with the flip term of a split2 second pass
+    (_planar_tol)."""
     from avir_tpu_torch.ops.cuda import planar as pk
     from avir_tpu_torch.ops.cuda import planar2 as p2
     from avir_tpu_torch.plan.plan import build_resize_plan
 
-    for sw, sh, nw, nh, c, tin, tout, mv, mh, tb, g, alpha in PLANAR_CASES:
+    for sw, sh, nw, nh, c, tin, tout, mv, mh, tb, g, alpha, pad in PLANAR_CASES:
         out_max = 65535.0 if tout == "u16" else 255.0
         plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout],
                                  res_bit_depth=16 if tout == "u16" else 8,
                                  use_srgb_gamma=g, alpha_index=alpha)
+        x = torch.from_numpy(_image(gen, (sh, sw * c), tin)).to(dev)
         vop, pop, k7, k8 = _planar_ops(plan, c, mv, mh, TORCH_TYPES[tout], out_max,
                                        tb, g, alpha, dev)
-        x = torch.from_numpy(_image(gen, (sh, sw * c), tin)).to(dev)
-        xp = pk.deinterleave(x, sh, sw, c, pk.plane_stride(vop), max(sw, pop.lanes_pad))
+        xp = pk.deinterleave(x, sh, sw, c, pk.plane_stride(vop), max(sw, pop.lanes_pad) + pad)
+        xmax = float(x.double().abs().max())
         for ops, src, kernel, plain in (
             (k7, xp, pk.apply_planar, pk.apply_planar_reference),
             (k8, x, p2.apply_planar2, p2.apply_planar2_reference),
+            (k8, _unaligned_copy(x), p2.apply_planar2, p2.apply_planar2_reference),
         ):
             got = kernel(ops, src)
             torch.cuda.synchronize()
             want = plain(ops, src)
             err = float((got.double() - want.double()).abs().max())
-            ref_max = float(want.double().abs().max())
-            if tout == "f32":
-                tol = ref_max * 1e-4
-            elif tb:
-                tol = out_max / (int(out_max) >> tb)
-            else:
-                tol = _split_int_tol(ref_max, 1.0, g)
-            case = (f"{ops.launch_key} {sw}x{sh}->{nw}x{nh} C={c} {mv}/{mh} "
-                    f"{tin}->{tout} tb={tb} gamma={g} alpha={alpha}")
+            tol = _planar_tol(ops, tout, float(want.double().abs().max()), xmax, out_max, tb, g)
+            case = (f"{ops.launch_key} raw_ld={pk.raw_row_bytes(ops, src)} "
+                    f"{sw}x{sh}->{nw}x{nh} C={c} {mv}/{mh} "
+                    f"{tin}->{tout} tb={tb} gamma={g} alpha={alpha} wp={src.shape[1]}")
             print(json.dumps({"case": case, "max_abs_err": err, "tol": tol}))
             if not (got.shape == want.shape and err <= tol):
                 _fail(f"planar kernel != plain on {case}")
+
+
+def _planar_tol(ops, tout, ref_max, xmax, out_max, tb, g) -> float:
+    """K7 / K8 against its plain version on an input of largest magnitude
+    ``xmax``: the split gate (float32 within max * 1e-4; integers 1 LSB,
+    one step with trunc_bits, or the float32 gate plus a step through
+    gamma-out), and for float32 output after a split2 second pass one bf16
+    ulp of the largest intermediate (xmax times the V taps' largest
+    absolute row sum) times the H taps' largest absolute column sum.  That
+    pass multiplies bf16(v) alone, and two summation orders of the
+    intermediate v can round to hi parts one ulp apart (split3's lo part
+    takes the difference up).  The flip term needs no gamma-out, whose
+    slope would scale it."""
+    if tout == "f32":
+        tol = ref_max * 1e-4
+    elif tb:
+        return out_max / (int(out_max) >> tb)
+    else:
+        return _split_int_tol(ref_max, 1.0, g)
+    if ops.mode_h != "split2":
+        return tol
+    if g:
+        raise ValueError("the flip bound holds without gamma-out")
+    vsum = float((ops.tvh.double() + ops.tvl.double()).abs().sum(-1).max())
+    hsum = float((ops.thh.double() + ops.thl.double()).abs().sum(2).max())
+    _, e = math.frexp(xmax * vsum)
+    return tol + math.ldexp(1.0, e - 8) * hsum
 
 
 def _ring_shape(name, sw, sh, nw, nh, gen, dev, flush, smi, mods) -> list[dict]:
@@ -2260,18 +2316,14 @@ def _ring_shape(name, sw, sh, nw, nh, gen, dev, flush, smi, mods) -> list[dict]:
     }]
 
 
-def _planar_shape(name, sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, k1_key,
-                  gen, dev, flush, smi, mods) -> list[dict]:
-    """One full-size shape of K7 and K8, called as a user would (no resize
-    routes to them): deinterleave -> K7 -> reinterleave, and K8 ->
-    regroup_channels, with the launch counts set to 0 just before and read
-    just after.  Each kernel within the split gate of its plain version;
-    timed beside K1 split of the same resize and the exact route."""
-    from avir_tpu_torch.models.runtime import choose_fused, make_avir_executor
+def _planar_setup(sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, gen, dev):
+    """One full-size planar shape: (plan, gamma, alpha, output dtype and
+    range, its random image [sh, sw*c] on the card, and K1 split's operands
+    of the same resize, modes and epilogue, in the order the resize would
+    run it (runtime.choose_fused))."""
+    from avir_tpu_torch.models.runtime import choose_fused
     from avir_tpu_torch.ops.banded import block_banded
     from avir_tpu_torch.ops.cuda import fused_split as fs
-    from avir_tpu_torch.ops.cuda import planar as pk
-    from avir_tpu_torch.ops.cuda import planar2 as p2
     from avir_tpu_torch.ops.lanes import lane_block_banded
     from avir_tpu_torch.plan.plan import build_resize_plan
 
@@ -2281,9 +2333,80 @@ def _planar_shape(name, sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, k1_key,
     out_max = 255.0 if np.dtype(out_dt).itemsize == 1 else 65535.0
     plan = build_resize_plan(sw, sh, nw, nh, c, in_dt, out_dt, res_bit_depth=bits, **kw)
     out_t = TORCH_TYPES["u8" if out_max == 255.0 else "u16"]
-    vop, pop, k7, k8 = _planar_ops(plan, c, mv, mh, out_t, out_max, 0, g, alpha, dev)
     src = gen.integers(0, np.iinfo(in_dt).max + 1, (sh, sw, c), dtype=in_dt)
     x = torch.from_numpy(src.reshape(sh, sw * c)).to(dev)
+    in_b = np.dtype(in_dt).itemsize
+    vop1 = block_banded(plan.v.op, in_bytes=in_b)
+    lop1 = lane_block_banded(plan.h.op, c, in_bytes=in_b)
+    k1 = fs.prepare_fused_split(
+        vop1, lop1, choose_fused(vop1, lop1, mv, g, c, in_b)[1], mv, mh, dev,
+        out_dtype=out_t, out_max=out_max,
+        **(dict(_gamma_kw(plan), alpha_index=alpha) if g else {}),
+    )
+    return plan, g, alpha, out_t, out_max, x, k1
+
+
+def _planar_bound(plan, c, in_dt, out_dt, mv, mh, g):
+    """(bound_ms, bound_by, bytes, bf16 ops, float32 gamma ops) of one K7
+    or K8 launch: K1's bound at C channels (the image and the output once,
+    both operators once, 2 x band MACs x products per pass at the bf16
+    rate; gamma's float32 operations on the CUDA cores)."""
+    sh, sw = plan.v.op.n_in, plan.h.op.n_in
+    nh, nw = plan.v.op.n_out, plan.h.op.n_out
+    f32_ops = (sh * sw * c * GAMMA_IN_OPS["split"] + nh * nw * c * GAMMA_OUT_OPS) if g else 0
+    bound = _k1_bound(plan.h.op, plan.v.op, c, "vh", np.dtype(in_dt).itemsize,
+                      np.dtype(out_dt).itemsize, 4, 3 if mv == "split3" else 2,
+                      3 if mh == "split3" else 2, BF16_OPS_PER_S, f32_ops)
+    return (*bound, f32_ops)
+
+
+def _planar_counts(ops, pixels_in: int) -> dict:
+    """The MACs K7's / K8's MMAs issue, the image elements the kernel
+    stages per input element, and the 32-deep steps its blocks run.  Every
+    block (a 64-row slice with nonzero V taps x a chunk with nonzero H taps
+    x a channel) multiplies its slice's dense V block over its k_range by
+    the image over the chunk's h_range (2 or 3 products), then that
+    intermediate by the dense H block over the h_range for the chunk's
+    16-pixel groups below Th (2 or 3 products), and stages its k_range rows
+    x h_range pixels of the image: k_range / 32 first-pass steps for each
+    128-pixel segment of the h_range and h_range / 32 second-pass steps."""
+    kw = (ops.k_range[..., 1] - ops.k_range[..., 0]).cpu().long().reshape(-1)
+    hr = ops.h_range.cpu().long()
+    hw = (hr[..., 1] - hr[..., 0]).reshape(-1)
+    j = torch.arange(hw.numel()) % hr.shape[1]
+    groups = torch.clamp((ops.th - 128 * j + 15) // 16, 0, 8)
+    pv = 3 if ops.mode_v == "split3" else 2
+    ph = 3 if ops.mode_h == "split3" else 2
+    first = int(kw.sum()) * int(hw.sum()) * pv
+    second = int((kw > 0).sum()) * int((hw * 16 * groups).sum()) * ph
+    segs = (hw + 127) // 128
+    steps = int(kw.sum()) // 32 * int(segs.sum()) + int((kw > 0).sum()) * int(hw.sum()) // 32
+    from avir_tpu_torch.ops.cuda import planar as pk
+
+    return {
+        "slice_rows": pk.ROWS,
+        "macs_issued": ops.c * pk.ROWS * (first + second),
+        "staged_per_input": int(kw.sum()) * int(hw.sum()) / pixels_in,
+        "blocks": ops.c * int((kw > 0).sum()) * int((hw > 0).sum()),
+        "steps": ops.c * steps,
+    }
+
+
+def _planar_shape(name, sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, k1_key,
+                  gen, dev, flush, smi, mods) -> list[dict]:
+    """One full-size shape of K7 and K8, called as a user would (no resize
+    routes to them): deinterleave -> K7 -> reinterleave, and K8 ->
+    regroup_channels, with the launch counts set to 0 just before and read
+    just after.  Each kernel within the split gate of its plain version;
+    timed beside K1 split of the same resize and the exact route."""
+    from avir_tpu_torch.models.runtime import make_avir_executor
+    from avir_tpu_torch.ops.cuda import fused_split as fs
+    from avir_tpu_torch.ops.cuda import planar as pk
+    from avir_tpu_torch.ops.cuda import planar2 as p2
+
+    plan, g, alpha, out_t, out_max, x, k1 = _planar_setup(
+        sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, gen, dev)
+    vop, pop, k7, k8 = _planar_ops(plan, c, mv, mh, out_t, out_max, 0, g, alpha, dev)
     hp, wp = pk.plane_stride(vop), max(sw, pop.lanes_pad)
     bv_tv = vop.n_blocks * vop.tile
 
@@ -2298,20 +2421,14 @@ def _planar_shape(name, sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, k1_key,
     if counts["planar"] != 1 or counts["planar2"] != 1 or sum(counts.values()) != 2:
         _fail(f"{name}: launches {counts}")
 
-    # K1 split on the same resize, modes and epilogue, in the order the
-    # resize would run it (runtime.choose_fused).
-    in_b = np.dtype(in_dt).itemsize
-    vop1 = block_banded(plan.v.op, in_bytes=in_b)
-    lop1 = lane_block_banded(plan.h.op, c, in_bytes=in_b)
-    k1 = fs.prepare_fused_split(
-        vop1, lop1, choose_fused(vop1, lop1, mv, g, c, in_b)[1], mv, mh, dev,
-        out_dtype=out_t, out_max=out_max,
-        **(dict(_gamma_kw(plan), alpha_index=alpha) if g else {}),
-    )
     if k1.launch_key != k1_key:
         _fail(f"{name}: K1 variant {k1.launch_key}, expected {k1_key}")
     k1_out = fs.apply_fused_split(k1, x)
-    report = {"shape": name, "kernels": ["planar", "planar2"], "mode_v": mv, "mode_h": mh}
+    bound = _planar_bound(plan, c, in_dt, out_dt, mv, mh, g)
+    raw_ld = pk.raw_row_bytes(k8, x)
+    report = {"shape": name, "kernels": ["planar", "planar2"], "mode_v": mv, "mode_h": mh,
+              "k8_design": f"a block a channel; raw span tile, {raw_ld} B a row" if raw_ld
+              else "a block a channel; loads at a stride of C"}
     entries, ok = [], True
     for key, ops, inp, kernel, plain, res in (
         ("planar", k7, xp, pk.apply_planar, pk.apply_planar_reference, res7),
@@ -2324,15 +2441,12 @@ def _planar_shape(name, sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, k1_key,
         tol = _split_int_tol(float(want.double().abs().max()), 1.0, g)
         ms = _time_ms(lambda: kernel(ops, inp), 10, flush)
         plain_ms = _time_ms(lambda: plain(ops, inp), 2, flush)
-        f32_ops = (sh * sw * c * GAMMA_IN_OPS["split"] + nh * nw * c * GAMMA_OUT_OPS) if g else 0
-        bound = _k1_bound(plan.h.op, plan.v.op, c, "vh", np.dtype(in_dt).itemsize,
-                          np.dtype(out_dt).itemsize, 4, 3 if mv == "split3" else 2,
-                          3 if mh == "split3" else 2, BF16_OPS_PER_S, f32_ops)
         vs_k1 = int((res.int() - k1_out.int()).abs().max())
         report[key] = {
             "max_abs_err_vs_plain": err, "tol_vs_plain": tol, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "bytes": bound[2], "bf16_ops": bound[3], "f32_gamma_ops": f32_ops,
+            "bytes": bound[2], "bf16_ops": bound[3], "band_macs": bound[3] // 2,
+            "f32_gamma_ops": bound[4], **_planar_counts(ops, sh * sw),
             "max_abs_diff_vs_k1_split": vs_k1, "launches": counts[key],
         }
         ok = ok and err <= tol and tuple(res.shape) == (nh, nw * c)
@@ -2343,6 +2457,7 @@ def _planar_shape(name, sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, k1_key,
         })
     exact = make_avir_executor(plan, precision="exact", device=dev)
     report.update({
+        "ptxas": _ptxas("planar", "planar"),
         "deinterleave_ms": _time_ms(lambda: pk.deinterleave(x, sh, sw, c, hp, wp), 10, flush),
         "k7_plus_deinterleave_ms": _time_ms(
             lambda: pk.apply_planar(k7, pk.deinterleave(x, sh, sw, c, hp, wp)), 10, flush),
@@ -3260,12 +3375,14 @@ def kernel_times(root: str) -> int:
     gamma kernels at KT_GAMMA_CELLS (K6 at the two ring cells; K5 and K1
     int8 from its limb planes, vh and hv, at the two prologue cells), K2 at
     KT_K2_CELLS (the row pass of two unfused errdiff resizes, on K3's
-    output) and K3 at KT_K3_CELLS (the lane pass of the three unfused
-    resizes, on the image the route gives it), timed on the package under
-    ``root`` through the calls that
+    output), K3 at KT_K3_CELLS (the lane pass of the three unfused
+    resizes, on the image the route gives it) and K7 and K8 at
+    KT_PLANAR_CELLS (with K1 split of the same resize beside them), timed
+    on the package under ``root`` through the calls that
     the versions being compared share (the executors' operands,
     ``apply_fused_int8``, ``apply_fused_ring``, ``apply_gamma_prologue``,
-    ``apply_lanes``, ``apply_banded``), so that two versions run in turns
+    ``apply_lanes``, ``apply_banded``, ``apply_planar``, ``apply_planar2``,
+    ``apply_fused_split``), so that two versions run in turns
     in one chip call; at the two downsizes also the split route
     (precision="fast", K1 split vh) of the same resize as a yardstick:
 
@@ -3273,9 +3390,11 @@ def kernel_times(root: str) -> int:
 
     Prints one JSON line with each time, the largest difference from the
     plain version and a hash of each output (equal hashes: bit-equal
-    outputs across the versions; K2 and K3 sum float32 in their kernels'
-    order, so their hashes change with their design, and their gate is
-    max|plain| * 1e-5), and K3's and K5's bounds and K5's load path."""
+    outputs across the versions; K2, K3, K7 and K8 sum float32 in their
+    kernels' order, so their hashes change with their design; K2's and
+    K3's gate is max|plain| * 1e-5, K7's and K8's the split gate), K3's,
+    K5's, K7's and K8's bounds, K5's load path, and ptxas's registers and
+    spills of the planar and fused_split libraries built in this call."""
     import hashlib
     import os
 
@@ -3289,14 +3408,18 @@ def kernel_times(root: str) -> int:
     from avir_tpu_torch.ops.cuda import build
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
     from avir_tpu_torch.ops.cuda import fused_ring as fr
+    from avir_tpu_torch.ops.cuda import fused_split as fs
     from avir_tpu_torch.ops.cuda import gamma_prologue as gp
     from avir_tpu_torch.ops.cuda import lanes_kernel as lk
+    from avir_tpu_torch.ops.cuda import planar as pk
+    from avir_tpu_torch.ops.cuda import planar2 as p2
     from avir_tpu_torch.ops.gamma import f32, srgb_to_linear_2d
     from avir_tpu_torch.plan.lancir_plan import build_lancir_plan
     from avir_tpu_torch.plan.plan import build_resize_plan
 
-    build.build(["fused_int8", "fused_split", "fused_ring", "gamma_prologue", "banded",
-                 "lanes"])
+    built = build.build(["fused_int8", "fused_split", "fused_ring", "gamma_prologue",
+                         "banded", "lanes", "planar"])
+    BUILD_LOGS.update({name: info["log"] for name, info in built.items()})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda")
@@ -3406,7 +3529,30 @@ def kernel_times(root: str) -> int:
             "input": f"{x.dtype} {list(x.shape)}", "order": ops.order,
             "sha": sha(got), "input_sha": sha(x),
         }
-    print(json.dumps({"kernel_times": times, "root": root, "card": _card()}))
+    for name, sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, _ in KT_PLANAR_CELLS:
+        plan, g, alpha, out_t, out_max, x, k1 = _planar_setup(
+            sw, sh, nw, nh, c, in_dt, out_dt, mv, mh, kw, gen, dev)
+        vop, pop, k7, k8 = _planar_ops(plan, c, mv, mh, out_t, out_max, 0, g, alpha, dev)
+        xp = pk.deinterleave(x, sh, sw, c, pk.plane_stride(vop), max(sw, pop.lanes_pad))
+        k1_got = fs.apply_fused_split(k1, x)
+        torch.cuda.synchronize()
+        k1_cell = {"k1_split_ms": _time_ms(lambda: fs.apply_fused_split(k1, x), 20, flush),
+                   "k1_split_variant": k1.launch_key, "k1_split_sha": sha(k1_got)}
+        for ops, inp, kernel, plain in ((k7, xp, pk.apply_planar, pk.apply_planar_reference),
+                                        (k8, x, p2.apply_planar2, p2.apply_planar2_reference)):
+            got = kernel(ops, inp)
+            want = plain(ops, inp)
+            torch.cuda.synchronize()
+            times[f"{ops.launch_key} {name}"] = {
+                "ms": _time_ms(lambda: kernel(ops, inp), 20, flush),
+                "max_abs_err_vs_plain": float((got.double() - want.double()).abs().max()),
+                "tol": _split_int_tol(float(want.double().abs().max()), 1.0, g),
+                "bound_ms": _planar_bound(plan, c, in_dt, out_dt, mv, mh, g)[0],
+                "sha": sha(got), **k1_cell,
+            }
+    ptxas = {"planar": _ptxas("planar", "planar"),
+             "fused_split": _ptxas("fused_split", "fused_split_vh")}
+    print(json.dumps({"kernel_times": times, "ptxas": ptxas, "root": root, "card": _card()}))
     return 0
 
 

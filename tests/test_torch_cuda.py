@@ -42,8 +42,11 @@ from torch_cases import (
     epi_kwargs,
     float_image,
     order_of,
+    planar_split2_tol,
+    plane_width,
     split_source,
     split_tol,
+    unaligned_copy,
 )
 
 from avir_tpu_torch.ops.banded import block_banded
@@ -560,8 +563,10 @@ def test_hv_smem_bytes_match_the_kernel(planes, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(PLANAR_CASES))
 def test_planar_kernels_match_plain_on_card(name, cuda_device):
-    """K7 on ``deinterleave``'s planes and K8 on the interleaved image,
-    each within the split gate of its plain version."""
+    """K7 on ``deinterleave``'s planes and K8 on the interleaved image (by
+    its raw span tile where the case allows one, and by strided loads from
+    an unaligned copy), each within the split gate of its plain version
+    (``planar_split2_tol``)."""
     sw, sh, nw, nh, c, tin, tout, mv, mh, tb, g, alpha = PLANAR_CASES[name]
     out_max = 65535.0 if tout == "u16" else 255.0
     plan = build_resize_plan(
@@ -575,13 +580,14 @@ def test_planar_kernels_match_plain_on_card(name, cuda_device):
         kw.update(gamma=True, in_gamma_mult=plan.in_gamma_mult,
                   out_gamma_mult=plan.out_gamma_mult)
     x = torch.from_numpy(split_source(name, sh, sw, c, tin)).to(cuda_device)
-    xp = pk.deinterleave(x, sh, sw, c, pk.plane_stride(vop), max(sw, pop.lanes_pad))
-    k7 = pk.prepare_planar(vop, pop, c, cuda_device, alpha_plane=alpha, **kw)
+    xp = pk.deinterleave(x, sh, sw, c, pk.plane_stride(vop), plane_width(name, sw, pop.lanes_pad))
+    runs = [(pk, pk.prepare_planar(vop, pop, c, cuda_device, alpha_plane=alpha, **kw),
+             xp, pk.apply_planar, pk.apply_planar_reference)]
     k8 = p2.prepare_planar2(vop, pop, c, cuda_device, alpha_index=alpha, **kw)
-    for mod, ops, src, apply, plain in (
-        (pk, k7, xp, pk.apply_planar, pk.apply_planar_reference),
-        (p2, k8, x, p2.apply_planar2, p2.apply_planar2_reference),
-    ):
+    runs += [(p2, k8, src, p2.apply_planar2, p2.apply_planar2_reference)
+             for src in (x, unaligned_copy(x))]
+    xmax = x.double().abs().max().item()
+    for mod, ops, src, apply, plain in runs:
         before = mod.launches[ops.launch_key]
         got = apply(ops, src)
         torch.cuda.synchronize()
@@ -589,7 +595,9 @@ def test_planar_kernels_match_plain_on_card(name, cuda_device):
         want = plain(ops, src)
         assert got.shape == want.shape == ops.out_shape
         diff = (got.double() - want.double()).abs().max().item()
-        assert diff <= split_tol(tout, want.double().abs().max().item(), out_max, tb, 1.0, g)
+        ref_max = want.double().abs().max().item()
+        tol = planar_split2_tol(ops, tout, ref_max, xmax, out_max, tb, g)
+        assert diff <= tol, (ops.launch_key, pk.raw_row_bytes(ops, src), diff, tol)
 
 
 # ---------------------------------------------------------------------------

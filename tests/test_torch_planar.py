@@ -9,7 +9,9 @@ are the split-bf16 modes, whose inter-pass bf16 re-split is not
 bit-stable across summation orders (the split gate of ROADMAP.md):
 float32 within max|ref| * 1e-4; integers within 1 LSB (one quantization
 step with ``trunc_bits``); 16-bit output through gamma-out within
-max * 1e-4 of its range plus one step."""
+max * 1e-4 of its range plus one step.  Float32 output after a split2
+second pass adds one bf16 ulp of the intermediate times the H taps'
+absolute sum (``torch_cases.planar_split2_tol``)."""
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +27,7 @@ from avir_tpu.ops.pallas import planar2_kernel as jax_p2
 from avir_tpu.ops.pallas import planar_kernel as jax_pk
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
-from torch_cases import NP_TYPES, PLANAR_CASES, split_tol
+from torch_cases import NP_TYPES, PLANAR_CASES, planar_split2_tol, plane_width, unaligned_copy
 
 from avir_tpu_torch.ops.banded import block_banded
 from avir_tpu_torch.ops.cuda import planar as pk
@@ -71,13 +73,14 @@ def _case(name):
     return case, x, ours, theirs
 
 
-def _check(got, ref, case):
+def _check(got, ref, case, ops, x):
     *_, tout, _, _, tb, g, _ = case
     out_max = 65535.0 if tout == "u16" else 255.0
     assert got.shape == ref.shape
     ref_max = float(np.abs(ref.astype(np.float64)).max())
     diff = float(np.abs(got.astype(np.float64) - ref.astype(np.float64)).max())
-    assert diff <= split_tol(tout, ref_max, out_max, tb, 1.0, g), diff
+    tol = planar_split2_tol(ops, tout, ref_max, float(np.abs(x).max()), out_max, tb, g)
+    assert diff <= tol, diff
 
 
 def test_planar_layout_helpers_match_jax():
@@ -123,7 +126,7 @@ def test_planar_plain_matches_pallas(name):
     on the planes ``deinterleave`` makes."""
     case, x, (vop, pop, kw), (jvop, jpop, jkw) = _case(name)
     sw, sh, nw, nh, c, *_, alpha = case
-    hp, wp = pk.plane_stride(vop), max(sw, pop.lanes_pad)
+    hp, wp = pk.plane_stride(vop), plane_width(name, sw, pop.lanes_pad)
     xp = pk.deinterleave(torch.from_numpy(x), sh, sw, c, hp, wp)
     ops = pk.prepare_planar(vop, pop, c, "cpu", alpha_plane=alpha, **kw)
     before = pk.launches["planar"]
@@ -133,13 +136,15 @@ def test_planar_plain_matches_pallas(name):
         jvop, jpop, jnp.asarray(xp.numpy()), c, alpha_plane=alpha, interpret=True, **jkw
     ))
     assert got.shape == ops.out_shape == (c * vop.n_blocks * vop.tile, pop.n_blocks * pop.tile)
-    _check(got, ref, case)
+    _check(got, ref, case, ops, x)
 
 
 @pytest.mark.parametrize("name", list(PLANAR_CASES))
 def test_planar2_plain_matches_pallas(name):
     """K8's plain version against interpret-mode ``apply_planar2_pallas``
-    on the interleaved image, and, re-interleaved, equal to K7's."""
+    on the interleaved image, and, re-interleaved, equal to K7's where the
+    two take the same alpha channel past gamma-in (none, or alpha 0 or 3
+    at C = 4)."""
     case, x, (vop, pop, kw), (jvop, jpop, jkw) = _case(name)
     sw, sh, nw, nh, c, *_, alpha = case
     ops = p2.prepare_planar2(vop, pop, c, "cpu", alpha_index=alpha, **kw)
@@ -150,9 +155,11 @@ def test_planar2_plain_matches_pallas(name):
         jvop, jpop, jnp.asarray(x), c, alpha_index=alpha, interpret=True, **jkw
     ))
     assert got.shape == ops.out_shape == (vop.n_blocks * vop.tile, pop.n_blocks * c * pop.tile)
-    _check(got, ref, case)
+    _check(got, ref, case, ops, x)
 
-    hp, wp = pk.plane_stride(vop), max(sw, pop.lanes_pad)
+    if ops.alpha >= 0 and not (c == 4 and ops.alpha in (0, 3)):
+        return
+    hp, wp = pk.plane_stride(vop), plane_width(name, sw, pop.lanes_pad)
     k7 = pk.apply_planar(
         pk.prepare_planar(vop, pop, c, "cpu", alpha_plane=alpha, **kw),
         pk.deinterleave(torch.from_numpy(x), sh, sw, c, hp, wp),
@@ -161,6 +168,45 @@ def test_planar2_plain_matches_pallas(name):
         p2.regroup_channels(torch.from_numpy(got), c, pop.tile, nh, nw).numpy(),
         pk.reinterleave(k7, c, vop.n_blocks * vop.tile, nh, nw).numpy(),
     )
+
+
+@pytest.mark.parametrize("name", list(PLANAR_CASES))
+def test_planar_k_range_at_the_slice_height(name):
+    """The kernel's k_range: per ``ROWS``-row slice of each V block, a
+    32-aligned range of window rows that holds every nonzero tap of the
+    slice (the kernel's first pass runs over it and nothing else)."""
+    case, _, (vop, pop, kw), _ = _case(name)
+    ops = pk.prepare_planar(vop, pop, case[4], "cpu", **kw)
+    rows = pk.ROWS
+    bv, tv, wv = vop.taps_hi.shape
+    kr = ops.k_range.numpy()
+    assert kr.shape == (bv, -(-tv // rows), 2)
+    assert (kr % 32 == 0).all() and (kr[..., 1] <= wv).all()
+    nz = ((vop.taps_hi != 0) | (vop.taps_lo != 0)).numpy()
+    for b in range(bv):
+        for sl in range(kr.shape[1]):
+            cols = np.flatnonzero(nz[b, sl * rows : (sl + 1) * rows].any(axis=0))
+            lo, hi = kr[b, sl]
+            assert cols.size == 0 or (lo <= cols.min() and cols.max() < hi), (b, sl)
+
+
+@pytest.mark.parametrize(
+    "c, dtype, width, ld",
+    [(3, torch.uint8, 80, 400), (6, torch.uint8, 16, 784), (7, torch.uint8, 16, 0),
+     (3, torch.uint16, 8, 784), (4, torch.uint16, 8, 0), (1, torch.float32, 4, 528),
+     (2, torch.float32, 4, 0), (3, torch.uint8, 77, 0)],
+)
+def test_k8_raw_span_tile_where_it_fits(c, dtype, width, ld):
+    """K8's raw span tile: a 128-pixel span of all channels plus a 16-byte
+    lead a row, used where 32 rows fit RAW_TILE_BYTES and the rows (width
+    pixels of C channels) and the base are 16-byte aligned; never for K7."""
+    _, _, (vop, pop, kw), _ = _case("down_c3_u8_u8")
+    kw = dict(kw, out_dtype=torch.float32)
+    x = torch.zeros((4, width * c), dtype=dtype)
+    k8 = p2.prepare_planar2(vop, pop, c, "cpu", **kw)
+    assert pk.raw_row_bytes(k8, x) == ld and 32 * ld <= pk.RAW_TILE_BYTES
+    assert pk.raw_row_bytes(k8, unaligned_copy(x)) == 0
+    assert pk.raw_row_bytes(pk.prepare_planar(vop, pop, c, "cpu", **kw), x) == 0
 
 
 def test_planar_operands_check_their_arguments():

@@ -217,7 +217,42 @@ PLANAR_CASES = {
     "up_c1_u8_u16_tb2": (40, 30, 64, 48, 1, "u8", "u16", "split2", "split2", 2, False, -1),
     "down_c4_f32_u16_gamma_a3": (181, 77, 60, 33, 4, "f32", "u16", "split3", "split3", 0, True, 3),
     "up_c3_u8_gamma_f32": (53, 37, 90, 71, 3, "u8", "f32", "split3", "split3", 0, True, -1),
+    # Edges of the kernel's tensor-core tiling (64-row slices x 128-pixel
+    # chunks, 32-deep steps): Tv of 32 and 40 (not a multiple of the slice
+    # height); a last H block with fewer than 128 output pixels; h_range
+    # segments that end 32 or 96 pixels into a 128-pixel segment; windows
+    # that start 32 pixels in; K7 plane widths and K8 row widths off 16
+    # bytes (the loads' gather path and K8's strided loads; PLANAR_PAD_W
+    # widens K7's planes) and K8 rows on 16 bytes (its raw span tile, u8 C =
+    # 3, u16 C = 3, f32 C = 1); f32 in; alpha planes that are not the last
+    # (K7 and K8 then differ at C = 3: K8 masks gamma-in only at C = 4);
+    # a split2 second pass with float32 output (planar_split2_tol).
+    "edge_tv32_c3_u8_u8": (80, 37, 300, 29, 3, "u8", "u8", "split2", "split3", 0, False, -1),
+    "edge_segs_c1_u8_f32": (259, 37, 29, 29, 1, "u8", "f32", "split2", "split2", 0, False, -1),
+    "edge_segs_c1_u8_f32_h3": (259, 37, 29, 29, 1, "u8", "f32", "split2", "split3", 0, False, -1),
+    "edge_tv40_c1_f32_f32": (1000, 333, 90, 40, 1, "f32", "f32", "split3", "split3", 0, False, -1),
+    "edge_alpha1_c3_u16_gamma": (200, 37, 150, 29, 3, "u16", "u16", "split3", "split3", 0, True, 1),
+    "edge_c4_u8_gamma_a0": (131, 90, 97, 70, 4, "u8", "u8", "split2", "split3", 0, True, 0),
 }
+
+# Extra pixels of K7's plane width beyond max(src_w, lanes_pad) for some
+# PLANAR_CASES: plane rows off 16 bytes.
+PLANAR_PAD_W = {"edge_segs_c1_u8_f32": 3, "edge_segs_c1_u8_f32_h3": 3,
+                "edge_alpha1_c3_u16_gamma": 2, "edge_c4_u8_gamma_a0": 1}
+
+
+def unaligned_copy(x):
+    """``x`` copied to a base one element past a 16-byte boundary: the
+    same image on K8's strided loads (planar.raw_row_bytes gives 0)."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+def plane_width(name, src_w, lanes_pad):
+    """K7's plane width (``deinterleave``'s wp) for PLANAR_CASES[name]."""
+    return max(src_w, lanes_pad) + PLANAR_PAD_W.get(name, 0)
 
 # K2 (row pass) on the card: (src_w, src_h, new_w, new_h, c, in type,
 # mode); the pass runs over the image's rows.
@@ -319,6 +354,31 @@ def split_tol(out_dtype_name, ref_max, out_max=255.0, trunc_bits=0,
     if trunc_bits:
         return out_max / (int(out_max) >> trunc_bits)
     return 1.0 + (ref_max * 1e-4 if scale > 1.0 or gamma else 0.0)
+
+
+def planar_split2_tol(ops, tout, ref_max, xmax, out_max=255.0, trunc_bits=0,
+                      gamma=False):
+    """The gate of a planar resize (K7/K8 operands ``ops``) on an input
+    of largest magnitude ``xmax``: the split gate, plus, for float32
+    output after a split2 second pass, the flip of the intermediate's
+    bf16 hi parts.  That pass multiplies bf16(v) alone, and two summation
+    orders of the intermediate v can round to hi parts one bf16 ulp
+    apart; the split3 lo part takes the difference up, split2 has none.
+    One ulp of the largest |v| (xmax times the V taps' largest absolute
+    row sum) times the H taps' largest absolute column sum bounds the
+    output's change.  No gamma there: the curve's slope would scale it.
+    Integer outputs keep the split gate."""
+    import math
+
+    tol = split_tol(tout, ref_max, out_max, trunc_bits, 1.0, gamma)
+    if tout != "f32" or ops.mode_h != "split2":
+        return tol
+    if gamma:
+        raise ValueError("the flip bound holds without gamma-out")
+    vsum = float((ops.tvh.double() + ops.tvl.double()).abs().sum(-1).max())
+    hsum = float((ops.thh.double() + ops.thl.double()).abs().sum(2).max())
+    _, e = math.frexp(xmax * vsum)
+    return tol + math.ldexp(1.0, e - 8) * hsum
 
 
 def epi_kwargs(plan, round_mode, scale, gamma, alpha):
