@@ -28,7 +28,7 @@
 //               floor(v / tm + 0.5) * tm when trunc_bits > 0 (IEEE
 //               division); clamp to [0, out_max]; truncate to u8/u16.
 //
-// vh (V pass first; every resize that takes the split route).  Both
+// vh (V pass first; every split resize but rule 4's u8 upsizes).  Both
 // passes run on the bf16 tensor cores: mma.sync m16n8k16 (row.col, f32
 // accumulate) on fragments that ldmatrix reads from shared memory (.trans
 // for the [K, N] operands).  The two or three split products of a pass
@@ -86,13 +86,35 @@
 // step with trunc_bits, plus one step where a scale > 1 or gamma-out
 // amplifies it), not bit-equal.
 //
-// hv (reached by no resize; kept as built in the first port): a block
-// owns 32 output rows and one 128-lane chunk, 256 threads each 4 rows x 4
-// lanes with fmaf on the CUDA cores over f32-widened taps; for each
-// 32-row group of the slice's nonzero V-tap rows the first pass computes
-// those window rows x 128 chunk lanes over the chunk's nonzero lane-tap
-// rows, splits them into shared memory, then the second pass adds the
-// group's share.  80 KB.
+// hv (H pass first: u8 upsizes with a split2 first pass, no gamma and at
+// least 8 M output values, runtime.choose_fused rule 4).  The same
+// building blocks in the H-first roles, 8 warps, a block owning 64 output
+// rows (kHvRows) x one 128-lane chunk.  For each 32-row group of the
+// slice's nonzero V-tap rows (k_range at 64-row slices):
+//   - first pass, 32 window lanes a step over the chunk's nonzero lane
+//     taps (h_range): F[32 rows][128 lanes] += X[32][32] H[32][128], A
+//     the image tile (converted, linearized with gamma and split into
+//     bf16 hi/lo once per staged element, read by ldmatrix), B the lane
+//     taps (cp.async, ldmatrix.trans; b16 has the .trans form, so nothing
+//     is stored transposed as in fused_int8.cu's hv); warps 2 x 4 of 16
+//     rows x 32 lanes;
+//   - the group's last first-pass step splits F into a bf16 hi/lo tile in
+//     shared memory;
+//   - second pass, one step: out[64][128] += V[64][32] F[32][128], A the
+//     group's V taps as stored, B the F tile (ldmatrix.trans); warps 4 x
+//     2 of 16 rows x 64 lanes.
+// The intermediate is one [32][128] tile however tall the window, so the
+// window height has no limit.  All steps form one double-buffered
+// sequence as in vh (the V taps in one buffer).  71 KB of shared memory
+// and 128 registers without spills, two blocks an SM.  64 rows, not 32 or
+// 128 (split_hv_heights.py): 128-row blocks hold 64 accumulators a thread
+// and spill at 128 registers; they ran 9% faster at 1080p -> 4K errdiff
+// and 30% slower with gamma.  What bounds it: the image read once and the
+// float32 output written once (32 us at 1080p -> 4K), the dense MACs over
+// the tap blocks about as long at the bf16 rate; what sets the pace is the
+// step sequence (a first-pass step holds half a vh step's MMAs, and each
+// ends at a barrier) and the image staged once per block whose window
+// covers it (chip_smoke.py prints the factor).
 //
 // With gamma the polynomial runs on every staged input element and the
 // square roots once per output.  Built without --use_fast_math: the
@@ -112,8 +134,6 @@ namespace {
 using namespace cp_async;
 using namespace mma_bf16;
 
-constexpr int kThreads = 256;  // hv
-constexpr int kRows = 32;    // output rows per block (hv)
 constexpr int kLanes = 128;  // output lanes per block (one chunk)
 constexpr int kDepth = 32;   // contraction elements staged per step
 
@@ -139,30 +159,6 @@ struct Args {
   k1::Epilogue epi;
 };
 
-__device__ __forceinline__ float bf(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float widen(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-// Image element as f32, zero past the edge.
-__device__ __forceinline__ float load_x(const Args& a, int r, int l) {
-  if (r >= a.rows_in || l >= a.lanes_in) return 0.0f;
-  const size_t i = static_cast<size_t>(r) * a.lanes_in + l;
-  if (a.in_kind == 0) return static_cast<float>(__ldg(static_cast<const uint8_t*>(a.x) + i));
-  if (a.in_kind == 1) return static_cast<float>(__ldg(static_cast<const uint16_t*>(a.x) + i));
-  return __ldg(static_cast<const float*>(a.x) + i);
-}
-
-// Image element as f32 after the pack stage.
-template <bool GAMMA>
-__device__ __forceinline__ float load_lin(const Args& a, int r, int l) {
-  const float v = load_x(a, r, l);
-  return GAMMA ? k1::gamma_in(a.epi, v, l) : v;
-}
-
 template <bool GAMMA>
 __device__ __forceinline__ void store_one(const Args& a, size_t i, float v, int lane) {
   if (a.out_kind == 0) {
@@ -174,55 +170,6 @@ __device__ __forceinline__ void store_one(const Args& a, size_t i, float v, int 
     static_cast<uint8_t*>(a.out)[i] = static_cast<uint8_t>(q);
   } else {
     static_cast<uint16_t*>(a.out)[i] = static_cast<uint16_t>(q);
-  }
-}
-
-template <bool GAMMA>
-__device__ __forceinline__ void store_out(
-    const Args& a, int vb, int r0, int hb, int j, const float (&acc)[4][4]) {
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int tr = r0 + 4 * ty + i;
-    const int orow = vb * a.tv + tr;
-    if (tr >= a.tv || orow >= a.rows_out) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int cl = j * kLanes + 4 * tx + jj;
-      const int olane = hb * a.tc + cl;
-      if (cl < a.tc && olane < a.lanes_out) {
-        store_one<GAMMA>(a, static_cast<size_t>(orow) * a.lanes_out + olane,
-                         acc[i][jj], olane);
-      }
-    }
-  }
-}
-
-// V taps of the block's 32 rows over contraction rows k0..k0+31, widened;
-// rows past the V block are 0.
-__device__ __forceinline__ void stage_v_taps(
-    const Args& a, int vb, int r0, int k0, float (*sh)[kDepth], float (*sl)[kDepth]) {
-  for (int e = threadIdx.x; e < kRows * kDepth; e += kThreads) {
-    const int r = e / kDepth, k = e % kDepth;
-    const int tr = r0 + r;
-    float h = 0.0f, l = 0.0f;
-    if (tr < a.tv) {
-      const size_t off = (static_cast<size_t>(vb) * a.tv + tr) * a.wv + k0 + k;
-      h = widen(a.tvh, off);
-      l = widen(a.tvl, off);
-    }
-    sh[r][k] = h;
-    sl[r][k] = l;
-  }
-}
-
-// Lane taps of chunk ``chunk`` over window rows m0..m0+31, widened.
-__device__ __forceinline__ void stage_h_taps(
-    const Args& a, int chunk, int m0, float (*sh)[kLanes], float (*sl)[kLanes]) {
-  const size_t base = (static_cast<size_t>(chunk) * a.win_c + m0) * kLanes;
-  for (int e = threadIdx.x; e < kDepth * kLanes; e += kThreads) {
-    sh[e / kLanes][e % kLanes] = widen(a.thh, base + e);
-    sl[e / kLanes][e % kLanes] = widen(a.thl, base + e);
   }
 }
 
@@ -484,112 +431,254 @@ __global__ void __launch_bounds__(kVhThreads, 2) fused_split_vh(const Args a) {
   }
 }
 
-template <bool S3V, bool S3H, bool GAMMA>
-__global__ void __launch_bounds__(kThreads) fused_split_hv(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  float (*sxh)[kDepth] = reinterpret_cast<float (*)[kDepth]>(smem);  // x tile [32 rows][32 lanes]
-  float (*sxl)[kDepth] = sxh + kRows;
-  float (*svh)[kDepth] = sxl + kRows;                                 // V taps [32 rows][32 k]
-  float (*svl)[kDepth] = svh + kRows;
-  float (*sth)[kLanes] = reinterpret_cast<float (*)[kLanes]>(smem + 4 * kRows * kDepth);
-  float (*stl)[kLanes] = sth + kDepth;  // lane taps [32 window lanes][128 lanes]
-  float (*sih)[kLanes] = stl + kDepth;  // intermediate [32 window rows][128 lanes]
-  float (*sil)[kLanes] = sih + kDepth;
+// ---------------------------------------------------------------------------
+// hv: the same building blocks in the H-first roles
+// ---------------------------------------------------------------------------
+
+constexpr int kHvRows = 64;  // output rows per hv block (R)
+// Second-pass warp tiling: kHvWr x kHvWc warps, each 16 rows x kHvNi n8
+// tiles of lanes.  The first pass ([32 window rows][128 lanes]) runs 2 x 4
+// warps of 16 rows x 32 lanes.
+constexpr int kHvWr = kHvRows / 16;
+constexpr int kHvWc = 8 / kHvWr;
+constexpr int kHvNi = kLanes / kHvWc / 8;
+static_assert(kHvRows == 32 || kHvRows == 64 || kHvRows == 128, "8 warps of 16 rows or fewer");
+
+// Shared memory of the hv kernel, in bf16 elements:
+//   sx [2 buf][2 plane][32][kTapLd]     image tile: 32 window rows x 32
+//                                        window lanes, hi / lo
+//   sh [2 buf][2 plane][32][kTileLd]    lane taps: 32 window lanes x 128
+//   sv [2 plane][R][kTapLd]             V taps of the group's 32 window rows
+//   sf [2 plane][32][kTileLd]           the group's first-pass result, hi / lo
+// sv needs one buffer: the step that stages it follows a first-pass step,
+// and the step that read it before lies at least two barriers back.
+struct HvSmem {
+  static constexpr int kSx = 2 * 2 * kDepth * kTapLd;
+  static constexpr int kSh = 2 * 2 * kDepth * kTileLd;
+  static constexpr int kSv = 2 * kHvRows * kTapLd;
+  static constexpr int kSf = 2 * kDepth * kTileLd;
+  static constexpr size_t kBytes = static_cast<size_t>(kSx + kSh + kSv + kSf) * 2;
+  __device__ static int sx(int b, int p, int r, int l) { return ((b * 2 + p) * kDepth + r) * kTapLd + l; }
+  __device__ static int sh(int b, int p, int r, int l) {
+    return kSx + ((b * 2 + p) * kDepth + r) * kTileLd + l;
+  }
+  __device__ static int sv(int p, int r, int k) { return kSx + kSh + (p * kHvRows + r) * kTapLd + k; }
+  __device__ static int sf(int p, int r, int l) {
+    return kSx + kSh + kSv + (p * kDepth + r) * kTileLd + l;
+  }
+};
+
+template <bool S3H, bool GAMMA, typename TIn>
+struct Hv {
+  static constexpr int kNT = kVhThreads;
+  using S = HvSmem;
+  using P = Pack4<TIn>;
+  using Raw = typename P::type;
+
+  // Lane taps of window lanes m0..m0+31 of chunk ``chunk`` into buffer b.
+  __device__ static void stage_h(const Args& a, uint16_t* sm, int b, int chunk, int m0) {
+    for (int c = threadIdx.x; c < 2 * kDepth * 16; c += kNT) {
+      const int p = c / (kDepth * 16), r = (c / 16) % kDepth, part = c % 16;
+      const __nv_bfloat16* src =
+          (p ? a.thl : a.thh) + (static_cast<size_t>(chunk) * a.win_c + m0 + r) * kLanes + part * 8;
+      cp16(sm + S::sh(b, p, r, part * 8), src, true);
+    }
+  }
+
+  // V taps of rows r0..r0+R-1 over window rows k0..k0+31 (rows past the
+  // V block: zeros).
+  __device__ static void stage_v(const Args& a, uint16_t* sm, int vb, int r0, int k0) {
+    for (int c = threadIdx.x; c < 2 * kHvRows * 4; c += kNT) {
+      const int p = c / (kHvRows * 4), r = (c / 4) % kHvRows, part = c % 4;
+      const bool valid = r0 + r < a.tv;
+      const size_t row = static_cast<size_t>(vb) * a.tv + (valid ? r0 + r : 0);
+      const __nv_bfloat16* src = (p ? a.tvl : a.tvh) + row * a.wv + k0 + part * 8;
+      cp16(sm + S::sv(p, r, part * 8), src, valid);
+    }
+  }
+
+  // This thread's 4 lanes of the image tile rows row..row+31 x lanes
+  // lane..lane+31 (lane a multiple of 4), zero past the edge.
+  __device__ static Raw load_x(const Args& a, int row, int lane, bool vec) {
+    const int r = row + threadIdx.x / 8, l = lane + 4 * (threadIdx.x % 8);
+    const int n = r < a.rows_in ? min(4, max(0, a.lanes_in - l)) : 0;
+    const TIn* p = static_cast<const TIn*>(a.x) + static_cast<size_t>(n > 0 ? r : 0) * a.lanes_in + l;
+    return (vec && n == 4) ? P::load(p) : P::gather(p, n);
+  }
+
+  // The lanes of load_x converted, linearized and split into buffer b.
+  __device__ static void store_x(const Args& a, uint16_t* sm, int b, int lane, const Raw& raw) {
+    const int k = threadIdx.x / 8, l = 4 * (threadIdx.x % 8);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = P::get(raw, e);
+      if (GAMMA) v[e] = k1::gamma_in(a.epi, v[e], lane + l + e);
+    }
+    uint2 hi, lo;
+    split_pair(v[0], v[1], hi.x, lo.x);
+    split_pair(v[2], v[3], hi.y, lo.y);
+    *reinterpret_cast<uint2*>(sm + S::sx(b, 0, k, l)) = hi;
+    if (S3H) *reinterpret_cast<uint2*>(sm + S::sx(b, 1, k, l)) = lo;
+  }
+};
+
+// One block: output rows r0..r0+R-1 of V block vb (slice ``slice``) x
+// the 128 lanes of chunk j of lane block hb.  For each 32-row group of
+// the slice's nonzero V-tap rows (k_range), the first pass's steps over
+// the chunk's nonzero lane taps (h_range, 32 window lanes a step: image
+// tile x lane taps into the accumulators f, which the group's last such
+// step splits into the intermediate tile), then one second-pass step
+// (the group's V taps x the intermediate into acc).  One sequence of
+// steps with double buffers, as in the vh kernel.
+template <bool S3V, bool S3H, bool GAMMA, typename TIn>
+__global__ void __launch_bounds__(kVhThreads, 2) fused_split_hv(const Args a) {
+  using K = Hv<S3H, GAMMA, TIn>;
+  using S = HvSmem;
+  extern __shared__ __align__(16) uint16_t sm[];
 
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
-  const int vb = blockIdx.y / a.n_slices, sl = blockIdx.y % a.n_slices;
-  const int r0 = sl * kRows;
-  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
+  const int vb = blockIdx.y / a.n_slices, slice = blockIdx.y % a.n_slices;
+  const int r0 = slice * kHvRows;
+  const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
+  const int fm = warp / 4, fn = warp % 4;              // first pass: 16 rows x 32 lanes
+  const int wm = warp / kHvWc, wn = warp % kHvWc;      // second pass
+  const int arow = lid & 15, acol = (lid >> 4) * 8;  // ldmatrix address of this thread
+  const int g = lid / 4, t = lid % 4;                // accumulator row / lane pair
   const int k_lo = a.k_range[2 * blockIdx.y];
   const int k_hi = a.k_range[2 * blockIdx.y + 1];
-  const int m_lo = a.h_range[2 * chunk];
-  const int m_hi = a.h_range[2 * chunk + 1];
-  const int row0 = a.offs_v[vb];
-  const int lane0 = a.offs_l[hb] + a.rel[j];
+  const int h_lo = a.h_range[2 * chunk];
+  const int h_hi = a.h_range[2 * chunk + 1];
+  const int row0 = a.offs_v[vb] + k_lo;
+  const int lane0 = a.offs_l[hb] + a.rel[j] + h_lo;
+  const int ng = (k_hi - k_lo) / kDepth;  // 32-row groups
+  const int nh = (h_hi - h_lo) / kDepth;  // first-pass steps per group
+  const bool vec = a.lanes_in % 4 == 0 && (reinterpret_cast<uintptr_t>(a.x) & 15) == 0;
 
-  float acc[4][4] = {};
-  for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
-    // ---- first (horizontal) pass for window rows k0..k0+31 ---------
-    float f[4][4] = {};
-    for (int m0 = m_lo; m0 < m_hi; m0 += kDepth) {
-      __syncthreads();
-      for (int e = tid; e < kRows * kDepth; e += kThreads) {
-        const int r = e / kDepth, l = e % kDepth;
-        const float v = load_lin<GAMMA>(a, row0 + k0 + r, lane0 + m0 + l);
-        const float hi = bf(v);
-        sxh[r][l] = hi;
-        sxl[r][l] = bf(__fsub_rn(v, hi));
+  float acc[kHvNi][4] = {};
+  // No nonzero V tap or lane tap: the block's sums are 0.
+  if (ng > 0 && nh > 0) {
+    typename K::Raw raw;
+    int b = 0;
+    K::stage_h(a, sm, 0, chunk, h_lo);
+    cp_commit();
+    raw = K::load_x(a, row0, lane0, vec);
+    K::store_x(a, sm, 0, lane0, raw);
+    cp_wait_all();
+    __syncthreads();
+    for (int grp = 0; grp < ng; ++grp) {
+      float f[4][4] = {};
+      for (int i = 0; i < nh; ++i) {
+        // The next step: the group's next first-pass step, else its
+        // second-pass step.
+        if (i + 1 < nh) {
+          K::stage_h(a, sm, b ^ 1, chunk, h_lo + (i + 1) * kDepth);
+          cp_commit();
+          raw = K::load_x(a, row0 + grp * kDepth, lane0 + (i + 1) * kDepth, vec);
+        } else {
+          K::stage_v(a, sm, vb, r0, k_lo + grp * kDepth);
+          cp_commit();
+        }
+        // ---- first (horizontal) pass step ------------------------------
+#pragma unroll
+        for (int k16 = 0; k16 < kDepth; k16 += 16) {
+          uint32_t xh[4], xl[4];
+          ldsm(xh, sm + S::sx(b, 0, 16 * fm + arow, k16 + acol));
+          if (S3H) ldsm(xl, sm + S::sx(b, 1, 16 * fm + arow, k16 + acol));
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int n0 = 32 * fn + 16 * q;
+            uint32_t hh[4], hl[4];
+            ldsm_t(hh, sm + S::sh(b, 0, k16 + arow, n0 + acol));
+            ldsm_t(hl, sm + S::sh(b, 1, k16 + arow, n0 + acol));
+            mma(f[2 * q], xh, hh[0], hh[1]);
+            mma(f[2 * q + 1], xh, hh[2], hh[3]);
+            mma(f[2 * q], xh, hl[0], hl[1]);
+            mma(f[2 * q + 1], xh, hl[2], hl[3]);
+            if (S3H) {
+              mma(f[2 * q], xl, hh[0], hh[1]);
+              mma(f[2 * q + 1], xl, hh[2], hh[3]);
+            }
+          }
+        }
+        if (i + 1 < nh) {
+          K::store_x(a, sm, b ^ 1, lane0 + (i + 1) * kDepth, raw);
+        } else {
+          // The group's intermediate, split into shared memory (the
+          // second-pass step before ended with a barrier).
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int col = 32 * fn + 8 * n + 2 * t;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t hi, lo;
+              split_pair(f[n][2 * h], f[n][2 * h + 1], hi, lo);
+              *reinterpret_cast<uint32_t*>(sm + S::sf(0, 16 * fm + g + 8 * h, col)) = hi;
+              if (S3V) *reinterpret_cast<uint32_t*>(sm + S::sf(1, 16 * fm + g + 8 * h, col)) = lo;
+            }
+          }
+        }
+        cp_wait_all();
+        __syncthreads();
+        b ^= 1;
       }
-      stage_h_taps(a, chunk, m0, sth, stl);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kDepth; ++d) {
-        const float4 t1 = *reinterpret_cast<const float4*>(&sth[d][4 * tx]);
-        const float4 t0 = *reinterpret_cast<const float4*>(&stl[d][4 * tx]);
-        const float hh[4] = {t1.x, t1.y, t1.z, t1.w};
-        const float hl[4] = {t0.x, t0.y, t0.z, t0.w};
+      // ---- second (vertical) pass step: the group's share ----------------
+      const bool more = grp + 1 < ng;
+      if (more) {
+        K::stage_h(a, sm, b ^ 1, chunk, h_lo);
+        cp_commit();
+        raw = K::load_x(a, row0 + (grp + 1) * kDepth, lane0, vec);
+      }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float xh = sxh[4 * ty + i][d];
-          const float xl = S3H ? sxl[4 * ty + i][d] : 0.0f;
+      for (int k16 = 0; k16 < kDepth; k16 += 16) {
+        uint32_t th[4], tl[4];
+        ldsm(th, sm + S::sv(0, 16 * wm + arow, k16 + acol));
+        ldsm(tl, sm + S::sv(1, 16 * wm + arow, k16 + acol));
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            f[i][jj] = fmaf(xh, hh[jj], f[i][jj]);
-            f[i][jj] = fmaf(xh, hl[jj], f[i][jj]);
-            if (S3H) f[i][jj] = fmaf(xl, hh[jj], f[i][jj]);
+        for (int q = 0; q < kHvNi / 2; ++q) {
+          const int n0 = 8 * kHvNi * wn + 16 * q;
+          uint32_t fh[4], fl[4];
+          ldsm_t(fh, sm + S::sf(0, k16 + arow, n0 + acol));
+          if (S3V) ldsm_t(fl, sm + S::sf(1, k16 + arow, n0 + acol));
+          mma(acc[2 * q], th, fh[0], fh[1]);
+          mma(acc[2 * q + 1], th, fh[2], fh[3]);
+          mma(acc[2 * q], tl, fh[0], fh[1]);
+          mma(acc[2 * q + 1], tl, fh[2], fh[3]);
+          if (S3V) {
+            mma(acc[2 * q], th, fl[0], fl[1]);
+            mma(acc[2 * q + 1], th, fl[2], fl[3]);
           }
         }
       }
-    }
-    // ---- split the intermediate; stage the V taps ------------------
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4 h, l;
-      h.x = bf(f[i][0]); h.y = bf(f[i][1]); h.z = bf(f[i][2]); h.w = bf(f[i][3]);
-      l.x = bf(__fsub_rn(f[i][0], h.x)); l.y = bf(__fsub_rn(f[i][1], h.y));
-      l.z = bf(__fsub_rn(f[i][2], h.z)); l.w = bf(__fsub_rn(f[i][3], h.w));
-      *reinterpret_cast<float4*>(&sih[4 * ty + i][4 * tx]) = h;
-      *reinterpret_cast<float4*>(&sil[4 * ty + i][4 * tx]) = l;
-    }
-    stage_v_taps(a, vb, r0, k0, svh, svl);
-    __syncthreads();
-    // ---- second (vertical) pass: this group's share ----------------
-#pragma unroll 8
-    for (int k = 0; k < kDepth; ++k) {
-      const float4 ih = *reinterpret_cast<const float4*>(&sih[k][4 * tx]);
-      const float ihv[4] = {ih.x, ih.y, ih.z, ih.w};
-      float ilv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (S3V) {
-        const float4 il = *reinterpret_cast<const float4*>(&sil[k][4 * tx]);
-        ilv[0] = il.x; ilv[1] = il.y; ilv[2] = il.z; ilv[3] = il.w;
+      if (more) {
+        K::store_x(a, sm, b ^ 1, lane0, raw);
+        cp_wait_all();
       }
+      __syncthreads();
+      b ^= 1;
+    }
+  }
+
+  // ---- epilogue: accumulator (row g (+8), lanes 2t, 2t+1) -> output ---
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float th = svh[4 * ty + i][k], tl = svl[4 * ty + i][k];
+  for (int h = 0; h < 2; ++h) {
+    const int tr = r0 + 16 * wm + g + 8 * h;
+    const int orow = vb * a.tv + tr;
+    if (tr >= a.tv || orow >= a.rows_out) continue;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          acc[i][jj] = fmaf(th, ihv[jj], acc[i][jj]);
-          acc[i][jj] = fmaf(tl, ihv[jj], acc[i][jj]);
-          if (S3V) acc[i][jj] = fmaf(th, ilv[jj], acc[i][jj]);
+    for (int n = 0; n < kHvNi; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = j * kLanes + 8 * kHvNi * wn + 8 * n + 2 * t + e;
+        const int olane = hb * a.tc + cl;
+        if (cl < a.tc && olane < a.lanes_out) {
+          store_one<GAMMA>(a, static_cast<size_t>(orow) * a.lanes_out + olane,
+                           acc[n][2 * h + e], olane);
         }
       }
     }
   }
-  store_out<GAMMA>(a, vb, r0, hb, j, acc);
-}
-
-constexpr size_t kSmemHv = (4 * kRows * kDepth + 2 * kDepth * kLanes + 2 * kDepth * kLanes) * sizeof(float);
-
-template <bool S3V, bool S3H, bool GAMMA>
-cudaError_t launch_hv(const Args& a, dim3 grid, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_split_hv<S3V, S3H, GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemHv));
-  if (e != cudaSuccess) return e;
-  fused_split_hv<S3V, S3H, GAMMA><<<grid, kThreads, kSmemHv, s>>>(a);
-  return cudaGetLastError();
 }
 
 template <bool S3V, bool S3H, bool GAMMA, typename TIn>
@@ -602,11 +691,28 @@ cudaError_t launch_vh(const Args& a, dim3 grid, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The vh kernel takes k_range over 64-row slices, hv over 32-row ones.
+template <bool S3V, bool S3H, bool GAMMA, typename TIn>
+cudaError_t launch_hv(const Args& a, dim3 grid, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_split_hv<S3V, S3H, GAMMA, TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(HvSmem::kBytes));
+  if (e != cudaSuccess) return e;
+  fused_split_hv<S3V, S3H, GAMMA, TIn><<<grid, kVhThreads, HvSmem::kBytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+// k_range comes over the order's slices: kVhRows rows for vh, kHvRows for
+// hv.
 template <bool S3V, bool S3H, bool GAMMA>
 cudaError_t launch(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
-  if (hv) return launch_hv<S3V, S3H, GAMMA>(a, grid, s);
-  if (a.n_slices != (a.tv + kVhRows - 1) / kVhRows) return cudaErrorInvalidValue;
+  if (a.n_slices != (a.tv + (hv ? kHvRows : kVhRows) - 1) / (hv ? kHvRows : kVhRows)) {
+    return cudaErrorInvalidValue;
+  }
+  if (hv) {
+    if (a.in_kind == 0) return launch_hv<S3V, S3H, GAMMA, uint8_t>(a, grid, s);
+    if (a.in_kind == 1) return launch_hv<S3V, S3H, GAMMA, uint16_t>(a, grid, s);
+    return launch_hv<S3V, S3H, GAMMA, float>(a, grid, s);
+  }
   if (a.in_kind == 0) return launch_vh<S3V, S3H, GAMMA, uint8_t>(a, grid, s);
   if (a.in_kind == 1) return launch_vh<S3V, S3H, GAMMA, uint16_t>(a, grid, s);
   return launch_vh<S3V, S3H, GAMMA, float>(a, grid, s);

@@ -25,7 +25,7 @@ blocked V operator (ops/banded.py) and a lane operator (ops/lanes.py):
 per executor, with the lane taps in the chunked form (the unchunked form
 becomes ``ceil(TC/128)`` chunks at offset 0 over the whole window, as
 for the int8 mode) and each row slice's and each chunk's range of
-nonzero taps: 64-row slices for the vh kernel, 32-row ones for hv.
+nonzero taps, at the kernel's slice height (64 rows in both orders).
 
 ``apply_fused_split`` launches the kernel on a CUDA tensor and runs
 ``apply_fused_split_reference`` on a CPU tensor.  The two sum in other
@@ -46,7 +46,6 @@ from ..gamma import _srgb_to_linear, f32
 from ..lanes import LaneBlockedOp
 from .fused_kernel import (
     _LANES,
-    _ROWS,
     Epilogue,
     _k_ranges,
     _variants,
@@ -61,9 +60,10 @@ launches = _variants("fused_split")
 MODES = ("split2", "split3")
 _IN_KINDS = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
 _OUT_KINDS = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
-# Output rows per thread block of the vh kernel (csrc: kVhRows); hv
-# runs _ROWS.
+# Output rows per thread block of the vh and the hv kernel (csrc: kVhRows,
+# kHvRows).
 VH_ROWS = 64
+HV_ROWS = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +93,7 @@ class FusedSplitOperands:
     rel: torch.Tensor      # int32 [n_ch]
     thh: torch.Tensor      # bf16 [Bh, n_ch, win_c, 128]
     thl: torch.Tensor
-    rows: int              # output rows per slice (32 for hv)
+    rows: int              # output rows per slice (VH_ROWS, HV_ROWS)
     k_range: torch.Tensor  # int32 [Bv, n_slices, 2] nonzero V-tap rows
     h_range: torch.Tensor  # int32 [Bh, n_ch, 2] nonzero lane-tap rows
 
@@ -160,7 +160,7 @@ def prepare_fused_split(
     if trunc_bits > 0 and out_dtype != torch.float32:
         tm = float(np.float32(out_max / (int(out_max) >> trunc_bits)))
     hi, lo, rel, _ = _chunked_lane_taps(lop)
-    rows = VH_ROWS if order == "vh" else _ROWS
+    rows = VH_ROWS if order == "vh" else HV_ROWS
     k_range = _k_ranges(
         (vop.taps_hi != 0).numpy(), (vop.taps_lo != 0).numpy(), rows
     )

@@ -11,7 +11,7 @@ float32 within max|ref| * 1e-4; integers within 1 LSB (one quantization
 step with ``trunc_bits``); 16-bit output through gamma-out within
 max * 1e-4 of its range plus one step.  Float32 output after a split2
 second pass adds one bf16 ulp of the intermediate times the H taps'
-absolute sum (``torch_cases.planar_split2_tol``)."""
+absolute sum (``torch_cases.split2_tol``)."""
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +27,7 @@ from avir_tpu.ops.pallas import planar2_kernel as jax_p2
 from avir_tpu.ops.pallas import planar_kernel as jax_pk
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
-from torch_cases import NP_TYPES, PLANAR_CASES, planar_split2_tol, plane_width, unaligned_copy
+from torch_cases import NP_TYPES, PLANAR_CASES, plane_width, split2_tol, unaligned_copy
 
 from avir_tpu_torch.ops.banded import block_banded
 from avir_tpu_torch.ops.cuda import planar as pk
@@ -79,7 +79,7 @@ def _check(got, ref, case, ops, x):
     assert got.shape == ref.shape
     ref_max = float(np.abs(ref.astype(np.float64)).max())
     diff = float(np.abs(got.astype(np.float64) - ref.astype(np.float64)).max())
-    tol = planar_split2_tol(ops, tout, ref_max, float(np.abs(x).max()), out_max, tb, g)
+    tol = split2_tol(ops, tout, ref_max, float(np.abs(x).max()), out_max, tb, g)
     assert diff <= tol, diff
 
 

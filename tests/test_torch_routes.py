@@ -1,8 +1,8 @@
 """The port's routing choices that the JAX package does not share, on the
 CPU: the int8 gamma table against the JAX package's linearization, the
 "auto" gamma route (the ring kernel K6 where viable, else K1 with the
-in-kernel linearization), the pass order of u16 upsizes, and the K4
-wrapper's row groups.  The port runs its kernels' plain versions; every
+in-kernel linearization), the pass order of u16 upsizes, the u8 upsizes
+that fuse H pass first, and the K4 wrapper's row groups.  The port runs its kernels' plain versions; every
 comparison of outputs is bit-equal."""
 
 import warnings
@@ -155,6 +155,32 @@ def test_u16_upsize_runs_vh_and_returns_the_executors_bits(kind):
     assert out.dtype == np.uint16 and want.dtype == np.uint16
     np.testing.assert_array_equal(out, want)
     assert fn.order == "vh"
+
+
+# ---------------------------------------------------------------------------
+# u8 upsizes to 4K: K1 split hv (choose_fused rule 4)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c, out_dtype, plan_kw, exe_kw, want", [
+    (3, np.uint8, {}, {"errdiff": True}, ("split", "hv", "split3", "split2")),
+    (3, np.float32, {}, {}, ("split", "hv", "split3", "split2")),
+    (3, np.uint16, {}, {}, ("split", "hv", "split3", "split2")),
+    (3, np.uint8, {}, {"precision": "fast"}, ("split", "hv", "split2", "split2")),
+    (4, np.uint8, {}, {"errdiff": True}, ("split", "hv", "split3", "split2")),
+    (3, np.uint8, {"use_srgb_gamma": True}, {"errdiff": True}, ("unfused", "hv", None, None)),
+], ids=["errdiff", "f32", "u16", "u8_fast", "rgba_errdiff", "gamma_errdiff"])
+def test_u8_upsize_to_4k_routes(c, out_dtype, plan_kw, exe_kw, want):
+    """1920x1080 -> 3840x2160 from u8: a split2 first pass without gamma
+    and at least 8 M output values fuses H pass first (K1 split hv, the
+    JAX package's rule at fused_kernel.py:719-725, and chip_smoke.py's
+    1080p_to_4k_errdiff cell); with gamma the unfused route runs it."""
+    plan = build_resize_plan(1920, 1080, 3840, 2160, c, np.uint8, out_dtype, **plan_kw)
+    fn = runtime.make_avir_executor(plan, device="cpu", **exe_kw)
+    modes = (fn.ops.mode_v, fn.ops.mode_h) if fn.route == "split" else (None, None)
+    assert (fn.route, fn.order, *modes) == want
+    if fn.route == "split":
+        assert fn.ops.launch_key == "fused_split_hv"
 
 
 # ---------------------------------------------------------------------------

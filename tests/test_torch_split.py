@@ -29,7 +29,15 @@ from avir_tpu.ops.lanes import lane_block_banded as jax_lane_block_banded
 from avir_tpu.ops.pallas.fused_kernel import apply_fused_pallas
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
-from torch_cases import IN_BYTES, NP_TYPES, SPLIT_CASES, split_source
+from torch_cases import (
+    IN_BYTES,
+    NP_TYPES,
+    SPLIT_CASES,
+    SPLIT_HV_EDGE_CASES,
+    epi_kwargs,
+    split_source,
+    split_tol,
+)
 
 from avir_tpu_torch.ops.banded import apply_blocked, block_banded
 from avir_tpu_torch.ops.cuda import fused_split as fs
@@ -133,11 +141,11 @@ def _split_ops(name, order=None):
     )
 
 
-@pytest.mark.parametrize("order, rows", [("vh", 64), ("hv", 32)])
+@pytest.mark.parametrize("order, rows", [("vh", fs.VH_ROWS), ("hv", fs.HV_ROWS)])
 @pytest.mark.parametrize("name", ["down_c3_u8_f32", "up_vh_c2_f32_u16", "vh_edge_down5_u8_u8"])
 def test_k_ranges_cover_every_nonzero_tap(name, order, rows):
-    """The vh kernel runs 64-row slices, hv 32-row ones: each slice's
-    range holds every nonzero V tap of its rows, 32-aligned."""
+    """Each order's kernel runs its own slice height (VH_ROWS, HV_ROWS):
+    each slice's range holds every nonzero V tap of its rows, 32-aligned."""
     ops = _split_ops(name, order)
     nz = ((ops.tvh != 0) | (ops.tvl != 0)).numpy()  # [Bv, Tv, Wv]
     bv, tv, wv = nz.shape
@@ -197,6 +205,84 @@ def test_vh_edge_cases_reach_their_edges():
             *(["lanes_in"] if ops.lanes_in % 4 else []),
         }
     assert seen == {"rows_out", "v_range", "lane_end", "c2", "tb4", "down_gt4", "lanes_in"}
+
+
+def _hv_edge_ops(name, device="cpu"):
+    """(plan, operands) of a SPLIT_HV_EDGE_CASES case."""
+    (sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb, rm, scale, g,
+     alpha) = SPLIT_HV_EDGE_CASES[name]
+    ib = IN_BYTES[tin]
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout],
+                             use_srgb_gamma=g, alpha_index=alpha)
+    return plan, fs.prepare_fused_split(
+        block_banded(plan.v.op, in_bytes=ib),
+        lane_block_banded(plan.h.op, c, tile=tile, in_bytes=ib),
+        order, mv, mh, device, out_dtype=_TORCH[tout],
+        out_max=255.0 if tout == "u8" else 65535.0, trunc_bits=tb,
+        **epi_kwargs(plan, rm, scale, g, alpha),
+    )
+
+
+@pytest.mark.parametrize("name", list(SPLIT_HV_EDGE_CASES))
+def test_hv_edge_plain_matches_pallas(name):
+    """The hv edge cases' plain version against the JAX package's
+    interpret-mode kernel, within the split gate."""
+    (sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb, rm, scale, g,
+     alpha) = SPLIT_HV_EDGE_CASES[name]
+    out_max = 255.0 if tout == "u8" else 65535.0
+    x = split_source(name, sh, sw, c, tin)
+    ib = IN_BYTES[tin]
+    jplan = jax_build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout],
+                                  use_srgb_gamma=g, alpha_index=alpha)
+    jvop = jax_block_banded(jplan.v.op, in_bytes=ib)
+    jlop = jax_lane_block_banded(jplan.h.op, c, tile=tile, in_bytes=ib)
+    ref = apply_fused_pallas(
+        jvop, jlop, jnp.asarray(x), mv, mh,
+        out_dtype=jnp.dtype(NP_TYPES[tout]), out_max=out_max, trunc_bits=tb,
+        order=order, interpret=True, **epi_kwargs(jplan, rm, scale, g, alpha),
+    )
+    ref = np.asarray(ref)[:nh, : nw * c]
+    _, ops = _hv_edge_ops(name)
+    got = fs.apply_fused_split(ops, torch.from_numpy(x)).numpy()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    diff = np.abs(got.astype(np.float64) - ref.astype(np.float64)).max()
+    ref_max = float(np.abs(ref.astype(np.float64)).max())
+    assert diff <= split_tol(tout, ref_max, out_max, tb, scale, g) + 1e-9, diff
+
+
+def test_hv_edge_cases_reach_their_edges():
+    """The hv edge cases cover what their names promise, at the hv
+    kernel's slice height: rows_out not a multiple of it, nonzero V-tap
+    ranges and lane windows that end inside a 16-deep MMA step, C = 2, 5
+    and 8, lanes_in not a multiple of 4, a slice's V-tap range of four or
+    more 32-row groups, gamma with the alpha lane first and last, and u16
+    output with trunc_bits=4."""
+    rows, seen = fs.HV_ROWS, set()
+    for name, case in SPLIT_HV_EDGE_CASES.items():
+        _, ops = _hv_edge_ops(name)
+        c, tb, g, alpha = case[4], case[11], case[14], case[15]
+        assert ops.order == "hv" and ops.rows == rows
+        nz = ((ops.tvh != 0) | (ops.tvl != 0)).numpy()
+        bv, tv, _ = nz.shape
+        spans = [
+            np.flatnonzero(nz[b, s : s + rows].any(axis=0))
+            for b in range(bv) for s in range(0, tv, rows)
+        ]
+        hnz = ((ops.thh != 0) | (ops.thl != 0)).any(dim=3).numpy()
+        ends = [np.flatnonzero(w)[-1] + 1 for w in hnz.reshape(-1, hnz.shape[2]) if w.any()]
+        kr = ops.k_range.numpy()
+        seen |= {
+            *(["rows_out"] if ops.rows_out % rows else []),
+            *(["v_range"] if any(r.size and (r[-1] + 1) % 16 for r in spans) else []),
+            *(["lane_end"] if any(e % 16 for e in ends) else []),
+            *([f"c{c}"] if c in (2, 5, 8) else []),
+            *(["lanes_in"] if ops.lanes_in % 4 else []),
+            *(["tall"] if (kr[..., 1] - kr[..., 0]).max() >= 4 * 32 else []),
+            *([f"gamma_a{alpha}"] if g else []),
+            *(["tb4"] if tb == 4 and ops.out_dtype == torch.uint16 else []),
+        }
+    assert seen == {"rows_out", "v_range", "lane_end", "c2", "c5", "c8", "lanes_in",
+                    "tall", "gamma_a0", "gamma_a3", "tb4"}
 
 
 def test_cpu_tensor_takes_plain_version():

@@ -76,6 +76,11 @@ SPLIT_CASES = {
     "c5_up_vh_f32_u8_tb2": (33, 21, 70, 45, 5, None, "vh", "split3", "split3", "f32", "u8", 2),
     "c8_up_u8_f32": (30, 20, 61, 47, 8, None, "hv", "split2", "split3", "u8", "f32", 0),
     "c8_down_u8_u8": (100, 70, 45, 31, 8, None, "vh", "split2", "split3", "u8", "u8", 0),
+    # precision="fast" to float32 output: a split2 second pass, whose
+    # intermediate hi parts two summation orders can round one bf16 ulp
+    # apart (split2_tol), in both orders.
+    "down_c3_u8_f32_fast": (200, 150, 80, 60, 3, None, "vh", "split2", "split2", "u8", "f32", 0),
+    "up_c3_u8_f32_fast": (80, 60, 200, 150, 3, None, "hv", "split2", "split2", "u8", "f32", 0),
 }
 
 # K1 int8 epilogue variants: (src_w, src_h, new_w, new_h, c, lane tile
@@ -122,6 +127,25 @@ SPLIT_EPI_CASES = {
     # u16 gamma with the alpha lane first (alpha_index=0) in the vh kernel.
     "gamma_vh_edge_u16_u16_c4a0": (181, 77, 60, 33, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 0),
     "gamma_up_vh_edge_u16_u16_c4a0": (53, 37, 90, 71, 4, None, "vh", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 0),
+}
+
+# Edges of the hv kernel's tiling (64-row slices, 32-row groups of the
+# slice's V-tap range, 32 window lanes a first-pass step, 16-deep MMA
+# steps; test_torch_split.py checks each case has them): rows_out not a
+# multiple of 64, nonzero V-tap ranges and lane windows that end inside an
+# MMA step, C = 2, 5 and 8, lanes_in not a multiple of 4 (the kernel's
+# scalar loads), a slice's V-tap range many groups tall, gamma with the
+# alpha lane first and last, and u16 output with trunc_bits=4.
+# SPLIT_EPI_CASES' fields.
+SPLIT_HV_EDGE_CASES = {
+    "hv_edge_rows_u8_f32": (150, 100, 400, 300, 3, None, "hv", "split3", "split2", "u8", "f32", 0, "biased", 1.0, False, -1),
+    "hv_edge_c2_u16_u16": (53, 37, 90, 71, 2, None, "hv", "split3", "split3", "u16", "u16", 0, "biased", 1.0, False, -1),
+    "hv_edge_c5_u8_u8": (33, 21, 70, 45, 5, None, "hv", "split3", "split2", "u8", "u8", 0, "biased", 1.0, False, -1),
+    "hv_edge_c8_f32_f32": (30, 20, 61, 47, 8, None, "hv", "split3", "split3", "f32", "f32", 0, "biased", 1.0, False, -1),
+    "hv_edge_tb4_u16_u16": (40, 30, 97, 70, 3, None, "hv", "split3", "split3", "u16", "u16", 4, "biased", 1.0, False, -1),
+    "hv_edge_tall_u8_u8": (20, 1200, 500, 50, 1, None, "hv", "split3", "split2", "u8", "u8", 0, "biased", 1.0, False, -1),
+    "hv_edge_gamma_a0_u16_u16": (45, 31, 97, 70, 4, None, "hv", "split3", "split3", "u16", "u16", 0, "biased", 1.0, True, 0),
+    "hv_edge_gamma_a3_u8_u8": (53, 37, 90, 71, 4, None, "hv", "split3", "split3", "u8", "u8", 0, "biased", 1.0, True, 3),
 }
 
 # K5 + K1 int8 limb-plane input: (src_w, src_h, new_w, new_h, c, lane tile
@@ -226,7 +250,7 @@ PLANAR_CASES = {
     # widens K7's planes) and K8 rows on 16 bytes (its raw span tile, u8 C =
     # 3, u16 C = 3, f32 C = 1); f32 in; alpha planes that are not the last
     # (K7 and K8 then differ at C = 3: K8 masks gamma-in only at C = 4);
-    # a split2 second pass with float32 output (planar_split2_tol).
+    # a split2 second pass with float32 output (split2_tol).
     "edge_tv32_c3_u8_u8": (80, 37, 300, 29, 3, "u8", "u8", "split2", "split3", 0, False, -1),
     "edge_segs_c1_u8_f32": (259, 37, 29, 29, 1, "u8", "f32", "split2", "split2", 0, False, -1),
     "edge_segs_c1_u8_f32_h3": (259, 37, 29, 29, 1, "u8", "f32", "split2", "split3", 0, False, -1),
@@ -356,29 +380,33 @@ def split_tol(out_dtype_name, ref_max, out_max=255.0, trunc_bits=0,
     return 1.0 + (ref_max * 1e-4 if scale > 1.0 or gamma else 0.0)
 
 
-def planar_split2_tol(ops, tout, ref_max, xmax, out_max=255.0, trunc_bits=0,
-                      gamma=False):
-    """The gate of a planar resize (K7/K8 operands ``ops``) on an input
-    of largest magnitude ``xmax``: the split gate, plus, for float32
-    output after a split2 second pass, the flip of the intermediate's
-    bf16 hi parts.  That pass multiplies bf16(v) alone, and two summation
-    orders of the intermediate v can round to hi parts one bf16 ulp
-    apart; the split3 lo part takes the difference up, split2 has none.
-    One ulp of the largest |v| (xmax times the V taps' largest absolute
-    row sum) times the H taps' largest absolute column sum bounds the
-    output's change.  No gamma there: the curve's slope would scale it.
-    Integer outputs keep the split gate."""
+def split2_tol(ops, tout, ref_max, xmax, out_max=255.0, trunc_bits=0,
+               gamma=False, scale=1.0):
+    """The gate of a K1 split, K7 or K8 resize (operands ``ops``; K7/K8
+    carry no ``order`` and run V first) on an input of largest magnitude
+    ``xmax``: the split gate, plus, for float32 output after a split2
+    second pass, the flip of the intermediate's bf16 hi parts.  That pass
+    multiplies bf16(v) alone, and two summation orders of the intermediate
+    v can round to hi parts one bf16 ulp apart; the split3 lo part takes
+    the difference up, split2 has none.  One ulp of the largest |v| (xmax
+    times the first pass's largest absolute tap sum: a V row's for vh, an
+    H column's for hv) times the second pass's largest absolute tap sum
+    bounds the output's change.  No gamma there: the curve's slope would
+    scale it.  Integer outputs keep the split gate (``scale`` and
+    ``gamma`` as in split_tol)."""
     import math
 
-    tol = split_tol(tout, ref_max, out_max, trunc_bits, 1.0, gamma)
-    if tout != "f32" or ops.mode_h != "split2":
+    tol = split_tol(tout, ref_max, out_max, trunc_bits, scale, gamma)
+    vh = getattr(ops, "order", "vh") == "vh"
+    if tout != "f32" or (ops.mode_h if vh else ops.mode_v) != "split2":
         return tol
     if gamma:
         raise ValueError("the flip bound holds without gamma-out")
     vsum = float((ops.tvh.double() + ops.tvl.double()).abs().sum(-1).max())
     hsum = float((ops.thh.double() + ops.thl.double()).abs().sum(2).max())
-    _, e = math.frexp(xmax * vsum)
-    return tol + math.ldexp(1.0, e - 8) * hsum
+    first, second = (vsum, hsum) if vh else (hsum, vsum)
+    _, e = math.frexp(xmax * first)
+    return tol + math.ldexp(1.0, e - 8) * second
 
 
 def epi_kwargs(plan, round_mode, scale, gamma, alpha):
