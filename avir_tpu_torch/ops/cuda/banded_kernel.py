@@ -8,14 +8,17 @@ along the rows of an image [n_in, R] of u8, u16 or float32, converted as
 it is staged, and writes float32 [n_out, R]: ``out[b*T:(b+1)*T] =
 taps[b] @ x[offs[b] : offs[b] + W]`` in mode "split2", "split3" (the
 bf16 hi/lo taps against the input's bf16 split) or "exact" (the float32
-sum of the hi/lo taps in full float32).  It visits only each slice's
-nonzero tap rows: the split modes run on the bf16 tensor cores at
-``SPLIT_ROWS``-row slices, exact on the CUDA cores at 32.
+sum of the hi/lo taps against the input, as the bf16 products of the two
+tap planes and the input's exact bf16 limbs: one for u8, two for u16,
+three for float32).  Every mode runs on the bf16 tensor cores at
+``SPLIT_ROWS``-row slices and visits only each slice's nonzero tap rows.
+Exact's products are exact; only the order of its float32 sums differs
+from a float32 multiply-add loop.
 
 ``apply_banded`` launches the kernel on a CUDA tensor and runs
 ``apply_banded_reference`` (``ops/banded.py:apply_blocked`` on the same
-taps) on a CPU tensor.  The two sum in other orders, so they agree to
-float32 rounding, not bit for bit.
+taps) on a CPU tensor.  The two sum in other orders, so they agree within
+max|plain| * 1e-5 in every mode, not bit for bit.
 """
 
 from __future__ import annotations
@@ -34,14 +37,11 @@ launches = {f"banded_{m}": 0 for m in ("split2", "split3", "exact")}
 
 _MODES = {"split2": 0, "split3": 1, "exact": 2}
 _IN_KINDS = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
-# Output rows per thread block (csrc: kRows, kExactRows): the split modes'
-# tensor-core kernel 64, the exact kernel 32.
+# Output rows per thread block in every mode (csrc: kRows).
 SPLIT_ROWS = 64
-_EXACT_ROWS = 32
-
-
-def _slice_height(mode: str) -> int:
-    return _EXACT_ROWS if mode == "exact" else SPLIT_ROWS
+# The bf16 limbs that sum back to an input value exactly, which exact
+# multiplies by both tap planes (csrc: the NX of each exact launch).
+EXACT_LIMBS = {torch.uint8: 1, torch.uint16: 2, torch.float32: 3}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +57,8 @@ class BandedOperands:
 
     @property
     def rows(self) -> int:
-        """Output rows per slice (thread block) of this mode's kernel."""
-        return _slice_height(self.mode)
+        """Output rows per slice (thread block) of the kernel."""
+        return SPLIT_ROWS
 
     @property
     def device(self) -> torch.device:
@@ -76,7 +76,7 @@ def prepare_banded(
     if mode not in BLOCKED_MODES:
         raise ValueError(f"unknown mode {mode!r}")
     k_range = _k_ranges(
-        (bop.taps_hi != 0).numpy(), (bop.taps_lo != 0).numpy(), _slice_height(mode)
+        (bop.taps_hi != 0).numpy(), (bop.taps_lo != 0).numpy(), SPLIT_ROWS
     )
     return BandedOperands(
         bop=bop,

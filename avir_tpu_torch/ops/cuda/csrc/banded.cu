@@ -9,58 +9,68 @@
 // x is [n_in, R] (u8, u16 or f32, converted as it is staged; rows past
 // n_in read 0), out is f32 [n_out, R] (rows past n_out are not written).
 //
-// Modes (the same function as the TPU kernel, summed in another order):
-//   split2  sum hi*bf16(x) + lo*bf16(x)
-//   split3  ... + hi*bf16(x - f32(bf16(x)))      (round to nearest even)
-//   exact   sum f32(hi + lo) * x in float32 (hi + lo is exact in f32)
-// Every split product is bf16 x bf16, exact in float32.  The residual is
-// computed with __float2bfloat16_rn and __fsub_rn, so nvcc cannot contract
-// it.
+// Every mode sums bf16 x bf16 products, each exact in float32, of the
+// taps' bf16 hi/lo pair and the input's bf16 limbs x0 = bf16(x), x1 =
+// bf16(x - x0), x2 = bf16(x - x0 - x1) (round to nearest even; the
+// subtractions by __fsub_rn, so nvcc cannot contract them):
+//   split2  hi*x0 + lo*x0
+//   split3  ... + hi*x1
+//   exact   (hi + lo) * (x0 + x1 + x2), the TPU kernel's f32(hi + lo) * x
+//           at Precision.HIGHEST.  The limbs sum back to x exactly: u8
+//           needs x0 alone (exact then issues split2's products, and runs
+//           split2's kernel), u16 x0 and x1, f32 all three (in bf16's
+//           normal range: below about 2^-110 x2 loses bits; image data
+//           never goes there).  Every product is exact, so exact differs
+//           from an fmaf loop only in the order of the float32 additions.
 //
-// Split modes (banded_mma): the bf16 tensor cores, mma.sync m16n8k16
-// (row.col, f32 accumulate) on fragments that ldmatrix reads from shared
-// memory (.trans for the input tile, which is [K][N]), as K1 split vh's
-// first pass (fused_split.cu; the helpers in mma_bf16.cuh and
-// cp_async.cuh).  A block owns 64 output rows (kRows, a slice of one row
-// block) and 128 columns, with 8 warps of 16 rows x 64 columns.  The
-// contraction runs over the slice's nonzero tap rows only (k_range at
-// 64-row slices, 32-aligned), 32 a step, as one double-buffered sequence:
-// while a step's MMAs run, the next step's taps ([64][32] bf16 hi and
-// lo) are in flight by cp.async and its input rows (16 columns of one row
-// a thread) in registers by 16-byte vector loads where the row width and
-// the pointer allow (scalar loads at the edge, zeros past it); after the MMAs
-// they are converted to f32, split into bf16 hi and lo and stored to the
-// other buffer, and one barrier ends the step.  The two or three split
-// products of a step are consecutive MMAs into one accumulator.  Rows of
-// shared memory are padded (taps to 40 bf16, the input tile to 136) so the
-// 8 rows of each ldmatrix phase fall in distinct banks; tap rows start
-// 16-byte aligned (W is a multiple of 128 taps, k_range of 32).  Rows past
-// T or n_out and columns past the row width are not written; pairs of
-// columns are stored as float2 where the width is even.
-//
-// exact (banded_exact, reached by no resize): full float32 has no tensor
-// core, so it keeps the first port's design: 32 output rows x 128 columns
-// a block, 256 threads each 4 rows x 4 columns with fmaf over the slice's
-// nonzero tap rows (k_range at 32-row slices), 32 a step, in 32 KB of
-// static shared memory.
+// One kernel runs every mode, banded_mma<NX, EXACT, TIn> (NX input limb
+// planes; EXACT: the tap lo plane multiplies every limb, not x0 alone), on
+// the bf16 tensor cores: mma.sync m16n8k16 (row.col, f32 accumulate) on
+// fragments that ldmatrix reads from shared memory (.trans for the input
+// tile, which is [K][N]), as K1 split vh's first pass (fused_split.cu; the
+// helpers in mma_bf16.cuh and cp_async.cuh).  A block owns 64 output rows
+// (kRows, a slice of one row block) and 128 columns, with 8 warps of 16
+// rows x 64 columns.  The contraction runs over the slice's nonzero tap
+// rows only (k_range at 64-row slices, 32-aligned), 32 a step, as one
+// double-buffered sequence: while a step's MMAs run, the next step's taps
+// ([64][32] bf16 hi and lo) are in flight by cp.async and its input rows
+// (16 columns of one row a thread) in registers by 16-byte vector loads
+// where the row width and the pointer allow (scalar loads at the edge,
+// zeros past it, so every limb is 0 there); after the MMAs they are
+// converted to f32, split into NX limbs and stored to the other buffer,
+// and one barrier ends the step.  A step's products are consecutive MMAs
+// into one accumulator: 2 for each MMA tile in split2 (and exact on u8), 3
+// in split3, 4 in exact on u16, 6 in exact on f32.  Rows of shared memory
+// are padded (taps to 40 bf16, the input tile to 136) so the 8 rows of
+// each ldmatrix phase fall in distinct banks; tap rows start 16-byte
+// aligned (W is a multiple of 128 taps, k_range of 32).  Shared memory:
+// 20,480 bytes of taps and 17,408 a limb plane (two buffers), 37.9 KB (NX
+// = 1) to 72.7 KB (NX = 3), so two blocks fit an SM in every mode, at 96 to
+// 128 registers a thread and no spills.  Rows past T or n_out and columns
+// past the row width are not written; pairs of columns are stored as
+// float2 where the width is even.
 //
 // What bounds it on this card.  The input read once and the float32
 // output written once: memory-bound at the unfused main-path shapes (3.35
 // TB/s; 1280x720 -> 1920x1080 RGB, f32 [720, 5760] in and [1080, 5760]
 // out: 41.5 MB, 12.4 us; 1920x1080 -> 3840x2160: 149 MB, 44.6 us), while
 // the MMAs over the dense tap blocks are microseconds at the bf16
-// tensor-core rate.  The design reads each input row once per slice whose
-// range covers it (about twice at 2x upsizes).  Measured on an H100 80GB
-// HBM3 at 700 W (chip_smoke.py --kernel-times, PERF.md), split3 on K3's
-// f32 output: 0.034-0.036 ms at 720p -> 1080p (2.8x the bound) and
-// 0.104-0.105 ms at 1080p -> 4K (2.3x), against 0.153-0.187 and
-// 0.519-0.531 for the fmaf design it replaces (2-3 fmaf a MAC on the CUDA
-// cores, scalar loads, two barriers a step) and 0.22 / 1.10 for one
-// float32 torch.matmul with the dense operator.  64-row slices ran 7-9%
-// faster than 32-row ones at both shapes, so the height is fixed at 64.
+// tensor-core rate, exact's six products included (exact's own work, 2 x
+// band MACs at the 67 TFLOP/s of float32 outside the tensor cores, is 13.4
+// us at 1080p -> 4K).  The design reads each input row once per slice
+// whose range covers it (about twice at 2x upsizes).  Measured on an H100
+// 80GB HBM3 at 700 W (chip_smoke.py --kernel-times, PERF.md), on K3's f32
+// output: split3 0.033-0.036 ms at 720p -> 1080p (2.7x the bound) and
+// 0.104-0.110 ms at 1080p -> 4K (2.3x), exact 0.037-0.038 and 0.121 (the
+// fmaf kernels these replaced: 0.153-0.187 and 0.519-0.531 for split3,
+// 0.087-0.090 and 0.294-0.296 for exact); exact on the 720p u8 image
+// 0.020 ms (split2's kernel, bit-equal to it) and on it as u16 0.023.
+// 64-row slices ran 7-9% faster than 32-row ones at both shapes in split3,
+// so the height is fixed at 64.
 //
 // Tolerance: tensor-core sums of exact products are f32 in the hardware's
-// order and rounding: within max|plain| * 1e-5 of the plain version.
+// order and rounding: within max|plain| * 1e-5 of the plain version, in
+// every mode.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -77,14 +87,12 @@ using namespace mma_bf16;
 constexpr int kThreads = 256;
 constexpr int kCols = 128;  // columns per block
 constexpr int kDepth = 32;  // contraction rows staged per step
-constexpr int kRows = 64;   // output rows per block of the split modes
-constexpr int kExactRows = 32;  // ... of exact
+constexpr int kRows = 64;   // output rows per block
 
 enum Mode { kSplit2 = 0, kSplit3 = 1, kExact = 2 };
 
 struct Args {
   const void* x;
-  int in_kind;               // 0 u8, 1 u16, 2 f32
   int n_in, r;               // x is [n_in, r]
   float* out;                // [n_out, r]
   int n_out;
@@ -95,10 +103,6 @@ struct Args {
   const int32_t* k_range;    // [B, n_slices, 2] nonzero tap rows of each slice, 32-aligned
   int n_slices;
 };
-
-// ---------------------------------------------------------------------------
-// Split modes on the bf16 tensor cores
-// ---------------------------------------------------------------------------
 
 constexpr int kTapLd = kDepth + 8;  // tap row stride in shared memory (bf16)
 constexpr int kTileLd = kCols + 8;  // input tile row stride (bf16)
@@ -145,24 +149,25 @@ struct Raw16 {
   }
 };
 
-// Shared memory of banded_mma, in bf16 elements:
+// Shared memory of banded_mma with NX input limb planes, in bf16 elements:
 //   sv [2 buf][2 plane][kRows][kTapLd]    taps hi / lo
-//   sx [2 buf][2 plane][32][kTileLd]      input tile hi / residual
+//   sx [2 buf][NX plane][32][kTileLd]     input limbs x0, x1, x2
+template <int NX>
 struct MmaSmem {
   static constexpr int kSv = 2 * 2 * kRows * kTapLd;
-  static constexpr int kSx = 2 * 2 * kDepth * kTileLd;
+  static constexpr int kSx = 2 * NX * kDepth * kTileLd;
   static constexpr size_t kBytes = static_cast<size_t>(kSv + kSx) * 2;
   __device__ static int sv(int b, int p, int r, int k) {
     return ((b * 2 + p) * kRows + r) * kTapLd + k;
   }
   __device__ static int sx(int b, int p, int r, int c) {
-    return kSv + ((b * 2 + p) * kDepth + r) * kTileLd + c;
+    return kSv + ((b * NX + p) * kDepth + r) * kTileLd + c;
   }
 };
 
-template <bool S3, typename TIn>
+template <int NX, typename TIn>
 struct Banded {
-  using S = MmaSmem;
+  using S = MmaSmem<NX>;
 
   // Taps of rows r0..r0+kRows-1 of row block b over k0..k0+31 into buffer buf
   // (rows past T: zeros).
@@ -184,30 +189,43 @@ struct Banded {
     raw.load(p, n, vec);
   }
 
-  // The registers of load_x converted and split into buffer buf.
+  // The registers of load_x converted and split into NX bf16 limbs in
+  // buffer buf: limb p is bf16 of what limbs 0..p-1 left of the value,
+  // each plane stored as soon as it is split.
   __device__ static void store_x(uint16_t* sm, int buf, const Raw16<TIn>& raw) {
     const int k = threadIdx.x / 8, c = 16 * (threadIdx.x % 8);
-    uint32_t hi[8], lo[8];
+    float v[16];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) split_pair(raw.get(2 * i), raw.get(2 * i + 1), hi[i], lo[i]);
-    uint4* dh = reinterpret_cast<uint4*>(sm + S::sx(buf, 0, k, c));
-    dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
-    if (S3) {
-      uint4* dl = reinterpret_cast<uint4*>(sm + S::sx(buf, 1, k, c));
-      dl[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      dl[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    for (int e = 0; e < 16; ++e) v[e] = raw.get(e);
+#pragma unroll
+    for (int p = 0; p < NX; ++p) {
+      uint32_t limb[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        limb[i] = bits(h);
+        if (p + 1 < NX) {
+          const float2 hf = __bfloat1622float2(h);
+          v[2 * i] = __fsub_rn(v[2 * i], hf.x);
+          v[2 * i + 1] = __fsub_rn(v[2 * i + 1], hf.y);
+        }
+      }
+      uint4* d = reinterpret_cast<uint4*>(sm + S::sx(buf, p, k, c));
+      d[0] = make_uint4(limb[0], limb[1], limb[2], limb[3]);
+      d[1] = make_uint4(limb[4], limb[5], limb[6], limb[7]);
     }
   }
 };
 
 // One block: output rows r0..r0+kRows-1 of row block b (slice ``slice``) x
 // columns c0..c0+127.  Warp (wm, wn) owns rows 16 wm..16 wm + 15 and
-// columns kWc wn..kWc wn + kWc - 1.
-template <bool S3, typename TIn>
+// columns kWc wn..kWc wn + kWc - 1.  A step's products go into one
+// accumulator in the order hi*x0, lo*x0, hi*x1 (split2 stops after lo*x0,
+// split3 there), lo*x1, hi*x2, lo*x2.
+template <int NX, bool EXACT, typename TIn>
 __global__ void __launch_bounds__(kThreads, 2) banded_mma(const Args a) {
-  using K = Banded<S3, TIn>;
-  using S = MmaSmem;
+  using K = Banded<NX, TIn>;
+  using S = MmaSmem<NX>;
   constexpr int kWm = kRows / 16;       // warps across rows
   constexpr int kWn = 8 / kWm;          // warps across columns
   constexpr int kWc = kCols / kWn;      // columns a warp
@@ -254,17 +272,16 @@ __global__ void __launch_bounds__(kThreads, 2) banded_mma(const Args a) {
         for (int q = 0; q < kNt / 2; ++q) {
           const int n0 = kWc * wn + 16 * q;
           if (c0 + n0 >= a.r) continue;  // columns past the image
-          uint32_t xh[4];
-          ldsm_t(xh, sm + S::sx(buf, 0, k16 + arow, n0 + acol));
-          mma(acc[2 * q], th, xh[0], xh[1]);
-          mma(acc[2 * q + 1], th, xh[2], xh[3]);
-          mma(acc[2 * q], tl, xh[0], xh[1]);
-          mma(acc[2 * q + 1], tl, xh[2], xh[3]);
-          if (S3) {
-            uint32_t xl[4];
-            ldsm_t(xl, sm + S::sx(buf, 1, k16 + arow, n0 + acol));
-            mma(acc[2 * q], th, xl[0], xl[1]);
-            mma(acc[2 * q + 1], th, xl[2], xl[3]);
+#pragma unroll
+          for (int p = 0; p < NX; ++p) {
+            uint32_t xb[4];
+            ldsm_t(xb, sm + S::sx(buf, p, k16 + arow, n0 + acol));
+            mma(acc[2 * q], th, xb[0], xb[1]);
+            mma(acc[2 * q + 1], th, xb[2], xb[3]);
+            if (EXACT || p == 0) {
+              mma(acc[2 * q], tl, xb[0], xb[1]);
+              mma(acc[2 * q + 1], tl, xb[2], xb[3]);
+            }
           }
         }
       }
@@ -297,94 +314,28 @@ __global__ void __launch_bounds__(kThreads, 2) banded_mma(const Args a) {
   }
 }
 
-template <bool S3, typename TIn>
-cudaError_t launch_mma(const Args& a, dim3 grid, cudaStream_t s) {
-  constexpr size_t bytes = MmaSmem::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      banded_mma<S3, TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+template <int NX, bool EXACT, typename TIn>
+cudaError_t launch(const Args& a, dim3 grid, cudaStream_t s) {
+  constexpr size_t bytes = MmaSmem<NX>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(banded_mma<NX, EXACT, TIn>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
-  banded_mma<S3, TIn><<<grid, kThreads, bytes, s>>>(a);
+  banded_mma<NX, EXACT, TIn><<<grid, kThreads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-template <bool S3>
-cudaError_t launch_split(const Args& a, dim3 grid, cudaStream_t s) {
-  if (a.in_kind == 0) return launch_mma<S3, uint8_t>(a, grid, s);
-  if (a.in_kind == 1) return launch_mma<S3, uint16_t>(a, grid, s);
-  return launch_mma<S3, float>(a, grid, s);
-}
-
-// ---------------------------------------------------------------------------
-// exact: float32 fmaf on the CUDA cores
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float load_x(const Args& a, int row, int col) {
-  if (row >= a.n_in || col >= a.r) return 0.0f;
-  const size_t i = static_cast<size_t>(row) * a.r + col;
-  if (a.in_kind == 0) return static_cast<float>(__ldg(static_cast<const uint8_t*>(a.x) + i));
-  if (a.in_kind == 1) return static_cast<float>(__ldg(static_cast<const uint16_t*>(a.x) + i));
-  return __ldg(static_cast<const float*>(a.x) + i);
-}
-
-__global__ void __launch_bounds__(kThreads) banded_exact(const Args a) {
-  __shared__ float st[kExactRows][kDepth];             // taps hi + lo
-  __shared__ __align__(16) float sx[kDepth][kCols];    // input
-
-  const int b = blockIdx.y / a.n_slices, sl = blockIdx.y % a.n_slices;
-  const int r0 = sl * kExactRows;
-  const int c0 = blockIdx.x * kCols;
-  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
-  const int k_lo = a.k_range[2 * blockIdx.y];
-  const int k_hi = a.k_range[2 * blockIdx.y + 1];
-  const int row0 = a.offs[b];
-
-  float acc[4][4] = {};
-  for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
-    __syncthreads();
-    for (int e = tid; e < kExactRows * kDepth; e += kThreads) {
-      const int tr = r0 + e / kDepth, k = e % kDepth;
-      float h = 0.0f, l = 0.0f;
-      if (tr < a.t) {
-        const size_t off = (static_cast<size_t>(b) * a.t + tr) * a.w + k0 + k;
-        h = __bfloat162float(a.hi[off]);
-        l = __bfloat162float(a.lo[off]);
-      }
-      st[e / kDepth][k] = __fadd_rn(h, l);
-    }
-    for (int e = tid; e < kDepth * kCols; e += kThreads) {
-      const int k = e / kCols, col = e % kCols;
-      sx[k][col] = load_x(a, row0 + k0 + k, c0 + col);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kDepth; ++k) {
-      const float4 xv = *reinterpret_cast<const float4*>(&sx[k][4 * tx]);
-      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float th = st[4 * ty + i][k];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(th, xs[jj], acc[i][jj]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int tr = r0 + 4 * ty + i;
-    const int orow = b * a.t + tr;
-    if (tr >= a.t || orow >= a.n_out) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int col = c0 + 4 * tx + jj;
-      if (col < a.r) a.out[static_cast<size_t>(orow) * a.r + col] = acc[i][jj];
-    }
-  }
+template <int NX>
+cudaError_t launch_split(int in_kind, const Args& a, dim3 grid, cudaStream_t s) {
+  if (in_kind == 0) return launch<NX, false, uint8_t>(a, grid, s);
+  if (in_kind == 1) return launch<NX, false, uint16_t>(a, grid, s);
+  return launch<NX, false, float>(a, grid, s);
 }
 
 }  // namespace
 
-// k_range holds the slices of the mode's height: kRows (64) rows in the
-// split modes, kExactRows (32) in exact (banded_kernel.py).
+// k_range holds the nonzero tap rows of kRows-row (64) slices
+// (banded_kernel.py).  in_kind: 0 u8, 1 u16, 2 f32.
 extern "C" int avir_banded(
     int mode, int in_kind,
     const void* x, int n_in, int r,
@@ -395,7 +346,6 @@ extern "C" int avir_banded(
     void* stream) {
   Args a;
   a.x = x;
-  a.in_kind = in_kind;
   a.n_in = n_in;
   a.r = r;
   a.out = static_cast<float*>(out);
@@ -407,16 +357,22 @@ extern "C" int avir_banded(
   a.w = w;
   a.k_range = static_cast<const int32_t*>(k_range);
   a.n_slices = n_slices;
-  const int rows = mode == kExact ? kExactRows : kRows;
-  if (n_slices != (t + rows - 1) / rows || w % kCols != 0) {
+  if (n_slices != (t + kRows - 1) / kRows || w % kCols != 0 || mode < kSplit2 ||
+      mode > kExact || in_kind < 0 || in_kind > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((r + kCols - 1) / kCols, b * n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == kExact) {
-    banded_exact<<<grid, kThreads, 0, s>>>(a);
-    return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  if (mode == kSplit3) {
+    e = launch_split<2>(in_kind, a, grid, s);
+  } else if (mode == kSplit2 || in_kind == 0) {
+    // exact on u8: x0 is x, so its products are split2's.
+    e = launch_split<1>(in_kind, a, grid, s);
+  } else if (in_kind == 1) {
+    e = launch<2, true, uint16_t>(a, grid, s);
+  } else {
+    e = launch<3, true, float>(a, grid, s);
   }
-  return static_cast<int>(mode == kSplit3 ? launch_split<true>(a, grid, s)
-                                          : launch_split<false>(a, grid, s));
+  return static_cast<int>(e);
 }

@@ -95,7 +95,11 @@ Phases (any failure exits non-zero before the last line):
          light through the sRGB slope);
        - the unfused shapes (K4 checked as at 8k_to_1080p_errdiff; K3 with
          its bound, its load path, the MACs its MMAs issue against the band
-         MACs and ptxas's registers and spills; K2 with ptxas's), the
+         MACs and ptxas's registers and spills; K2 with its MACs and
+         ptxas's; K2 exact, which no resize runs, on K3's float32 output at
+         the first two and, at the first, on the u8 image, split2 beside
+         it and bit-equal, and on the image as u16: max|plain| * 1e-5,
+         each with its bound, the term that decides it and its MACs), the
          prologue shapes (K5 with its bound, its load path and ptxas's
          registers and spills, bit-equal; 8k_to_1080p_gamma_prologue, K1's
          limb-plane vh on the tensor cores; 1080p_to_4k_gamma_prologue,
@@ -194,14 +198,16 @@ Phases (any failure exits non-zero before the last line):
 8k_to_1080p_gamma_ring and 4k_to_720p_gamma_ring, K5 and K1 int8 from
 its limb planes at 8k_to_1080p_gamma_prologue (vh) and
 1080p_to_4k_gamma_prologue (hv), K2 split3 at 720p_to_1080p_errdiff and
-1080p_to_4k_gamma_errdiff (KT_K2_CELLS) and K3 at those two and
+1080p_to_4k_gamma_errdiff (KT_K2_CELLS), K2 exact on the same
+inputs (and at the first cell on the u8 image, split2 beside it, and on
+the image as u16), K3 at those two and
 lancir_720p_to_1080p_f32 (KT_K3_CELLS), K7 and K8 at the two planar
 shapes (KT_PLANAR_CELLS, with K1 split of the same resize beside them) and
 K1 split hv at 1080p_to_4k_errdiff and, with gamma,
 1080p_to_4k_u16_gamma_rgba (KT_SPLIT_HV_CELLS, K1 split vh of the same
 resize beside them) on the package under DIR instead (one JSON line, with
 output hashes, K1 split hv's, K3's, K5's, K7's and K8's bounds, ptxas's
-registers and spills of the planar and fused_split libraries and, at the
+registers and spills of the planar, fused_split and banded libraries and, at the
 two int8 downsizes, the split route beside it), so that two versions of
 the kernels can be compared in turns within one chip call.
 ``python3 split_hv_heights.py`` times K1 split hv at 32, 64 and 128 rows
@@ -1769,16 +1775,47 @@ def _unfused_cases(gen, dev) -> None:
 
 
 def _pass_bound(op, in_elems: int, out_elems: int, in_bytes: int,
-                products: int) -> tuple[float, str, int, int]:
-    """(bound_ms, bound_by, bytes, bf16 ops) of one K2/K3 pass by the
-    banded operator ``op`` over ``in_elems`` input elements to
-    ``out_elems`` float32 outputs: the input read once, the output written
-    once and the operator's taps once (bf16 hi + lo); 2 x band MACs
-    (``op.width`` per output) x products at the bf16 tensor-core rate."""
+                products: int, rate: float = BF16_OPS_PER_S
+                ) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, ops) of one K2/K3 pass by the banded
+    operator ``op`` over ``in_elems`` input elements to ``out_elems``
+    float32 outputs: the input read once, the output written once and the
+    operator's taps once (bf16 hi + lo); 2 x band MACs (``op.width`` per
+    output) x products at ``rate`` (the bf16 tensor-core rate for the
+    split modes' bf16 products; exact's function is one float32 MAC a tap,
+    at the float32 rate, whatever implements it)."""
     nbytes = in_elems * in_bytes + out_elems * 4 + 4 * op.n_out * op.width
     ops = 2 * out_elems * op.width * products
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes, ops
+
+
+def _k2_bound(op, x: torch.Tensor, mode: str):
+    """``_pass_bound`` of K2 in ``mode`` on ``x`` [n_in, R]."""
+    args = (op, x.numel(), op.n_out * x.shape[1], x.element_size())
+    if mode == "exact":
+        return _pass_bound(*args, 1, F32_OPS_PER_S)
+    return _pass_bound(*args, 3 if mode == "split3" else 2)
+
+
+def _k2_macs(ops, op, x: torch.Tensor) -> dict:
+    """The MACs K2's MMAs issue on ``x`` (64-row slices x each slice's
+    k_range x the 16-column groups of each 128-column block that it does
+    not skip, times a step's products: split2 2, split3 3, exact 2 per
+    input limb) against the band MACs of its bound (``op.width`` per
+    output)."""
+    from avir_tpu_torch.ops.cuda import banded_kernel as bk
+
+    r = x.shape[1]
+    products = {"split2": 2, "split3": 3}.get(ops.mode)
+    if products is None:
+        products = 2 * bk.EXACT_LIMBS[x.dtype]
+    kr = ops.k_range.cpu().numpy().astype(np.int64)
+    cols = sum(min(128, -(-(r - c0) // 16) * 16) for c0 in range(0, r, 128))
+    issued = int(ops.rows * (kr[..., 1] - kr[..., 0]).sum()) * cols * products
+    band = op.n_out * r * op.width
+    return {"products_a_step": products, "issued_macs": issued, "band_macs": band,
+            "issued_over_band": issued / band}
 
 
 def _k3_macs(ops, rows: int, op) -> dict:
@@ -2055,7 +2092,7 @@ def _unfused_shape(name, entry, sw, sh, nw, nh, c, out_dt, kw, expect, gen,
         and (k3_in.shape[1] * k3_in_b) % 16 == 0,
         **_k3_macs(ops.lanes, k3_in.shape[0], hop),
         "k3_ptxas": _ptxas("lanes", "lanes_mma"),
-        "k2_slice_rows": ops.rows.rows,
+        "k2_slice_rows": ops.rows.rows, "k2_macs": _k2_macs(ops.rows, vop_op, k2_in),
         "k2_ptxas": _ptxas("banded", "banded_mma"),
         "launches_per_resize": {k: v for k, v in counts.items() if v},
         "resize_first_call_s": first_s,
@@ -2075,38 +2112,13 @@ def _unfused_shape(name, entry, sw, sh, nw, nh, c, out_dt, kw, expect, gen,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "library_ms": k2_lib_ms},
     ]
-    if name == UNFUSED_SHAPES[0][0]:
-        # K2 in the modes no main-path shape runs (split2 reads the u8
-        # image when the row pass goes first; exact is off every route):
-        # timed on this shape's image, 0 launches on the main path.
-        dv = torch.from_numpy(_dense(vop_op)).to(dev)
-        for mode in ("split2", "exact"):
-            o2 = bk.prepare_banded(ops.rows.bop, mode, dev)
-            got = bk.apply_banded(o2, x)
-            want = bk.apply_banded_reference(o2, x)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            tol = float(want.abs().max()) * 1e-5
-            b_ = _pass_bound(vop_op, x.numel(), vop_op.n_out * x.shape[1], 1,
-                             1 if mode == "exact" else 2)
-            off = {
-                "ms": _time_ms(lambda: bk.apply_banded(o2, x), 20, flush),
-                "plain_ms": _time_ms(lambda: bk.apply_banded_reference(o2, x), 2, flush),
-                "library_ms": _time_ms(lambda: torch.matmul(dv, x.float()), 3, flush),
-                "bound_ms": b_[0], "bound_by": b_[1], "max_abs_err": err, "tol": tol,
-                "launches_on_main_path": counts[o2.launch_key],
-                "input": f"u8 [{sh}, {sw * c}]",
-            }
-            report[f"k2_{mode}_off_path"] = off
-            entries.append({
-                "name": o2.launch_key, "route": "cuda",
-                "source": SOURCES[o2.launch_key], "replaces": KERNELS[o2.launch_key],
-                "launches": counts[o2.launch_key], "max_abs_err": err,
-                **{k: off[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                       "library_ms")},
-            })
-            ok = ok and err <= tol
-        del dv
+    if name in (UNFUSED_SHAPES[0][0], UNFUSED_SHAPES[1][0]):
+        off, off_ok, off_entries = _k2_off_path(
+            vop_op, ops.rows.bop, x if name == UNFUSED_SHAPES[0][0] else None,
+            k2_in, counts, dev, flush)
+        report.update(off)
+        entries += off_entries
+        ok = ok and off_ok
     if errdiff:
         k4_report, k4_ok = _k4_cell(pre3, 255.0, q_plain, flush)
         report.update({**k4_report, "k4_launches": counts["wavefront"]})
@@ -2115,6 +2127,65 @@ def _unfused_shape(name, entry, sw, sh, nw, nh, c, out_dt, kw, expect, gen,
     if not ok:
         _fail(f"{name}: report {report}")
     return entries
+
+
+def _k2_off_path(op, bop, image, k2_in, counts, dev, flush):
+    """K2 in the modes and inputs no main-path shape runs (0 launches on
+    the main path; exact is reached only by a direct call): exact on
+    ``k2_in`` (K3's float32 output at this unfused cell) and, where
+    ``image`` (the u8 image of 720p_to_1080p_errdiff) is given, split2 and
+    exact on it and exact on it as u16 (x 257).  Each is held to its plain
+    version (max|plain| * 1e-5) and timed beside it and one float32
+    torch.matmul with the dense operator, with its bound (exact's: the
+    bytes, and 2 x band MACs at the float32 rate) and the MACs its MMAs
+    issue; exact on u8 must equal split2 on it bit for bit (one kernel,
+    the same products).  Returns ({report key: cell}, ok, the kernels-line
+    entries of split2 and exact on the u8 image)."""
+    from avir_tpu_torch.ops.cuda import banded_kernel as bk
+
+    runs = [("exact_f32", "exact", k2_in)]
+    if image is not None:
+        u16 = torch.from_numpy(image.cpu().numpy().astype(np.uint16) * 257).to(dev)
+        runs = [("split2", "split2", image), ("exact", "exact", image),
+                ("exact_u16", "exact", u16), *runs]
+    dv = torch.from_numpy(_dense(op)).to(dev)
+    report, entries, outs, ok = {}, [], {}, True
+    for key, mode, x in runs:
+        o2 = bk.prepare_banded(bop, mode, dev)
+        got = bk.apply_banded(o2, x)
+        want = bk.apply_banded_reference(o2, x)
+        torch.cuda.synchronize()
+        outs[key] = got
+        err = float((got - want).abs().max())
+        tol = float(want.abs().max()) * 1e-5
+        b_ = _k2_bound(op, x, mode)
+        xf = x.to(torch.int32).float() if x.dtype == torch.uint16 else x.float()
+        cell = {
+            "ms": _time_ms(lambda: bk.apply_banded(o2, x), 20, flush),
+            "plain_ms": _time_ms(lambda: bk.apply_banded_reference(o2, x), 2, flush),
+            "library_ms": _time_ms(lambda: torch.matmul(dv, xf), 3, flush),
+            "bound_ms": b_[0], "bound_by": b_[1], "bytes": b_[2],
+            "bound_ops": b_[3], "max_abs_err": err, "tol": tol,
+            **_k2_macs(o2, op, x), "slice_rows": o2.rows,
+            "launches_on_main_path": counts[o2.launch_key],
+            "input": f"{x.dtype} {list(x.shape)}",
+        }
+        report[f"k2_{key}_off_path"] = cell
+        ok = ok and err <= tol
+        if key in ("split2", "exact"):
+            entries.append({
+                "name": o2.launch_key, "route": "cuda",
+                "source": SOURCES[o2.launch_key], "replaces": KERNELS[o2.launch_key],
+                "launches": counts[o2.launch_key], "max_abs_err": err,
+                **{k: cell[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms")},
+            })
+    if image is not None:
+        same = bool(torch.equal(outs["exact"], outs["split2"]))
+        report["k2_exact_u8_equals_split2"] = same
+        ok = ok and same
+    del dv
+    return report, ok, entries
 
 
 def _prologue_shape(name, sw, sh, nw, nh, c, gen, dev, flush, smi, mods) -> list[dict]:
@@ -3515,7 +3586,8 @@ def kernel_times(root: str) -> int:
     gamma kernels at KT_GAMMA_CELLS (K6 at the two ring cells; K5 and K1
     int8 from its limb planes, vh and hv, at the two prologue cells), K2 at
     KT_K2_CELLS (the row pass of two unfused errdiff resizes, on K3's
-    output), K3 at KT_K3_CELLS (the lane pass of the three unfused
+    output, split3 and exact; at the first cell also split2 and exact on
+    the u8 image and exact on the image as u16), K3 at KT_K3_CELLS (the lane pass of the three unfused
     resizes, on the image the route gives it), K7 and K8 at
     KT_PLANAR_CELLS (with K1 split of the same resize beside them) and K1
     split hv at KT_SPLIT_HV_CELLS (with K1 split vh beside it), timed
@@ -3534,9 +3606,10 @@ def kernel_times(root: str) -> int:
     outputs across the versions; K2, K3, K7 and K8 sum float32 in their
     kernels' order, so their hashes change with their design; K2's and
     K3's gate is max|plain| * 1e-5, K7's, K8's and K1 split's the split
-    gate), K1 split hv's, K3's, K5's, K7's and K8's bounds, K1 split hv's
-    MACs issued and stagings, K5's load path, and ptxas's registers and
-    spills of the planar and fused_split libraries built in this call."""
+    gate), K1 split hv's, K2 exact's, K3's, K5's, K7's and K8's bounds, K1
+    split hv's MACs issued and stagings, K5's load path, and ptxas's
+    registers and spills of the planar, fused_split and banded libraries
+    built in this call."""
     import hashlib
     import os
 
@@ -3646,6 +3719,28 @@ def kernel_times(root: str) -> int:
             "tol": float(want.abs().max()) * 1e-5,
             "sha": sha(got), "input_sha": sha(k2_in),
         }
+        # K2 exact (no resize routes to it) on K3's output and, at the
+        # first cell, on the u8 image (split2 beside it) and the image as
+        # u16 (x 257).
+        runs = [("exact f32", "exact", k2_in)]
+        if name == KT_K2_CELLS[0][0]:
+            image = torch.from_numpy(src).to(dev)
+            u16 = torch.from_numpy(src.astype(np.uint16) * 257).to(dev)
+            runs = [("split2 u8", "split2", image), ("exact u8", "exact", image),
+                    ("exact u16", "exact", u16), *runs]
+        for label, mode, inp in runs:
+            o2 = bk.prepare_banded(ops.rows.bop, mode, dev)
+            got = bk.apply_banded(o2, inp)
+            want = bk.apply_banded_reference(o2, inp)
+            torch.cuda.synchronize()
+            bound = _k2_bound(plan.v.op, inp, mode)
+            times[f"banded_{label} {name}"] = {
+                "ms": _time_ms(lambda: bk.apply_banded(o2, inp), 20, flush),
+                "max_abs_err_vs_plain": float((got - want).abs().max()),
+                "tol": float(want.abs().max()) * 1e-5,
+                "bound_ms": bound[0], "bound_by": bound[1], "slice_rows": o2.rows,
+                "sha": sha(got),
+            }
     for name, entry, sw, sh, nw, nh, out_dt, kw in KT_K3_CELLS:
         if entry == "lancir":
             plan = build_lancir_plan(sw, sh, nw, nh, 3, np.uint8, out_dt)
@@ -3708,7 +3803,8 @@ def kernel_times(root: str) -> int:
             "vh_variant": vh.launch_key, "vh_sha": sha(vh_got),
         }
     ptxas = {"planar": _ptxas("planar", "planar"),
-             "fused_split": _ptxas("fused_split", "fused_split")}
+             "fused_split": _ptxas("fused_split", "fused_split"),
+             "banded": _ptxas("banded", "banded")}
     print(json.dumps({"kernel_times": times, "ptxas": ptxas, "root": root, "card": _card()}))
     return 0
 

@@ -176,32 +176,31 @@ def _scan_k_range(nz: np.ndarray, rows: int) -> np.ndarray:
      (1280, 720, 1920, 1080)],
 )
 def test_row_pass_k_range_is_a_scan_of_each_slice(size, mode):
-    """K2's k_range at the slice height its kernel runs (the split modes'
-    tensor-core kernel SPLIT_ROWS = 64 rows, exact 32) equals a direct scan
-    of each slice's nonzero tap rows; the launch grid has B x slices row
-    blocks."""
+    """K2's k_range at the slice height its kernel runs (SPLIT_ROWS = 64
+    rows in every mode) equals a direct scan of each slice's nonzero tap
+    rows; the launch grid has B x slices row blocks."""
     plan = build_resize_plan(*size, 3, np.uint8, np.float32)
     bop = block_banded(plan.v.op)
     ops = bk.prepare_banded(bop, mode, "cpu")
-    assert ops.rows == (32 if mode == "exact" else 64) and bk.SPLIT_ROWS == 64
+    assert ops.rows == 64 and bk.SPLIT_ROWS == 64
     nz = (bop.taps_hi != 0).numpy() | (bop.taps_lo != 0).numpy()
     np.testing.assert_array_equal(ops.k_range.numpy(), _scan_k_range(nz, ops.rows))
 
 
 def test_banded_cases_reach_their_edges():
     """The card cases of K2 (tests/torch_cases.py BANDED_CASES) cover the
-    edges of its tensor-core tiling: u8, u16 and f32 in both split modes;
-    rows whose width in bytes is off 16 (scalar loads) and on it (16-byte
-    loads); R off a multiple of 8; n_out off the 64-row slices; a slice
-    whose nonzero taps end inside a 16-deep MMA step; several row blocks."""
-    seen = set()
+    edges of its tensor-core tiling, for the split modes and for exact
+    apart (exact stores up to three limb planes): u8, u16 and f32 in each
+    mode; rows whose width in bytes is off 16 (scalar loads) and on it
+    (16-byte loads); R off a multiple of 8; n_out off the 64-row slices; a
+    slice whose nonzero taps end inside a 16-deep MMA step; several row
+    blocks."""
+    seen = {"split": set(), "exact": set()}
     for sw, sh, nw, nh, c, tin, mode in BANDED_CASES.values():
         ib = IN_BYTES[tin]
         plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
         bop = block_banded(plan.v.op, in_bytes=ib)
         r = sw * c
-        if mode == "exact":
-            continue
         ops = bk.prepare_banded(bop, mode, "cpu")
         nz = (bop.taps_hi != 0).numpy() | (bop.taps_lo != 0).numpy()
         ends = {
@@ -209,7 +208,7 @@ def test_banded_cases_reach_their_edges():
             for b in range(nz.shape[0]) for s in range(0, nz.shape[1], ops.rows)
             if nz[b, s : s + ops.rows].any()
         }
-        seen |= {
+        seen["exact" if mode == "exact" else "split"] |= {
             f"{tin}_{mode}",
             "vector_rows" if (r * ib) % 16 == 0 else "scalar_rows",
             *(["r_off_8"] if r % 8 else []),
@@ -217,11 +216,90 @@ def test_banded_cases_reach_their_edges():
             *(["end_inside_mma_step"] if any(e % 16 for e in ends) else []),
             *(["row_blocks"] if bop.n_blocks > 1 else []),
         }
+    edges = {"vector_rows", "scalar_rows", "r_off_8", "n_out_off_slices",
+             "end_inside_mma_step", "row_blocks"}
+    types = ("u8", "u16", "f32")
     assert seen == {
-        *(f"{t}_{m}" for t in ("u8", "u16", "f32") for m in ("split2", "split3")),
-        "vector_rows", "scalar_rows", "r_off_8", "n_out_off_slices",
-        "end_inside_mma_step", "row_blocks",
+        "split": {*(f"{t}_{m}" for t in types for m in ("split2", "split3")), *edges},
+        "exact": {*(f"{t}_exact" for t in types), *edges},
     }
+
+
+def _limbs(x: torch.Tensor, n: int) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """The kernel's split of ``x`` into ``n`` bf16 limbs (csrc/banded.cu
+    store_x): limb p is bf16 (round to nearest even) of what limbs 0..p-1
+    left, the remainders taken in float32; returns the limbs and what they
+    leave."""
+    rest = x.float()
+    limbs = []
+    for _ in range(n):
+        limb = rest.to(torch.bfloat16)
+        limbs.append(limb)
+        rest = rest - limb.float()
+    return limbs, rest
+
+
+def _limb_draws(tin: str) -> np.ndarray:
+    """Every u8 and u16 value; float32 of both signs over 2^-60..2^60."""
+    if tin != "f32":
+        return np.arange(np.iinfo(NP_TYPES[tin]).max + 1).astype(NP_TYPES[tin])
+    rng = np.random.default_rng(17)
+    mant = rng.random(200_000) + 1.0
+    sign = rng.choice([-1.0, 1.0], 200_000)
+    return (sign * np.ldexp(mant, rng.integers(-60, 61, 200_000))).astype(np.float32)
+
+
+@pytest.mark.parametrize("tin", ["u8", "u16", "f32"])
+def test_exact_limbs_sum_back_to_the_input(tin):
+    """K2 exact splits each input value into EXACT_LIMBS bf16 limbs (1 for
+    u8, 2 for u16, 3 for float32) that sum back to it exactly, and one limb
+    fewer does not (some value leaves a remainder)."""
+    x = torch.from_numpy(_limb_draws(tin))
+    n = bk.EXACT_LIMBS[x.dtype]
+    limbs, rest = _limbs(x, n)
+    assert not rest.any()
+    total = sum(limb.double() for limb in limbs)
+    assert torch.equal(total, x.double())
+    if n > 1:
+        assert _limbs(x, n - 1)[1].any()
+
+
+@pytest.mark.parametrize("tin", ["u8", "u16", "f32"])
+def test_exact_limb_products_are_the_taps_times_the_input(tin):
+    """On a small blocked operator, each product of K2 exact (a tap plane,
+    hi or lo, times an input limb) is exact in float64, and the products of
+    one tap and one input value sum in float64 to f32(hi + lo) * x exactly;
+    summed over the band they are within max|plain| * 1e-5 of the plain
+    version (apply_banded_reference)."""
+    sw, sh, nw, nh, c = 53, 37, 90, 71, 3
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+    bop = block_banded(plan.v.op, in_bytes=IN_BYTES[tin])
+    ops = bk.prepare_banded(bop, "exact", "cpu")
+    x = torch.from_numpy(split_source(f"limbs{tin}", sh, sw, c, tin))
+    if tin == "f32":
+        x = x * 2 - 1  # both signs, as K3's output has
+    limbs, _ = _limbs(x, bk.EXACT_LIMBS[x.dtype])
+    b_, t_, w_ = ops.hi.shape
+    out = torch.zeros(b_ * t_, sw * c, dtype=torch.float64)
+    taps = ops.hi.double() + ops.lo.double()
+    for b in range(b_):
+        o = int(bop.offs[b])
+        rows = slice(o, min(o + w_, sh))
+        k = rows.stop - rows.start
+
+        def window(t):
+            return t[rows].double()[None, :, :]
+
+        products = sum(
+            tap[b, :, :k, None].double() * window(limb)
+            for tap in (ops.hi, ops.lo) for limb in limbs
+        )
+        assert torch.equal(products, taps[b, :, :k, None] * window(x))
+        out[b * t_ : (b + 1) * t_] = products.sum(dim=1)
+    want = bk.apply_banded_reference(ops, x).double()
+    got = out[: bop.n_out]
+    assert got.shape == want.shape == (nh, sw * c)
+    assert (got - want).abs().max() <= want.abs().max() * 1e-5
 
 
 @pytest.mark.parametrize("tin", ["u8", "u16", "f32"])

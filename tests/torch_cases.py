@@ -285,7 +285,7 @@ BANDED_CASES = {
     "up_c3_u16_split3": (53, 37, 90, 71, 3, "u16", "split3"),
     "down_c4_f32_split3": (150, 97, 61, 40, 4, "f32", "split3"),
     "down_c3_u8_exact": (150, 97, 61, 40, 3, "u8", "exact"),
-    "up_c4_u8_exact": (40, 30, 64, 101, 4, "f32", "exact"),
+    "up_c4_f32_exact": (40, 30, 64, 101, 4, "f32", "exact"),
     "down_c1_u16_split2": (150, 97, 61, 40, 1, "u16", "split2"),
     "down_c8_u8_split3": (150, 97, 61, 40, 8, "u8", "split3"),
     # The edges of the split modes' tensor-core tiling (64-row slices x 128
@@ -299,6 +299,17 @@ BANDED_CASES = {
     "down_c2_u16_split2": (96, 40, 50, 21, 2, "u16", "split2"),
     "tall_c1_f32_split2": (40, 300, 64, 900, 1, "f32", "split2"),
     "tall_c1_u8_split3": (33, 200, 50, 700, 1, "u8", "split3"),
+    # The same edges for exact, whose kernel stores one, two or three limb
+    # planes (u8, u16, f32; test_torch_unfused checks each edge): the two
+    # exact cases at the top and u16 rows off and on 16 bytes, f32 rows off
+    # 16 bytes, tall multi-block cases, and a 4x downsize whose slices run
+    # 384 tap rows (24 16-deep steps, 144 MMAs into one accumulator).
+    "up_c3_u16_exact": (53, 37, 90, 71, 3, "u16", "exact"),
+    "wide_c4_u16_exact": (64, 50, 100, 130, 4, "u16", "exact"),
+    "down_c3_f32_exact": (150, 97, 61, 40, 3, "f32", "exact"),
+    "tall_c1_f32_exact": (40, 300, 64, 900, 1, "f32", "exact"),
+    "tall_c1_u8_exact": (33, 200, 50, 700, 1, "u8", "exact"),
+    "down4_c1_f32_exact": (64, 800, 16, 200, 1, "f32", "exact"),
 }
 
 # K3 (lane pass) on the card: the same fields; the pass runs over the
