@@ -4,11 +4,11 @@
 // avir_tpu/ops/pallas/fused_kernel.py: apply_fused_pallas -> _kernel ->
 // _int8_passes -> _finish, in its int8 mode, with its epilogue options:
 // the biased or round-half-even rounding, LANCIR's output ``scale``, and
-// the in-kernel sRGB gamma stages (the u8 linearization quantized to
-// 13-bit linear light, _linear_to_srgb, the C=4 alpha bypass).  One
-// launch computes the whole separable resize [rows_in, lanes_in] u8 ->
-// [rows_out, lanes_out] u8 from radix-128 two-limb s8 taps; the 15-bit
-// inter-pass intermediate lives only in shared memory.
+// the sRGB gamma stages (the u8 linearization quantized to 13-bit linear
+// light, _linear_to_srgb, the C=4 alpha bypass).  One launch computes the
+// whole separable resize [rows_in, lanes_in] u8 -> [rows_out, lanes_out]
+// u8 from radix-128 two-limb s8 taps; the 15-bit inter-pass intermediate
+// lives only in shared memory.
 //
 // Arithmetic (bit-exact with the TPU kernel): every product and sum
 // before the float recombination is an exact s32 integer, and each
@@ -17,21 +17,22 @@
 // intrinsics so that no FMA contraction can move a rounding
 // (k1_common.cuh).
 //
-//   input       no gamma: xs = s8(x ^ 0x80) = x - 128; reads past the
-//               edge see 0.
-//               gamma (GAMMA): xq = rint(poly7(x * in_gamma_mult) * 2^13)
-//               (the alpha lane: rint(x * in_gamma_mult * 2^13)), split
-//               into s8 limbs xq1 = (xq + 64) >> 7, xq0 = xq - 128*xq1,
-//               staged as two planes; reads past the edge see xq = 0.
-//               Each block first evaluates xq for all 256 u8 values (512
-//               with an alpha lane) into a shared table
-//               (k1::fill_q13_table), and every staged element is one
-//               table read: the same bits as the polynomial, which used to
-//               run on every staged element.
-//               gamma from limb planes (GAMMA_PRE: the template's PRE,
-//               _kernel's x_lo input there): xq1 and xq0 read from the two
-//               s8 planes of the prologue kernel K5 (gamma_prologue.cu),
-//               which computed them with the same gamma_in_q13.
+//   input (the template parameter IN)
+//     kU8       no gamma: xs = s8(x ^ 0x80) = x - 128; reads past the edge
+//               see 0 (so -128, as in the plain version).
+//     kGamma    gamma, the in-kernel route: xq = gamma_in_q13(x) (13-bit
+//               linear light; the alpha lane only scaled), split into s8
+//               limbs xq1 = (xq + 64) >> 7, xq0 = xq - 128*xq1; reads past
+//               the edge see x = 0, whose xq is 0.  Each block first fills
+//               a shared table of xq for all 256 u8 values (512 with an
+//               alpha lane, k1::fill_q13_table) and splits each entry in
+//               place into its limb pair; every staged element is one read
+//               of that table, and byte permutes gather four entries' hi
+//               (lo) limbs into a word of the hi (lo) plane.
+//     kPlanes   gamma from limb planes (_kernel's x_lo input): xq1 and xq0
+//               read from the two s8 planes of the prologue kernel K5
+//               (gamma_prologue.cu), which computed them from the same
+//               table.
 //   vh (downsize), per output row r and lane l:
 //     fq  = 128*sum q1v*xs + sum q0v*xs + v_comp[r]   (v_comp: row sums)
 //         gamma: 2^14*sum q1v*xq1 + 2^7*(sum q1v*xq0 + sum q0v*xq1)
@@ -47,141 +48,110 @@
 //               acc *= scale (when != 1); out = u8(clamp(rint(acc)) or
 //               clamp(floor(acc + 0.5)), 0, 255)
 //
-// Without gamma (the main path: every u8 AVIR and LANCIR resize): both
-// passes on the int8 tensor cores, mma.sync.aligned.m16n8k32.row.col
-// .s32.s8.s8.s32 from shared memory.  Fragments (g = lane / 4, t = lane %
-// 4): A (16 x 32 bytes, row-major) comes from one ldmatrix.x4 (b16, no
-// .trans: each 8x8 b16 matrix is 8 rows of 16 bytes, and thread l gets
-// bytes 4t..4t+3 of row g), with row (l & 15) and byte column (l >> 4) *
-// 16 as the address rule; the same instruction on a [N][K] tile gives the
-// B fragments of two n8 tiles ({r0, r2}: rows 0-7, {r1, r3}: rows 8-15).
-// A B operand stored as [K/4][N] words (4 contraction bytes a word) gives
-// b0 = word (t, g) and b1 = word (t + 4, g) by plain 32-bit loads; those
-// rows are padded to 136 words so that the 32 threads hit 32 banks.  The
-// two limb products of a pass share their B fragments: [q1; q0] against
-// one image fragment, [x1; x0] against h1 (plus x1 h0) in vh, and [x1;
-// x0] against q1 (plus x1 q0) in hv.  No .satfinite: a wrapped partial
-// sum still gives the exact total, which int8_feasible keeps inside s32.
+// Both passes run on the int8 tensor cores, mma.sync.aligned.m16n8k32.row
+// .col.s32.s8.s8.s32 from shared memory, in every input mode.  Fragments
+// (g = lane / 4, t = lane % 4): A (16 x 32 bytes, row-major) comes from one
+// ldmatrix.x4 (b16, no .trans: each 8x8 b16 matrix is 8 rows of 16 bytes,
+// and thread l gets bytes 4t..4t+3 of row g), with row (l & 15) and byte
+// column (l >> 4) * 16 as the address rule; the same instruction on a
+// [N][K] tile gives the B fragments of two n8 tiles ({r0, r2}: rows 0-7,
+// {r1, r3}: rows 8-15).  A B operand stored as [K/4][N] words (4
+// contraction bytes a word) gives b0 = word (t, g) and b1 = word (t + 4, g)
+// by plain 32-bit loads; those rows are padded to 136 words so that the 32
+// threads hit 32 banks.  The two limb products of a pass share their B
+// fragments: [q1; q0] against one image fragment, [x1; x0] against h1
+// (plus x1 h0) in vh, and [x1; x0] against q1 (plus x1 q0) in hv.  With
+// gamma the first pass makes a third product (m0 += q1 xq0, f0 += h1 xq0)
+// and requantizes fq = 2^14 m1 + 2^7 m0 with no comp sums.  No .satfinite:
+// a wrapped partial sum still gives the exact total, which int8_feasible
+// keeps inside s32; with gamma it bounds 2^14 * 64 q_abs1 + 2^7 * 64
+// (q_abs1 + q_abs0) + 2^26 below 2^31 over the first pass's taps, so no
+// partial sum of m1 / f1 or m0 / f0 and no fq wraps (the second pass's
+// sums may wrap, as without gamma).
 //
-//   vh (fused_int8_vh_mma<false>): a block owns 32 output rows (a slice of one V
-//   block) and one 128-lane output chunk; 8 warps, warp (wm, wn) owns rows
-//   16 wm.. and lanes 32 wn.. of both passes.  The chunk's nonzero lane
-//   range (h_range, 32-aligned) is cut into segments of 128 lanes.  Per
-//   segment: the first pass over the slice's nonzero V-tap rows
-//   (slice_range, here the same as k_range), 64 a step (two MMA depths):
-//   V taps [32][64] by cp.async (A), the image rows loaded as 32-bit
-//   words (4 lanes of one row) into registers, transposed 4 x 4 bytes with
-//   byte permutes into words of 4 rows (B, [16][128] words), ^ 0x80; the
-//   segment's last such step requantizes the sums (fq = 128 m1 + m0 +
-//   v_comp) into s8 limb planes x1 / x0 in shared memory (row-major, A of
-//   the second pass); then the second pass, 64 lanes a step: h1p / h0p
-//   words [16][128] by cp.async (B).  All steps of all segments form one
-//   sequence over two buffers, as in fused_split.cu: while a step's MMAs
-//   run, the next step's taps are in flight by cp.async and its image
-//   words in registers, with one barrier a step.
-//   hv (fused_int8_hv_mma<R, false>): computed transposed, so that no byte needs
-//   transposing: F^T[n][k] = sum_m H^T[n][m] X^T[m][k], whose B fragment
-//   is 4 lanes of one image row, and out^T[n][r] = sum_k XT[n][k] V[r][k],
-//   whose A is the intermediate as [lane][row] bytes and whose B is the V
-//   taps as stored.  A block owns R output rows and one chunk; warp w owns
-//   lanes 16 w..16 w + 15.  Phase 1: for each 32-row group of the slice's
-//   nonzero V-tap rows, the first pass over the chunk's nonzero lane range
-//   (the lane taps H^T, [128][<= 128] bytes, staged once when the range
-//   fits, else per 128-lane piece; the image tile [32][<= 128] copied raw
-//   by cp.async with zero fill past the edge, ^ 0x80808080 on each
-//   fragment register, the next group's tile in flight during this
-//   group's MMAs), requantized into the shared intermediate XT [128][kw].
-//   Phase 2: per 32-row sub-tile, V taps by cp.async (double-buffered),
-//   the second pass over the sub-tile's own nonzero range (k_range), the
-//   epilogue.  A window taller than kw (256 rows: an hv order on a steep
-//   row downsize) runs in windows, with R = 32.
+//   vh (fused_int8_vh_mma<IN>): a block owns 32 output rows (a slice of
+//   one V block) and one 128-lane output chunk; 8 warps, warp (wm, wn)
+//   owns rows 16 wm.. and lanes 32 wn.. of both passes.  The chunk's
+//   nonzero lane range (h_range, 32-aligned) is cut into segments of 128
+//   lanes.  Per segment: the first pass over the slice's nonzero V-tap rows
+//   (slice_range, here the same as k_range), 64 a step (two MMA depths): V
+//   taps [32][64] by cp.async (A), the image rows loaded as 32-bit words (4
+//   lanes of one row) into registers and stored as B words of 4 rows
+//   ([16][128] words a plane) after 4 x 4 byte transposes by byte permutes:
+//   kU8 one plane ^ 0x80; kPlanes both planes' words as loaded; kGamma the
+//   image words, each byte's limb pair read from the table and the
+//   transposed hi and lo words assembled from those entries by the byte
+//   permutes (the global read stays one u8 plane; the two planes fill the
+//   buffer kPlanes lays out as [2][16][136] words).  The segment's last such step requantizes the sums into s8
+//   limb planes x1 / x0 in shared memory (row-major, A of the second
+//   pass); then the second pass, 64 lanes a step: h1p / h0p words [16][128]
+//   by cp.async (B).  All steps of all segments form one sequence over two
+//   buffers, as in fused_split.cu: while a step's MMAs run, the next step's
+//   taps are in flight by cp.async and its image words in registers, with
+//   one barrier a step.  vh runs 32 rows: a 64-row vh tiling measured
+//   47-65% slower at both 8K downsizes.
+//   hv (fused_int8_hv_mma<R, IN>): computed transposed, so that no byte
+//   needs transposing: F^T[n][k] = sum_m H^T[n][m] X^T[m][k], whose B
+//   fragment is 4 lanes of one image row, and out^T[n][r] = sum_k XT[n][k]
+//   V[r][k], whose A is the intermediate as [lane][row] bytes and whose B
+//   is the V taps as stored.  A block owns R output rows and one chunk;
+//   warp w owns lanes 16 w..16 w + 15.  Phase 1: for each 32-row group of
+//   the slice's nonzero V-tap rows, the first pass over the chunk's
+//   nonzero lane range (the lane taps H^T, [128][<= 128] bytes, staged
+//   once when the range fits, else per 128-lane piece; the image tile
+//   [32][<= 128] copied raw by cp.async with zero fill past the edge, the
+//   next step's tile in flight during this step's MMAs), requantized into
+//   the shared intermediate XT [128][kw].  kU8 flips each fragment
+//   register (^ 0x80808080); kPlanes stages both planes' tiles; kGamma
+//   stages the u8 tile and, once it has landed, converts it in shared
+//   memory into the two limb planes (one table read a byte, 16 lanes of a
+//   row a thread) and one barrier more before the MMAs (the next step's
+//   tile is issued after it, in flight during the MMAs): every warp reads
+//   every byte of the tile, so a conversion in the fragment registers
+//   would run 8 times a byte.  Phase 2: per 32-row sub-tile, V taps by cp.async
+//   (double-buffered), the second pass over the sub-tile's own nonzero
+//   range (k_range), the epilogue.  A window taller than kw (256 rows: an
+//   hv order on a steep row downsize) runs in windows, with R = 32.
 //   hv's slice height R (32, 64 or 128) is a template parameter that the
 //   host chooses from the operators (fused_kernel.py:slice_rows): the
-//   tallest whose grid keeps two blocks per SM of the card and whose
-//   slices' nonzero ranges fit the intermediate (a taller slice recomputes
-//   fewer window rows: the first pass reads each input byte 7.9 / 5.9 / 3.9
-//   times at 32 / 64 / 128 rows at 1920x1080 -> 3840x2160).  vh runs 32
-//   rows: a 64-row vh tiling measured 47-65% slower at both 8K downsizes.
+//   tallest whose grid keeps two blocks per SM of the card, whose slices'
+//   nonzero ranges fit the intermediate and (gamma) whose shared memory
+//   lets two blocks share an SM (a taller slice recomputes fewer window
+//   rows: the first pass reads each input byte 7.9 / 5.9 / 3.9 times at 32
+//   / 64 / 128 rows at 1920x1080 -> 3840x2160).
 //
-// What bounds it.  The image read once plus the output written once bound
-// it at 0.03 ms at 7680x4320 -> 1920x1080 (bytes at the H100 SXM data
-// sheet's 3.35 TB/s); the MMAs issue 5-14x the band MACs (dense tap
-// blocks over the nonzero ranges), tens of microseconds at the data sheet's
-// int8 tensor-core rate.  The kernels run 10-34x the bytes bound on an H100
-// 80GB HBM3 at 700 W (PERF.md); the staging (the first pass reads each
-// input byte about twice at 8K, 3.4-3.9 times at 2x upsizes: chip_smoke.py
-// prints the factor), the 32-bit B-fragment loads from shared memory and
-// the barrier per step are the candidates, none yet measured apart.
-// Registers and spills (ptxas for sm_90a, printed by chip_smoke.py): vh 128
-// registers, no spill; hv 128 at every height, with 16-20 bytes spilled.
+// What bounds them.  The image read once plus the output written once: at
+// 7680x4320 -> 1920x1080 0.0317 ms (bytes at the H100 SXM data sheet's
+// 3.35 TB/s), at 1920x1080 -> 3840x2160 0.00935 ms; with gamma the float32
+// gamma stages (counted as 15 operations an input element and 16 an
+// output at 67 TFLOP/s: 0.024 / 0.0073 ms) stay below both, and kPlanes
+// reads two planes, 0.061 / 0.0112 ms.  The MMAs issue 5-14x the band MACs
+// (dense tap blocks over the nonzero ranges; gamma one product more a
+// first-pass step), tens of microseconds at the data sheet's int8
+// tensor-core rate.  Measured on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py and its --kernel-times, PERF.md): without gamma
+// 0.30-0.38 ms at 8K -> 1080p, 0.15-0.16 at 1080p -> 4K (9-17x the bytes
+// bound); kPlanes vh 0.46-0.48 ms at 8K -> 1080p, hv 0.24-0.29 at 1080p
+// -> 4K; kGamma vh 0.450-0.491 ms at 8K -> 1080p (14-15x) and hv
+// 0.255-0.272 at 1080p -> 4K at 128-row slices (27-29x; 0.29-0.32 at 64
+// rows, 0.36-0.39 at 32), where the dp4a kernels it replaces (one thread
+// per 4 rows x 4 lanes over dense tap blocks of the whole window) ran
+// 2.06-2.13 and 2.36-2.38 in the same calls.  The staging (the first pass
+// reads each input byte about twice at 8K, 3.9 times at 2x upsizes at
+// 128-row slices: chip_smoke.py prints the factor), the 32-bit B-fragment
+// loads from shared memory and the barrier per step are the candidates,
+// none yet measured apart.  Registers and spills (ptxas for sm_90a,
+// printed by chip_smoke.py): every kernel 128 registers; vh spills
+// nothing (kPlanes 4 bytes); hv spills 16-20 bytes at 128 and 64 rows
+// (kGamma 20 stored, 32 loaded) and at 32 rows 0 (kPlanes), 16 (kU8) or
+// 52 stored and 108 loaded (kGamma).
 //
 // Bit-equality.  Every product and sum before the recombination is an
 // exact s32 integer (tensor-core s8 x s8 -> s32, wrapping), the
-// requantization and the epilogue are the k1:: functions of the dp4a
-// kernels, and each output is recombined from its own full sums, so the
-// bits do not depend on the tiling: the kernels equal the plain version
-// and the dp4a kernels they replace.
-//
-// From K5's limb planes (PRE: fused_int8_vh_mma<true>, fused_int8_hv_mma<R,
-// true>).  Replaces avir_tpu/ops/pallas/fused_kernel.py:422
-// apply_fused_pallas with x_lo (:462-516: the linearize-once route's second
-// kernel, after K5), in both pass orders.  They are the tensor-core kernels
-// above with a second input plane and a third product in the first pass;
-// the second pass is unchanged, and the epilogue is K1's gamma-out
-// (k1::finish_int with gamma, the C=4 alpha bypass).
-//   vh: the first pass loads both s8 planes as 32-bit words (4 lanes of one
-//   row), turns them 4 x 4 by byte permutes into B words of 4 rows (no ^
-//   0x80: the planes are s8 already) in the buffer the image words use (two
-//   planes of [16][136] words fill it), and makes three MMAs a 32-deep
-//   step: m1 = q1 xq1 and m0 = q0 xq1 (one B fragment), then m0 += q1 xq0;
-//   it requantizes fq = 2^14 m1 + 2^7 m0 (no v_comp).
-//   hv: both planes' tiles are staged raw by cp.async (32-bit word loads
-//   where the planes' rows or windows are not 16-byte aligned) into a
-//   second image buffer of each double-buffer slot ([2 buf][2 plane][32]
-//   [144] bytes, 9,216 bytes more: 110,592 at kwin 128, still two blocks an
-//   SM); no ^ 0x80 and no h_comp; three MMAs a fragment pair, f1 = h1 xq1
-//   and f0 = h0 xq1 (one B fragment), then f0 += h1 xq0; fq = 2^14 f1 + 2^7
-//   f0.  The host picks R with the two planes' shared memory
-//   (fused_kernel.py:slice_rows, planes=2): 128 rows at 1920x1080 ->
-//   3840x2160 and 1280x720 -> 1920x1080, 64 at 640x480 -> 1024x768.
-// int8_feasible bounds 2^14 * 64 q_abs1 + 2^7 * 64 (q_abs1 + q_abs0) + 2^26
-// below 2^31 over the first pass's taps: no partial sum of m1 / f1 or m0 /
-// f0 and no fq wraps; the second pass's sums may wrap, as without gamma.
-// What bounds them: the two planes read once and the output written once,
-// 0.061 ms at 7680x4320 -> 1920x1080 (2 x 99.5 MB + 6.2 MB) and 0.0112 ms
-// at 1920x1080 -> 3840x2160 (2 x 6.2 MB + 24.9 MB) at 3.35 TB/s; the
-// designs stage the planes as often as the image without gamma (about
-// twice at 8K, 3.9 times at 2x upsizes at 128-row slices) and issue one
-// product more a first-pass step.  Measured on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py --kernel-times, PERF.md): vh 0.45-0.49 ms at 8K -> 1080p
-// (7x the bound; the dp4a vh design ran 2.06-2.08); hv 0.249-0.253 ms at
-// 1080p -> 4K (22x; 0.240 / 0.277 / 0.330 ms at 128 / 64 / 32 rows),
-// against 2.28-2.34 for the dp4a hv design it replaces, and the in-kernel
-// hv gamma kernel's 2.35.
-//
-// With gamma from the image (fused_int8_vh, fused_int8_hv: the in-kernel
-// route, redesigned around a shared linearization table and kept on dp4a),
-// a thread block owns 32 output rows (a slice of one V block) and one
-// 128-lane output chunk of one lane block; 256 threads each own 4 rows x 4
-// lanes.  Products are dp4a (4 s8 MACs into s32) from shared memory.
-// Operands are staged "packed along the contraction": a 32-bit word holds
-// 4 consecutive contraction elements, so V taps (row-major) and the
-// horizontal taps (packed on the host, [win_c/4][128] words) load as they
-// are, and the image tile is transposed into that form as it is stored.
-//   vh: for each 128-lane segment of the chunk's win_c-lane window, the
-//       first pass computes x15 for the 32 rows x 128 lanes over the
-//       slice's nonzero V-tap rows, then the second pass adds that
-//       segment's share of pa/pb.  Each input byte is read ~3 times at
-//       7680x4320 -> 1920x1080.  Dynamic shared memory: 52 KB with the
-//       table.
-//   hv: for each 32-row segment of the slice's nonzero V-tap rows, the
-//       first pass computes x15 for those window rows x 128 chunk lanes
-//       over the win_c window lanes, then the second pass adds the
-//       segment's share: each input byte is read ~32 times at 1920x1080 ->
-//       3840x2160.
-//   The first pass makes 3 products.  These kernels run on the CUDA cores
-//   (dp4a) over dense tap blocks, bound by dp4a issue (2.04-2.35 ms at the
-//   two gamma cells, PERF.md).
+// requantization and the epilogue are the k1:: functions, and each output
+// is recombined from its own full sums, so the bits do not depend on the
+// tiling or the input mode: the kernels equal the plain version, and the
+// in-kernel gamma route equals the limb-plane route and K6.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -194,31 +164,42 @@ namespace {
 using namespace mma_s8;
 
 constexpr int kThreads = 256;
-constexpr int kRows = 32;    // output rows per block
+constexpr int kRows = 32;    // vh output rows per block
 constexpr int kLanes = 128;  // output lanes per block (one chunk)
-constexpr int kDepth = 32;   // contraction elements staged per step
-constexpr int kDepth4 = kDepth / 4;
+constexpr int kDepth = 32;   // contraction elements of one MMA step
+
+// The first pass's input (the kernels' template parameter IN).
+enum In : int {
+  kU8 = 0,      // the u8 image, shifted to s8 (x ^ 0x80), with the comp sums
+  kPlanes = 1,  // K5's two s8 limb planes of the linearized image (x, x_lo)
+  kGamma = 2,   // the u8 image, linearized in the kernel from a shared table
+};
+
+// Bytes of the linearization table, q13[2][256] int32 (kGamma).
+constexpr int kTableBytes = 2 * 256 * 4;
+
+// Input planes read from global memory: both limb planes with kPlanes.
+__host__ __device__ constexpr int loads(int in) { return in == kPlanes ? 2 : 1; }
 
 struct Args {
-  const uint8_t* x;        // the u8 image, or (GAMMA_PRE) the hi limb plane
-  const uint8_t* x_lo;     // GAMMA_PRE: the lo limb plane
+  const uint8_t* x;        // the u8 image, or (kPlanes) the hi limb plane
+  const uint8_t* x_lo;     // kPlanes: the lo limb plane
   int rows_in, lanes_in;   // extent of x (and x_lo)
   uint8_t* out;
   int rows_out, lanes_out;
   const int8_t* v1;        // [Bv, Tv, Wv]
   const int8_t* v0;
-  const int32_t* v_comp;   // [Bv, Tv] (vh without gamma)
+  const int32_t* v_comp;   // [Bv, Tv] (vh, kU8)
   const int32_t* offs_v;   // [Bv]
   int tv, wv;
-  const uint32_t* h1p;     // [Bh, n_ch, win_c/4, 128] packed along win_c
+  const uint32_t* h1p;     // [Bh, n_ch, win_c/4, 128] packed along win_c (vh)
   const uint32_t* h0p;
-  const int32_t* h_comp;   // [Bh, n_ch, 128] (hv without gamma)
+  const int32_t* h_comp;   // [Bh, n_ch, 128] (hv, kU8)
   const int32_t* offs_l;   // [Bh]
   const int32_t* rel;      // [n_ch]
   int n_ch, win_c, tc;
-  const int32_t* k_range;  // [Bv, n_slices, 2] nonzero V-tap rows, 32-row slices
+  const int32_t* k_range;  // [Bv, n_slices, 2] nonzero V-tap rows, 32-row slices (hv)
   int n_slices;
-  // The tensor-core kernels (no gamma).
   const int32_t* slice_range;  // [Bv, n_slices_r, 2] the same over R-row slices
   int n_slices_r;
   const int32_t* h_range;  // [Bh, n_ch, 2] nonzero lane-tap rows, 32-aligned
@@ -231,324 +212,47 @@ struct Args {
   k1::Epilogue epi;
 };
 
-// Image element as 13-bit linear light in two s8 limbs (hi, lo), from the
-// block's table of gamma_in_q13; zero past the edge.
-__device__ __forceinline__ void load_limbs(const Args& a, const int32_t (*q13)[256],
-                                           int r, int l, int32_t* hi, int32_t* lo) {
-  *hi = 0;
-  *lo = 0;
-  if (r >= a.rows_in || l >= a.lanes_in) return;
-  const size_t i = static_cast<size_t>(r) * a.lanes_in + l;
-  const int32_t q = k1::q13_of(a.epi, q13, __ldg(a.x + i), l);
-  *hi = k1::limb_hi(q);
-  *lo = q - *hi * 128;
-}
-
-__device__ __forceinline__ uint32_t byte_of(int32_t v, int i) {
-  return (static_cast<uint32_t>(v) & 0xffu) << (8 * i);
-}
-
-// Four consecutive contraction elements from (r, l), stepping (dr, dl),
-// packed into one word of each limb plane, xq1 and xq0.
-__device__ __forceinline__ void pack4(const Args& a, const int32_t (*q13)[256],
-                                      int r, int l, int dr, int dl,
-                                      uint32_t* w1, uint32_t* w0) {
-  uint32_t p1 = 0, p0 = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int32_t hi, lo;
-    load_limbs(a, q13, r + i * dr, l + i * dl, &hi, &lo);
-    p1 |= byte_of(hi, i);
-    p0 |= byte_of(lo, i);
-  }
-  *w1 = p1;
-  *w0 = p0;
-}
-
 template <bool GAMMA>
 __device__ __forceinline__ uint8_t finish(const Args& a, int32_t pa, int32_t pb, int lane) {
   const float acc = k1::recombine(pa, pb, a.rec);
   return static_cast<uint8_t>(static_cast<int>(k1::finish_int<GAMMA>(a.epi, acc, lane)));
 }
 
-// V tap limbs of the block's 32 rows over contraction rows k0..k0+31:
-// one word (4 taps) per thread and limb; rows past the V block are 0.
-__device__ __forceinline__ void stage_v_taps(
-    const Args& a, int vb, int r0, int k0,
-    uint32_t (*s1)[kDepth4], uint32_t (*s0)[kDepth4]) {
-  const int r = threadIdx.x / kDepth4, w = threadIdx.x % kDepth4;
-  const int tr = r0 + r;
-  uint32_t q1 = 0, q0 = 0;
-  if (tr < a.tv) {
-    const size_t off = (static_cast<size_t>(vb) * a.tv + tr) * a.wv + k0 + 4 * w;
-    q1 = __ldg(reinterpret_cast<const uint32_t*>(a.v1 + off));
-    q0 = __ldg(reinterpret_cast<const uint32_t*>(a.v0 + off));
+// kGamma's table: k1::fill_q13_table's 13-bit linear light of every u8
+// value (row 1: the alpha lane's), each entry then split in place into its
+// balanced s8 limbs q = 128 hi + lo, hi in byte 0 and lo in byte 1.
+__device__ __forceinline__ void fill_limb_table(const k1::Epilogue& e, int32_t (*lt)[256]) {
+  k1::fill_q13_table(e, lt);
+  const int n = e.alpha_lane >= 0 ? 512 : 256;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int32_t q = lt[i >> 8][i & 255];
+    const int32_t h = k1::limb_hi(q);
+    lt[i >> 8][i & 255] = (h & 0xff) | ((q - 128 * h) & 0xff) << 8;
   }
-  s1[r][w] = q1;
-  s0[r][w] = q0;
+  __syncthreads();
 }
 
-__device__ __forceinline__ void store_out(
-    const Args& a, int vb, int r0, int hb, int j,
-    const int32_t (&pa)[4][4], const int32_t (&pb)[4][4]) {
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+// Offsets into the limb table of byte i of a word whose first lane is l
+// (row 1 for the alpha lane, as k1::q13_of).
+__device__ __forceinline__ void table_rows(const Args& a, int l, int (&off)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int tr = r0 + 4 * ty + i;
-    const int orow = vb * a.tv + tr;
-    if (tr >= a.tv || orow >= a.rows_out) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int cl = j * kLanes + 4 * tx + jj;
-      const int olane = hb * a.tc + cl;
-      if (cl < a.tc && olane < a.lanes_out) {
-        a.out[static_cast<size_t>(orow) * a.lanes_out + olane] =
-            finish<true>(a, pa[i][jj], pb[i][jj], olane);
-      }
-    }
-  }
+  for (int i = 0; i < 4; ++i) off[i] = k1::is_alpha(a.epi, l + i) ? 256 : 0;
 }
 
-// Dynamic shared memory of the vh kernel, in 32-bit words.
-constexpr int kVhTapWords = 2 * kRows * kDepth4;            // sv1, sv0
-constexpr int kVhXWords = kDepth4 * kLanes;                 // one limb plane
-constexpr int kVhLimbWords = 2 * kRows * (kLanes / 4);      // sl1, sl0
-constexpr int kVhHWords = 2 * (kLanes / 4) * kLanes;        // sh1, sh0
-constexpr int kTableWords = 2 * 256;                        // q13
-constexpr size_t vh_smem_bytes() {
-  return (kVhTapWords + 2 * kVhXWords + kVhLimbWords + kVhHWords + kTableWords) * 4;
+// The table entries of the four bytes of image word w (a zero byte, as
+// past the edge, reads xq = 0).
+__device__ __forceinline__ void table_entries(const int32_t* lt, const int (&off)[4], uint32_t w,
+                                              uint32_t (&t)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) t[i] = static_cast<uint32_t>(lt[off[i] + ((w >> (8 * i)) & 0xff)]);
 }
 
-// vh with the in-kernel linearization (the limb-plane input runs on the
-// tensor cores, fused_int8_vh_mma<true>).
-__global__ void __launch_bounds__(kThreads) fused_int8_vh(const Args a) {
-  const int chunk = blockIdx.x;
-  const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
-  const int vb = blockIdx.y / a.n_slices, sl = blockIdx.y % a.n_slices;
-  const int r0 = sl * kRows;
-  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
-
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t (*sv1)[kDepth4] = reinterpret_cast<uint32_t (*)[kDepth4]>(smem);  // V tap limbs
-  uint32_t (*sv0)[kDepth4] = sv1 + kRows;
-  // Input tile, packed along rows: the xq1 / xq0 planes.
-  uint32_t (*sx1)[kLanes] = reinterpret_cast<uint32_t (*)[kLanes]>(smem + kVhTapWords);
-  uint32_t (*sx0)[kLanes] = sx1 + kDepth4;
-  // x1/x0 limbs, packed along lanes.
-  uint32_t (*sl1)[kLanes / 4] = reinterpret_cast<uint32_t (*)[kLanes / 4]>(
-      smem + kVhTapWords + 2 * kVhXWords);
-  uint32_t (*sl0)[kLanes / 4] = sl1 + kRows;
-  uint32_t (*sh1)[kLanes] = reinterpret_cast<uint32_t (*)[kLanes]>(sl0 + kRows);  // H taps
-  uint32_t (*sh0)[kLanes] = sh1 + kLanes / 4;
-  int32_t (*q13)[256] = reinterpret_cast<int32_t (*)[256]>(sh0 + kLanes / 4);
-  k1::fill_q13_table(a.epi, q13);
-
-  const int k_lo = a.k_range[2 * blockIdx.y];
-  const int k_hi = a.k_range[2 * blockIdx.y + 1];
-  const int row0 = a.offs_v[vb];
-  const int lane0 = a.offs_l[hb] + a.rel[j];
-
-  int32_t pa[4][4] = {}, pb[4][4] = {};
-  for (int seg = 0; seg < a.win_c; seg += kLanes) {
-    // ---- first (vertical) pass over this 128-lane segment ----------
-    // m1 = q1v.xq1, m0 = q1v.xq0, m2 = q0v.xq1.
-    int32_t m1[4][4] = {}, m0[4][4] = {}, m2[4][4] = {};
-    for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
-      __syncthreads();
-      stage_v_taps(a, vb, r0, k0, sv1, sv0);
-      // One word per (4 rows, lane): rows k0 + 4*k4 .. + 3.
-      for (int e = tid; e < kDepth4 * kLanes; e += kThreads) {
-        const int k4 = e / kLanes, l = e % kLanes;
-        uint32_t w1, w0;
-        pack4(a, q13, row0 + k0 + 4 * k4, lane0 + seg + l, 1, 0, &w1, &w0);
-        sx1[k4][l] = w1;
-        sx0[k4][l] = w0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k4 = 0; k4 < kDepth4; ++k4) {
-        const uint4 xb = *reinterpret_cast<const uint4*>(&sx1[k4][4 * tx]);
-        const int xv[4] = {static_cast<int>(xb.x), static_cast<int>(xb.y),
-                           static_cast<int>(xb.z), static_cast<int>(xb.w)};
-        const uint4 xc = *reinterpret_cast<const uint4*>(&sx0[k4][4 * tx]);
-        const int xl[4] = {static_cast<int>(xc.x), static_cast<int>(xc.y),
-                           static_cast<int>(xc.z), static_cast<int>(xc.w)};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int q1 = static_cast<int>(sv1[4 * ty + i][k4]);
-          const int q0 = static_cast<int>(sv0[4 * ty + i][k4]);
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            m1[i][jj] = __dp4a(q1, xv[jj], m1[i][jj]);
-            m0[i][jj] = __dp4a(q1, xl[jj], m0[i][jj]);
-            m2[i][jj] = __dp4a(q0, xv[jj], m2[i][jj]);
-          }
-        }
-      }
-    }
-    // ---- requantize to two s8 limbs, kept in shared memory ---------
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t w1 = 0, w0 = 0;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int32_t fq = m1[i][jj] * 16384 + (m0[i][jj] + m2[i][jj]) * 128;
-        const int32_t x15 = k1::requant(fq, a.sh);
-        const int32_t x1 = k1::limb_hi(x15);
-        w1 |= byte_of(x1, jj);
-        w0 |= byte_of(x15 - x1 * 128, jj);
-      }
-      sl1[4 * ty + i][tx] = w1;
-      sl0[4 * ty + i][tx] = w0;
-    }
-    {
-      const size_t base =
-          (static_cast<size_t>(chunk) * (a.win_c / 4) + seg / 4) * kLanes / 4;
-      const uint4* g1 = reinterpret_cast<const uint4*>(a.h1p) + base;
-      const uint4* g0 = reinterpret_cast<const uint4*>(a.h0p) + base;
-      for (int e = tid; e < (kLanes / 4) * kLanes / 4; e += kThreads) {
-        reinterpret_cast<uint4*>(&sh1[0][0])[e] = __ldg(g1 + e);
-        reinterpret_cast<uint4*>(&sh0[0][0])[e] = __ldg(g0 + e);
-      }
-    }
-    __syncthreads();
-    // ---- second (horizontal) pass: this segment's share ------------
-#pragma unroll 4
-    for (int k4 = 0; k4 < kLanes / 4; ++k4) {
-      const uint4 t1 = *reinterpret_cast<const uint4*>(&sh1[k4][4 * tx]);
-      const uint4 t0 = *reinterpret_cast<const uint4*>(&sh0[k4][4 * tx]);
-      const int h1[4] = {static_cast<int>(t1.x), static_cast<int>(t1.y),
-                         static_cast<int>(t1.z), static_cast<int>(t1.w)};
-      const int h0[4] = {static_cast<int>(t0.x), static_cast<int>(t0.y),
-                         static_cast<int>(t0.z), static_cast<int>(t0.w)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int x1 = static_cast<int>(sl1[4 * ty + i][k4]);
-        const int x0 = static_cast<int>(sl0[4 * ty + i][k4]);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          pa[i][jj] = __dp4a(x1, h1[jj], pa[i][jj]);
-          pb[i][jj] = __dp4a(x0, h1[jj], pb[i][jj]);
-          pb[i][jj] = __dp4a(x1, h0[jj], pb[i][jj]);
-        }
-      }
-    }
-  }
-  store_out(a, vb, r0, hb, j, pa, pb);
-}
-
-// hv with the in-kernel linearization (the limb-plane input runs on the
-// tensor cores, fused_int8_hv_mma<R, true>).
-__global__ void __launch_bounds__(kThreads) fused_int8_hv(const Args a) {
-  const int chunk = blockIdx.x;
-  const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
-  const int vb = blockIdx.y / a.n_slices, sl = blockIdx.y % a.n_slices;
-  const int r0 = sl * kRows;
-  const int tid = threadIdx.x, tx = tid % 32, ty = tid / 32;
-
-  // Input tile packed along lanes: the xq1 / xq0 planes.
-  __shared__ uint32_t sxa[2][kRows][kDepth4];
-  __shared__ __align__(16) uint32_t st1[kDepth4][kLanes];    // H taps, packed
-  __shared__ __align__(16) uint32_t st0[kDepth4][kLanes];
-  __shared__ __align__(16) uint32_t sl1[kDepth4][kLanes];    // x1/x0, packed along rows
-  __shared__ __align__(16) uint32_t sl0[kDepth4][kLanes];
-  __shared__ uint32_t sv1[kRows][kDepth4];                   // V tap limbs
-  __shared__ uint32_t sv0[kRows][kDepth4];
-  __shared__ int32_t q13[2][256];                            // gamma_in_q13 table
-  k1::fill_q13_table(a.epi, q13);
-
-  const int k_lo = a.k_range[2 * blockIdx.y];
-  const int k_hi = a.k_range[2 * blockIdx.y + 1];
-  const int row0 = a.offs_v[vb];
-  const int lane0 = a.offs_l[hb] + a.rel[j];
-  const size_t tap_base = static_cast<size_t>(chunk) * (a.win_c / 4) * kLanes / 4;
-
-  int32_t pa[4][4] = {}, pb[4][4] = {};
-  for (int k0 = k_lo; k0 < k_hi; k0 += kDepth) {
-    // ---- first (horizontal) pass for window rows k0..k0+31 ---------
-    // f1 = xq1.h1, f0 = xq0.h1, f2 = xq1.h0.
-    int32_t f1[4][4] = {}, f0[4][4] = {}, f2[4][4] = {};
-    for (int m0 = 0; m0 < a.win_c; m0 += kDepth) {
-      __syncthreads();
-      {
-        // One word per (row, 4 lanes): one per thread.
-        static_assert(kRows * kDepth4 == kThreads, "one staged word per thread");
-        const int r = tid / kDepth4, l4 = tid % kDepth4;
-        uint32_t w1, w0;
-        pack4(a, q13, row0 + k0 + r, lane0 + m0 + 4 * l4, 0, 1, &w1, &w0);
-        sxa[0][r][l4] = w1;
-        sxa[1][r][l4] = w0;
-      }
-      {
-        const uint4* g1 = reinterpret_cast<const uint4*>(a.h1p) + tap_base + m0 / 4 * kLanes / 4;
-        const uint4* g0 = reinterpret_cast<const uint4*>(a.h0p) + tap_base + m0 / 4 * kLanes / 4;
-        reinterpret_cast<uint4*>(&st1[0][0])[tid] = __ldg(g1 + tid);
-        reinterpret_cast<uint4*>(&st0[0][0])[tid] = __ldg(g0 + tid);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int m4 = 0; m4 < kDepth4; ++m4) {
-        const uint4 t1 = *reinterpret_cast<const uint4*>(&st1[m4][4 * tx]);
-        const uint4 t0 = *reinterpret_cast<const uint4*>(&st0[m4][4 * tx]);
-        const int h1[4] = {static_cast<int>(t1.x), static_cast<int>(t1.y),
-                           static_cast<int>(t1.z), static_cast<int>(t1.w)};
-        const int h0[4] = {static_cast<int>(t0.x), static_cast<int>(t0.y),
-                           static_cast<int>(t0.z), static_cast<int>(t0.w)};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int xv = static_cast<int>(sxa[0][4 * ty + i][m4]);
-          const int xl = static_cast<int>(sxa[1][4 * ty + i][m4]);
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            f1[i][jj] = __dp4a(xv, h1[jj], f1[i][jj]);
-            f0[i][jj] = __dp4a(xl, h1[jj], f0[i][jj]);
-            f2[i][jj] = __dp4a(xv, h0[jj], f2[i][jj]);
-          }
-        }
-      }
-    }
-    // ---- requantize; pack each lane's 4 rows into one word ---------
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      uint32_t w1 = 0, w0 = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int32_t fq = f1[i][jj] * 16384 + (f0[i][jj] + f2[i][jj]) * 128;
-        const int32_t x15 = k1::requant(fq, a.sh);
-        const int32_t x1 = k1::limb_hi(x15);
-        w1 |= byte_of(x1, i);
-        w0 |= byte_of(x15 - x1 * 128, i);
-      }
-      sl1[ty][4 * tx + jj] = w1;
-      sl0[ty][4 * tx + jj] = w0;
-    }
-    stage_v_taps(a, vb, r0, k0, sv1, sv0);
-    __syncthreads();
-    // ---- second (vertical) pass: this segment's share --------------
-#pragma unroll
-    for (int k4 = 0; k4 < kDepth4; ++k4) {
-      const uint4 l1 = *reinterpret_cast<const uint4*>(&sl1[k4][4 * tx]);
-      const uint4 l0 = *reinterpret_cast<const uint4*>(&sl0[k4][4 * tx]);
-      const int x1[4] = {static_cast<int>(l1.x), static_cast<int>(l1.y),
-                         static_cast<int>(l1.z), static_cast<int>(l1.w)};
-      const int x0[4] = {static_cast<int>(l0.x), static_cast<int>(l0.y),
-                         static_cast<int>(l0.z), static_cast<int>(l0.w)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q1 = static_cast<int>(sv1[4 * ty + i][k4]);
-        const int q0 = static_cast<int>(sv0[4 * ty + i][k4]);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          pa[i][jj] = __dp4a(q1, x1[jj], pa[i][jj]);
-          pb[i][jj] = __dp4a(q1, x0[jj], pb[i][jj]);
-          pb[i][jj] = __dp4a(q0, x1[jj], pb[i][jj]);
-        }
-      }
-    }
-  }
-  store_out(a, vb, r0, hb, j, pa, pb);
+// One limb of four table entries as a word, entry k in byte k: the hi
+// limbs with kHi, the lo limbs with kLo.
+constexpr uint32_t kHi = 0x0040, kLo = 0x0051;
+__device__ __forceinline__ uint32_t limb_word(uint32_t t0, uint32_t t1, uint32_t t2, uint32_t t3,
+                                              uint32_t sel) {
+  return __byte_perm(__byte_perm(t0, t1, sel), __byte_perm(t2, t3, sel), 0x5410);
 }
 
 // ---------------------------------------------------------------------------
@@ -596,15 +300,17 @@ struct VhMma {
   static constexpr int kILd = kSeg + 16;             // intermediate row stride, bytes
   static constexpr int kSv = 2 * 2 * kRows * kTapLd;
   static constexpr int kSx = 2 * kSxWords * 4;
-  static constexpr size_t kBytes = kSv + kSx + 2 * kRows * kILd;
+  static constexpr int kSi = 2 * kRows * kILd;
+  // Dynamic shared memory: kGamma adds the linearization table.
+  static constexpr size_t bytes(int in) { return kSv + kSx + kSi + (in == kGamma ? kTableBytes : 0); }
   // 4 x 4-byte blocks of a step's image tile per thread.
   static constexpr int kBlocks = kW4 * (kSeg / 4) / kThreads;
   static_assert(2 * kW4 * kXLd <= kSxWords, "two limb planes fit a buffer");
 
   // sv [2 buf][2 limb][kRows][kTapLd] V taps; sx [2 buf] image words
-  // [kW4][kXLd] (first pass; PRE: [2 limb][kW4][kXLd]) or lane-tap words
-  // [2 limb][kW4][kHLd] (second pass); si [2 limb][kRows][kILd] the
-  // intermediate's limbs.
+  // [kW4][kXLd] (first pass; kPlanes, kGamma: [2 limb][kW4][kXLd]) or
+  // lane-tap words [2 limb][kW4][kHLd] (second pass); si [2 limb][kRows]
+  // [kILd] the intermediate's limbs; [2][256] (kGamma) the limb table.
   __device__ static uint8_t* sv(uint8_t* sm, int b, int p, int r) {
     return sm + ((b * 2 + p) * kRows + r) * kTapLd;
   }
@@ -613,6 +319,9 @@ struct VhMma {
   }
   __device__ static uint8_t* si(uint8_t* sm, int p, int r) {
     return sm + kSv + kSx + (p * kRows + r) * kILd;
+  }
+  __device__ static int32_t (*table(uint8_t* sm))[256] {
+    return reinterpret_cast<int32_t (*)[256]>(sm + kSv + kSx + kSi);
   }
 
   // V taps of rows r0..r0+31 over k0..k0+n-1 (rows past the block: 0).
@@ -641,18 +350,18 @@ struct VhMma {
   __device__ static int blk_k4(int i) { return (threadIdx.x + i * kThreads) / (kSeg / 4); }
   __device__ static int blk_l4(int i) { return (threadIdx.x + i * kThreads) % (kSeg / 4); }
 
-  // The image words (PRE: the words of both limb planes, hi then lo) of
-  // rows row + 4 k4 .. + 3 at lanes lane + 4 l4 .. + 3 of this thread's
+  // The image words (kPlanes: the words of both limb planes, hi then lo)
+  // of rows row + 4 k4 .. + 3 at lanes lane + 4 l4 .. + 3 of this thread's
   // blocks (the first n rows, w lanes), into registers.
-  template <bool PRE>
+  template <int IN>
   __device__ static void load_x(const Args& a, int row, int lane, int n, int w,
-                                uint32_t (&raw)[PRE ? 2 : 1][kBlocks][4]) {
+                                uint32_t (&raw)[loads(IN)][kBlocks][4]) {
 #pragma unroll
     for (int i = 0; i < kBlocks; ++i) {
       const int k4 = blk_k4(i), l4 = blk_l4(i);
       if (4 * k4 >= n || 4 * l4 >= w) continue;
 #pragma unroll
-      for (int p = 0; p < (PRE ? 2 : 1); ++p) {
+      for (int p = 0; p < loads(IN); ++p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           raw[p][i][e] = load_word(a, row + 4 * k4 + e, lane + 4 * l4, p ? a.x_lo : a.x);
@@ -661,19 +370,41 @@ struct VhMma {
     }
   }
 
-  // The registers of load_x transposed into words of 4 rows (one word a
-  // lane) into buffer b: the image shifted to s8 (x ^ 0x80), or (PRE) the
-  // two s8 limb planes as they are.
-  template <bool PRE>
-  __device__ static void store_x(uint8_t* sm, int b, int n, int w,
-                                 const uint32_t (&raw)[PRE ? 2 : 1][kBlocks][4]) {
-    constexpr uint32_t kFlip = PRE ? 0u : 0x80808080u;
+  // The registers of load_x (lanes from ``lane``) transposed into words
+  // of 4 rows (one word a lane) into buffer b: the image shifted to s8 (x ^
+  // 0x80); (kPlanes) the two s8 limb planes as they are; (kGamma) the
+  // image's limb pairs looked up in the table, each transposed word of a
+  // plane assembled from four entries by byte permutes.
+  template <int IN>
+  __device__ static void store_x(const Args& a, uint8_t* sm, int b, int lane, int n, int w,
+                                 const uint32_t (&raw)[loads(IN)][kBlocks][4]) {
+    constexpr uint32_t kFlip = IN == kU8 ? 0x80808080u : 0u;
+    int off[4] = {0, 0, 0, 0};  // kGamma: the same for every block (4 l4 lanes apart)
+    if (IN == kGamma) table_rows(a, lane, off);
 #pragma unroll
     for (int i = 0; i < kBlocks; ++i) {
       const int k4 = blk_k4(i), l4 = blk_l4(i);
       if (4 * k4 >= n || 4 * l4 >= w) continue;
+      if (IN == kGamma) {
+        uint32_t t[4][4];  // [row][lane]
 #pragma unroll
-      for (int p = 0; p < (PRE ? 2 : 1); ++p) {
+        for (int e = 0; e < 4; ++e) table_entries(&table(sm)[0][0], off, raw[0][i][e], t[e]);
+        uint4 hi, lo;
+        hi.x = limb_word(t[0][0], t[1][0], t[2][0], t[3][0], kHi);
+        hi.y = limb_word(t[0][1], t[1][1], t[2][1], t[3][1], kHi);
+        hi.z = limb_word(t[0][2], t[1][2], t[2][2], t[3][2], kHi);
+        hi.w = limb_word(t[0][3], t[1][3], t[2][3], t[3][3], kHi);
+        lo.x = limb_word(t[0][0], t[1][0], t[2][0], t[3][0], kLo);
+        lo.y = limb_word(t[0][1], t[1][1], t[2][1], t[3][1], kLo);
+        lo.z = limb_word(t[0][2], t[1][2], t[2][2], t[3][2], kLo);
+        lo.w = limb_word(t[0][3], t[1][3], t[2][3], t[3][3], kLo);
+        uint32_t* dst = sx(sm, b) + k4 * kXLd + 4 * l4;
+        *reinterpret_cast<uint4*>(dst) = hi;
+        *reinterpret_cast<uint4*>(dst + kW4 * kXLd) = lo;
+        continue;
+      }
+#pragma unroll
+      for (int p = 0; p < loads(IN); ++p) {
         uint4 v = transpose4(raw[p][i][0], raw[p][i][1], raw[p][i][2], raw[p][i][3]);
         v.x ^= kFlip;
         v.y ^= kFlip;
@@ -693,14 +424,17 @@ struct VhMma {
 // then the second pass's steps over the segment's lanes (limbs x lane taps
 // into pa / pb).  While a step's MMAs run, the next step's taps are on
 // their way by cp.async and its image words in registers, into the other
-// buffer.  PRE (gamma from K5's limb planes, the x_lo input): the first
-// pass reads both planes, makes three products, m1 = q1 xq1 and m0 = q0 xq1
-// + q1 xq0 (the first two share the B fragment of xq1), requantizes fq =
-// 2^14 m1 + 2^7 m0, and the epilogue converts back to sRGB.
-template <bool PRE>
+// buffer.  With gamma (IN kPlanes: K5's limb planes, the x_lo input; kGamma:
+// the image, linearized as it is stored) the first pass stages two limb
+// planes, makes three products, m1 = q1 xq1 and m0 = q0 xq1 + q1 xq0 (the
+// first two share the B fragment of xq1), requantizes fq = 2^14 m1 + 2^7
+// m0, and the epilogue converts back to sRGB.
+template <int IN>
 __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
   using K = VhMma;
+  constexpr bool kLimbs = IN != kU8;  // gamma: two limb planes, three products
   extern __shared__ __align__(16) uint8_t sm[];
+  if (IN == kGamma) fill_limb_table(a.epi, K::table(sm));
 
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -720,7 +454,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
   const int nv = (kw + K::kStep - 1) / K::kStep;  // first-pass steps per segment
   int32_t comp[2] = {0, 0};  // the -128 shift's row sums (no gamma)
 #pragma unroll
-  for (int h = 0; h < 2 && !PRE; ++h) {
+  for (int h = 0; h < 2 && !kLimbs; ++h) {
     const int tr = r0 + 16 * wm + g + 8 * h;
     comp[h] = tr < a.tv ? a.v_comp[vb * a.tv + tr] : 0;
   }
@@ -729,14 +463,14 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
   // No nonzero V tap or lane tap: the block's sums are 0.
   if (nv > 0 && h_lo < h_hi) {
     int32_t m1[4][4] = {}, m0[4][4] = {};
-    uint32_t raw[PRE ? 2 : 1][K::kBlocks][4];
+    uint32_t raw[loads(IN)][K::kBlocks][4];
     int seg = h_lo, i = 0, b = 0;
     {
       const int w = min(K::kSeg, h_hi - seg), n = min(K::kStep, kw);
       K::stage_v(a, sm, 0, vb, r0, k_lo, n);
       cp_commit();
-      K::load_x<PRE>(a, row0, lane0 + seg, n, w, raw);
-      K::store_x<PRE>(sm, 0, n, w, raw);
+      K::load_x<IN>(a, row0, lane0 + seg, n, w, raw);
+      K::store_x<IN>(a, sm, 0, lane0 + seg, n, w, raw);
       cp_wait_all();
       __syncthreads();
     }
@@ -756,7 +490,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
         if (ni < nv) {
           K::stage_v(a, sm, b ^ 1, vb, r0, k_lo + ni * K::kStep, nn);
           cp_commit();
-          K::load_x<PRE>(a, row0 + ni * K::kStep, lane0 + nseg, nn, nw, raw);
+          K::load_x<IN>(a, row0 + ni * K::kStep, lane0 + nseg, nn, nw, raw);
         } else {
           K::stage_h(a, sm, b ^ 1, chunk, nseg + (ni - nv) * K::kStep, nn);
           cp_commit();
@@ -778,7 +512,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
               const uint32_t b0 = xk[t * K::kXLd + col], b1 = xk[(t + 4) * K::kXLd + col];
               mma8(m1[c], q1, b0, b1);
               mma8(m0[c], q0, b0, b1);
-              if (PRE) {
+              if (kLimbs) {
                 const uint32_t* xl = xk + K::kW4 * K::kXLd;  // the lo plane
                 mma8(m0[c], q1, xl[t * K::kXLd + col], xl[(t + 4) * K::kXLd + col]);
               }
@@ -793,8 +527,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int r = 16 * wm + g + 8 * h;
-                // No gamma: fq = 128 m1 + m0 + v_comp; PRE: 2^14 m1 + 2^7 m0.
-                const int32_t s1 = PRE ? 16384 : 128, s0 = PRE ? 128 : 1;
+                // No gamma: fq = 128 m1 + m0 + v_comp; gamma: 2^14 m1 + 2^7 m0.
+                const int32_t s1 = kLimbs ? 16384 : 128, s0 = kLimbs ? 128 : 1;
                 limbs2(m1[c][2 * h] * s1 + m0[c][2 * h] * s0 + comp[h],
                        m1[c][2 * h + 1] * s1 + m0[c][2 * h + 1] * s0 + comp[h], a.sh,
                        K::si(sm, 0, r) + col, K::si(sm, 1, r) + col);
@@ -829,7 +563,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
         }
       }
       if (more) {
-        if (ni < nv) K::store_x<PRE>(sm, b ^ 1, nn, nw, raw);
+        if (ni < nv) K::store_x<IN>(a, sm, b ^ 1, lane0 + nseg, nn, nw, raw);
         cp_wait_all();
       }
       __syncthreads();
@@ -848,8 +582,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
     for (int c = 0; c < 4; ++c) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        store1<PRE>(a, vb, tr, hb, j * kLanes + 32 * wn + 8 * c + 2 * t + e,
-                    pa[c][2 * h + e], pb[c][2 * h + e]);
+        store1<kLimbs>(a, vb, tr, hb, j * kLanes + 32 * wn + 8 * c + 2 * t + e,
+                       pa[c][2 * h + e], pb[c][2 * h + e]);
       }
     }
   }
@@ -864,32 +598,74 @@ constexpr int kPieceLd = kPiece + 16;  // their row stride, bytes (also the imag
 constexpr int kHvSt = 2 * kLanes * kPieceLd;  // lane taps H^T, both limbs
 constexpr int kHvSx = 2 * 32 * kPieceLd;      // image tiles of one plane, two buffers
 
-// Shared memory of the hv kernel for an intermediate of kwin rows and
-// ``planes`` input planes (1: the u8 image; 2: K5's limb planes):
+// Shared memory of the hv kernel for an intermediate of kwin rows,
+// ``planes`` planes of image tiles (1: the u8 image; 2: K5's limb planes,
+// or the u8 image and its limb planes with the in-kernel gamma) and, with
+// ``table``, the linearization table:
 //   st [2 limb][128 n][kPieceLd]             lane taps H^T
-//   sx [2 buf][planes][32 rows][kPieceLd]    image tile (raw bytes)
+//   sx [2 buf][planes][32 rows][kPieceLd]    image tiles (kU8, kPlanes: raw
+//                                            bytes as staged; kGamma: the raw
+//                                            u8 tiles [2 buf][32] then the
+//                                            limb planes [2 limb][32])
 //   xt [2 limb][128 n][kwin + 16]            intermediate limbs XT[n][k]
 //   sv [2 buf][2 limb][32 rows][kwin + 16]   V taps of a sub-tile
+//   [2][256] int32                           the limb table (kGamma)
 // (fused_kernel.py:hv_smem_bytes mirrors it for the host's choice of R;
-// avir_hv_mma_smem_bytes exports it for the card test that holds the two
+// avir_int8_mma_smem_bytes exports it for the card test that holds the two
 // equal).
-__host__ __device__ constexpr size_t hv_mma_smem_bytes(int kwin, int planes) {
-  return kHvSt + static_cast<size_t>(planes) * kHvSx + static_cast<size_t>(6) * 64 * (kwin + 16);
+__host__ __device__ constexpr size_t hv_mma_smem_bytes(int kwin, int planes, bool table) {
+  return kHvSt + static_cast<size_t>(planes) * kHvSx + static_cast<size_t>(6) * 64 * (kwin + 16) +
+         (table ? kTableBytes : 0);
 }
 
-template <bool PRE>
+template <int IN>
 struct HvMma {
-  static constexpr int kPlanes = PRE ? 2 : 1;
-  static constexpr int kSx = kPlanes * kHvSx;
+  static constexpr int kTilePlanes = IN == kU8 ? 1 : 2;  // hv_mma_smem_bytes' planes
+  static constexpr int kStaged = IN == kPlanes ? 2 : 1;   // planes staged by stage_img
+  static constexpr int kSx = kTilePlanes * kHvSx;
   __device__ static uint8_t* st(uint8_t* sm, int p, int n) { return sm + (p * kLanes + n) * kPieceLd; }
+  // Where stage_img puts plane p's row r of buffer b.
   __device__ static uint8_t* sx(uint8_t* sm, int b, int p, int r) {
-    return sm + kHvSt + ((b * kPlanes + p) * 32 + r) * kPieceLd;
+    return sm + kHvSt + ((b * kStaged + p) * 32 + r) * kPieceLd;
+  }
+  // Where the MMAs read plane p's row r of the step in buffer b: kGamma's
+  // limb planes (one buffer, after the raw tiles), else the staged tile.
+  __device__ static uint8_t* xin(uint8_t* sm, int b, int p, int r) {
+    return IN == kGamma ? sm + kHvSt + ((2 + p) * 32 + r) * kPieceLd : sx(sm, b, p, r);
   }
   __device__ static uint8_t* xt(uint8_t* sm, int kld, int p, int n) {
     return sm + kHvSt + kSx + (p * kLanes + n) * kld;
   }
   __device__ static uint8_t* sv(uint8_t* sm, int kld, int b, int p, int r) {
     return sm + kHvSt + kSx + 2 * kLanes * kld + ((b * 2 + p) * 32 + r) * kld;
+  }
+  __device__ static int32_t (*table(uint8_t* sm, int kld))[256] {
+    return reinterpret_cast<int32_t (*)[256]>(sm + kHvSt + kSx + 6 * 64 * kld);
+  }
+
+  // kGamma: the raw tile of buffer b (lanes lane..lane+mw-1) turned into
+  // the two limb planes by the limb table, 16 lanes of a row a thread a
+  // turn.
+  __device__ static void convert(const Args& a, uint8_t* sm, int kld, int b, int lane, int mw) {
+    const int per = mw / 16;
+    const int32_t* lt = &table(sm, kld)[0][0];
+    int off[4];  // the same for every word (4 lanes apart)
+    table_rows(a, lane, off);
+    for (int c = threadIdx.x; c < 32 * per; c += kThreads) {
+      const int r = c / per, q = c % per;
+      const uint4 w = *reinterpret_cast<const uint4*>(sx(sm, b, 0, r) + 16 * q);
+      const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t t[4];
+        table_entries(lt, off, wv[e], t);
+        hi[e] = limb_word(t[0], t[1], t[2], t[3], kHi);
+        lo[e] = limb_word(t[0], t[1], t[2], t[3], kLo);
+      }
+      *reinterpret_cast<uint4*>(xin(sm, b, 0, r) + 16 * q) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(xin(sm, b, 1, r) + 16 * q) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
   }
 
   // Lane taps H^T of window lanes m0..m0+mw-1 of chunk ``chunk``.
@@ -903,11 +679,11 @@ struct HvMma {
   }
 
   // Image rows row..row+31, lanes lane..lane+mw-1, raw, zero past the edge
-  // (PRE: both limb planes, x then x_lo).
+  // (kPlanes: both limb planes, x then x_lo).
   __device__ static void stage_img(const Args& a, uint8_t* sm, int b, int row, int lane, int mw) {
     if (a.vec16) {
       const int per = mw / 16;
-      for (int c = threadIdx.x; c < kPlanes * 32 * per; c += kThreads) {
+      for (int c = threadIdx.x; c < kStaged * 32 * per; c += kThreads) {
         const int p = c / (32 * per), r = (c / per) % 32, l = lane + (c % per) * 16;
         const bool valid = row + r < a.rows_in && l < a.lanes_in;
         const size_t off = valid ? static_cast<size_t>(row + r) * a.lanes_in + l : 0;
@@ -915,7 +691,7 @@ struct HvMma {
       }
     } else {
       const int per = mw / 4;
-      for (int c = threadIdx.x; c < kPlanes * 32 * per; c += kThreads) {
+      for (int c = threadIdx.x; c < kStaged * 32 * per; c += kThreads) {
         const int p = c / (32 * per), r = (c / per) % 32, q = c % per;
         *reinterpret_cast<uint32_t*>(sx(sm, b, p, r) + 4 * q) =
             load_word(a, row + r, lane + 4 * q, p ? a.x_lo : a.x);
@@ -944,14 +720,17 @@ struct HvMma {
 // next step's image tile in flight), phase 2 runs the second pass per
 // 32-row sub-tile over its own nonzero range (k_range), the next
 // sub-tile's V taps in flight, and stores it after the last window (the
-// host gives several windows only with R = 32).  PRE (gamma from K5's limb
-// planes, the x_lo input): phase 1 stages both planes raw and makes three
-// products a fragment pair, f1 = h1 xq1 and f0 = h0 xq1 (one B fragment),
-// then f0 += h1 xq0; it requantizes fq = 2^14 f1 + 2^7 f0 (no h_comp), and
-// the epilogue converts back to sRGB.
-template <int R, bool PRE>
+// host gives several windows only with R = 32).  With gamma (IN kPlanes:
+// K5's limb planes, the x_lo input, both staged raw; kGamma: the u8 image
+// staged raw, then linearized once in shared memory into the two limb
+// planes, one barrier later, while the next step's tile is in flight) phase
+// 1 makes three products a fragment pair, f1 = h1 xq1 and f0 = h0 xq1 (one
+// B fragment), then f0 += h1 xq0; it requantizes fq = 2^14 f1 + 2^7 f0 (no
+// h_comp), and the epilogue converts back to sRGB.
+template <int R, int IN>
 __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
-  using K = HvMma<PRE>;
+  using K = HvMma<IN>;
+  constexpr bool kLimbs = IN != kU8;  // gamma: two limb planes, three products
   constexpr int kSub = R / 32;
   extern __shared__ __align__(16) uint8_t sm[];
 
@@ -969,12 +748,13 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
   const int row0 = a.offs_v[vb];
   const int lane0 = a.offs_l[hb] + a.rel[j] + h_lo;
   const int kld = a.kwin + 16;
+  if (IN == kGamma) fill_limb_table(a.epi, K::table(sm, kld));
   const int n_mc = (hw + kPiece - 1) / kPiece;  // lane-tap pieces
   const bool work = kb_lo < kb_hi && hw > 0;
   const int n_win = work ? (kb_hi - kb_lo + a.kwin - 1) / a.kwin : 1;
   int32_t comp[2] = {0, 0};  // the -128 shift's column sums (no gamma)
 #pragma unroll
-  for (int h = 0; h < 2 && !PRE; ++h) comp[h] = a.h_comp[chunk * kLanes + 16 * warp + g + 8 * h];
+  for (int h = 0; h < 2 && !kLimbs; ++h) comp[h] = a.h_comp[chunk * kLanes + 16 * warp + g + 8 * h];
 
   int32_t pa[4][4] = {}, pb[4][4] = {};
   for (int win = 0; win < n_win; ++win) {
@@ -1006,10 +786,14 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
       for (int s = 0, b = 0; s < n_steps; ++s, b ^= 1) {
         const int gi = s / n_mc, ci = s % n_mc;
         const int mw = min(kPiece, hw - ci * kPiece);
+        // The taps of this piece and (kGamma) this step's limb planes; the
+        // step before ended with a barrier, after its tile had landed.
         if (n_mc > 1) {
-          // The taps of this piece (the step before ended with a barrier).
           K::stage_taps(a, sm, chunk, h_lo + ci * kPiece, mw);
           cp_commit();
+        }
+        if (IN == kGamma) K::convert(a, sm, kld, b, lane0 + ci * kPiece, mw);
+        if (n_mc > 1 || IN == kGamma) {
           cp_wait_all();
           __syncthreads();
         }
@@ -1026,8 +810,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             uint32_t xb[4];
-            ldsm(xb, K::sx(sm, b, 0, 16 * half + arow) + kk + acol);
-            if (!PRE) {
+            ldsm(xb, K::xin(sm, b, 0, 16 * half + arow) + kk + acol);
+            if (!kLimbs) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) xb[e] ^= 0x80808080u;  // s8(x - 128)
             }
@@ -1035,9 +819,9 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
             mma8(f0[2 * half], h0, xb[0], xb[2]);
             mma8(f1[2 * half + 1], h1, xb[1], xb[3]);
             mma8(f0[2 * half + 1], h0, xb[1], xb[3]);
-            if (PRE) {
+            if (kLimbs) {
               uint32_t xl[4];  // the lo plane
-              ldsm(xl, K::sx(sm, b, 1, 16 * half + arow) + kk + acol);
+              ldsm(xl, K::xin(sm, b, 1, 16 * half + arow) + kk + acol);
               mma8(f0[2 * half], h1, xl[0], xl[2]);
               mma8(f0[2 * half + 1], h1, xl[1], xl[3]);
             }
@@ -1046,7 +830,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
         if (ci == n_mc - 1) {
           // Group gi done: F^T (lane g (+8), rows 2t, 2t+1 of tile jt)
           // requantized into XT's columns of those rows.  No gamma: fq =
-          // 128 f1 + f0 + h_comp.  PRE: fq = 2^14 f1 + 2^7 f0, where
+          // 128 f1 + f0 + h_comp.  Gamma: fq = 2^14 f1 + 2^7 f0, where
           // int8_feasible's gamma bound (2^14 * 64 q_abs1 + 2^7 * 64
           // (q_abs1 + q_abs0) + 2^26 < 2^31 over the lane taps) keeps f1, f0
           // and fq inside s32; the second pass's sums may wrap, as without
@@ -1057,7 +841,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int n = 16 * warp + g + 8 * h;
-              const int32_t s1 = PRE ? 16384 : 128, s0 = PRE ? 128 : 1;
+              const int32_t s1 = kLimbs ? 16384 : 128, s0 = kLimbs ? 128 : 1;
               limbs2(f1[jt][2 * h] * s1 + f0[jt][2 * h] * s0 + comp[h],
                      f1[jt][2 * h + 1] * s1 + f0[jt][2 * h + 1] * s0 + comp[h], a.sh,
                      K::xt(sm, kld, 0, n) + col, K::xt(sm, kld, 1, n) + col);
@@ -1112,8 +896,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
         for (int jt = 0; jt < 4; ++jt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            store1<PRE>(a, vb, r0 + 32 * sub + 8 * jt + 2 * t + (e & 1), hb,
-                        j * kLanes + 16 * warp + g + 8 * (e >> 1), pa[jt][e], pb[jt][e]);
+            store1<kLimbs>(a, vb, r0 + 32 * sub + 8 * jt + 2 * t + (e & 1), hb,
+                           j * kLanes + 16 * warp + g + 8 * (e >> 1), pa[jt][e], pb[jt][e]);
             pa[jt][e] = 0;
             pb[jt][e] = 0;
           }
@@ -1126,53 +910,39 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
   }
 }
 
-template <bool PRE>
+template <int IN>
 cudaError_t launch_vh_mma(const Args& a, dim3 grid, cudaStream_t s) {
-  constexpr size_t bytes = VhMma::kBytes;
+  constexpr size_t bytes = VhMma::bytes(IN);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_int8_vh_mma<PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      fused_int8_vh_mma<IN>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
-  fused_int8_vh_mma<PRE><<<grid, kThreads, bytes, s>>>(a);
+  fused_int8_vh_mma<IN><<<grid, kThreads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-template <int R, bool PRE>
+template <int R, int IN>
 cudaError_t launch_hv_mma(const Args& a, dim3 grid, cudaStream_t s) {
-  const size_t bytes = hv_mma_smem_bytes(a.kwin, HvMma<PRE>::kPlanes);
+  const size_t bytes = hv_mma_smem_bytes(a.kwin, HvMma<IN>::kTilePlanes, IN == kGamma);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_int8_hv_mma<R, PRE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_int8_hv_mma<R, IN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
-  fused_int8_hv_mma<R, PRE><<<grid, kThreads, bytes, s>>>(a);
+  fused_int8_hv_mma<R, IN><<<grid, kThreads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-// The tensor-core kernels, at the host's slice height ``rows`` (vh: 32):
-// without gamma, and (PRE) from K5's limb planes.
-template <bool PRE>
+// The kernels of input mode IN at the host's slice height ``rows`` (vh: 32).
+template <int IN>
 cudaError_t launch_mma(bool hv, int rows, const Args& a, dim3 grid, cudaStream_t s) {
+  if (a.slice_range == nullptr || a.h_range == nullptr) return cudaErrorInvalidValue;
   if (hv) {
     if (a.kwin < kDepth || a.kwin > 256 || a.kwin % kDepth != 0) return cudaErrorInvalidValue;
-    if (rows == 32) return launch_hv_mma<32, PRE>(a, grid, s);
-    if (rows == 64) return launch_hv_mma<64, PRE>(a, grid, s);
-    if (rows == 128) return launch_hv_mma<128, PRE>(a, grid, s);
+    if (rows == 32) return launch_hv_mma<32, IN>(a, grid, s);
+    if (rows == 64) return launch_hv_mma<64, IN>(a, grid, s);
+    if (rows == 128) return launch_hv_mma<128, IN>(a, grid, s);
     return cudaErrorInvalidValue;
   }
-  return rows == kRows ? launch_vh_mma<PRE>(a, grid, s) : cudaErrorInvalidValue;
-}
-
-// The dp4a gamma kernels: vh and hv with the in-kernel linearization.
-cudaError_t launch_gamma(bool hv, const Args& a, dim3 grid, cudaStream_t s) {
-  if (hv) {
-    fused_int8_hv<<<grid, kThreads, 0, s>>>(a);
-  } else {
-    constexpr size_t bytes = vh_smem_bytes();
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_int8_vh, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    fused_int8_vh<<<grid, kThreads, bytes, s>>>(a);
-  }
-  return cudaGetLastError();
+  return rows == kRows ? launch_vh_mma<IN>(a, grid, s) : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1239,18 +1009,20 @@ extern "C" int avir_fused_int8(
   a.epi.out_max = 255.0f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_lo != nullptr && !gamma) return static_cast<int>(cudaErrorInvalidValue);
-  // Without gamma, and from the limb planes: the tensor-core kernels over
-  // R-row slices; the in-kernel gamma kernels: dp4a over 32-row slices.
-  const dim3 grid_r(bh * n_ch, bv * n_slices_r), grid32(bh * n_ch, bv * n_slices);
-  const cudaError_t e =
-      !gamma            ? launch_mma<false>(hv, rows, a, grid_r, s)
-      : x_lo == nullptr ? launch_gamma(hv, a, grid32, s)
-                        : launch_mma<true>(hv, rows, a, grid_r, s);
+  // One s8 tensor-core kernel over R-row slices for every input: the u8
+  // image without gamma, K5's limb planes, or the u8 image linearized in
+  // the kernel.
+  const dim3 grid(bh * n_ch, bv * n_slices_r);
+  const cudaError_t e = !gamma            ? launch_mma<kU8>(hv, rows, a, grid, s)
+                        : x_lo == nullptr ? launch_mma<kGamma>(hv, rows, a, grid, s)
+                                          : launch_mma<kPlanes>(hv, rows, a, grid, s);
   return static_cast<int>(e);
 }
 
-// The hv tensor-core kernel's dynamic shared memory (hv_mma_smem_bytes),
-// for the host's copy of its layout to be checked against.
-extern "C" long long avir_hv_mma_smem_bytes(int kwin, int planes) {
-  return static_cast<long long>(hv_mma_smem_bytes(kwin, planes));
+// The kernels' dynamic shared memory (hv: hv_mma_smem_bytes; vh:
+// VhMma::bytes, which reads only ``table``), for the host's copies of
+// their layouts to be checked against.
+extern "C" long long avir_int8_mma_smem_bytes(int hv, int kwin, int planes, int table) {
+  if (!hv) return static_cast<long long>(VhMma::bytes(table ? kGamma : kU8));
+  return static_cast<long long>(hv_mma_smem_bytes(kwin, planes, table != 0));
 }

@@ -10,21 +10,22 @@ keeping the 15-bit intermediate on chip.  ``Epilogue`` selects its output
 stage: the biased or round-half-even rounding, LANCIR's ``scale``, and
 sRGB gamma, which linearizes the u8 input to 13-bit linear light as two
 s8 limbs (three limb products in the first pass instead of two, and no
--128 shift) and converts the result back to sRGB before rounding.  With
-``gamma_pre`` (``x_lo`` there) the kernel reads those limbs from the two
-s8 planes that the prologue kernel K5 wrote (ops/cuda/gamma_prologue.py)
-in place of the u8 image and its in-kernel polynomial.
+-128 shift) and converts the result back to sRGB before rounding.  The
+kernel linearizes the image itself, from a shared table of every u8
+value; with ``gamma_pre`` (``x_lo`` there) it reads those limbs from the
+two s8 planes that the prologue kernel K5 wrote
+(ops/cuda/gamma_prologue.py) in place of the u8 image.  Every input runs
+on the s8 tensor cores, in one kernel per pass order.
 
 ``prepare_fused_int8`` turns the two operators into device tensors once
 per executor: the chunked lane taps (the unchunked form becomes
 ``ceil(TC/128)`` chunks at offset 0 over the whole window), the same taps
-packed four-along-the-contraction for the kernels that read them (the
-vh kernels and the in-kernel gamma hv kernel) or transposed (the hv
-tensor-core kernel), the row/column sums that undo the input's -128 shift
-(unused with gamma), each 32-row slice's range of nonzero V taps, and for
-the tensor-core kernels (no gamma, and both orders from K5's limb
-planes) the slice height ``slice_rows`` picks, its slices' ranges and
-each chunk's range of nonzero lane taps.
+packed four-along-the-contraction for the vh kernel (and K6) or
+transposed for the hv kernel, the row/column sums that undo the input's
+-128 shift (unused with gamma), each 32-row slice's range of nonzero V
+taps (read by the hv kernel's second pass and by K6), the slice height
+``slice_rows`` picks, its slices' ranges and each chunk's range of
+nonzero lane taps.
 
 ``apply_fused_int8`` launches the kernel on a CUDA tensor and runs
 ``apply_fused_int8_reference`` on a CPU tensor.  The reference does the
@@ -240,26 +241,25 @@ class FusedInt8Operands:
     h1: torch.Tensor       # int8 [Bh, n_ch, win_c, 128]
     h0: torch.Tensor
     h1p: torch.Tensor | None  # int32 [Bh, n_ch, win_c/4, 128], 4 taps per word
-    h0p: torch.Tensor | None  # (vh, or hv with the in-kernel gamma)
+    h0p: torch.Tensor | None  # (vh)
     h_comp: torch.Tensor   # int32 [Bh, n_ch, 128]: 128*128*colsum(h1) + 128*colsum(h0)
                            # (no gamma)
     k_range: torch.Tensor  # int32 [Bv, n_slices, 2] nonzero V-tap rows, 32-row slices
+    # The tiling: output rows per thread block (slice_rows), that slice's
+    # nonzero V-tap rows, each chunk's nonzero lane-tap rows, the hv
+    # kernel's intermediate's rows, and the largest power of two (up to 16)
+    # dividing every chunk's first window lane.
+    rows: int
+    slice_range: torch.Tensor  # int32 [Bv, n_slices_r, 2]
+    h_range: torch.Tensor      # int32 [Bh, n_ch, 2]
+    kwin: int
+    lane_align: int
     # The input is K5's two s8 limb planes of the linearized image
     # (ops/cuda/gamma_prologue.py), not the u8 image (gamma only).
     gamma_pre: bool = False
-    # The tensor-core kernels (no gamma, and from the limb planes; the
-    # in-kernel gamma kernels run 32-row slices over k_range): output rows
-    # per thread block (slice_rows), that slice's nonzero V-tap rows, each
-    # chunk's nonzero lane-tap rows, the hv kernel's lane taps as [..., 128,
-    # win_c] and its intermediate's rows, and the largest power of two (up
-    # to 16) dividing every chunk's first window lane.
-    rows: int = _ROWS
-    slice_range: torch.Tensor | None = None  # int32 [Bv, n_slices_r, 2]
-    h_range: torch.Tensor | None = None      # int32 [Bh, n_ch, 2]
-    h1t: torch.Tensor | None = None          # int8 [Bh, n_ch, 128, win_c] (hv)
+    # The hv kernel's lane taps as [Bh, n_ch, 128, win_c].
+    h1t: torch.Tensor | None = None
     h0t: torch.Tensor | None = None
-    kwin: int = 0
-    lane_align: int = 1
 
     @property
     def device(self) -> torch.device:
@@ -341,14 +341,33 @@ def two_blocks_smem(sm_smem: int) -> int:
     return sm_smem // 2 - BLOCK_SMEM_RESERVED
 
 
-def hv_smem_bytes(kwin: int, planes: int = 1) -> int:
+# Bytes of K1 int8's linearization table (csrc: kTableBytes, q13[2][256]
+# int32) in the in-kernel gamma kernels' shared memory.
+GAMMA_TABLE_BYTES = 2 * 256 * 4
+# The vh kernel's dynamic shared memory without the table (csrc:
+# VhMma::bytes): V taps 2 x 2 x 32 x 80 bytes, image or lane-tap words
+# 2 x 2 x 16 x 136 words, the intermediate's limbs 2 x 32 x 144 bytes.
+VH_SMEM_BYTES = 2 * 2 * _ROWS * 80 + 2 * 2 * 16 * 136 * 4 + 2 * _ROWS * 144
+
+
+def vh_smem_bytes(table: bool = False) -> int:
+    """Dynamic shared memory of the vh kernel, with the in-kernel gamma's
+    linearization table when ``table`` (csrc: VhMma::bytes; the card test
+    test_hv_smem_bytes_match_the_kernel holds the two equal)."""
+    return VH_SMEM_BYTES + (GAMMA_TABLE_BYTES if table else 0)
+
+
+def hv_smem_bytes(kwin: int, planes: int = 1, table: bool = False) -> int:
     """Dynamic shared memory of the hv tensor-core kernel: lane taps 2 x
-    128 x 144 bytes, ``planes`` double-buffered image tiles of 32 x 144
-    bytes (1: the u8 image; 2: K5's limb planes), the intermediate and the
-    V taps 6 x 64 x (kwin + 16).  The layout is csrc/fused_int8.cu's
+    128 x 144 bytes, ``planes`` planes of double-buffered image tiles of 32
+    x 144 bytes (1: the u8 image; 2: K5's limb planes, or the in-kernel
+    gamma's raw u8 tiles and its limb planes), the intermediate and the V
+    taps 6 x 64 x (kwin + 16), and with ``table`` the in-kernel gamma's
+    linearization table.  The layout is csrc/fused_int8.cu's
     hv_mma_smem_bytes; a change there changes this (the card test
     test_hv_smem_bytes_match_the_kernel holds the two equal)."""
-    return 2 * _LANES * 144 + planes * 2 * 32 * 144 + 6 * 64 * (kwin + 16)
+    return (2 * _LANES * 144 + planes * 2 * 32 * 144 + 6 * 64 * (kwin + 16)
+            + (GAMMA_TABLE_BYTES if table else 0))
 
 
 def issued_macs(order: str, rows: int, slice_range: np.ndarray,
@@ -360,8 +379,9 @@ def issued_macs(order: str, rows: int, slice_range: np.ndarray,
     the second.  vh: the first pass R x slice rows x chunk lanes, the
     second R x chunk lanes x 128; hv: the first pass slice rows x 128 x
     chunk lanes, the second per 32-row sub-tile over its own 32-row range
-    (``k_range``).  A count for chip_smoke.py's report: slice_rows does not
-    read it."""
+    (``k_range``).  ``first`` is 3 with gamma (the limb planes, from K5 or
+    linearized in the kernel).  A count for chip_smoke.py's report:
+    slice_rows does not read it."""
     kw = (slice_range[..., 1] - slice_range[..., 0]).astype(np.int64)  # [Bv, S]
     hw = (h_range[..., 1] - h_range[..., 0]).astype(np.int64).ravel()
     active = kw > 0
@@ -378,14 +398,16 @@ def issued_macs(order: str, rows: int, slice_range: np.ndarray,
 
 
 def slice_rows(order: str, v1: np.ndarray, v0: np.ndarray, n_chunks: int,
-               sms: int, planes: int = 1, sm_smem: int = H100_SM_SMEM) -> int:
+               sms: int, planes: int = 1, sm_smem: int = H100_SM_SMEM,
+               table: bool = False) -> int:
     """The tensor-core kernel's output rows per thread block.  vh: 32.  hv:
     the tallest of 128 and 64 rows (up to the V block's rows) whose grid of
     ``n_chunks`` lane chunks x slices keeps at least two thread blocks per
     SM of a card with ``sms`` SMs and whose slices' nonzero V-tap ranges fit
     the intermediate (KWIN_MAX rows), else 32.  A taller slice recomputes
     fewer window rows in the first pass; too few blocks leave SMs idle.
-    With K5's two limb planes (``planes`` 2) the height must also let two
+    With gamma (``planes`` 2: K5's two limb planes, or with ``table`` the
+    in-kernel linearization's tiles and table) the height must also let two
     blocks share an SM's ``sm_smem`` bytes of shared memory (hv_smem_bytes
     within two_blocks_smem); without gamma the grid and the ranges decide,
     as measured at the main-path cells (PERF.md)."""
@@ -398,7 +420,7 @@ def slice_rows(order: str, v1: np.ndarray, v0: np.ndarray, n_chunks: int,
             span = int((sr[..., 1] - sr[..., 0]).max())
             if span <= KWIN_MAX and (
                 planes == 1
-                or hv_smem_bytes(max(32, span), planes) <= two_blocks_smem(sm_smem)
+                or hv_smem_bytes(max(32, span), planes, table) <= two_blocks_smem(sm_smem)
             ):
                 return rows
     return _ROWS
@@ -434,9 +456,7 @@ def at_rows(ops: FusedInt8Operands, rows: int) -> FusedInt8Operands:
     rows (32, 64 or 128) in place of slice_rows' choice: the same function,
     another tiling (for the card tests and chip_smoke.py, which hold every
     height to the plain version).  The vh kernel runs 32 rows only."""
-    if (ops.epi.gamma and not ops.gamma_pre) or rows not in (
-        (_ROWS,) if ops.order == "vh" else (32, 64, 128)
-    ):
+    if rows not in ((_ROWS,) if ops.order == "vh" else (32, 64, 128)):
         raise ValueError(f"no {rows}-row slices in the {ops.launch_key} kernel")
     v1, v0 = ops.v1.cpu().numpy(), ops.v0.cpu().numpy()
     sr, kwin = _slice_fields(v1, v0, rows)
@@ -508,22 +528,20 @@ def prepare_fused_int8(
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(device=device, dtype=dtype)
 
-    # The packed lane taps for the kernels that read them (vh, and the
-    # in-kernel gamma hv); the tensor-core kernels' fields without gamma and
-    # from the limb planes.
-    h1p = h0p = None
-    if order == "vh" or (gamma and not gamma_pre):
+    # The lane taps packed for the vh kernel (and K6), or transposed for
+    # the hv kernel.  With gamma the hv kernel stages two planes of image
+    # tiles (K5's, or the raw u8 tiles and the limb planes it makes from
+    # them beside its linearization table), which slice_rows sizes.
+    h1p = h0p = h1t = h0t = None
+    if order == "vh":
         h1p, h0p = dev(_pack4(h1)), dev(_pack4(h0))
-    mma = {}
-    if not gamma or gamma_pre:
-        hr = h_ranges(h1, h0)
-        rows = slice_rows(order, v1, v0, hr.shape[0] * hr.shape[1], _sm_count(device),
-                          planes=2 if gamma_pre else 1, sm_smem=_sm_smem(device))
-        sr, kwin = _slice_fields(v1, v0, rows)
-        mma = dict(rows=rows, slice_range=dev(sr), h_range=dev(hr), kwin=kwin,
-                   lane_align=_lane_align(lop, rel))
-        if order == "hv":
-            mma.update(h1t=dev(np.swapaxes(h1, 2, 3)), h0t=dev(np.swapaxes(h0, 2, 3)))
+    else:
+        h1t, h0t = dev(np.swapaxes(h1, 2, 3)), dev(np.swapaxes(h0, 2, 3))
+    hr = h_ranges(h1, h0)
+    rows = slice_rows(order, v1, v0, hr.shape[0] * hr.shape[1], _sm_count(device),
+                      planes=2 if gamma else 1, sm_smem=_sm_smem(device),
+                      table=gamma and not gamma_pre)
+    sr, kwin = _slice_fields(v1, v0, rows)
 
     return FusedInt8Operands(
         order=order,
@@ -550,8 +568,14 @@ def prepare_fused_int8(
         h0p=h0p,
         h_comp=dev(cs * 128, torch.int32),
         k_range=dev(_k_ranges(v1, v0)),
+        rows=rows,
+        slice_range=dev(sr),
+        h_range=dev(hr),
+        kwin=kwin,
+        lane_align=_lane_align(lop, rel),
         gamma_pre=bool(gamma_pre),
-        **mma,
+        h1t=h1t,
+        h0t=h0t,
     )
 
 
@@ -743,8 +767,8 @@ def apply_fused_int8(
     bv, tv, wv = ops.v1.shape
     bh, n_ch, win_c, _ = ops.h1.shape
     n_slices = ops.k_range.shape[1]
-    n_slices_r = 0 if ops.slice_range is None else ops.slice_range.shape[1]
-    if bv * max(n_slices, n_slices_r) > 65535:
+    n_slices_r = ops.slice_range.shape[1]
+    if bv * n_slices_r > 65535:
         raise ValueError("too many output row blocks for one launch")
     out = torch.empty((ops.rows_out, ops.lanes_out), dtype=torch.uint8, device=x.device)
     fn = _library()

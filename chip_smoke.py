@@ -24,8 +24,9 @@ Phases (any failure exits non-zero before the last line):
          groups (one launch each), W = 1, 8- and 16-bit steps, both sum
          orders (the wavefront's and the sequential scan's): bit-equal;
        - K1's epilogue variants: round-half-even with LANCIR's scale, and
-         sRGB gamma with the C=4 alpha bypass, in int8 vh/hv (bit-equal;
-         the linearization read from the kernel's shared table) and split
+         sRGB gamma with the C=4 alpha bypass, in int8 vh/hv (bit-equal,
+         at every slice height; the linearization read from the kernel's
+         shared table, also at the edges of its tensor-core tiling) and split
          vh/hv (the split gate above; an integer output whose float32
          difference is amplified, by LANCIR's scale > 1 or by gamma-out,
          takes the float32 gate on its range plus one step);
@@ -81,18 +82,26 @@ Phases (any failure exits non-zero before the last line):
          of the plain version and 1 LSB / >= 60 dB of the oracle;
        - 8k_to_1080p_gamma, ``ImageResizer.resize(use_srgb_gamma=True)``
          7680x4320 -> 1920x1080 u8 RGB with AVIR_TPU_GAMMA_ROUTE=inkernel
-         (K1 int8 vh with the 13-bit linearization): bit-equal to the
-         plain version, within 1 LSB / >= 60 dB of the float64 gamma
-         oracle; the "auto" route (K6) timed beside it, bit-equal;
+         (K1 int8 vh on the s8 tensor cores with the 13-bit linearization
+         from its table): bit-equal to the plain version, within 1 LSB /
+         >= 60 dB of the float64 gamma oracle, its bound, the MACs it
+         issues against the band's and its stagings per input element;
+         the "auto" route (K6) timed beside it, bit-equal;
        - 1080p_to_4k_u16_gamma_rgba, 1920x1080 -> 3840x2160 u16 RGBA,
          ``alpha_index=3``, ``res_bit_depth=16`` (K1 split3/split3 vh with
          the degree-9 linearization): within the split gate of the plain
          version and 5 LSB / >= 60 dB of the oracle (the JAX package's
          gate for its fused u16 gamma route); hv beside it, as above;
        - 1080p_to_4k_gamma, 1920x1080 -> 3840x2160 u8 RGB with sRGB gamma
-         (K1 int8 hv gamma): bit-equal to the plain version, within
-         2 LSB / >= 60 dB of the float64 gamma oracle (13-bit linear
-         light through the sRGB slope);
+         (K1 int8 hv gamma, the in-kernel route on the s8 tensor cores):
+         bit-equal to the plain version, within 2 LSB / >= 60 dB of the
+         float64 gamma oracle (13-bit linear light through the sRGB slope),
+         its counts as at 8k_to_1080p_gamma, every slice height (bit-equal,
+         timed in turns) and ptxas's registers and spills of fused_int8;
+       - 640x480_gamma_down, 1000x700 -> 640x480 u8 RGB with sRGB gamma on
+         the default route (K6 cannot take a downsize without a uniform row
+         stride, so "auto" runs K1 int8 vh with the in-kernel gamma): the
+         gates and counts of 1080p_to_4k_gamma;
        - the unfused shapes (K4 checked as at 8k_to_1080p_errdiff; K3 with
          its bound, its load path, the MACs its MMAs issue against the band
          MACs and ptxas's registers and spills; K2 with its MACs and
@@ -197,7 +206,10 @@ Phases (any failure exits non-zero before the last line):
 (vh, vh even, hv) at its four main-path cells, K6 at
 8k_to_1080p_gamma_ring and 4k_to_720p_gamma_ring, K5 and K1 int8 from
 its limb planes at 8k_to_1080p_gamma_prologue (vh) and
-1080p_to_4k_gamma_prologue (hv), K2 split3 at 720p_to_1080p_errdiff and
+1080p_to_4k_gamma_prologue (hv), K1 int8 with the in-kernel gamma at
+8k_to_1080p_gamma ("inkernel"), 1080p_to_4k_gamma and 640x480_gamma_down
+(both "auto"; with their bounds, MACs, stagings and, for hv, every slice
+height), K2 split3 at 720p_to_1080p_errdiff and
 1080p_to_4k_gamma_errdiff (KT_K2_CELLS), K2 exact on the same
 inputs (and at the first cell on the u8 image, split2 beside it, and on
 the image as u16), K3 at those two and
@@ -207,8 +219,9 @@ K1 split hv at 1080p_to_4k_errdiff and, with gamma,
 1080p_to_4k_u16_gamma_rgba (KT_SPLIT_HV_CELLS, K1 split vh of the same
 resize beside them) on the package under DIR instead (one JSON line, with
 output hashes, K1 split hv's, K3's, K5's, K7's and K8's bounds, ptxas's
-registers and spills of the planar, fused_split and banded libraries and, at the
-two int8 downsizes, the split route beside it), so that two versions of
+registers and spills of the fused_int8, planar, fused_split and banded
+libraries and, at the two int8 downsizes, the split route beside it), so
+that two versions of
 the kernels can be compared in turns within one chip call.
 ``python3 split_hv_heights.py`` times K1 split hv at 32, 64 and 128 rows
 a block at KT_SPLIT_HV_CELLS.
@@ -426,6 +439,16 @@ INT8_EPI_CASES = (
     (1031, 517, 263, 129, 3, None, "vh", "even", 1.0, False, -1),
     (300, 250, 170, 150, 3, None, "vh", "even", 0.75, False, -1),
     (150, 100, 400, 300, 3, None, "hv", "even", 0.75, False, -1),
+    # The edges of the in-kernel gamma's tensor-core tiling
+    # (tests/torch_cases.py's gamma_edge_*, gamma_odd_*, gamma_up_c4a0,
+    # gamma_hv_windows_c1): rows_out off every slice height in both orders,
+    # odd lanes_in in both orders, the alpha lane first in hv, hv windows.
+    (300, 250, 170, 150, 3, None, "vh", "biased", 1.0, True, -1),
+    (150, 100, 400, 300, 3, None, "hv", "biased", 1.0, True, -1),
+    (97, 83, 61, 45, 3, None, "vh", "biased", 1.0, True, -1),
+    (45, 31, 97, 70, 3, None, "hv", "biased", 1.0, True, -1),
+    (53, 37, 90, 71, 4, None, "hv", "biased", 1.0, True, 0),
+    (20, 1200, 500, 50, 1, None, "hv", "biased", 1.0, True, -1),
 )
 SPLIT_EPI_CASES = (
     # SPLIT_CASES' fields plus round_mode, scale, gamma, alpha_index
@@ -533,6 +556,11 @@ EPI_SHAPES = (
     # some pixels of this image, so its oracle gate is 2 LSB and >= 60 dB.
     ("1080p_to_4k_gamma", "avir", 1920, 1080, 3840, 2160, 3, np.uint8,
      np.uint8, {"use_srgb_gamma": True}, "fused_int8_hv_gamma", 2, None, None),
+    # A u8 gamma downsize K6 cannot take (no uniform row stride): "auto"
+    # runs K1 int8 vh with the in-kernel gamma, the gate of
+    # 1080p_to_4k_gamma.
+    ("640x480_gamma_down", "avir", 1000, 700, 640, 480, 3, np.uint8,
+     np.uint8, {"use_srgb_gamma": True}, "fused_int8_vh_gamma", 2, None, None),
 )
 # The unfused route (K3 lane pass, K2 row pass): (name, entry point,
 # src_w, src_h, new_w, new_h, c, out dtype, resize keywords, expected
@@ -682,12 +710,17 @@ KT_INT8_CELLS = (
 )
 # --kernel-times' gamma cells, u8 RGB with sRGB gamma: (name, route of
 # AVIR_TPU_GAMMA_ROUTE, src_w, src_h, new_w, new_h): K6 on the default
-# route, K5 + K1 int8 from the limb planes on "prologue".
+# route, K5 + K1 int8 from the limb planes on "prologue", and K1 int8 with
+# the in-kernel gamma ("inkernel" at 8K; "auto" where K6 cannot run: the
+# upsize, and the downsize without a uniform row stride).
 KT_GAMMA_CELLS = (
     ("8k_to_1080p_gamma_ring", "auto", 7680, 4320, 1920, 1080),
     ("4k_to_720p_gamma_ring", "auto", 3840, 2160, 1280, 720),
     ("8k_to_1080p_gamma_prologue", "prologue", 7680, 4320, 1920, 1080),
     ("1080p_to_4k_gamma_prologue", "prologue", 1920, 1080, 3840, 2160),
+    ("8k_to_1080p_gamma", "inkernel", 7680, 4320, 1920, 1080),
+    ("1080p_to_4k_gamma", "auto", 1920, 1080, 3840, 2160),
+    ("640x480_gamma_down", "auto", 1000, 700, 640, 480),
 )
 # --kernel-times' K2 cells, u8 RGB through the unfused route with
 # dither="errdiff" (K3, then K2 split3 on its float32 output): (name,
@@ -823,14 +856,15 @@ def _first_pass_reads(ops) -> dict[str, float]:
 
 
 def _int8_counts(ops) -> dict:
-    """K1 int8 on the tensor cores (without gamma, or from K5's limb
-    planes): the slice height, the s8 MACs the tensor-core kernel issues
-    (fused_kernel.py:issued_macs) and those the dp4a kernel before it
-    issued (32-row slices, dense over the whole win_c window: vh per
-    128-lane segment, hv per 32-row group), and the image bytes the first
-    pass reads per input byte in both tilings (each block reads its
-    slice's nonzero V-tap rows over its chunk's nonzero lane range; before,
-    over the whole window)."""
+    """K1 int8 on the tensor cores (any input: the u8 image, K5's limb
+    planes, the image linearized in the kernel): the slice height, the s8
+    MACs the kernel issues (fused_kernel.py:issued_macs; three first-pass
+    products with gamma) and those of the dp4a design the tensor-core
+    kernels replaced (32-row slices, dense over the whole win_c window: vh
+    per 128-lane segment, hv per 32-row group), and the image elements the
+    first pass stages per input element in both tilings (each block stages
+    its slice's nonzero V-tap rows over its chunk's nonzero lane range;
+    before, over the whole window)."""
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
 
     kr = ops.k_range.cpu().numpy().astype(np.int64)
@@ -838,7 +872,7 @@ def _int8_counts(ops) -> dict:
     hr = ops.h_range.cpu().numpy().astype(np.int64)
     bh, n_ch, win_c, _ = ops.h1.shape
     k32 = int((kr[..., 1] - kr[..., 0]).sum())
-    first = 3 if ops.gamma_pre else 2  # limb products of the first pass
+    first = 3 if ops.epi.gamma else 2  # limb products of the first pass
     if ops.order == "vh":
         before = (first * 32 * k32 * win_c + 3 * 32 * 128 * win_c * kr[..., 0].size) * bh * n_ch
     else:
@@ -938,12 +972,16 @@ def _k1_bound(h, v, c: int, order: str, in_bytes: int, out_bytes: int,
     )
 
 
-def _bound(plan, c: int, order: str) -> tuple[float, str, int, int]:
-    """K1 int8: two s8 limbs per tap; two products in the first pass,
-    three in the second."""
-    pv, ph = (2, 3) if order == "vh" else (3, 2)
-    return _k1_bound(plan.h.op, plan.v.op, c, order, 1, 1, 2, pv, ph,
-                     INT8_OPS_PER_S)
+def _bound(plan, c: int, order: str, gamma: bool = False) -> tuple[float, str, int, int]:
+    """K1 int8: two s8 limbs per tap; two products in the first pass
+    (three with gamma), three in the second; with gamma also the float32
+    gamma stages (GAMMA_IN_OPS an input element, GAMMA_OUT_OPS an output)."""
+    first = 3 if gamma else 2
+    pv, ph = (first, 3) if order == "vh" else (3, first)
+    hop, vop = plan.h.op, plan.v.op
+    f32_ops = (vop.n_in * hop.n_in * c * GAMMA_IN_OPS["int8"]
+               + vop.n_out * hop.n_out * c * GAMMA_OUT_OPS) if gamma else 0
+    return _k1_bound(hop, vop, c, order, 1, 1, 2, pv, ph, INT8_OPS_PER_S, f32_ops)
 
 
 def _split_reads(ops) -> dict[str, float]:
@@ -1572,13 +1610,15 @@ def _epi_shape(name, entry, sw, sh, nw, nh, c, in_dt, out_dt, kw, key,
         "d2h_copy_ms": _time_ms(got.cpu, 5, flush), **extra,
         "card": smi,
     }
-    if mod is fk and not gamma:
-        # The tensor-core kernels: their counts, and the split route at a
-        # downsize as a yardstick.
+    if mod is fk:
+        # The tensor-core kernels: their counts, every slice height, and
+        # (no gamma) the split route at a downsize as a yardstick.
         heights = _height_sweep(ops, x, got, flush)
         ok = ok and all(h["bit_equal"] for h in heights.values())
         report.update({"band_macs": nops // 2, **_int8_counts(ops), "slice_heights": heights})
-        if ops.order == "vh":
+        if gamma:
+            report["ptxas"] = _ptxas("fused_int8", "fused_int8")
+        elif ops.order == "vh":
             report.update(_yardsticks(make, plan, x, got, (SPLIT_ROUTE,), dev, flush))
     if mod is fs:
         report.update({"mode_v": ops.mode_v, "mode_h": ops.mode_h,
@@ -1619,16 +1659,22 @@ def _epi_cases(gen, dev) -> None:
         x = torch.from_numpy(
             gen.integers(0, 256, (sh, sw * c), dtype=np.uint8)
         ).to(dev)
-        got = fk.apply_fused_int8(ops, x)
-        torch.cuda.synchronize()
         want = fk.apply_fused_int8_reference(ops, x)
         torch.cuda.synchronize()
-        err = int((got.int() - want.int()).abs().max())
-        case = (f"{ops.launch_key} {sw}x{sh}->{nw}x{nh} C={c} tile={tile} "
-                f"scale={scale} alpha={alpha}")
-        print(json.dumps({"case": case, "max_abs_err": err}))
-        if err != 0:
-            _fail(f"kernel != plain on {case}")
+        # The slice height slice_rows picked, then every other one.
+        for rows in (ops.rows, *(r for r in INT8_ROWS[order] if r != ops.rows)):
+            try:
+                rops = fk.at_rows(ops, rows)
+            except ValueError:  # an hv range above the intermediate's rows
+                continue
+            got = fk.apply_fused_int8(rops, x)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            case = (f"{ops.launch_key} {sw}x{sh}->{nw}x{nh} C={c} tile={tile} "
+                    f"scale={scale} alpha={alpha} rows={rows}")
+            print(json.dumps({"case": case, "max_abs_err": err}))
+            if err != 0:
+                _fail(f"kernel != plain on {case}")
 
     _split_epi_cases(SPLIT_EPI_CASES, gen, dev)
 
@@ -3584,7 +3630,9 @@ def _card() -> str:
 def kernel_times(root: str) -> int:
     """K1 int8 (no gamma) at its four main-path cells (KT_INT8_CELLS), the
     gamma kernels at KT_GAMMA_CELLS (K6 at the two ring cells; K5 and K1
-    int8 from its limb planes, vh and hv, at the two prologue cells), K2 at
+    int8 from its limb planes, vh and hv, at the two prologue cells; K1
+    int8 with the in-kernel gamma at the other three, with its bound, MACs,
+    stagings and slice heights), K2 at
     KT_K2_CELLS (the row pass of two unfused errdiff resizes, on K3's
     output, split3 and exact; at the first cell also split2 and exact on
     the u8 image and exact on the image as u16), K3 at KT_K3_CELLS (the lane pass of the three unfused
@@ -3608,8 +3656,8 @@ def kernel_times(root: str) -> int:
     K3's gate is max|plain| * 1e-5, K7's, K8's and K1 split's the split
     gate), K1 split hv's, K2 exact's, K3's, K5's, K7's and K8's bounds, K1
     split hv's MACs issued and stagings, K5's load path, and ptxas's
-    registers and spills of the planar, fused_split and banded libraries
-    built in this call."""
+    registers and spills of the fused_int8, planar, fused_split and banded
+    libraries built in this call."""
     import hashlib
     import os
 
@@ -3690,17 +3738,30 @@ def kernel_times(root: str) -> int:
                 "sha": sha(torch.cat([hi.flatten(), lo.flatten()])),
             }
             args = (ops, hi, lo)
-            kernel, plain = fk.apply_fused_int8, fk.apply_fused_int8_reference
         else:
             args = (ops, x)
+        if isinstance(ops, fk.FusedInt8Operands):
+            kernel, plain = fk.apply_fused_int8, fk.apply_fused_int8_reference
+        else:
             kernel, plain = fr.apply_fused_ring, fr.apply_fused_ring_reference
         got = kernel(*args)
         want = plain(*args)
-        times[f"{ops.launch_key} {name}"] = {
+        cell = {
             "ms": _time_ms(lambda: kernel(*args), 20, flush),
             "max_abs_err_vs_plain": int((got.int() - want.int()).abs().max()),
             "sha": sha(got),
         }
+        if kernel is fk.apply_fused_int8 and route != "prologue":
+            # The in-kernel gamma: its bound, the MACs issued against the
+            # band's, the stagings per input element and every slice
+            # height (a version whose operands carry no tiling, as the
+            # dp4a kernels', prints none of these counts).
+            bound_ms, bound_by, _, nops = _bound(plan, 3, ops.order, gamma=True)
+            cell.update(bound_ms=bound_ms, bound_by=bound_by, band_macs=nops // 2)
+            if getattr(ops, "slice_range", None) is not None:
+                cell.update(_int8_counts(ops))
+            cell["slice_heights"] = _height_sweep(ops, x, got, flush)
+        times[f"{ops.launch_key} {name}"] = cell
     for name, sw, sh, nw, nh, kw in KT_K2_CELLS:
         plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8, **kw)
         ops = make_avir_executor(plan, errdiff=True, device=dev).ops
@@ -3802,7 +3863,8 @@ def kernel_times(root: str) -> int:
             "vh_ms": _time_ms(lambda: fs.apply_fused_split(vh, x), 20, flush),
             "vh_variant": vh.launch_key, "vh_sha": sha(vh_got),
         }
-    ptxas = {"planar": _ptxas("planar", "planar"),
+    ptxas = {"fused_int8": _ptxas("fused_int8", "fused_int8"),
+             "planar": _ptxas("planar", "planar"),
              "fused_split": _ptxas("fused_split", "fused_split"),
              "banded": _ptxas("banded", "banded")}
     print(json.dumps({"kernel_times": times, "ptxas": ptxas, "root": root, "card": _card()}))

@@ -5,7 +5,8 @@ toolkit are installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: K1 int8 (its limb-plane input and its gamma table included),
+Tolerances: K1 int8 (its limb-plane input and its in-kernel gamma
+included, at every slice height),
 K4 (at every row grouping), K5 and K6 are bit-equal (exact integer sums; the same float32 operations in the same
 order, gamma and the round-half-even epilogue included).  K1 split-bf16,
 K7 and K8 sum in another order than their plain versions: float32 within
@@ -172,6 +173,64 @@ def test_int8_epilogue_kernel_matches_plain_on_card(name, cuda_device):
     torch.cuda.synchronize()
     assert fk.launches[ops.launch_key] == before + 1
     assert torch.equal(got, fk.apply_fused_int8_reference(ops, x))
+
+
+_INT8_GAMMA = [n for n, case in INT8_EPI_CASES.items() if case[9]]
+
+
+def _int8_gamma_case(name, device):
+    """(in-kernel gamma operands, u8 image) of an INT8_EPI_CASES gamma case."""
+    sw, sh, nw, nh, c, tile, order, rm, scale, g, alpha = INT8_EPI_CASES[name]
+    plan = build_resize_plan(
+        sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True, alpha_index=alpha,
+    )
+    ops = fk.prepare_fused_int8(
+        block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile),
+        order, device, **epi_kwargs(plan, rm, scale, g, alpha),
+    )
+    x = torch.from_numpy(
+        np.random.default_rng(sum(map(ord, name)) + 5).integers(
+            0, 256, (sh, sw * c), dtype=np.uint8
+        )
+    ).to(device)
+    return ops, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 64, 128])
+@pytest.mark.parametrize("name", _INT8_GAMMA)
+def test_int8_gamma_kernel_every_slice_height_on_card(name, rows, cuda_device):
+    """K1 int8 with the in-kernel gamma (the s8 tensor-core kernels,
+    linearizing the image from their shared table) at every slice height
+    at_rows takes (vh 32; hv also 64 and 128): bit-equal to the plain
+    version, one launch each."""
+    ops, x = _int8_gamma_case(name, cuda_device)
+    if ops.order == "vh" and rows != 32:
+        pytest.skip("the vh kernel takes 32-row slices")
+    try:
+        ops = fk.at_rows(ops, rows)
+    except ValueError:
+        pytest.skip(f"{rows}-row slice ranges exceed the hv intermediate")
+    before = fk.launches[ops.launch_key]
+    got = fk.apply_fused_int8(ops, x)
+    torch.cuda.synchronize()
+    assert fk.launches[ops.launch_key] == before + 1
+    assert torch.equal(got, fk.apply_fused_int8_reference(ops, x))
+
+
+@pytest.mark.cuda
+def test_int8_gamma_hv_repeats_bit_equal_on_card(cuda_device):
+    """10 launches of a many-block in-kernel gamma hv (a 32-row image
+    group converted in shared memory each step, several groups and chunks
+    a block) give the plain version's bytes each time: a missing barrier
+    after the conversion would show here."""
+    ops, x = _int8_gamma_case("gamma_edge_rows_up_c3", cuda_device)
+    assert ops.order == "hv" and ops.slice_range.shape[1] > 1
+    want = fk.apply_fused_int8_reference(ops, x)
+    for _ in range(10):
+        got = fk.apply_fused_int8(ops, x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -545,19 +604,24 @@ def test_limb_input_hv_repeats_bit_equal_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("planes", [1, 2, "2+table"])
 def test_hv_smem_bytes_match_the_kernel(planes, cuda_device):
-    """The host's copy of the hv tensor-core kernel's shared-memory layout
-    (fk.hv_smem_bytes, which slice_rows reads) equals the kernel's own
-    (csrc: hv_mma_smem_bytes), and the card's SM shared memory is read
-    from the device (an H100's is the value the CPU assumes)."""
+    """The host's copies of the tensor-core kernels' shared-memory layouts
+    (fk.hv_smem_bytes, which slice_rows reads, with one plane, two, and
+    two plus the in-kernel gamma's table; fk.vh_smem_bytes) equal the
+    kernels' own (csrc: hv_mma_smem_bytes, VhMma::bytes), and the card's SM
+    shared memory is read from the device (an H100's is the value the CPU
+    assumes)."""
     from avir_tpu_torch.ops.cuda.build import load_library
 
-    fn = load_library("fused_int8").avir_hv_mma_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    table = planes == "2+table"
+    planes = 2 if table else planes
+    fn = load_library("fused_int8").avir_int8_mma_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
     for kwin in (32, 64, 128, 160, 256):
-        assert fk.hv_smem_bytes(kwin, planes) == fn(kwin, planes)
+        assert fk.hv_smem_bytes(kwin, planes, table) == fn(1, kwin, planes, int(table))
+    assert fk.vh_smem_bytes(table) == fn(0, 0, planes, int(table))
     props = torch.cuda.get_device_properties(cuda_device)
     assert fk._sm_smem(cuda_device) == props.shared_memory_per_multiprocessor
     if "H100" in props.name:

@@ -18,10 +18,12 @@ from avir_tpu.ops.pallas.fused_kernel import apply_fused_pallas
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
 from torch_cases import FUSED_CASES as CASES
+from torch_cases import INT8_EPI_CASES, epi_kwargs
 
 from avir_tpu_torch.convert import resize_plan_from_numpy
 from avir_tpu_torch.ops.banded import block_banded
 from avir_tpu_torch.ops.cuda import fused_kernel as fk
+from avir_tpu_torch.ops.cuda import fused_ring as fr
 from avir_tpu_torch.ops.lanes import lane_block_banded
 from avir_tpu_torch.plan.plan import build_resize_plan
 
@@ -147,13 +149,27 @@ def test_pack4_layout():
 
 
 # ---------------------------------------------------------------------------
-# Operands of the tensor-core kernels (no gamma)
+# Operands of the tensor-core kernels (without gamma, and with the
+# in-kernel gamma: INT8_EPI_CASES' gamma cases)
 # ---------------------------------------------------------------------------
 
 EDGE = [n for n in CASES if n.startswith("edge")]
+GAMMA = [n for n, case in INT8_EPI_CASES.items() if case[9]]
+GAMMA_EDGE = [n for n in GAMMA if n.startswith(("gamma_edge", "gamma_odd", "gamma_hv"))
+              or n == "gamma_up_c4a0"]
 
 
 def _ops(name):
+    """Operands of a FUSED_CASES case, or (an INT8_EPI_CASES gamma case)
+    of the in-kernel gamma route."""
+    if name in INT8_EPI_CASES:
+        sw, sh, nw, nh, c, tile, order, rm, scale, g, alpha = INT8_EPI_CASES[name]
+        plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8,
+                                 use_srgb_gamma=g, alpha_index=alpha)
+        return fk.prepare_fused_int8(
+            block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile),
+            order, "cpu", **epi_kwargs(plan, rm, scale, g, alpha),
+        )
     sw, sh, nw, nh, c, tile = CASES[name]
     plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8)
     return fk.prepare_fused_int8(
@@ -177,12 +193,15 @@ def test_h_range_covers_every_nonzero_tap(name):
 
 
 @pytest.mark.parametrize("rows", [32, 64, 128])
-@pytest.mark.parametrize("name", ["down_c3", "edge_rows_c3", "edge_up_c2", "edge_up128_c3"])
+@pytest.mark.parametrize("name", ["down_c3", "edge_rows_c3", "edge_up_c2", "edge_up128_c3",
+                                  "gamma_edge_rows_down_c3", "gamma_edge_rows_up_c3",
+                                  "gamma_up_c4a0"])
 def test_slice_range_covers_every_nonzero_tap(name, rows):
     """Each R-row slice's range holds every nonzero V tap of its rows,
-    32-aligned; the 32-row k_range (which K6 and the gamma kernels read)
-    is the same at every R.  The vh kernel takes 32-row slices only
-    (at_rows refuses the others), so there the ranges are _k_ranges'."""
+    32-aligned; the 32-row k_range (which K6 and the hv kernel's second
+    pass read) is the same at every R, with gamma (the in-kernel route) as
+    without.  The vh kernel takes 32-row slices only (at_rows refuses the
+    others), so there the ranges are _k_ranges'."""
     ops = _ops(name)
     v1, v0 = ops.v1.numpy(), ops.v0.numpy()
     nz = (v1 != 0) | (v0 != 0)  # [Bv, Tv, Wv]
@@ -207,9 +226,11 @@ def test_slice_range_covers_every_nonzero_tap(name, rows):
 
 
 def test_k_range_of_the_gamma_kernels_and_k6_unchanged():
-    """The gamma operands (which the dp4a kernels and K6's schedule read)
-    keep 32-row k_range slices over the dense taps and the packed lane
-    taps, and none of the tensor-core kernels' fields is made for them."""
+    """The in-kernel gamma operands carry the tensor-core kernels' tiling
+    (slice_range, h_range, kwin, and for hv the transposed lane taps), and
+    at_rows takes every height their order runs; K6, which builds its
+    operands on the vh ones, still finds 32-row k_range slices over the
+    dense taps and the packed lane taps it reads."""
     plan = build_resize_plan(200, 150, 80, 60, 3, np.uint8, np.uint8, use_srgb_gamma=True)
     vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, 3)
     for order in ("vh", "hv"):
@@ -226,11 +247,35 @@ def test_k_range_of_the_gamma_kernels_and_k6_unchanged():
                     assert kr[b, s, 1] == min(-(-(used[-1] + 1) // 32) * 32, wv)
                 else:
                     assert tuple(kr[b, s]) == (0, 0)
-        assert ops.h1t is None and ops.h0t is None
-        assert ops.slice_range is None and ops.h_range is None and ops.rows == 32
-        assert ops.h1p is not None and ops.h0p is not None
-        with pytest.raises(ValueError, match="no 32-row slices"):
-            fk.at_rows(ops, 32)
+        v1, v0 = ops.v1.numpy(), ops.v0.numpy()
+        np.testing.assert_array_equal(
+            ops.slice_range.numpy(), fk._k_ranges(v1, v0, ops.rows))
+        np.testing.assert_array_equal(
+            ops.h_range.numpy(), fk.h_ranges(ops.h1.numpy(), ops.h0.numpy()))
+        assert ops.kwin == fk._slice_fields(v1, v0, ops.rows)[1]
+        for rows in (32,) if order == "vh" else (32, 64, 128):
+            assert fk.at_rows(ops, rows).rows == rows
+        if order == "vh":
+            assert ops.rows == 32 and ops.h1t is None and ops.h0t is None
+            np.testing.assert_array_equal(ops.h1p.numpy(), fk._pack4(ops.h1.numpy()))
+            np.testing.assert_array_equal(ops.h0p.numpy(), fk._pack4(ops.h0.numpy()))
+            # K6's own K1 operands (RING_CASES' uniform_c3): the same
+            # 32-row k_range and packed lane taps.
+            rplan = build_resize_plan(512, 1024, 128, 256, 3, np.uint8, np.uint8,
+                                      use_srgb_gamma=True)
+            k1 = fr.prepare_fused_ring(
+                block_banded(rplan.v.op, tile=64, uniform=True),
+                lane_block_banded(rplan.h.op, 3), "cpu",
+                in_gamma_mult=rplan.in_gamma_mult, out_gamma_mult=rplan.out_gamma_mult,
+            ).k1
+            np.testing.assert_array_equal(
+                k1.k_range.numpy(), fk._k_ranges(k1.v1.numpy(), k1.v0.numpy(), 32))
+            np.testing.assert_array_equal(k1.h1p.numpy(), fk._pack4(k1.h1.numpy()))
+            np.testing.assert_array_equal(k1.h0p.numpy(), fk._pack4(k1.h0.numpy()))
+        else:
+            assert torch.equal(ops.h1t, ops.h1.transpose(2, 3))
+            assert torch.equal(ops.h0t, ops.h0.transpose(2, 3))
+            assert ops.h1p is None and ops.h0p is None  # read by no hv kernel
 
 
 def test_hv_lane_taps_transposed():
@@ -242,10 +287,9 @@ def test_hv_lane_taps_transposed():
     assert ops.h1p is None and ops.h0p is None  # read by no hv kernel without gamma
 
 
-@pytest.mark.parametrize("name", ["down_c3", "up_c4", "edge_down_c2", "edge_up128_c3"])
-def test_issued_macs_counts_every_block(name):
-    """issued_macs against a count over the kernel's blocks and steps."""
-    ops = _ops(name)
+def _count_macs(ops, first):
+    """The s8 MACs of ``ops``' kernel, block by block and step by step, with
+    ``first`` limb products in the first pass."""
     sr, kr, hr = (t.numpy().astype(np.int64) for t in (ops.slice_range, ops.k_range, ops.h_range))
     rows, n_s32 = ops.rows, kr.shape[1]
     want = 0
@@ -256,14 +300,92 @@ def test_issued_macs_counts_every_block(name):
                 if kw <= 0 or hw <= 0:
                     continue
                 if ops.order == "vh":
-                    want += 2 * rows * kw * hw + 3 * rows * hw * 128
+                    want += first * rows * kw * hw + 3 * rows * hw * 128
                 else:
-                    want += 2 * kw * 128 * hw
+                    want += first * kw * 128 * hw
                     for sub in range(rows // 32):
                         s32 = s * rows // 32 + sub
                         if s32 < n_s32:
                             want += 3 * 32 * (kr[b, s32, 1] - kr[b, s32, 0]) * 128
-    assert fk.issued_macs(ops.order, rows, sr, kr, hr) == want
+    return want
+
+
+@pytest.mark.parametrize("name", ["down_c3", "up_c4", "edge_down_c2", "edge_up128_c3"])
+def test_issued_macs_counts_every_block(name):
+    """issued_macs against a count over the kernel's blocks and steps."""
+    ops = _ops(name)
+    sr, kr, hr = (ops.slice_range.numpy(), ops.k_range.numpy(), ops.h_range.numpy())
+    assert fk.issued_macs(ops.order, ops.rows, sr, kr, hr) == _count_macs(ops, 2)
+
+
+@pytest.mark.parametrize("name", ["gamma_down_c4a", "gamma_up_c4a", "gamma_edge_rows_up_c3",
+                                  "gamma_hv_windows_c1"])
+def test_issued_macs_counts_three_first_pass_products(name):
+    """With gamma the first pass makes three limb products (the in-kernel
+    route as the limb-plane one): issued_macs with first=3 against the
+    count over the kernel's blocks and steps, at every height at_rows
+    takes."""
+    base = _ops(name)
+    assert base.epi.gamma and not base.gamma_pre
+    for rows in (32,) if base.order == "vh" else (32, 64, 128):
+        try:
+            ops = fk.at_rows(base, rows)
+        except ValueError:
+            assert base.order == "hv" and rows > 32  # windows: 32 rows only
+            continue
+        sr, kr, hr = (ops.slice_range.numpy(), ops.k_range.numpy(), ops.h_range.numpy())
+        got = fk.issued_macs(ops.order, rows, sr, kr, hr, first=3)
+        assert got == _count_macs(ops, 3) > _count_macs(ops, 2)
+
+
+def test_gamma_edge_cases_reach_their_edges():
+    """The in-kernel gamma edge cases (INT8_EPI_CASES) cover what
+    torch_cases.py promises: rows_out off 32, 64 and 128 in both orders,
+    an hv at 128-row slices with a ragged last slice, lanes_in odd in both
+    orders, C = 4 with the alpha lane first in hv, and an hv in windows."""
+    seen = set()
+    for name in GAMMA_EDGE:
+        ops = _ops(name)
+        c = INT8_EPI_CASES[name][4]
+        span = (ops.slice_range.numpy()[..., 1] - ops.slice_range.numpy()[..., 0]).max()
+        seen |= {
+            *([f"rows_out_{ops.order}"] if all(ops.rows_out % r for r in (32, 64, 128)) else []),
+            *(["hv128_ragged"] if ops.order == "hv" and ops.rows == 128
+              and ops.rows_out % 128 and ops.v1.shape[1] >= 128 else []),
+            *([f"odd_lanes_in_{ops.order}"] if ops.lanes_in % 2 else []),
+            *(["hv_alpha0"] if ops.order == "hv" and c == 4 and ops.epi.alpha_lane == 0 else []),
+            *(["hv_windows"] if ops.order == "hv" and span > fk.KWIN_MAX else []),
+        }
+    assert seen == {
+        "rows_out_vh", "rows_out_hv", "hv128_ragged", "odd_lanes_in_vh",
+        "odd_lanes_in_hv", "hv_alpha0", "hv_windows",
+    }
+
+
+@pytest.mark.parametrize("size", [(1920, 1080, 3840, 2160), (1000, 700, 640, 480)])
+def test_gamma_slice_rule_keeps_two_blocks_an_sm(size):
+    """u8 RGB with sRGB gamma on the in-kernel route: slice_rows with the
+    mode's shared memory (two planes of image tiles and the linearization
+    table) keeps two blocks on an H100 SM at 1920x1080 -> 3840x2160 (hv,
+    128-row slices, as the limb-plane route) and 1000x700 -> 640x480 (vh,
+    32 rows: the downsize K6 cannot take)."""
+    from avir_tpu_torch.models.runtime import make_avir_executor
+
+    sw, sh, nw, nh = size
+    plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8, use_srgb_gamma=True)
+    ops = make_avir_executor(plan, device="cpu").ops
+    assert ops.launch_key == f"fused_int8_{ops.order}_gamma"
+    v1, v0 = ops.v1.numpy(), ops.v0.numpy()
+    n_chunks = ops.h_range.shape[0] * ops.h_range.shape[1]
+    rows = fk.slice_rows(ops.order, v1, v0, n_chunks, H100_SMS, planes=2, table=True)
+    limit = fk.two_blocks_smem(fk.H100_SM_SMEM)
+    if ops.order == "hv":
+        assert rows == 128 == fk.slice_rows(ops.order, v1, v0, n_chunks, H100_SMS, planes=2)
+        kwin = fk.at_rows(ops, rows).kwin
+        assert fk.hv_smem_bytes(kwin, 2) < fk.hv_smem_bytes(kwin, 2, table=True) <= limit
+    else:
+        assert rows == ops.rows == 32 and size == (1000, 700, 640, 480)
+        assert fk.vh_smem_bytes(table=True) == fk.vh_smem_bytes() + fk.GAMMA_TABLE_BYTES <= limit
 
 
 # The H100 SXM's SMs: the card on which PERF.md measured every slice height.

@@ -101,6 +101,18 @@ INT8_EPI_CASES = {
     "gamma_up_c3": (300, 20, 1400, 41, 3, None, "hv", "biased", 1.0, True, -1),
     "gamma_up_c4a": (500, 20, 1200, 41, 4, None, "hv", "biased", 1.0, True, 3),
     "gamma_up_c4a_tc": (29, 21, 71, 45, 4, 48, "hv", "biased", 1.0, True, 3),
+    # Edges of the in-kernel gamma's tiling on the s8 tensor cores
+    # (test_torch_fused.py checks each case has them): rows_out off 32,
+    # 64 and 128 in both orders (hv with a ragged last 128-row slice),
+    # lanes_in odd (C = 3: the narrow image loads; off 16, the hv tile's
+    # word loads), C = 4 with the alpha lane first in hv, and an hv whose
+    # slice range runs taller than the intermediate (windows at R = 32).
+    "gamma_edge_rows_down_c3": (300, 250, 170, 150, 3, None, "vh", "biased", 1.0, True, -1),
+    "gamma_edge_rows_up_c3": (150, 100, 400, 300, 3, None, "hv", "biased", 1.0, True, -1),
+    "gamma_odd_down_c3": (97, 83, 61, 45, 3, None, "vh", "biased", 1.0, True, -1),
+    "gamma_odd_up_c3": (45, 31, 97, 70, 3, None, "hv", "biased", 1.0, True, -1),
+    "gamma_up_c4a0": (53, 37, 90, 71, 4, None, "hv", "biased", 1.0, True, 0),
+    "gamma_hv_windows_c1": (20, 1200, 500, 50, 1, None, "hv", "biased", 1.0, True, -1),
     # LANCIR's scale on the tensor-core kernels' edge cases, both orders.
     "even_scale_edge_down": (300, 250, 170, 150, 3, None, "vh", "even", 0.75, False, -1),
     "even_scale_edge_up": (150, 100, 400, 300, 3, None, "hv", "even", 0.75, False, -1),
