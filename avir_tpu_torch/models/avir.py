@@ -23,6 +23,7 @@ from .. import native
 from ..params import PARAMS_DEF, Params
 from ..plan.cache import build_resize_plan_cached
 from ..plan.plan import build_resize_plan
+from ..utils import trace
 from ..utils.excache import ExecutorCache
 from .batch import BatchRunner
 from .host_reference import execute_plan_numpy
@@ -369,7 +370,8 @@ def device_fn(run, src_shape, in_dtype: np.dtype, out_dtype: np.dtype,
     """The function on device tensors that ``make_resize_fn`` and
     ``make_lancir_resize_fn`` return (``_traceable_wrapper`` there): it
     checks the input's shape, type and device, and makes no host copy and
-    no host synchronisation."""
+    no host synchronisation.  A call is a ``frame`` span while the tracer
+    (utils/trace.py) is on."""
     squeeze = len(src_shape) == 2
     sh, sw = src_shape[0], src_shape[1]
     ch = 1 if squeeze else src_shape[2]
@@ -377,7 +379,7 @@ def device_fn(run, src_shape, in_dtype: np.dtype, out_dtype: np.dtype,
     want = torch.float64 if in_dtype == np.float64 else torch_dtype(in_dtype)
     out_f64 = out_dtype == np.float64
 
-    def fn(x: torch.Tensor) -> torch.Tensor:
+    def frame(x: torch.Tensor) -> torch.Tensor:
         if tuple(x.shape) != expect:
             raise ValueError(f"expected input shape {expect}, got {tuple(x.shape)}")
         if x.dtype != want:
@@ -395,6 +397,11 @@ def device_fn(run, src_shape, in_dtype: np.dtype, out_dtype: np.dtype,
             return y
         y = y.reshape(new_h, new_w, ch)
         return y[:, :, 0] if squeeze else y
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        if trace.on:
+            return trace.call("frame", frame, x)
+        return frame(x)
 
     fn.run = run
     return fn
@@ -443,21 +450,24 @@ def make_resize_fn(
     check_engine(engine)
     if engine == "host" or precision == "f64":
         raise ValueError("the float64 host route is not a device function")
-    device = resolve_device(device)
-    squeeze = len(src_shape) == 2
-    sh, sw = src_shape[0], src_shape[1]
-    ch = 1 if squeeze else src_shape[2]
-    in_dtype = np.dtype(in_dtype)
-    out_dt = np.dtype(out_dtype) if out_dtype is not None else in_dtype
-    plan = build_resize_plan(
-        sw, sh, new_w, new_h, ch, in_dtype, out_dt,
-        k=k, ox=ox, oy=oy, params=params,
-        res_bit_depth=res_bit_depth, src_bit_depth=src_bit_depth,
-        use_srgb_gamma=use_srgb_gamma, alpha_index=alpha_index,
-        build_mode=build_mode,
-    )
-    run = make_avir_executor(
-        plan, errdiff=dither != "default", precision=precision, device=device,
-        errdiff_impl=errdiff_impl(dither),
-    )
-    return device_fn(run, src_shape, in_dtype, out_dt, new_w, new_h, flat, device)
+    with trace.span("setup.make_fn"):
+        device = resolve_device(device)
+        squeeze = len(src_shape) == 2
+        sh, sw = src_shape[0], src_shape[1]
+        ch = 1 if squeeze else src_shape[2]
+        in_dtype = np.dtype(in_dtype)
+        out_dt = np.dtype(out_dtype) if out_dtype is not None else in_dtype
+        with trace.span("setup.plan"):
+            plan = build_resize_plan(
+                sw, sh, new_w, new_h, ch, in_dtype, out_dt,
+                k=k, ox=ox, oy=oy, params=params,
+                res_bit_depth=res_bit_depth, src_bit_depth=src_bit_depth,
+                use_srgb_gamma=use_srgb_gamma, alpha_index=alpha_index,
+                build_mode=build_mode,
+            )
+        with trace.span("setup.operands"):
+            run = make_avir_executor(
+                plan, errdiff=dither != "default", precision=precision,
+                device=device, errdiff_impl=errdiff_impl(dither),
+            )
+        return device_fn(run, src_shape, in_dtype, out_dt, new_w, new_h, flat, device)

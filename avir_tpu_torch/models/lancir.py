@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..plan.lancir_plan import build_lancir_plan
+from ..utils import trace
 from ..utils.excache import ExecutorCache
 from .avir import check_engine, deliver, device_fn, to_device, torch_dtype
 from .batch import BatchRunner
@@ -181,15 +182,18 @@ def make_lancir_resize_fn(
     check_engine(engine)
     if engine == "host" or precision == "f64":
         raise ValueError("the float64 host route is not a device function")
-    device = resolve_device(device)
-    squeeze = len(src_shape) == 2
-    sh, sw = src_shape[0], src_shape[1]
-    ch = 1 if squeeze else src_shape[2]
-    in_dtype = np.dtype(in_dtype)
-    out_dt = np.dtype(out_dtype) if out_dtype is not None else in_dtype
-    plan = build_lancir_plan(
-        sw, sh, new_w, new_h, ch, in_dtype, out_dt,
-        kx=kx, ky=ky, ox=ox, oy=oy, la=la,
-    )
-    run = make_lancir_executor(plan, precision=precision, device=device)
-    return device_fn(run, src_shape, in_dtype, out_dt, new_w, new_h, flat, device)
+    with trace.span("setup.make_fn"):
+        device = resolve_device(device)
+        squeeze = len(src_shape) == 2
+        sh, sw = src_shape[0], src_shape[1]
+        ch = 1 if squeeze else src_shape[2]
+        in_dtype = np.dtype(in_dtype)
+        out_dt = np.dtype(out_dtype) if out_dtype is not None else in_dtype
+        with trace.span("setup.plan"):
+            plan = build_lancir_plan(
+                sw, sh, new_w, new_h, ch, in_dtype, out_dt,
+                kx=kx, ky=ky, ox=ox, oy=oy, la=la,
+            )
+        with trace.span("setup.operands"):
+            run = make_lancir_executor(plan, precision=precision, device=device)
+        return device_fn(run, src_shape, in_dtype, out_dt, new_w, new_h, flat, device)

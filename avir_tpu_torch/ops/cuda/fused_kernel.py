@@ -43,6 +43,7 @@ import math
 import numpy as np
 import torch
 
+from ...utils import trace
 from ..banded import BlockedBandedOp
 from ..gamma import (
     GAMMA_IN_BITS,
@@ -740,7 +741,15 @@ def apply_fused_int8(
     """Fused int8 resize of the u8 image ``x`` [rows_in, lanes_in] ->
     u8 [rows_out, lanes_out]; with ``ops.gamma_pre``, of K5's limb planes
     ``x`` (hi) and ``x_lo``.  A CUDA tensor launches the kernel; a CPU
-    tensor runs the plain version."""
+    tensor runs the plain version.  While the tracer (utils/trace.py) is
+    on, a call is a ``k1.call`` span and its ``ctypes`` call a
+    ``k1.launch`` span inside it."""
+    if trace.on:
+        return trace.call("k1.call", _apply_fused_int8, ops, x, x_lo)
+    return _apply_fused_int8(ops, x, x_lo)
+
+
+def _apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor, x_lo) -> torch.Tensor:
     if x.device.type == "cpu" and ops.device.type == "cpu":
         return apply_fused_int8_reference(ops, x, x_lo)
     if x.device.type != "cuda" or x.device != ops.device:
@@ -778,7 +787,7 @@ def apply_fused_int8(
 
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
+        args = (
             1 if ops.order == "hv" else 0,
             x.data_ptr(), ptr(x_lo),
             rows_in, lanes_in,
@@ -796,6 +805,7 @@ def apply_fused_int8(
             *ops.epi.launch_args(),
             stream,
         )
+        err = trace.call("k1.launch", fn, *args) if trace.on else fn(*args)
     if err != 0:
         raise RuntimeError(f"fused_int8 launch failed: CUDA error {err}")
     launches[ops.launch_key] += 1
