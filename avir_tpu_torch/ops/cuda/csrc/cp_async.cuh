@@ -18,6 +18,14 @@ __device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
                : "memory");
 }
 
+// 4 bytes global -> shared, asynchronously (through L1); zeros when
+// !valid.
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 // 16 bytes global -> shared, of which the first ``bytes`` (0..16) are
 // read and the rest are zeros.
 __device__ __forceinline__ void cp16n(void* dst, const void* src, int bytes) {
@@ -31,5 +39,11 @@ __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_grou
 __device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 __device__ __forceinline__ void cp_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 }  // namespace cp_async

@@ -75,21 +75,30 @@
 //   nonzero lane range (h_range, 32-aligned) is cut into segments of 128
 //   lanes.  Per segment: the first pass over the slice's nonzero V-tap rows
 //   (slice_range, here the same as k_range), 64 a step (two MMA depths): V
-//   taps [32][64] by cp.async (A), the image rows loaded as 32-bit words (4
-//   lanes of one row) into registers and stored as B words of 4 rows
-//   ([16][128] words a plane) after 4 x 4 byte transposes by byte permutes:
-//   kU8 one plane ^ 0x80; kPlanes both planes' words as loaded; kGamma the
-//   image words, each byte's limb pair read from the table and the
+//   taps [32][64] (A) and the image tile [64][<= 128] raw, then the tile
+//   stored as B words of 4 rows ([16][128] words a plane) after 4 x 4 byte
+//   transposes by byte permutes: kU8 one plane ^ 0x80; kPlanes both planes'
+//   words as read; kGamma each byte's limb pair read from the table and the
 //   transposed hi and lo words assembled from those entries by the byte
 //   permutes (the global read stays one u8 plane; the two planes fill the
-//   buffer kPlanes lays out as [2][16][136] words).  The segment's last such step requantizes the sums into s8
-//   limb planes x1 / x0 in shared memory (row-major, A of the second
-//   pass); then the second pass, 64 lanes a step: h1p / h0p words [16][128]
-//   by cp.async (B).  All steps of all segments form one sequence over two
-//   buffers, as in fused_split.cu: while a step's MMAs run, the next step's
-//   taps are in flight by cp.async and its image words in registers, with
-//   one barrier a step.  vh runs 32 rows: a 64-row vh tiling measured
-//   47-65% slower at both 8K downsizes.
+//   buffer kPlanes lays out as [2][16][136] words).  The segment's last
+//   such step requantizes the sums into s8 limb planes x1 / x0 in shared
+//   memory (row-major, A of the second pass); then the second pass, 64
+//   lanes a step: h1p / h0p words [16][128] (B).  All steps of all segments
+//   form one sequence on a ring of kStages = 4 stages in shared memory (in
+//   every input mode), each one step's operands as they land: a step's
+//   copies are one cp.async group (16 bytes a copy, zero fill past the
+//   edge; 4 bytes where image rows are 4- but not 16-byte aligned; where
+//   they are neither, its image words are loaded by bytes and stored, four
+//   in flight a thread), issued at the end of the step kStages - 1 before
+//   it, and a step starts with cp.async.wait_group kStages - 2 and one
+//   barrier (a first-pass step one more, after its transposes, which read
+//   the landed tile: no image word is held in registers across the MMAs).
+//   The staging loops cover the whole tile, a fixed number of copies a
+//   thread, so that their indices are shifts and masks: integer divisions
+//   by the step's extent had made index arithmetic most of a step.  vh
+//   runs 32 rows: a 64-row vh tiling measured 47-65% slower at both 8K
+//   downsizes.
 //   hv (fused_int8_hv_mma<R, IN>): computed transposed, so that no byte
 //   needs transposing: F^T[n][k] = sum_m H^T[n][m] X^T[m][k], whose B
 //   fragment is 4 lanes of one image row, and out^T[n][r] = sum_k XT[n][k]
@@ -129,22 +138,26 @@
 // (dense tap blocks over the nonzero ranges; gamma one product more a
 // first-pass step), tens of microseconds at the data sheet's int8
 // tensor-core rate.  Measured on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py and its --kernel-times, PERF.md): without gamma
-// 0.30-0.38 ms at 8K -> 1080p, 0.15-0.16 at 1080p -> 4K (9-17x the bytes
-// bound); kPlanes vh 0.46-0.48 ms at 8K -> 1080p, hv 0.24-0.29 at 1080p
-// -> 4K; kGamma vh 0.450-0.491 ms at 8K -> 1080p (14-15x) and hv
-// 0.255-0.272 at 1080p -> 4K at 128-row slices (27-29x; 0.29-0.32 at 64
-// rows, 0.36-0.39 at 32), where the dp4a kernels it replaces (one thread
-// per 4 rows x 4 lanes over dense tap blocks of the whole window) ran
-// 2.06-2.13 and 2.36-2.38 in the same calls.  The staging (the first pass
-// reads each input byte about twice at 8K, 3.9 times at 2x upsizes at
-// 128-row slices: chip_smoke.py prints the factor), the 32-bit B-fragment
-// loads from shared memory and the barrier per step are the candidates,
-// none yet measured apart.  Registers and spills (ptxas for sm_90a,
-// printed by chip_smoke.py): every kernel 128 registers; vh spills
-// nothing (kPlanes 4 bytes); hv spills 16-20 bytes at 128 and 64 rows
-// (kGamma 20 stored, 32 loaded) and at 32 rows 0 (kPlanes), 16 (kU8) or
-// 52 stored and 108 loaded (kGamma).
+// (chip_smoke.py --kernel-times, k1_phases.py, PERF.md): vh at 8K -> 1080p
+// 0.234-0.249 ms without gamma (7.4-7.9x the bytes bound; the one-step
+// pipeline before the ring 0.343-0.377 in the same calls), 0.198-0.228
+// with LANCIR's round-half-even and scale, kPlanes 0.297-0.345, kGamma
+// 0.358-0.421 (before: 0.298-0.320, 0.452-0.471, 0.448-0.518); hv 0.15-0.16
+// at 1080p -> 4K without gamma (16x), kPlanes 0.24-0.29, kGamma
+// 0.255-0.291 at 128-row slices (27-31x; 0.29-0.32 at 64 rows, 0.36-0.39
+// at 32).  A vh step takes 2,000-2,500 cycles of thread 0 at two blocks an
+// SM (k1_phases.py, 5184x3456 -> 1920x1280): MMAs and their 32-bit
+// B-fragment loads 35-45%, the transposes about 20% of a first-pass step,
+// issuing the copies 25-30%, the group wait and barriers 17-23%; none
+// dominates, so shared-memory traffic and instruction issue bound it
+// together.  The first pass reads each input byte about twice at 8K, 3.9
+// times at 2x upsizes at 128-row slices (chip_smoke.py prints the factor).
+// Shared memory of vh (kStages = 4): kU8 87,552 bytes, kPlanes 112,640,
+// kGamma 98,304, each within two blocks an SM.  Registers and spills
+// (ptxas for sm_90a, printed by chip_smoke.py): vh kU8 120 registers,
+// kPlanes 122, kGamma 128 with 4 bytes spilled; hv 128 registers, spilling
+// 16-20 bytes at 128 and 64 rows (kGamma 20 stored, 32 loaded) and at 32
+// rows 0 (kPlanes), 16 (kU8) or 52 stored and 108 loaded (kGamma).
 //
 // Bit-equality.  Every product and sum before the recombination is an
 // exact s32 integer (tensor-core s8 x s8 -> s32, wrapping), the
@@ -288,61 +301,138 @@ __device__ __forceinline__ uint32_t load_word(const Args& a, int r, int l,
 // vh on the tensor cores
 // ---------------------------------------------------------------------------
 
+// The vh kernel's tiles and its shared memory for input mode IN: a ring of
+// kStages stages, each one step's operands as they land (a first-pass
+// step: the V taps and the raw image tile; a second-pass step: the lane-tap
+// words), then the image tile of the step being computed, transposed into
+// B words, the intermediate's limbs and (kGamma) the limb table.
+template <int IN>
 struct VhMma {
   static constexpr int kSeg = kLanes;                // window lanes per segment
   static constexpr int kStep = 2 * kDepth;           // rows / lanes per step
   static constexpr int kWn = 4;                      // warps across lanes (2 x 4 warps)
   static constexpr int kTapLd = kStep + 16;          // V-tap row stride, bytes
-  static constexpr int kXLd = kSeg + 8;              // image row stride, words
+  static constexpr int kXLd = kSeg + 8;              // B-word row stride, words
   static constexpr int kHLd = kLanes + 8;            // lane-tap row stride, words
   static constexpr int kW4 = kStep / 4;              // word rows of a step
-  static constexpr int kSxWords = 2 * kW4 * kHLd;    // >= 2 * kW4 * kXLd
   static constexpr int kILd = kSeg + 16;             // intermediate row stride, bytes
-  static constexpr int kSv = 2 * 2 * kRows * kTapLd;
-  static constexpr int kSx = 2 * kSxWords * 4;
+  static constexpr int kStages = 4;                  // every input mode: two blocks an SM
+  static constexpr int kBPlanes = IN == kU8 ? 1 : 2;  // planes of B words
+  static constexpr int kSv = 2 * kRows * kTapLd;     // a stage's V taps
+  static constexpr int kRaw = kStep * kSeg;          // a stage's image tile, one plane
+  static constexpr int kSh = 2 * kW4 * kHLd * 4;     // a stage's lane-tap words
+  static constexpr int kStage = kSv + loads(IN) * kRaw > kSh ? kSv + loads(IN) * kRaw : kSh;
+  static constexpr int kSx = kBPlanes * kW4 * kXLd * 4;
   static constexpr int kSi = 2 * kRows * kILd;
-  // Dynamic shared memory: kGamma adds the linearization table.
-  static constexpr size_t bytes(int in) { return kSv + kSx + kSi + (in == kGamma ? kTableBytes : 0); }
+  static constexpr size_t kBytes =
+      kStages * kStage + kSx + kSi + (IN == kGamma ? kTableBytes : 0);
   // 4 x 4-byte blocks of a step's image tile per thread.
   static constexpr int kBlocks = kW4 * (kSeg / 4) / kThreads;
-  static_assert(2 * kW4 * kXLd <= kSxWords, "two limb planes fit a buffer");
 
-  // sv [2 buf][2 limb][kRows][kTapLd] V taps; sx [2 buf] image words
-  // [kW4][kXLd] (first pass; kPlanes, kGamma: [2 limb][kW4][kXLd]) or
-  // lane-tap words [2 limb][kW4][kHLd] (second pass); si [2 limb][kRows]
-  // [kILd] the intermediate's limbs; [2][256] (kGamma) the limb table.
-  __device__ static uint8_t* sv(uint8_t* sm, int b, int p, int r) {
-    return sm + ((b * 2 + p) * kRows + r) * kTapLd;
+  // Stage s: sv [2 limb][kRows][kTapLd] V taps and raw [loads(IN)][kStep]
+  // [kSeg] the image rows as read (first pass), or sh [2 limb][kW4][kHLd]
+  // lane-tap words (second pass).  Then sx [kBPlanes][kW4][kXLd] the
+  // computed step's B words, si [2 limb][kRows][kILd] the intermediate's
+  // limbs, [2][256] (kGamma) the limb table.
+  __device__ static uint8_t* stage(uint8_t* sm, int s) { return sm + s * kStage; }
+  __device__ static uint8_t* sv(uint8_t* sm, int s, int p, int r) {
+    return stage(sm, s) + (p * kRows + r) * kTapLd;
   }
-  __device__ static uint32_t* sx(uint8_t* sm, int b) {
-    return reinterpret_cast<uint32_t*>(sm + kSv) + b * kSxWords;
+  __device__ static uint8_t* raw(uint8_t* sm, int s, int p, int r) {
+    return stage(sm, s) + kSv + (p * kStep + r) * kSeg;
+  }
+  __device__ static uint32_t* sh(uint8_t* sm, int s) {
+    return reinterpret_cast<uint32_t*>(stage(sm, s));
+  }
+  __device__ static uint32_t* sx(uint8_t* sm) {
+    return reinterpret_cast<uint32_t*>(sm + kStages * kStage);
   }
   __device__ static uint8_t* si(uint8_t* sm, int p, int r) {
-    return sm + kSv + kSx + (p * kRows + r) * kILd;
+    return sm + kStages * kStage + kSx + (p * kRows + r) * kILd;
   }
   __device__ static int32_t (*table(uint8_t* sm))[256] {
-    return reinterpret_cast<int32_t (*)[256]>(sm + kSv + kSx + kSi);
+    return reinterpret_cast<int32_t (*)[256]>(sm + kStages * kStage + kSx + kSi);
   }
 
-  // V taps of rows r0..r0+31 over k0..k0+n-1 (rows past the block: 0).
-  __device__ static void stage_v(const Args& a, uint8_t* sm, int b, int vb, int r0, int k0, int n) {
-    const int per = n / 16;
-    for (int c = threadIdx.x; c < 2 * kRows * per; c += kThreads) {
-      const int p = c / (kRows * per), r = (c / per) % kRows, part = c % per;
-      const bool valid = r0 + r < a.tv;
-      const size_t row = static_cast<size_t>(vb) * a.tv + (valid ? r0 + r : 0);
-      cp16(sv(sm, b, p, r) + part * 16, (p ? a.v0 : a.v1) + row * a.wv + k0 + part * 16, valid);
+  // The staging loops run over a step's whole tile, a fixed number of
+  // 16-byte parts (or words) a thread, and skip the parts past its n rows
+  // or w lanes: every index is a shift or a mask.
+
+  // V taps of rows r0..r0+31 over k0..k0+n-1 (rows past the block: 0): one
+  // part a thread.
+  __device__ static void stage_v(const Args& a, uint8_t* sm, int s, int vb, int r0, int k0, int n) {
+    static_assert(2 * kRows * (kStep / 16) == kThreads, "one part a thread");
+    const int c = threadIdx.x;
+    const int p = c / (kRows * kStep / 16), r = c / (kStep / 16) % kRows, part = c % (kStep / 16);
+    if (16 * part >= n) return;
+    const bool valid = r0 + r < a.tv;
+    const size_t row = static_cast<size_t>(vb) * a.tv + (valid ? r0 + r : 0);
+    cp16(sv(sm, s, p, r) + part * 16, (p ? a.v0 : a.v1) + row * a.wv + k0 + part * 16, valid);
+  }
+
+  // Image rows row..row+n-1, lanes lane..lane+w-1 (kPlanes: both limb
+  // planes, x then x_lo), raw, zero past the edge: by 16-byte cp.async
+  // where rows and windows are 16-byte aligned, by 4-byte cp.async where
+  // they are 4-byte aligned (a rolled loop: unrolled, its addresses cost
+  // the 16-byte path registers), else as words of byte loads, four in
+  // flight at a time.
+  __device__ static void stage_img(const Args& a, uint8_t* sm, int s, int row, int lane, int n,
+                                   int w) {
+    if (a.vec16) {
+      constexpr int kPer = kSeg / 16;  // parts of a row
+#pragma unroll
+      for (int i = 0; i < loads(IN) * kStep * kPer / kThreads; ++i) {
+        const int c = threadIdx.x + i * kThreads;
+        const int p = c / (kStep * kPer), r = c / kPer % kStep, q = c % kPer, l = lane + 16 * q;
+        if (r >= n || 16 * q >= w) continue;
+        const bool valid = row + r < a.rows_in && l < a.lanes_in;
+        const size_t off = valid ? static_cast<size_t>(row + r) * a.lanes_in + l : 0;
+        cp16(raw(sm, s, p, r) + 16 * q, (p ? a.x_lo : a.x) + off, valid);
+      }
+      return;
+    }
+    constexpr int kPer = kSeg / 4;  // words of a row
+    if (a.vec4) {
+#pragma unroll 1
+      for (int i = 0; i < loads(IN) * kStep * kPer / kThreads; ++i) {
+        const int c = threadIdx.x + i * kThreads;
+        const int p = c / (kStep * kPer), r = c / kPer % kStep, q = c % kPer, l = lane + 4 * q;
+        if (r >= n || 4 * q >= w) continue;
+        const bool valid = row + r < a.rows_in && l < a.lanes_in;
+        const size_t off = valid ? static_cast<size_t>(row + r) * a.lanes_in + l : 0;
+        cp4(raw(sm, s, p, r) + 4 * q, (p ? a.x_lo : a.x) + off, valid);
+      }
+      return;
+    }
+#pragma unroll 1
+    for (int i0 = 0; i0 < loads(IN) * kStep * kPer / kThreads; i0 += 4) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = threadIdx.x + (i0 + i) * kThreads;
+        const int p = c / (kStep * kPer), r = c / kPer % kStep, q = c % kPer;
+        v[i] = r < n && 4 * q < w ? load_word(a, row + r, lane + 4 * q, p ? a.x_lo : a.x) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = threadIdx.x + (i0 + i) * kThreads;
+        const int p = c / (kStep * kPer), r = c / kPer % kStep, q = c % kPer;
+        *reinterpret_cast<uint32_t*>(raw(sm, s, p, r) + 4 * q) = v[i];
+      }
     }
   }
 
   // Lane-tap words of window lanes l0..l0+n-1 of chunk ``chunk``.
-  __device__ static void stage_h(const Args& a, uint8_t* sm, int b, int chunk, int l0, int n) {
-    uint32_t* s = sx(sm, b);
-    const int rows = n / 4;
-    for (int c = threadIdx.x; c < 2 * rows * 32; c += kThreads) {
-      const int p = c / (rows * 32), row = (c / 32) % rows, part = c % 32;
+  __device__ static void stage_h(const Args& a, uint8_t* sm, int s, int chunk, int l0, int n) {
+    uint32_t* d = sh(sm, s);
+    constexpr int kPer = kLanes / 4;  // parts of a word row
+#pragma unroll
+    for (int i = 0; i < 2 * kW4 * kPer / kThreads; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int p = c / (kW4 * kPer), row = c / kPer % kW4, part = c % kPer;
+      if (4 * row >= n) continue;
       const size_t w = (static_cast<size_t>(chunk) * (a.win_c / 4) + l0 / 4 + row) * kLanes + part * 4;
-      cp16(s + (p * kW4 + row) * kHLd + part * 4, (p ? a.h0p : a.h1p) + w, true);
+      cp16(d + (p * kW4 + row) * kHLd + part * 4, (p ? a.h0p : a.h1p) + w, true);
     }
   }
 
@@ -350,34 +440,13 @@ struct VhMma {
   __device__ static int blk_k4(int i) { return (threadIdx.x + i * kThreads) / (kSeg / 4); }
   __device__ static int blk_l4(int i) { return (threadIdx.x + i * kThreads) % (kSeg / 4); }
 
-  // The image words (kPlanes: the words of both limb planes, hi then lo)
-  // of rows row + 4 k4 .. + 3 at lanes lane + 4 l4 .. + 3 of this thread's
-  // blocks (the first n rows, w lanes), into registers.
-  template <int IN>
-  __device__ static void load_x(const Args& a, int row, int lane, int n, int w,
-                                uint32_t (&raw)[loads(IN)][kBlocks][4]) {
-#pragma unroll
-    for (int i = 0; i < kBlocks; ++i) {
-      const int k4 = blk_k4(i), l4 = blk_l4(i);
-      if (4 * k4 >= n || 4 * l4 >= w) continue;
-#pragma unroll
-      for (int p = 0; p < loads(IN); ++p) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          raw[p][i][e] = load_word(a, row + 4 * k4 + e, lane + 4 * l4, p ? a.x_lo : a.x);
-        }
-      }
-    }
-  }
-
-  // The registers of load_x (lanes from ``lane``) transposed into words
-  // of 4 rows (one word a lane) into buffer b: the image shifted to s8 (x ^
-  // 0x80); (kPlanes) the two s8 limb planes as they are; (kGamma) the
-  // image's limb pairs looked up in the table, each transposed word of a
-  // plane assembled from four entries by byte permutes.
-  template <int IN>
-  __device__ static void store_x(const Args& a, uint8_t* sm, int b, int lane, int n, int w,
-                                 const uint32_t (&raw)[loads(IN)][kBlocks][4]) {
+  // Stage s's image tile (lanes from ``lane``; the first n rows, w lanes)
+  // transposed into sx as words of 4 rows (one word a lane): the image
+  // shifted to s8 (x ^ 0x80); (kPlanes) the two s8 limb planes as they
+  // are; (kGamma) the image's limb pairs looked up in the table, each
+  // transposed word of a plane assembled from four entries by byte
+  // permutes.
+  __device__ static void transpose(const Args& a, uint8_t* sm, int s, int lane, int n, int w) {
     constexpr uint32_t kFlip = IN == kU8 ? 0x80808080u : 0u;
     int off[4] = {0, 0, 0, 0};  // kGamma: the same for every block (4 l4 lanes apart)
     if (IN == kGamma) table_rows(a, lane, off);
@@ -385,10 +454,18 @@ struct VhMma {
     for (int i = 0; i < kBlocks; ++i) {
       const int k4 = blk_k4(i), l4 = blk_l4(i);
       if (4 * k4 >= n || 4 * l4 >= w) continue;
+      uint32_t* dst = sx(sm) + k4 * kXLd + 4 * l4;
+      uint32_t x[loads(IN)][4];
+#pragma unroll
+      for (int p = 0; p < loads(IN); ++p) {
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(raw(sm, s, p, 4 * k4)) + l4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[p][e] = src[e * (kSeg / 4)];
+      }
       if (IN == kGamma) {
         uint32_t t[4][4];  // [row][lane]
 #pragma unroll
-        for (int e = 0; e < 4; ++e) table_entries(&table(sm)[0][0], off, raw[0][i][e], t[e]);
+        for (int e = 0; e < 4; ++e) table_entries(&table(sm)[0][0], off, x[0][e], t[e]);
         uint4 hi, lo;
         hi.x = limb_word(t[0][0], t[1][0], t[2][0], t[3][0], kHi);
         hi.y = limb_word(t[0][1], t[1][1], t[2][1], t[3][1], kHi);
@@ -398,19 +475,18 @@ struct VhMma {
         lo.y = limb_word(t[0][1], t[1][1], t[2][1], t[3][1], kLo);
         lo.z = limb_word(t[0][2], t[1][2], t[2][2], t[3][2], kLo);
         lo.w = limb_word(t[0][3], t[1][3], t[2][3], t[3][3], kLo);
-        uint32_t* dst = sx(sm, b) + k4 * kXLd + 4 * l4;
         *reinterpret_cast<uint4*>(dst) = hi;
         *reinterpret_cast<uint4*>(dst + kW4 * kXLd) = lo;
         continue;
       }
 #pragma unroll
       for (int p = 0; p < loads(IN); ++p) {
-        uint4 v = transpose4(raw[p][i][0], raw[p][i][1], raw[p][i][2], raw[p][i][3]);
+        uint4 v = transpose4(x[p][0], x[p][1], x[p][2], x[p][3]);
         v.x ^= kFlip;
         v.y ^= kFlip;
         v.z ^= kFlip;
         v.w ^= kFlip;
-        *reinterpret_cast<uint4*>(sx(sm, b) + (p * kW4 + k4) * kXLd + 4 * l4) = v;
+        *reinterpret_cast<uint4*>(dst + p * kW4 * kXLd) = v;
       }
     }
   }
@@ -422,19 +498,22 @@ struct VhMma {
 // steps over slice_range (V taps x image words into m1 / m0, which the
 // segment's last such step requantizes into the intermediate limbs) and
 // then the second pass's steps over the segment's lanes (limbs x lane taps
-// into pa / pb).  While a step's MMAs run, the next step's taps are on
-// their way by cp.async and its image words in registers, into the other
-// buffer.  With gamma (IN kPlanes: K5's limb planes, the x_lo input; kGamma:
-// the image, linearized as it is stored) the first pass stages two limb
-// planes, makes three products, m1 = q1 xq1 and m0 = q0 xq1 + q1 xq0 (the
-// first two share the B fragment of xq1), requantizes fq = 2^14 m1 + 2^7
-// m0, and the epilogue converts back to sRGB.
+// into pa / pb).  Every step's operands come through the ring, one
+// cp.async group a step, issued kStages - 1 steps ahead at the end of a
+// step: while a step's MMAs run, the next kStages - 2 steps' copies are in
+// flight; a first-pass step first transposes its landed image tile into B
+// words (one barrier more).  The MMA loops are unrolled over the step's
+// two 32-deep halves.  With gamma (IN kPlanes: K5's limb planes, the x_lo
+// input; kGamma: the image, linearized as it is transposed) the first pass
+// stages two limb planes, makes three products, m1 = q1 xq1 and m0 = q0
+// xq1 + q1 xq0 (the first two share the B fragment of xq1), requantizes
+// fq = 2^14 m1 + 2^7 m0, and the epilogue converts back to sRGB.
 template <int IN>
 __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
-  using K = VhMma;
+  using K = VhMma<IN>;
+  constexpr int S = K::kStages;
   constexpr bool kLimbs = IN != kU8;  // gamma: two limb planes, three products
   extern __shared__ __align__(16) uint8_t sm[];
-  if (IN == kGamma) fill_limb_table(a.epi, K::table(sm));
 
   const int chunk = blockIdx.x;
   const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
@@ -452,6 +531,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
   const int lane0 = a.offs_l[hb] + a.rel[j];
   const int kw = k_hi - k_lo;
   const int nv = (kw + K::kStep - 1) / K::kStep;  // first-pass steps per segment
+  // No nonzero V tap or lane tap: the block's sums are 0.
+  const bool work = nv > 0 && h_lo < h_hi;
   int32_t comp[2] = {0, 0};  // the -128 shift's row sums (no gamma)
 #pragma unroll
   for (int h = 0; h < 2 && !kLimbs; ++h) {
@@ -459,52 +540,63 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
     comp[h] = tr < a.tv ? a.v_comp[vb * a.tv + tr] : 0;
   }
 
-  int32_t pa[4][4] = {}, pb[4][4] = {};
-  // No nonzero V tap or lane tap: the block's sums are 0.
-  if (nv > 0 && h_lo < h_hi) {
-    int32_t m1[4][4] = {}, m0[4][4] = {};
-    uint32_t raw[loads(IN)][K::kBlocks][4];
-    int seg = h_lo, i = 0, b = 0;
-    {
-      const int w = min(K::kSeg, h_hi - seg), n = min(K::kStep, kw);
-      K::stage_v(a, sm, 0, vb, r0, k_lo, n);
-      cp_commit();
-      K::load_x<IN>(a, row0, lane0 + seg, n, w, raw);
-      K::store_x<IN>(a, sm, 0, lane0 + seg, n, w, raw);
-      cp_wait_all();
-      __syncthreads();
+  // Step (seg, i): first-pass step i < nv of the segment at window lane
+  // seg, else its second-pass step i - nv.
+  const auto advance = [&](int& seg, int& i) {
+    const int w = min(K::kSeg, h_hi - seg);
+    if (++i == nv + (w + K::kStep - 1) / K::kStep) {
+      seg += K::kSeg;
+      i = 0;
     }
-    while (true) {
+  };
+  // Step (seg, i)'s copies into stage s.
+  const auto issue = [&](int seg, int i, int s) {
+    const int w = min(K::kSeg, h_hi - seg);
+    if (i < nv) {
+      const int n = min(K::kStep, kw - i * K::kStep);
+      K::stage_v(a, sm, s, vb, r0, k_lo + i * K::kStep, n);
+      K::stage_img(a, sm, s, row0 + i * K::kStep, lane0 + seg, n, w);
+    } else {
+      const int l0 = (i - nv) * K::kStep;
+      K::stage_h(a, sm, s, chunk, seg + l0, min(K::kStep, w - l0));
+    }
+  };
+  int pseg = h_lo, pi = 0;  // the next step to issue
+  if (work) {
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s) {
+      if (pseg < h_hi) {
+        issue(pseg, pi, s);
+        advance(pseg, pi);
+      }
+      cp_commit();
+    }
+  }
+  if (IN == kGamma) fill_limb_table(a.epi, K::table(sm));
+
+  int32_t pa[4][4] = {}, pb[4][4] = {};
+  if (work) {
+    int32_t m1[4][4] = {}, m0[4][4] = {};
+    for (int seg = h_lo, i = 0, s = 0; seg < h_hi; advance(seg, i), s = s + 1 == S ? 0 : s + 1) {
+      // This step's copies landed (this thread's, then every thread's), and
+      // every warp is done with the step before, whose stage this step
+      // refills at its end.
+      cp_wait<S - 2>();
+      __syncthreads();
       const int w = min(K::kSeg, h_hi - seg);  // a multiple of 32
-      // The next step: (nseg, ni), ni < nv a first-pass step.
-      int nseg = seg, ni = i + 1;
-      if (ni == nv + (w + K::kStep - 1) / K::kStep) {
-        nseg = seg + K::kSeg;
-        ni = 0;
-      }
-      const bool more = nseg < h_hi;
-      const int nw = min(K::kSeg, h_hi - nseg);
-      const int nn = ni < nv ? min(K::kStep, kw - ni * K::kStep)
-                             : min(K::kStep, nw - (ni - nv) * K::kStep);
-      if (more) {
-        if (ni < nv) {
-          K::stage_v(a, sm, b ^ 1, vb, r0, k_lo + ni * K::kStep, nn);
-          cp_commit();
-          K::load_x<IN>(a, row0 + ni * K::kStep, lane0 + nseg, nn, nw, raw);
-        } else {
-          K::stage_h(a, sm, b ^ 1, chunk, nseg + (ni - nv) * K::kStep, nn);
-          cp_commit();
-        }
-      }
       if (i < nv) {
         // ---- first (vertical) pass step: warps past the segment idle ----
         const int n = min(K::kStep, kw - i * K::kStep);
+        K::transpose(a, sm, s, lane0 + seg, n, w);
+        __syncthreads();
         if (32 * wn < w) {
-          const uint32_t* x = K::sx(sm, b);
-          for (int kk = 0; kk < n; kk += kDepth) {
+          const uint32_t* x = K::sx(sm);
+#pragma unroll
+          for (int kk = 0; kk < K::kStep; kk += kDepth) {
+            if (kk >= n) break;
             uint32_t q1[4], q0[4];
-            ldsm(q1, K::sv(sm, b, 0, 16 * wm + arow) + kk + acol);
-            ldsm(q0, K::sv(sm, b, 1, 16 * wm + arow) + kk + acol);
+            ldsm(q1, K::sv(sm, s, 0, 16 * wm + arow) + kk + acol);
+            ldsm(q0, K::sv(sm, s, 1, 16 * wm + arow) + kk + acol);
             const uint32_t* xk = x + kk / 4 * K::kXLd;
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
@@ -520,7 +612,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
           }
           if (i == nv - 1) {
             // The segment's intermediate, requantized into shared memory
-            // (the last second-pass step before ended with a barrier).
+            // (the second-pass steps before it ended at a barrier).
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
               const int col = 32 * wn + 8 * c + 2 * t;
@@ -545,11 +637,13 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
         // ---- second (horizontal) pass step ---------------------------
         const int l0 = (i - nv) * K::kStep;
         const int n = min(K::kStep, w - l0);
-        for (int kk = 0; kk < n; kk += kDepth) {
+#pragma unroll
+        for (int kk = 0; kk < K::kStep; kk += kDepth) {
+          if (kk >= n) break;
           uint32_t x1[4], x0[4];
           ldsm(x1, K::si(sm, 0, 16 * wm + arow) + l0 + kk + acol);
           ldsm(x0, K::si(sm, 1, 16 * wm + arow) + l0 + kk + acol);
-          const uint32_t* h1 = K::sx(sm, b) + kk / 4 * K::kHLd;
+          const uint32_t* h1 = K::sh(sm, s) + kk / 4 * K::kHLd;
           const uint32_t* h0 = h1 + K::kW4 * K::kHLd;
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
@@ -562,15 +656,14 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_vh_mma(const Args a) {
           }
         }
       }
-      if (more) {
-        if (ni < nv) K::store_x<IN>(a, sm, b ^ 1, lane0 + nseg, nn, nw, raw);
-        cp_wait_all();
+      // The step kStages - 1 ahead, into the stage of the step before:
+      // issued after this step's MMAs, so that its copies do not queue
+      // ahead of this step's shared-memory reads.
+      if (pseg < h_hi) {
+        issue(pseg, pi, s == 0 ? S - 1 : s - 1);
+        advance(pseg, pi);
       }
-      __syncthreads();
-      if (!more) break;
-      seg = nseg;
-      i = ni;
-      b ^= 1;
+      cp_commit();
     }
   }
 
@@ -912,7 +1005,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
 
 template <int IN>
 cudaError_t launch_vh_mma(const Args& a, dim3 grid, cudaStream_t s) {
-  constexpr size_t bytes = VhMma::bytes(IN);
+  constexpr size_t bytes = VhMma<IN>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       fused_int8_vh_mma<IN>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
@@ -1020,9 +1113,14 @@ extern "C" int avir_fused_int8(
 }
 
 // The kernels' dynamic shared memory (hv: hv_mma_smem_bytes; vh:
-// VhMma::bytes, which reads only ``table``), for the host's copies of
+// VhMma<IN>::kBytes of the input mode that ``planes`` and ``table`` name:
+// 1 kU8, 2 kPlanes, 2 and the table kGamma), for the host's copies of
 // their layouts to be checked against.
 extern "C" long long avir_int8_mma_smem_bytes(int hv, int kwin, int planes, int table) {
-  if (!hv) return static_cast<long long>(VhMma::bytes(table ? kGamma : kU8));
+  if (!hv) {
+    return static_cast<long long>(table         ? VhMma<kGamma>::kBytes
+                                  : planes == 2 ? VhMma<kPlanes>::kBytes
+                                                : VhMma<kU8>::kBytes);
+  }
   return static_cast<long long>(hv_mma_smem_bytes(kwin, planes, table != 0));
 }

@@ -345,17 +345,27 @@ def two_blocks_smem(sm_smem: int) -> int:
 # Bytes of K1 int8's linearization table (csrc: kTableBytes, q13[2][256]
 # int32) in the in-kernel gamma kernels' shared memory.
 GAMMA_TABLE_BYTES = 2 * 256 * 4
-# The vh kernel's dynamic shared memory without the table (csrc:
-# VhMma::bytes): V taps 2 x 2 x 32 x 80 bytes, image or lane-tap words
-# 2 x 2 x 16 x 136 words, the intermediate's limbs 2 x 32 x 144 bytes.
-VH_SMEM_BYTES = 2 * 2 * _ROWS * 80 + 2 * 2 * 16 * 136 * 4 + 2 * _ROWS * 144
+# The vh kernel's ring of stages (csrc: VhMma<IN>::kStages), the same for
+# every input mode.
+VH_STAGES = 4
 
 
-def vh_smem_bytes(table: bool = False) -> int:
-    """Dynamic shared memory of the vh kernel, with the in-kernel gamma's
-    linearization table when ``table`` (csrc: VhMma::bytes; the card test
+def vh_smem_bytes(planes: int = 1, table: bool = False) -> int:
+    """Dynamic shared memory of the vh kernel for the input mode that
+    ``planes`` and ``table`` name (1: the u8 image; 2: K5's limb planes;
+    2 with ``table``: the in-kernel gamma).  VH_STAGES stages, each the
+    larger of a first-pass step's V taps (2 x 32 x 80 bytes) and image
+    tiles (64 x 128 bytes a plane read: two with the limb planes) and a
+    second-pass step's lane-tap words (2 x 16 x 136 words); the computed
+    step's B words (16 x 136 words a plane: two with gamma); the
+    intermediate's limbs (2 x 32 x 144 bytes); with ``table`` the
+    linearization table.  The layout is csrc/fused_int8.cu's VhMma; a
+    change there changes this (the card test
     test_hv_smem_bytes_match_the_kernel holds the two equal)."""
-    return VH_SMEM_BYTES + (GAMMA_TABLE_BYTES if table else 0)
+    read = 1 if table else planes
+    stage = max(2 * _ROWS * 80 + read * 64 * _LANES, 2 * 16 * 136 * 4)
+    return (VH_STAGES * stage + planes * 16 * 136 * 4 + 2 * _ROWS * 144
+            + (GAMMA_TABLE_BYTES if table else 0))
 
 
 def hv_smem_bytes(kwin: int, planes: int = 1, table: bool = False) -> int:

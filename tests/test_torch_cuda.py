@@ -39,6 +39,9 @@ from torch_cases import (
     SPLIT_CASES,
     SPLIT_EPI_CASES,
     SPLIT_HV_EDGE_CASES,
+    VH_RING_CASES,
+    VH_RING_EPI_CASES,
+    VH_RING_PRE_CASES,
     WAVEFRONT_CASES,
     WAVEFRONT_GROUP_CASES,
     WAVEFRONT_GROUP_WARPS,
@@ -67,6 +70,10 @@ from avir_tpu_torch.plan.plan import build_resize_plan
 _TORCH = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
 _RING = {**RING_CASES, **RING_CLUSTER_CASES}
 _SPLIT_EPI = {**SPLIT_EPI_CASES, **SPLIT_HV_EDGE_CASES}
+# The vh ring's edges in each input mode beside the tiling's cases.
+_FUSED = {**FUSED_CASES, **VH_RING_CASES}
+_INT8_EPI = {**INT8_EPI_CASES, **VH_RING_EPI_CASES}
+_PRE_VH = {**GAMMA_PRE_VH_CASES, **VH_RING_PRE_CASES}
 
 
 @pytest.fixture
@@ -77,9 +84,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(FUSED_CASES))
+@pytest.mark.parametrize("name", list(_FUSED))
 def test_int8_kernel_matches_plain_on_card(name, cuda_device):
-    sw, sh, nw, nh, c, tile = FUSED_CASES[name]
+    sw, sh, nw, nh, c, tile = _FUSED[name]
     plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8)
     ops = fk.prepare_fused_int8(
         block_banded(plan.v.op),
@@ -151,10 +158,10 @@ def test_split_kernel_matches_plain_on_card(name, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(INT8_EPI_CASES))
+@pytest.mark.parametrize("name", list(_INT8_EPI))
 def test_int8_epilogue_kernel_matches_plain_on_card(name, cuda_device):
     """Round-half-even with scale, and gamma with the C=4 alpha bypass."""
-    sw, sh, nw, nh, c, tile, order, rm, scale, g, alpha = INT8_EPI_CASES[name]
+    sw, sh, nw, nh, c, tile, order, rm, scale, g, alpha = _INT8_EPI[name]
     plan = build_resize_plan(
         sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=g,
         alpha_index=alpha,
@@ -512,12 +519,12 @@ def _limb_case(sw, sh, nw, nh, c, tile, alpha, device, seed, order="vh"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(GAMMA_PRE_VH_CASES))
+@pytest.mark.parametrize("name", list(_PRE_VH))
 def test_limb_input_vh_tensor_cores_match_plain_on_card(name, cuda_device):
     """K1 int8 vh from K5's limb planes (the s8 tensor-core kernel) at the
-    edges of its tiling: bit-equal to its plain version and to the
-    in-kernel gamma kernel."""
-    sw, sh, nw, nh, c, tile, alpha = GAMMA_PRE_VH_CASES[name]
+    edges of its tiling and of its ring: bit-equal to its plain version and
+    to the in-kernel gamma kernel."""
+    sw, sh, nw, nh, c, tile, alpha = _PRE_VH[name]
     pre, inkernel, x, hi, lo = _limb_case(
         sw, sh, nw, nh, c, tile, alpha, cuda_device, sum(map(ord, name))
     )
@@ -608,8 +615,9 @@ def test_limb_input_hv_repeats_bit_equal_on_card(cuda_device):
 def test_hv_smem_bytes_match_the_kernel(planes, cuda_device):
     """The host's copies of the tensor-core kernels' shared-memory layouts
     (fk.hv_smem_bytes, which slice_rows reads, with one plane, two, and
-    two plus the in-kernel gamma's table; fk.vh_smem_bytes) equal the
-    kernels' own (csrc: hv_mma_smem_bytes, VhMma::bytes), and the card's SM
+    two plus the in-kernel gamma's table; fk.vh_smem_bytes of the u8, limb-
+    plane and in-kernel gamma rings, each within two blocks an SM) equal the
+    kernels' own (csrc: hv_mma_smem_bytes, VhMma<IN>::kBytes), and the card's SM
     shared memory is read from the device (an H100's is the value the CPU
     assumes)."""
     from avir_tpu_torch.ops.cuda.build import load_library
@@ -621,7 +629,8 @@ def test_hv_smem_bytes_match_the_kernel(planes, cuda_device):
     fn.restype = ctypes.c_longlong
     for kwin in (32, 64, 128, 160, 256):
         assert fk.hv_smem_bytes(kwin, planes, table) == fn(1, kwin, planes, int(table))
-    assert fk.vh_smem_bytes(table) == fn(0, 0, planes, int(table))
+    assert fk.vh_smem_bytes(planes, table) == fn(0, 0, planes, int(table))
+    assert fk.vh_smem_bytes(planes, table) <= fk.two_blocks_smem(fk.H100_SM_SMEM)
     props = torch.cuda.get_device_properties(cuda_device)
     assert fk._sm_smem(cuda_device) == props.shared_memory_per_multiprocessor
     if "H100" in props.name:

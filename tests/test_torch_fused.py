@@ -18,7 +18,7 @@ from avir_tpu.ops.pallas.fused_kernel import apply_fused_pallas
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
 from torch_cases import FUSED_CASES as CASES
-from torch_cases import INT8_EPI_CASES, epi_kwargs
+from torch_cases import INT8_EPI_CASES, VH_RING_CASES, epi_kwargs
 
 from avir_tpu_torch.convert import resize_plan_from_numpy
 from avir_tpu_torch.ops.banded import block_banded
@@ -362,13 +362,82 @@ def test_gamma_edge_cases_reach_their_edges():
     }
 
 
+def _vh_steps(kw: int, hw: int) -> int:
+    """Steps of a vh block (fused_int8.cu) whose slice range is kw rows
+    and whose chunk's lane range is hw lanes: per 128-lane segment, one
+    step per 64 slice rows and one per 64 of its lanes."""
+    return sum(-(-kw // 64) + -(-min(128, hw - s) // 64) for s in range(0, hw, 128))
+
+
+@pytest.mark.parametrize("name", list(VH_RING_CASES))
+def test_vh_ring_cases_reach_their_edges(name):
+    """Each of torch_cases.VH_RING_CASES has the edge of the vh kernel's
+    ring that its name promises, and all but the odd-lanes case stage the
+    image by cp.async (rows and windows 16-byte aligned)."""
+    sw, sh, nw, nh, c, tile = VH_RING_CASES[name]
+    assert _order(sw, sh, nw, nh) == "vh"
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8)
+    ops = fk.prepare_fused_int8(
+        block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile), "vh", "cpu",
+    )
+    sr = ops.slice_range.numpy().reshape(-1, 2)
+    hr = ops.h_range.numpy().reshape(-1, 2)
+    kw, hw = sr[:, 1] - sr[:, 0], hr[:, 1] - hr[:, 0]
+    steps = [_vh_steps(k, h) for k in kw[kw > 0] for h in hw[hw > 0]]
+    vec16 = ops.lanes_in % 16 == 0 and ops.lane_align == 16
+    assert vec16 == (name != "ring_odd_lanes")
+    edge = {
+        "ring_under_one_step": (0 < kw).all() and (kw < 64).all() and max(steps) < fk.VH_STAGES,
+        "ring_kw_off64": (kw % 64 == 32).any() and max(steps) > 4 * fk.VH_STAGES,
+        "ring_seg32_seg96": (hw % 128 == 32).any() and (hw % 128 == 96).any(),
+        "ring_no_taps": (kw == 0).any() and (hw == 0).any(),
+        "ring_odd_lanes": ops.lanes_in % 2 == 1 and max(steps) > fk.VH_STAGES,
+    }[name]
+    assert edge
+
+
+def test_k1_phases_marks_the_vh_kernel():
+    """k1_phases.py's timed copy applies to the shipped fused_int8.cu: each
+    phase mark of the vh kernel's ring lands once, with and without
+    ``--stages``, and the copy's ring depth is the one asked for."""
+    from pathlib import Path
+
+    import k1_phases
+
+    src = (Path(fk.__file__).with_name("csrc") / "fused_int8.cu").read_text()
+    for stages in (None, 3):
+        text, (loop, phases, waits) = k1_phases._timed_source(src, stages)
+        assert loop == "ring" and set(waits) < set(phases)
+        assert all(text.count(f"MARK({k});") == 1 for k in range(len(phases)))
+        assert text.count("STEP(i < nv);") == 1
+        assert ("kStages = IN == kU8 ? 3 : 4;" in text) == (stages == 3)
+
+
+def test_vh_cases_cover_every_staging_path():
+    """The vh card cases (FUSED_CASES' downsizes and VH_RING_CASES) stage
+    the image on each of the vh kernel's three paths: 16-byte cp.async,
+    4-byte cp.async, and byte loads (rows or windows off 4 bytes)."""
+    paths = set()
+    for sw, sh, nw, nh, c, tile in [*CASES.values(), *VH_RING_CASES.values()]:
+        if _order(sw, sh, nw, nh) != "vh":
+            continue
+        plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8)
+        ops = fk.prepare_fused_int8(
+            block_banded(plan.v.op), lane_block_banded(plan.h.op, c, tile=tile), "vh", "cpu",
+        )
+        align = min(ops.lane_align, ops.lanes_in & -ops.lanes_in)
+        paths.add("cp16" if align >= 16 else "cp4" if align >= 4 else "bytes")
+    assert paths == {"cp16", "cp4", "bytes"}
+
+
 @pytest.mark.parametrize("size", [(1920, 1080, 3840, 2160), (1000, 700, 640, 480)])
 def test_gamma_slice_rule_keeps_two_blocks_an_sm(size):
     """u8 RGB with sRGB gamma on the in-kernel route: slice_rows with the
     mode's shared memory (two planes of image tiles and the linearization
     table) keeps two blocks on an H100 SM at 1920x1080 -> 3840x2160 (hv,
     128-row slices, as the limb-plane route) and 1000x700 -> 640x480 (vh,
-    32 rows: the downsize K6 cannot take)."""
+    32 rows: the downsize K6 cannot take), where the vh kernel's ring fits
+    two blocks an SM in every input mode."""
     from avir_tpu_torch.models.runtime import make_avir_executor
 
     sw, sh, nw, nh = size
@@ -385,7 +454,15 @@ def test_gamma_slice_rule_keeps_two_blocks_an_sm(size):
         assert fk.hv_smem_bytes(kwin, 2) < fk.hv_smem_bytes(kwin, 2, table=True) <= limit
     else:
         assert rows == ops.rows == 32 and size == (1000, 700, 640, 480)
-        assert fk.vh_smem_bytes(table=True) == fk.vh_smem_bytes() + fk.GAMMA_TABLE_BYTES <= limit
+        # Every input mode's ring (u8, K5's limb planes, in-kernel gamma)
+        # within two blocks an SM; gamma adds the table and a plane of B
+        # words to the u8 kernel's ring.
+        for planes, table in ((1, False), (2, False), (2, True)):
+            assert fk.vh_smem_bytes(planes, table) <= limit
+        assert fk.vh_smem_bytes(2, table=True) == (
+            fk.vh_smem_bytes() + fk.GAMMA_TABLE_BYTES + 16 * 136 * 4
+        )
+        assert fk.vh_smem_bytes(2) > fk.vh_smem_bytes(2, table=True)
 
 
 # The H100 SXM's SMs: the card on which PERF.md measured every slice height.

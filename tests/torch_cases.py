@@ -209,6 +209,26 @@ RING_CLUSTER_CASES = {
     "win_c4a0": (400, 720, 100, 240, 4, 0, None, True),
 }
 
+# Edges of the vh kernel's ring of stages (fused_int8.cu: VhMma<IN>), each
+# run in every input mode (no gamma, round-half-even with LANCIR's scale,
+# the in-kernel gamma, K5's limb planes): (src_w, src_h, new_w, new_h, c,
+# lane tile or None).  All but the last have 16-byte aligned rows (the
+# cp.async path); test_torch_fused.py checks each case has its edge.
+VH_RING_CASES = {
+    "ring_under_one_step": (16, 12, 14, 11, 1, None),  # a 32-row slice range: 2 steps, under the stages
+    "ring_kw_off64": (400, 200, 180, 70, 4, None),     # slice ranges of 160 rows, 19 steps a block
+    "ring_seg32_seg96": (512, 150, 200, 66, 3, None),  # last segments of 32 and 96 lanes
+    "ring_no_taps": (32, 70, 28, 66, 3, None),         # a slice and a chunk without nonzero taps
+    "ring_odd_lanes": (333, 200, 150, 90, 3, None),    # lanes_in odd: rows not 16-byte aligned
+}
+# The same as INT8_EPI_CASES and GAMMA_PRE_VH_CASES entries.
+VH_RING_EPI_CASES = {
+    **{f"{n}_even_scale": (*case, "vh", "even", 0.75, False, -1) for n, case in VH_RING_CASES.items()},
+    **{f"{n}_gamma": (*case, "vh", "biased", 1.0, True, 3 if case[4] == 4 else -1)
+       for n, case in VH_RING_CASES.items()},
+}
+VH_RING_PRE_CASES = {n: (*case, -1) for n, case in VH_RING_CASES.items()}
+
 # K1 int8 vh from K5's limb planes on the tensor cores: (src_w, src_h,
 # new_w, new_h, c, lane tile, alpha_index), downsizes at the edges of the
 # tiling (FUSED_CASES' edge_* shapes: rows_out off 32, C = 2, a downsize
