@@ -118,6 +118,7 @@ from ..ops.gamma import f32, linear_to_srgb_2d, srgb_to_linear_2d
 from ..ops.lanes import LaneBlockedOp, lane_block_banded, narrow_lop
 from ..plan.lancir_plan import LancirPlan
 from ..plan.plan import ResizePlan
+from ..utils import trace
 
 # Environment variable that selects the int8 gamma route: "auto" (K6
 # where viable, else the in-kernel K1), "inkernel", "prologue" (K5 + K1)
@@ -410,7 +411,8 @@ def make_avir_executor(
     if int8_ok:
         route = gamma_route() if gamma else "inkernel"
         if route in ("auto", "ring"):
-            ring = _ring_operands(plan, lop, order, device)
+            with trace.span("setup.ring_operands"):
+                ring = _ring_operands(plan, lop, order, device)
             if ring is not None:
                 def run(src: torch.Tensor) -> torch.Tensor:
                     return apply_fused_ring(ring, src)

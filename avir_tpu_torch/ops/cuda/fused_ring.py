@@ -52,6 +52,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ...utils import trace
 from ..banded import BlockedBandedOp
 from ..gamma import f32
 from ..lanes import LaneBlockedOp
@@ -371,7 +372,15 @@ def _library_of(name: str, argtypes: list):
 def apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
     """Ring resize of the u8 image ``x`` [rows_in, lanes_in] -> u8
     [rows_out, lanes_out].  A CUDA tensor launches the kernel (one launch);
-    a CPU tensor runs the plain version."""
+    a CPU tensor runs the plain version.  While the tracer
+    (utils/trace.py) is on, a call is a ``k6.call`` span and its ``ctypes``
+    call a ``k6.launch`` span inside it."""
+    if trace.on:
+        return trace.call("k6.call", _apply_fused_ring, ops, x)
+    return _apply_fused_ring(ops, x)
+
+
+def _apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
     k1 = ops.k1
     if x.device.type == "cpu" and ops.device.type == "cpu":
         return apply_fused_ring_reference(ops, x)
@@ -397,7 +406,7 @@ def apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
     fn = _library_of("avir_fused_ring", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
+        args = (
             x.data_ptr(), k1.rows_in, k1.lanes_in, ops.pad_top,
             out.data_ptr(), k1.rows_out, k1.lanes_out, k1.tc,
             k1.v1.data_ptr(), k1.v0.data_ptr(), k1.offs_v.data_ptr(),
@@ -413,6 +422,7 @@ def apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
             epi.alpha_lane, f32(epi.in_gamma_mult), f32(epi.out_gamma_mult),
             stream,
         )
+        err = trace.call("k6.launch", fn, *args) if trace.on else fn(*args)
     if err != 0:
         raise RuntimeError(f"fused_ring launch failed: CUDA error {err}")
     launches[ops.launch_key] += 1

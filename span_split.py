@@ -8,7 +8,8 @@ the frame pool made on the card from the seed, two warm-up requests, one
 client in a closed loop for ``--seconds``), with the tracer on in three
 places:
 
-- set-up: around the first ``make`` (``setup.plan``, ``setup.operands``);
+- set-up: around the first ``make`` (``setup.plan``, ``setup.operands``
+  and, where the ring kernel K6 is tried, ``setup.ring_operands``);
   after the window, ``make`` again with the tracer off and on in turns;
 - a quarter into the window: whole requests of at least 960 frames under
   ``torch.profiler``, as the benchmark's traced slice, with the tracer on;
@@ -40,6 +41,10 @@ TRACE_FRAMES = 960  # frames in each slice, rounded up to whole requests
 SPAN_REQUESTS = 16  # requests in the span slice, at least
 SETUP_PAIRS = 2  # make() with the tracer off, then on, this many times
 ALTERNATING_PAIRS = 5  # blocks of requests with the tracer off and on, after the window
+KERNELS = ("k1", "k6")  # the kernels whose host call and launch the port spans
+# A frame's parts: its own time, then each kernel's call (self) and launch.
+PARTS = ("fn_self_us",) + tuple(f"{k}_{p}_us" for k in KERNELS for p in ("prep", "launch"))
+LAUNCHES = {f"{k}.launch" for k in KERNELS}
 
 
 def children_ns(spans) -> collections.Counter:
@@ -53,17 +58,18 @@ def children_ns(spans) -> collections.Counter:
 
 
 def per_frame(spans) -> dict:
-    """The span slice's means over its frames, in us: ``frame``'s and
-    ``k1.call``'s self time (``fn_self_us``, ``k1_prep_us``) and
-    ``k1.launch``'s duration (``k1_launch_us``); launches a frame; and the
-    garbage collector's spans."""
+    """The span slice's means over its frames, in us: ``frame``'s self
+    time (``fn_self_us``), each kernel's ``<k>.call`` self time
+    (``k1_prep_us``, ``k6_prep_us``) and ``<k>.launch`` duration
+    (``k1_launch_us``, ``k6_launch_us``), None for a kernel no frame
+    calls; launches a frame; and the garbage collector's spans."""
     parts = frame_parts(spans)
     n = len(parts)
     if not n:
         return {"frames": 0}
 
-    def mean_us(i):
-        vals = [p[i] for p in parts if p[i] is not None]
+    def mean_us(name):
+        vals = [p[2][name] for p in parts if p[2][name] is not None]
         return sum(vals) / n * 1e-3 if vals else None
 
     gcs = [s for s in spans if s.name.startswith("gc.")]
@@ -72,18 +78,18 @@ def per_frame(spans) -> dict:
         gc_us[s.name] += (s.end_ns - s.start_ns) * 1e-3
     return {
         "frames": n,
-        "fn_self_us": mean_us(2),
-        "k1_prep_us": mean_us(3),
-        "k1_launch_us": mean_us(4),
-        "launches_per_frame": sum(p[4] is not None for p in parts) / n,
+        **{name: mean_us(name) for name in PARTS},
+        "launches_per_frame": sum(
+            p[2][f"{k}_launch_us"] is not None for p in parts for k in KERNELS
+        ) / n,
         "gc_us": dict(sorted(gc_us.items())),
         "gc_count": collections.Counter(s.name for s in gcs),
     }
 
 
 def frame_parts(spans) -> list:
-    """[(request, start ns, frame self, k1.call self, k1.launch), ...] in
-    ns, one a ``frame`` span (None where the frame has no such part)."""
+    """[(request, start ns, {part: ns}), ...], one a ``frame`` span; the
+    parts are PARTS (None where the frame has no such part)."""
     kids = children_ns(spans)
     by_parent = collections.defaultdict(list)
     for s in spans:
@@ -92,15 +98,17 @@ def frame_parts(spans) -> list:
     for f in spans:
         if f.name != "frame":
             continue
-        calls = [c for c in by_parent[f.id] if c.name == "k1.call"]
-        call_self = launch = None
-        if calls:
-            c = calls[0]
-            call_self = c.end_ns - c.start_ns - kids[c.id]
-            launches = [x for x in by_parent[c.id] if x.name == "k1.launch"]
-            if launches:
-                launch = launches[0].end_ns - launches[0].start_ns
-        out.append((f.request, f.start_ns, f.end_ns - f.start_ns - kids[f.id], call_self, launch))
+        got = dict.fromkeys(PARTS)
+        got["fn_self_us"] = f.end_ns - f.start_ns - kids[f.id]
+        for k in KERNELS:
+            calls = [c for c in by_parent[f.id] if c.name == f"{k}.call"]
+            if calls:
+                c = calls[0]
+                got[f"{k}_prep_us"] = c.end_ns - c.start_ns - kids[c.id]
+                launches = [x for x in by_parent[c.id] if x.name == f"{k}.launch"]
+                if launches:
+                    got[f"{k}_launch_us"] = launches[0].end_ns - launches[0].start_ns
+        out.append((f.request, f.start_ns, got))
     return out
 
 
@@ -114,8 +122,8 @@ def first_and_later(spans) -> dict:
         seen.add(p[0])
     out = {}
     for group, rows in groups.items():
-        for i, name in enumerate(("fn_self_us", "k1_prep_us", "k1_launch_us"), start=2):
-            vals = [r[i] for r in rows if r[i] is not None]
+        for name in PARTS:
+            vals = [r[2][name] for r in rows if r[2][name] is not None]
             if vals:
                 out[f"{group}.{name}"] = statistics.median(vals) * 1e-3
     return out
@@ -183,9 +191,10 @@ def _request_of(name: str) -> int:
 def turnaround(spans) -> dict:
     """Medians over the span slice's requests after its first, in us: from
     the end of ``pb.sync.<k-1>`` to the end of request k's first
-    ``k1.launch`` (``turnaround_us``: host time in which the card has no
-    work of the loop's), and its parts: ``pb.finish.<k-1>``, from there to
-    ``pb.dispatch.<k>``, and from there to the first launch's end."""
+    ``k1.launch`` or ``k6.launch`` (``turnaround_us``: host time in which
+    the card has no work of the loop's), and its parts: ``pb.finish.<k-1>``,
+    from there to ``pb.dispatch.<k>``, and from there to the first launch's
+    end."""
     ends, starts = {}, {}
     for s in spans:
         for kind in ("sync", "finish", "dispatch"):
@@ -194,7 +203,7 @@ def turnaround(spans) -> dict:
                 ends[kind, k], starts[kind, k] = s.end_ns, s.start_ns
     first = {}
     for s in spans:
-        if s.name == "k1.launch" and s.request is not None:
+        if s.name in LAUNCHES and s.request is not None:
             first[s.request] = min(first.get(s.request, s.end_ns), s.end_ns)
     parts = collections.defaultdict(list)
     for k in sorted(first):
@@ -338,6 +347,13 @@ def window(client, seconds: float, sample, cuda: bool,
     return got
 
 
+def host_parts(split: dict) -> list:
+    """[fn_self_us, prep, launch] of the kernel the frames call (K1's
+    where they call none)."""
+    k = next((k for k in KERNELS if split.get(f"{k}_prep_us") is not None), KERNELS[0])
+    return [split.get(name) for name in ("fn_self_us", f"{k}_prep_us", f"{k}_launch_us")]
+
+
 def dispatch_per_frame_us(reqs):
     frames = sum(r.frames for r in reqs)
     return sum(r.dispatch_s for r in reqs) / frames * 1e6 if frames else None
@@ -403,7 +419,7 @@ def measure(cell, seed: int, seconds: float, device, scale: int = 1,
     plain_frames = sum(r.frames for r in got["plain"])
     pace_s = (got["window_s"] - got["prof_wall_s"] - got["span_wall_s"]) / plain_frames
     dev_frame_s = sl.device_seconds() / sl.frames
-    parts = [split.get(k) for k in ("fn_self_us", "k1_prep_us", "k1_launch_us")]
+    parts = host_parts(split)
     profiled = [r for r in got["requests"] if r.ok and r.traced]
     prof_split = per_frame(prof_spans)
     tails = sync_tails_us(sl)
@@ -418,6 +434,7 @@ def measure(cell, seed: int, seconds: float, device, scale: int = 1,
         "make_fn_s": dur.get("setup.make_fn"),
         "plan_build_s": dur.get("setup.plan"),
         "operands_s": dur.get("setup.operands"),
+        "ring_operands_s": dur.get("setup.ring_operands"),
         "plan_s_tracer_off": makes["off"],
         "plan_s_tracer_on": makes["on"],
         "dispatch_us": plain_us,
@@ -433,7 +450,7 @@ def measure(cell, seed: int, seconds: float, device, scale: int = 1,
         "harness_us_spanned": spanned_us - sum(parts) if None not in parts else None,
         "profiler_slice": {
             "dispatch_us": dispatch_per_frame_us(profiled),
-            **{k: prof_split.get(k) for k in ("fn_self_us", "k1_prep_us", "k1_launch_us")},
+            **{k: prof_split.get(k) for k in PARTS},
             "sync_tail_us": statistics.median(tails) if tails else None,
         },
         **turnaround(spans),
