@@ -103,24 +103,39 @@
 //   needs transposing: F^T[n][k] = sum_m H^T[n][m] X^T[m][k], whose B
 //   fragment is 4 lanes of one image row, and out^T[n][r] = sum_k XT[n][k]
 //   V[r][k], whose A is the intermediate as [lane][row] bytes and whose B
-//   is the V taps as stored.  A block owns R output rows and one chunk;
-//   warp w owns lanes 16 w..16 w + 15.  Phase 1: for each 32-row group of
-//   the slice's nonzero V-tap rows, the first pass over the chunk's
-//   nonzero lane range (the lane taps H^T, [128][<= 128] bytes, staged
-//   once when the range fits, else per 128-lane piece; the image tile
-//   [32][<= 128] copied raw by cp.async with zero fill past the edge, the
-//   next step's tile in flight during this step's MMAs), requantized into
-//   the shared intermediate XT [128][kw].  kU8 flips each fragment
+//   is the V taps as stored.  A tile is R output rows of one chunk; warp w
+//   owns lanes 16 w..16 w + 15.  A block walks a run of consecutive tiles
+//   of the chunk-major order (fused_kernel.py:hv_blocks, hv_runs: as many
+//   blocks as stay resident, the runs cut at equal shares of the tiles'
+//   estimated cycles; one tile a block where the tiles fit the card at
+//   once), so that consecutive tiles share their lane taps H^T ([128][<=
+//   128] bytes, staged again only where the run reaches the next chunk).
+//   Per window of the tile's nonzero V-tap rows (one but where a range is
+//   taller than kw: 256 rows, an hv order on a steep row downsize, R = 32),
+//   phase 1: for each 32-row group, the first pass over the chunk's
+//   nonzero lane range (the image tile [32][<= 128] copied raw by cp.async,
+//   zero fill past the edge, the next step's tile in flight during this
+//   step's MMAs; the lane taps per 128-lane piece where the range is
+//   wider), requantized into the shared intermediate XT [128][kw]; phase 2:
+//   per 32-row sub-tile, V taps by cp.async (double-buffered), the second
+//   pass over the sub-tile's own nonzero range (k_range), the epilogue.  A
+//   window's first copies (its lane taps where st holds another chunk's,
+//   its first image tile, its first sub-tile's V taps) are issued during
+//   the last sub-tile of the window before it in the run, so that only a
+//   run's first window waits for copies it issued itself.  The staging
+//   loops cover a whole tile, a fixed number of copies a thread (shifts
+//   and masks, as vh's).  Each pass's sums live in its own steps (R >= 64;
+//   R = 32 carries the second pass's across windows), so that registers
+//   hold one pass's accumulators at a time.  The epilogue (R >= 64)
+//   finishes a sub-tile's outputs into a free image buffer and writes them
+//   out 16 lanes a thread, where one byte a thread a row took 36-38% of the
+//   one-tile kernel's cycles (k1_phases.py).  kU8 flips each fragment
 //   register (^ 0x80808080); kPlanes stages both planes' tiles; kGamma
 //   stages the u8 tile and, once it has landed, converts it in shared
 //   memory into the two limb planes (one table read a byte, 16 lanes of a
-//   row a thread) and one barrier more before the MMAs (the next step's
-//   tile is issued after it, in flight during the MMAs): every warp reads
+//   row a thread) and one barrier more before the MMAs: every warp reads
 //   every byte of the tile, so a conversion in the fragment registers
-//   would run 8 times a byte.  Phase 2: per 32-row sub-tile, V taps by cp.async
-//   (double-buffered), the second pass over the sub-tile's own nonzero
-//   range (k_range), the epilogue.  A window taller than kw (256 rows: an
-//   hv order on a steep row downsize) runs in windows, with R = 32.
+//   would run 8 times a byte.
 //   hv's slice height R (32, 64 or 128) is a template parameter that the
 //   host chooses from the operators (fused_kernel.py:slice_rows): the
 //   tallest whose grid keeps two blocks per SM of the card, whose slices'
@@ -142,10 +157,14 @@
 // 0.234-0.249 ms without gamma (7.4-7.9x the bytes bound; the one-step
 // pipeline before the ring 0.343-0.377 in the same calls), 0.198-0.228
 // with LANCIR's round-half-even and scale, kPlanes 0.297-0.345, kGamma
-// 0.358-0.421 (before: 0.298-0.320, 0.452-0.471, 0.448-0.518); hv 0.15-0.16
-// at 1080p -> 4K without gamma (16x), kPlanes 0.24-0.29, kGamma
-// 0.255-0.291 at 128-row slices (27-31x; 0.29-0.32 at 64 rows, 0.36-0.39
-// at 32).  A vh step takes 2,000-2,500 cycles of thread 0 at two blocks an
+// 0.358-0.421 (before: 0.298-0.320, 0.452-0.471, 0.448-0.518); hv at 1080p
+// -> 4K without gamma 0.119-0.129 a frame of 60 back to back (13-14x; the
+// one-tile block before: 0.141-0.148), kPlanes 0.218-0.251, kGamma
+// 0.239-0.250 at 128-row slices (before: 0.250-0.255, 0.270-0.288).  An hv
+// tile takes ~34,000 cycles of thread 0 (the one-tile block: ~44,500): a
+// first-pass step ~2,600, a second-pass sub-tile ~5,200, of which the
+// epilogue ~2,500-2,800 (k1_phases.py --order hv).  A vh step takes
+// 2,000-2,500 cycles of thread 0 at two blocks an
 // SM (k1_phases.py, 5184x3456 -> 1920x1280): MMAs and their 32-bit
 // B-fragment loads 35-45%, the transposes about 20% of a first-pass step,
 // issuing the copies 25-30%, the group wait and barriers 17-23%; none
@@ -156,8 +175,8 @@
 // kGamma 98,304, each within two blocks an SM.  Registers and spills
 // (ptxas for sm_90a, printed by chip_smoke.py): vh kU8 120 registers,
 // kPlanes 122, kGamma 128 with 4 bytes spilled; hv 128 registers, spilling
-// 16-20 bytes at 128 and 64 rows (kGamma 20 stored, 32 loaded) and at 32
-// rows 0 (kPlanes), 16 (kU8) or 52 stored and 108 loaded (kGamma).
+// at 128 and 64 rows 0 bytes (kPlanes), 40 stored and 80 loaded (kU8) or
+// 60 and 100 (kGamma), at 32 rows (both passes' sums live) 72-272.
 //
 // Bit-equality.  Every product and sum before the recombination is an
 // exact s32 integer (tensor-core s8 x s8 -> s32, wrapping), the
@@ -219,6 +238,8 @@ struct Args {
   const int8_t* h1t;       // [Bh, n_ch, 128, win_c] lane taps transposed (hv)
   const int8_t* h0t;
   int kwin;                // hv: rows of the shared intermediate (<= 256)
+  int bv;                  // hv: V blocks
+  const int32_t* runs;     // hv: [gridDim.x + 1] each block's first tile
   bool vec4, vec16;        // image rows and windows 4- / 16-byte aligned
   int sh;                  // first-pass requantizing shift (>= 1)
   float rec;               // 2^-(x_shift + second-pass q_shift)
@@ -690,6 +711,7 @@ constexpr int kPiece = 128;          // window lanes of lane taps staged at once
 constexpr int kPieceLd = kPiece + 16;  // their row stride, bytes (also the image tile's)
 constexpr int kHvSt = 2 * kLanes * kPieceLd;  // lane taps H^T, both limbs
 constexpr int kHvSx = 2 * 32 * kPieceLd;      // image tiles of one plane, two buffers
+constexpr int kHvMaxWin = 256;                // rows of the intermediate at most
 
 // Shared memory of the hv kernel for an intermediate of kwin rows,
 // ``planes`` planes of image tiles (1: the u8 image; 2: K5's limb planes,
@@ -703,9 +725,9 @@ constexpr int kHvSx = 2 * 32 * kPieceLd;      // image tiles of one plane, two b
 //   xt [2 limb][128 n][kwin + 16]            intermediate limbs XT[n][k]
 //   sv [2 buf][2 limb][32 rows][kwin + 16]   V taps of a sub-tile
 //   [2][256] int32                           the limb table (kGamma)
-// (fused_kernel.py:hv_smem_bytes mirrors it for the host's choice of R;
-// avir_int8_mma_smem_bytes exports it for the card test that holds the two
-// equal).
+// (fused_kernel.py:hv_smem_bytes mirrors it for the host's choice of R
+// and of the blocks; avir_int8_mma_smem_bytes exports it for the card test
+// that holds the two equal).
 __host__ __device__ constexpr size_t hv_mma_smem_bytes(int kwin, int planes, bool table) {
   return kHvSt + static_cast<size_t>(planes) * kHvSx + static_cast<size_t>(6) * 64 * (kwin + 16) +
          (table ? kTableBytes : 0);
@@ -736,164 +758,280 @@ struct HvMma {
     return reinterpret_cast<int32_t (*)[256]>(sm + kHvSt + kSx + 6 * 64 * kld);
   }
 
+  // The staging loops run over a whole tile, a fixed number of 16-byte
+  // parts (or words) a thread, and skip the parts past its mw lanes or n
+  // rows: every index is a shift or a mask.
+
   // kGamma: the raw tile of buffer b (lanes lane..lane+mw-1) turned into
-  // the two limb planes by the limb table, 16 lanes of a row a thread a
-  // turn.
+  // the two limb planes by the limb table, 16 lanes of a row a thread.
   __device__ static void convert(const Args& a, uint8_t* sm, int kld, int b, int lane, int mw) {
-    const int per = mw / 16;
+    constexpr int kPer = kPiece / 16;  // parts of a row
+    static_assert(32 * kPer == kThreads, "one part a thread");
+    const int r = threadIdx.x / kPer, q = threadIdx.x % kPer;
+    if (16 * q >= mw) return;
     const int32_t* lt = &table(sm, kld)[0][0];
     int off[4];  // the same for every word (4 lanes apart)
     table_rows(a, lane, off);
-    for (int c = threadIdx.x; c < 32 * per; c += kThreads) {
-      const int r = c / per, q = c % per;
-      const uint4 w = *reinterpret_cast<const uint4*>(sx(sm, b, 0, r) + 16 * q);
-      const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
-      uint32_t hi[4], lo[4];
+    const uint4 w = *reinterpret_cast<const uint4*>(sx(sm, b, 0, r) + 16 * q);
+    const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
+    uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        uint32_t t[4];
-        table_entries(lt, off, wv[e], t);
-        hi[e] = limb_word(t[0], t[1], t[2], t[3], kHi);
-        lo[e] = limb_word(t[0], t[1], t[2], t[3], kLo);
-      }
-      *reinterpret_cast<uint4*>(xin(sm, b, 0, r) + 16 * q) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(xin(sm, b, 1, r) + 16 * q) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    for (int e = 0; e < 4; ++e) {
+      uint32_t t[4];
+      table_entries(lt, off, wv[e], t);
+      hi[e] = limb_word(t[0], t[1], t[2], t[3], kHi);
+      lo[e] = limb_word(t[0], t[1], t[2], t[3], kLo);
     }
+    *reinterpret_cast<uint4*>(xin(sm, b, 0, r) + 16 * q) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(xin(sm, b, 1, r) + 16 * q) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
   }
 
-  // Lane taps H^T of window lanes m0..m0+mw-1 of chunk ``chunk``.
+  // Lane taps H^T of window lanes m0..m0+mw-1 of chunk ``chunk``: eight
+  // parts a thread.
   __device__ static void stage_taps(const Args& a, uint8_t* sm, int chunk, int m0, int mw) {
-    const int per = mw / 16;
-    for (int c = threadIdx.x; c < 2 * kLanes * per; c += kThreads) {
-      const int p = c / (kLanes * per), n = (c / per) % kLanes, part = c % per;
-      const size_t off = (static_cast<size_t>(chunk) * kLanes + n) * a.win_c + m0 + part * 16;
-      cp16(st(sm, p, n) + part * 16, (p ? a.h0t : a.h1t) + off, true);
+    constexpr int kPer = kPiece / 16;  // parts of a row
+#pragma unroll
+    for (int i = 0; i < 2 * kLanes * kPer / kThreads; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int p = c / (kLanes * kPer), n = c / kPer % kLanes, part = c % kPer;
+      if (16 * part >= mw) continue;
+      const size_t off = (static_cast<size_t>(chunk) * kLanes + n) * a.win_c + m0 + 16 * part;
+      cp16(st(sm, p, n) + 16 * part, (p ? a.h0t : a.h1t) + off, true);
     }
   }
 
-  // Image rows row..row+31, lanes lane..lane+mw-1, raw, zero past the edge
-  // (kPlanes: both limb planes, x then x_lo).
+  // Image rows row..row+31, lanes lane..lane+mw-1 (kPlanes: both limb
+  // planes, x then x_lo), raw, zero past the edge: by 16-byte cp.async
+  // where rows and windows are 16-byte aligned, by 4-byte cp.async where
+  // they are 4-byte aligned, else as words of byte loads, four in flight
+  // at a time (as the vh kernel's).
   __device__ static void stage_img(const Args& a, uint8_t* sm, int b, int row, int lane, int mw) {
     if (a.vec16) {
-      const int per = mw / 16;
-      for (int c = threadIdx.x; c < kStaged * 32 * per; c += kThreads) {
-        const int p = c / (32 * per), r = (c / per) % 32, l = lane + (c % per) * 16;
+      constexpr int kPer = kPiece / 16;  // parts of a row
+#pragma unroll
+      for (int i = 0; i < kStaged * 32 * kPer / kThreads; ++i) {
+        const int c = threadIdx.x + i * kThreads;
+        const int p = c / (32 * kPer), r = c / kPer % 32, q = c % kPer, l = lane + 16 * q;
+        if (16 * q >= mw) continue;
         const bool valid = row + r < a.rows_in && l < a.lanes_in;
         const size_t off = valid ? static_cast<size_t>(row + r) * a.lanes_in + l : 0;
-        cp16(sx(sm, b, p, r) + (c % per) * 16, (p ? a.x_lo : a.x) + off, valid);
+        cp16(sx(sm, b, p, r) + 16 * q, (p ? a.x_lo : a.x) + off, valid);
       }
-    } else {
-      const int per = mw / 4;
-      for (int c = threadIdx.x; c < kStaged * 32 * per; c += kThreads) {
-        const int p = c / (32 * per), r = (c / per) % 32, q = c % per;
-        *reinterpret_cast<uint32_t*>(sx(sm, b, p, r) + 4 * q) =
-            load_word(a, row + r, lane + 4 * q, p ? a.x_lo : a.x);
+      return;
+    }
+    constexpr int kPer = kPiece / 4;  // words of a row
+    if (a.vec4) {
+#pragma unroll 1
+      for (int i = 0; i < kStaged * 32 * kPer / kThreads; ++i) {
+        const int c = threadIdx.x + i * kThreads;
+        const int p = c / (32 * kPer), r = c / kPer % 32, q = c % kPer, l = lane + 4 * q;
+        if (4 * q >= mw) continue;
+        const bool valid = row + r < a.rows_in && l < a.lanes_in;
+        const size_t off = valid ? static_cast<size_t>(row + r) * a.lanes_in + l : 0;
+        cp4(sx(sm, b, p, r) + 4 * q, (p ? a.x_lo : a.x) + off, valid);
+      }
+      return;
+    }
+#pragma unroll 1
+    for (int i0 = 0; i0 < kStaged * 32 * kPer / kThreads; i0 += 4) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = threadIdx.x + (i0 + i) * kThreads;
+        const int p = c / (32 * kPer), r = c / kPer % 32, q = c % kPer;
+        v[i] = 4 * q < mw ? load_word(a, row + r, lane + 4 * q, p ? a.x_lo : a.x) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = threadIdx.x + (i0 + i) * kThreads;
+        const int p = c / (32 * kPer), r = c / kPer % 32, q = c % kPer;
+        *reinterpret_cast<uint32_t*>(sx(sm, b, p, r) + 4 * q) = v[i];
       }
     }
   }
 
-  // V taps of rows r0..r0+31 over window rows lo..hi-1.
+  // V taps of rows r0..r0+31 over window rows lo..hi-1 (rows past the
+  // block: 0): up to four parts a thread.
   __device__ static void stage_v(const Args& a, uint8_t* sm, int kld, int b, int vb, int r0,
                                  int lo, int hi) {
-    const int per = (hi - lo) / 16;
-    for (int c = threadIdx.x; c < 2 * 32 * per; c += kThreads) {
-      const int p = c / (32 * per), r = (c / per) % 32, part = c % per;
+    constexpr int kPer = kHvMaxWin / 16;  // parts of a row at most
+#pragma unroll
+    for (int i = 0; i < 2 * 32 * kPer / kThreads; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int p = c / (32 * kPer), r = c / kPer % 32, part = c % kPer;
+      if (16 * part >= hi - lo) continue;
       const bool valid = r0 + r < a.tv;
       const size_t row = static_cast<size_t>(vb) * a.tv + (valid ? r0 + r : 0);
-      cp16(sv(sm, kld, b, p, r) + part * 16, (p ? a.v0 : a.v1) + row * a.wv + lo + part * 16, valid);
+      cp16(sv(sm, kld, b, p, r) + 16 * part, (p ? a.v0 : a.v1) + row * a.wv + lo + 16 * part,
+           valid);
     }
   }
 };
 
-// One block: output rows r0..r0+R-1 of V block vb x the 128 lanes of chunk
-// j of lane block hb; warp w owns lanes 16 w..16 w + 15 of every product.
-// Per window of at most kwin rows of the slice's nonzero V-tap range:
-// phase 1 fills the intermediate XT[lane][window row] (first pass per
-// 32-row group, over the chunk's nonzero lane range in pieces of 128, the
-// next step's image tile in flight), phase 2 runs the second pass per
-// 32-row sub-tile over its own nonzero range (k_range), the next
-// sub-tile's V taps in flight, and stores it after the last window (the
-// host gives several windows only with R = 32).  With gamma (IN kPlanes:
-// K5's limb planes, the x_lo input, both staged raw; kGamma: the u8 image
-// staged raw, then linearized once in shared memory into the two limb
-// planes, one barrier later, while the next step's tile is in flight) phase
-// 1 makes three products a fragment pair, f1 = h1 xq1 and f0 = h0 xq1 (one
-// B fragment), then f0 += h1 xq0; it requantizes fq = 2^14 f1 + 2^7 f0 (no
-// h_comp), and the epilogue converts back to sRGB.
+// A finished [32 rows][128 lanes] output tile ``ot`` (row stride
+// kPieceLd) written out at rows tr0.. of V block vb and lanes cl0.. of lane
+// block hb, 16 lanes a thread: one 16-byte store where all 16 are in
+// range and aligned, else store1's bounds lane by lane.
+__device__ __forceinline__ void store_rows(const Args& a, const uint8_t* ot, int vb, int tr0,
+                                           int hb, int cl0) {
+  static_assert(32 * (kLanes / 16) == kThreads, "16 lanes a thread");
+  const int r = threadIdx.x / (kLanes / 16), p = threadIdx.x % (kLanes / 16);
+  const int tr = tr0 + r, orow = vb * a.tv + tr, cl = cl0 + 16 * p, olane = hb * a.tc + cl;
+  if (tr >= a.tv || orow >= a.rows_out) return;
+  const uint8_t* src = ot + r * kPieceLd + 16 * p;
+  uint8_t* dst = a.out + static_cast<size_t>(orow) * a.lanes_out + olane;
+  if (cl + 16 <= a.tc && olane + 16 <= a.lanes_out && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    if (cl + e < a.tc && olane + e < a.lanes_out) dst[e] = src[e];
+  }
+}
+
+// Tile f of the chunk-major order of (chunk, slice) pairs: the chunk (j
+// of lane block hb), the slice (of V block vb), the slice's nonzero V-tap
+// rows, the chunk's nonzero lane range and the image row and lane they
+// start at.
+struct HvTile {
+  int chunk, hb, j, vb, slice;
+  int kb_lo, kb_hi, h_lo, hw;
+  int row0, lane0;
+};
+__device__ __forceinline__ HvTile hv_tile(const Args& a, int f) {
+  HvTile T;
+  const int n_y = a.bv * a.n_slices_r;
+  T.chunk = f / n_y;
+  const int y = f - T.chunk * n_y;
+  T.hb = T.chunk / a.n_ch;
+  T.j = T.chunk - T.hb * a.n_ch;
+  T.vb = y / a.n_slices_r;
+  T.slice = y - T.vb * a.n_slices_r;
+  T.kb_lo = a.slice_range[2 * y];
+  T.kb_hi = a.slice_range[2 * y + 1];
+  T.h_lo = a.h_range[2 * T.chunk];
+  T.hw = a.h_range[2 * T.chunk + 1] - T.h_lo;
+  T.row0 = a.offs_v[T.vb];
+  T.lane0 = a.offs_l[T.hb] + a.rel[T.j] + T.h_lo;
+  return T;
+}
+
+// One block walks a run of tiles: the host's runs of the chunk-major order
+// of (chunk, slice) pairs (fused_kernel.py:hv_runs, cut at equal shares
+// of the tiles' estimated cycles), so that consecutive tiles of a run
+// share a chunk and its lane taps.  A tile is output rows r0..r0+R-1 of V
+// block vb x the 128 lanes of chunk j of lane block hb; warp w owns lanes
+// 16 w..16 w + 15 of every product.
+// Per window of at most kwin rows of the tile's nonzero V-tap range
+// (several only with R = 32): phase 1 fills the intermediate XT[lane]
+// [window row] (first pass per 32-row group, over the chunk's nonzero lane
+// range in pieces of 128, the next step's image tile in flight), phase 2
+// runs the second pass per 32-row sub-tile over its own nonzero range
+// (k_range), the next sub-tile's V taps in flight, and stores it after the
+// last window.  A window's first copies (its lane taps where st holds
+// another chunk's, its first image tile, its first sub-tile's V taps) are
+// issued during the last sub-tile of the window before it in the run, so
+// that they fly during that sub-tile's MMAs and stores: only a run's first
+// window waits for copies it issued itself.  The sums live in one pass
+// (R >= 64; R = 32 carries the second pass's across windows), so that
+// registers hold one pass's accumulators at a time; at R >= 64 a sub-tile's
+// outputs are finished into image buffer 1 and written 16 lanes a thread
+// (at R = 32 with gamma that path gave wrong bytes, so R = 32 keeps
+// store1).  With gamma (IN
+// kPlanes: K5's limb planes, the x_lo input, both staged raw; kGamma: the
+// u8 image staged raw, then linearized once in shared memory into the two
+// limb planes, one barrier later, while the next step's tile is in
+// flight) phase 1 makes three products a fragment pair, f1 = h1 xq1 and
+// f0 = h0 xq1 (one B fragment), then f0 += h1 xq0; it requantizes fq =
+// 2^14 f1 + 2^7 f0 (no h_comp), and the epilogue converts back to sRGB.
 template <int R, int IN>
 __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
   using K = HvMma<IN>;
   constexpr bool kLimbs = IN != kU8;  // gamma: two limb planes, three products
   constexpr int kSub = R / 32;
+  constexpr bool kCarry = R == 32;  // the host gives several windows only at R = 32
   extern __shared__ __align__(16) uint8_t sm[];
 
-  const int chunk = blockIdx.x;
-  const int hb = chunk / a.n_ch, j = chunk % a.n_ch;
-  const int vb = blockIdx.y / a.n_slices_r, slice = blockIdx.y % a.n_slices_r;
-  const int r0 = slice * R;
   const int warp = threadIdx.x / 32, lid = threadIdx.x % 32;
   const int arow = lid & 15, acol = (lid >> 4) * 16;
   const int g = lid / 4, t = lid % 4;
-  const int kb_lo = a.slice_range[2 * blockIdx.y];
-  const int kb_hi = a.slice_range[2 * blockIdx.y + 1];
-  const int h_lo = a.h_range[2 * chunk];
-  const int hw = a.h_range[2 * chunk + 1] - h_lo;
-  const int row0 = a.offs_v[vb];
-  const int lane0 = a.offs_l[hb] + a.rel[j] + h_lo;
   const int kld = a.kwin + 16;
-  if (IN == kGamma) fill_limb_table(a.epi, K::table(sm, kld));
-  const int n_mc = (hw + kPiece - 1) / kPiece;  // lane-tap pieces
-  const bool work = kb_lo < kb_hi && hw > 0;
-  const int n_win = work ? (kb_hi - kb_lo + a.kwin - 1) / a.kwin : 1;
-  int32_t comp[2] = {0, 0};  // the -128 shift's column sums (no gamma)
-#pragma unroll
-  for (int h = 0; h < 2 && !kLimbs; ++h) comp[h] = a.h_comp[chunk * kLanes + 16 * warp + g + 8 * h];
+  const int f_lo = a.runs[blockIdx.x], f_hi = a.runs[blockIdx.x + 1];
 
-  int32_t pa[4][4] = {}, pb[4][4] = {};
-  for (int win = 0; win < n_win; ++win) {
-    const int w0 = kb_lo + win * a.kwin, w1 = min(kb_hi, w0 + a.kwin);
-    // Sub-tile sub's nonzero V-tap rows inside the window (none: lo = hi).
-    const auto sub_range = [&](int sub, int& lo, int& hi) {
-      const int s32 = slice * kSub + sub;
-      lo = hi = 0;
-      if (work && s32 < a.n_slices) {
-        const int* kr = a.k_range + 2 * (vb * a.n_slices + s32);
-        lo = max(kr[0], w0);
-        hi = min(kr[1], w1);
-        if (hi <= lo) lo = hi = 0;
-      }
-    };
+  // Sub-tile sub's nonzero V-tap rows inside window [w0, w1) of tile T
+  // (none: lo = hi = 0).
+  const auto sub_range = [&](const HvTile& T, int w0, int w1, int sub, int& lo, int& hi) {
+    const int s32 = T.slice * kSub + sub;
+    lo = hi = 0;
+    if (T.kb_lo < T.kb_hi && T.hw > 0 && s32 < a.n_slices) {
+      const int* kr = a.k_range + 2 * (T.vb * a.n_slices + s32);
+      lo = max(kr[0], w0);
+      hi = min(kr[1], w1);
+      if (hi <= lo) lo = hi = 0;
+    }
+  };
+  // Window win of tile f's first copies: its lane taps where they are one
+  // piece and st holds another chunk's, its first image tile (buffer 0)
+  // and its first sub-tile's V taps (V buffer vbuf).
+  int t_chunk = -1;  // the chunk whose lane taps (one piece) are in st
+  const auto prefetch = [&](int f, int win, int vbuf) {
+    const HvTile T = hv_tile(a, f);
+    if (T.kb_lo >= T.kb_hi || T.hw <= 0) return;
+    const int w0 = T.kb_lo + win * a.kwin, w1 = min(T.kb_hi, w0 + a.kwin);
+    if (T.hw <= kPiece && T.chunk != t_chunk) {
+      K::stage_taps(a, sm, T.chunk, T.h_lo, T.hw);
+      t_chunk = T.chunk;
+    }
+    K::stage_img(a, sm, 0, T.row0 + w0, T.lane0, min(kPiece, T.hw));
     int lo, hi;
-    sub_range(0, lo, hi);
+    sub_range(T, w0, w1, 0, lo, hi);
+    K::stage_v(a, sm, kld, vbuf, T.vb, T.slice * R, lo, hi);
+  };
+
+  int vbuf = 0;  // the V buffer of the next sub-tile
+  if (f_lo < f_hi) prefetch(f_lo, 0, vbuf);
+  cp_commit();
+  if (IN == kGamma) fill_limb_table(a.epi, K::table(sm, kld));
+
+  int32_t pa_c[4][4] = {}, pb_c[4][4] = {};  // kCarry: the sums across windows
+  for (int f = f_lo, win = 0; f < f_hi;) {
+    const HvTile T = hv_tile(a, f);
+    const bool work = T.kb_lo < T.kb_hi && T.hw > 0;
+    const int n_win = work ? (T.kb_hi - T.kb_lo + a.kwin - 1) / a.kwin : 1;
+    const int n_mc = (T.hw + kPiece - 1) / kPiece;  // lane-tap pieces
+    const int r0 = T.slice * R;
+    const int w0 = T.kb_lo + win * a.kwin, w1 = min(T.kb_hi, w0 + a.kwin);
     if (work) {
       // ---- phase 1: first (horizontal) pass into XT ------------------
-      // Its prologue also stages the first sub-tile's V taps for phase 2.
+      int32_t comp[2] = {0, 0};  // the -128 shift's column sums (no gamma)
+#pragma unroll
+      for (int h = 0; h < 2 && !kLimbs; ++h) {
+        comp[h] = a.h_comp[T.chunk * kLanes + 16 * warp + g + 8 * h];
+      }
       const int n_steps = (w1 - w0) / kDepth * n_mc;
-      if (n_mc == 1) K::stage_taps(a, sm, chunk, h_lo, hw);
-      K::stage_img(a, sm, 0, row0 + w0, lane0, min(kPiece, hw));
-      K::stage_v(a, sm, kld, 0, vb, r0, lo, hi);
-      cp_commit();
+      // The window's first copies (issued a sub-tile before) landed.
       cp_wait_all();
       __syncthreads();
       int32_t f1[4][4] = {}, f0[4][4] = {};
       for (int s = 0, b = 0; s < n_steps; ++s, b ^= 1) {
-        const int gi = s / n_mc, ci = s % n_mc;
-        const int mw = min(kPiece, hw - ci * kPiece);
+        const int gi = n_mc == 1 ? s : s / n_mc, ci = s - gi * n_mc;
+        const int mw = min(kPiece, T.hw - ci * kPiece);
         // The taps of this piece and (kGamma) this step's limb planes; the
         // step before ended with a barrier, after its tile had landed.
         if (n_mc > 1) {
-          K::stage_taps(a, sm, chunk, h_lo + ci * kPiece, mw);
+          K::stage_taps(a, sm, T.chunk, T.h_lo + ci * kPiece, mw);
           cp_commit();
         }
-        if (IN == kGamma) K::convert(a, sm, kld, b, lane0 + ci * kPiece, mw);
+        if (IN == kGamma) K::convert(a, sm, kld, b, T.lane0 + ci * kPiece, mw);
         if (n_mc > 1 || IN == kGamma) {
           cp_wait_all();
           __syncthreads();
         }
         if (s + 1 < n_steps) {
-          const int ng = (s + 1) / n_mc, nc = (s + 1) % n_mc;
-          K::stage_img(a, sm, b ^ 1, row0 + w0 + ng * kDepth, lane0 + nc * kPiece,
-                       min(kPiece, hw - nc * kPiece));
+          const int ng = n_mc == 1 ? s + 1 : (s + 1) / n_mc, nc = s + 1 - ng * n_mc;
+          K::stage_img(a, sm, b ^ 1, T.row0 + w0 + ng * kDepth, T.lane0 + nc * kPiece,
+                       min(kPiece, T.hw - nc * kPiece));
           cp_commit();
         }
         for (int kk = 0; kk < mw; kk += kDepth) {
@@ -949,21 +1087,34 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
         cp_wait_all();
         __syncthreads();
       }
+      if (n_mc > 1) t_chunk = -1;  // st holds the last piece
     }
     // ---- phase 2: second (vertical) pass per 32-row sub-tile ---------
+    // The window after this one in the run: this tile's next, or the next
+    // tile's first.
+    const int nf = win + 1 < n_win ? f : f + 1, nwin = win + 1 < n_win ? win + 1 : 0;
+    int lo, hi;
+    sub_range(T, w0, w1, 0, lo, hi);
 #pragma unroll 1
     for (int sub = 0; sub < kSub; ++sub) {
-      const int b = sub & 1;
       int nlo = 0, nhi = 0;
       if (sub + 1 < kSub) {
-        sub_range(sub + 1, nlo, nhi);
-        K::stage_v(a, sm, kld, b ^ 1, vb, r0 + 32 * (sub + 1), nlo, nhi);
+        sub_range(T, w0, w1, sub + 1, nlo, nhi);
+        K::stage_v(a, sm, kld, vbuf ^ 1, T.vb, r0 + 32 * (sub + 1), nlo, nhi);
+        cp_commit();
+        cp_wait_one();
+      } else if (nf < f_hi) {
+        // The next window's first copies, in flight during this sub-tile.
+        prefetch(nf, nwin, vbuf ^ 1);
         cp_commit();
         cp_wait_one();
       } else {
         cp_wait_all();
       }
       __syncthreads();
+      int32_t pa_s[4][4] = {}, pb_s[4][4] = {};  // R >= 64: this sub-tile's sums
+      int32_t (&pa)[4][4] = kCarry ? pa_c : pa_s;
+      int32_t (&pb)[4][4] = kCarry ? pb_c : pb_s;
       for (int kk = lo; kk < hi; kk += kDepth) {
         uint32_t x1[4], x0[4];
         ldsm(x1, K::xt(sm, kld, 0, 16 * warp + arow) + kk - w0 + acol);
@@ -971,8 +1122,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           uint32_t q1[4], q0[4];
-          ldsm(q1, K::sv(sm, kld, b, 0, 16 * half + arow) + kk - lo + acol);
-          ldsm(q0, K::sv(sm, kld, b, 1, 16 * half + arow) + kk - lo + acol);
+          ldsm(q1, K::sv(sm, kld, vbuf, 0, 16 * half + arow) + kk - lo + acol);
+          ldsm(q0, K::sv(sm, kld, vbuf, 1, 16 * half + arow) + kk - lo + acol);
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
             int32_t (&da)[4] = pa[2 * half + q];
@@ -983,23 +1134,42 @@ __global__ void __launch_bounds__(kThreads, 2) fused_int8_hv_mma(const Args a) {
           }
         }
       }
-      if (win == n_win - 1) {
+      if (kCarry && win == n_win - 1) {
         // Accumulator (lane g (+8), rows 2t, 2t+1 of tile jt) -> output.
 #pragma unroll
         for (int jt = 0; jt < 4; ++jt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            store1<kLimbs>(a, vb, r0 + 32 * sub + 8 * jt + 2 * t + (e & 1), hb,
-                           j * kLanes + 16 * warp + g + 8 * (e >> 1), pa[jt][e], pb[jt][e]);
+            store1<kLimbs>(a, T.vb, r0 + 32 * sub + 8 * jt + 2 * t + (e & 1), T.hb,
+                           T.j * kLanes + 16 * warp + g + 8 * (e >> 1), pa[jt][e], pb[jt][e]);
             pa[jt][e] = 0;
             pb[jt][e] = 0;
           }
         }
+      } else if (!kCarry) {
+        // Accumulator (lane g (+8), rows 2t, 2t+1 of tile jt) -> the
+        // sub-tile's outputs [32 rows][128 lanes] in image buffer 1 (no
+        // copy lands there in phase 2), then out 16 lanes a thread.
+        uint8_t* const ot = K::sx(sm, 1, 0, 0);
+        const int olane = T.hb * a.tc + T.j * kLanes + 16 * warp + g;
+#pragma unroll
+        for (int jt = 0; jt < 4; ++jt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ot[(8 * jt + 2 * t + (e & 1)) * kPieceLd + 16 * warp + g + 8 * (e >> 1)] =
+                finish<kLimbs>(a, pa[jt][e], pb[jt][e], olane + 8 * (e >> 1));
+          }
+        }
+        __syncthreads();
+        store_rows(a, ot, T.vb, r0 + 32 * sub, T.hb, T.j * kLanes);
       }
       __syncthreads();
+      vbuf ^= 1;
       lo = nlo;
       hi = nhi;
     }
+    f = nf;
+    win = nwin;
   }
 }
 
@@ -1014,25 +1184,29 @@ cudaError_t launch_vh_mma(const Args& a, dim3 grid, cudaStream_t s) {
 }
 
 template <int R, int IN>
-cudaError_t launch_hv_mma(const Args& a, dim3 grid, cudaStream_t s) {
+cudaError_t launch_hv_mma(const Args& a, int blocks, cudaStream_t s) {
+  if (blocks < 1 || a.runs == nullptr) return cudaErrorInvalidValue;
   const size_t bytes = hv_mma_smem_bytes(a.kwin, HvMma<IN>::kTilePlanes, IN == kGamma);
   cudaError_t e = cudaFuncSetAttribute(
       fused_int8_hv_mma<R, IN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
-  fused_int8_hv_mma<R, IN><<<grid, kThreads, bytes, s>>>(a);
+  fused_int8_hv_mma<R, IN><<<blocks, kThreads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-// The kernels of input mode IN at the host's slice height ``rows`` (vh: 32).
+// The kernels of input mode IN at the host's slice height ``rows`` (vh: 32;
+// hv: ``blocks`` thread blocks walking runs of tiles).
 template <int IN>
-cudaError_t launch_mma(bool hv, int rows, const Args& a, dim3 grid, cudaStream_t s) {
+cudaError_t launch_mma(bool hv, int rows, int blocks, const Args& a, dim3 grid, cudaStream_t s) {
   if (a.slice_range == nullptr || a.h_range == nullptr) return cudaErrorInvalidValue;
   if (hv) {
-    if (a.kwin < kDepth || a.kwin > 256 || a.kwin % kDepth != 0) return cudaErrorInvalidValue;
-    if (rows == 32) return launch_hv_mma<32, IN>(a, grid, s);
-    if (rows == 64) return launch_hv_mma<64, IN>(a, grid, s);
-    if (rows == 128) return launch_hv_mma<128, IN>(a, grid, s);
+    if (a.kwin < kDepth || a.kwin > kHvMaxWin || a.kwin % kDepth != 0) {
+      return cudaErrorInvalidValue;
+    }
+    if (rows == 32) return launch_hv_mma<32, IN>(a, blocks, s);
+    if (rows == 64) return launch_hv_mma<64, IN>(a, blocks, s);
+    if (rows == 128) return launch_hv_mma<128, IN>(a, blocks, s);
     return cudaErrorInvalidValue;
   }
   return rows == kRows ? launch_vh_mma<IN>(a, grid, s) : cudaErrorInvalidValue;
@@ -1052,6 +1226,7 @@ extern "C" int avir_fused_int8(
     const void* k_range, int n_slices,
     int rows, const void* slice_range, int n_slices_r, const void* h_range,
     const void* h1t, const void* h0t, int kwin, int lane_align,
+    int blocks, const void* runs,
     int sh, float rec,
     int gamma, int alpha_lane, float in_gamma_mult, float out_gamma_mult,
     float scale, int even,
@@ -1086,6 +1261,8 @@ extern "C" int avir_fused_int8(
   a.h1t = static_cast<const int8_t*>(h1t);
   a.h0t = static_cast<const int8_t*>(h0t);
   a.kwin = kwin;
+  a.bv = bv;
+  a.runs = static_cast<const int32_t*>(runs);
   // Both planes' alignment with the limb-plane input.
   const uintptr_t xp = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(x_lo);
   a.vec4 = lane_align % 4 == 0 && lanes_in % 4 == 0 && xp % 4 == 0;
@@ -1104,11 +1281,12 @@ extern "C" int avir_fused_int8(
   if (x_lo != nullptr && !gamma) return static_cast<int>(cudaErrorInvalidValue);
   // One s8 tensor-core kernel over R-row slices for every input: the u8
   // image without gamma, K5's limb planes, or the u8 image linearized in
-  // the kernel.
+  // the kernel.  vh: a block a tile; hv: ``blocks`` blocks walking runs of
+  // the bh * n_ch x bv * n_slices_r tiles (``runs``: each one's first).
   const dim3 grid(bh * n_ch, bv * n_slices_r);
-  const cudaError_t e = !gamma            ? launch_mma<kU8>(hv, rows, a, grid, s)
-                        : x_lo == nullptr ? launch_mma<kGamma>(hv, rows, a, grid, s)
-                                          : launch_mma<kPlanes>(hv, rows, a, grid, s);
+  const cudaError_t e = !gamma            ? launch_mma<kU8>(hv, rows, blocks, a, grid, s)
+                        : x_lo == nullptr ? launch_mma<kGamma>(hv, rows, blocks, a, grid, s)
+                                          : launch_mma<kPlanes>(hv, rows, blocks, a, grid, s);
   return static_cast<int>(e);
 }
 

@@ -75,6 +75,10 @@ launches = {
         for order in ("vh", "hv") for e in ("", "_even")
     },
 }
+# hv launches by pipeline form (FusedInt8Operands.hv_form): "runs" where
+# some thread block walks more than one tile, "one_tile" where each block
+# takes one.
+hv_forms = {"runs": 0, "one_tile": 0}
 
 _ROWS = 32    # output rows per thread block (csrc: kRows)
 _LANES = 128  # output lanes per thread block (csrc: kLanes)
@@ -261,6 +265,9 @@ class FusedInt8Operands:
     # The hv kernel's lane taps as [Bh, n_ch, 128, win_c].
     h1t: torch.Tensor | None = None
     h0t: torch.Tensor | None = None
+    # The hv kernel's runs (hv_runs): thread block b walks tiles runs[b]
+    # .. runs[b + 1] - 1 of the chunk-major order (vh: None).
+    runs: torch.Tensor | None = None  # int32 [blocks + 1]
 
     @property
     def device(self) -> torch.device:
@@ -270,6 +277,26 @@ class FusedInt8Operands:
     def launch_key(self) -> str:
         pre = "_pre" if self.gamma_pre else ""
         return f"fused_int8_{self.order}{self.epi.suffix}{pre}"
+
+    @property
+    def n_tiles(self) -> int:
+        """The kernel's tiles: lane chunks x slices."""
+        return self.h_range.shape[0] * self.h_range.shape[1] * self.slice_range.shape[0] \
+            * self.slice_range.shape[1]
+
+    @property
+    def blocks(self) -> int:
+        """The hv launch's thread blocks (vh: 0)."""
+        return 0 if self.runs is None else self.runs.numel() - 1
+
+    @property
+    def hv_form(self) -> str | None:
+        """The hv launch's pipeline form (hv_forms' key): "runs" where a
+        block walks more than one tile, "one_tile" where each takes one;
+        None for vh."""
+        if self.order != "hv":
+            return None
+        return "runs" if self.blocks < self.n_tiles else "one_tile"
 
 
 def _chunked_lane_taps(lop: LaneBlockedOp):
@@ -381,6 +408,52 @@ def hv_smem_bytes(kwin: int, planes: int = 1, table: bool = False) -> int:
             + (GAMMA_TABLE_BYTES if table else 0))
 
 
+def hv_blocks(n_tiles: int, kwin: int, sms: int, planes: int = 1, table: bool = False,
+              sm_smem: int = H100_SM_SMEM) -> int:
+    """Thread blocks of the hv kernel's launch over ``n_tiles`` tiles (lane
+    chunks x R-row slices) on a card with ``sms`` SMs of ``sm_smem`` bytes
+    of shared memory: one a tile where the tiles fit the card's resident
+    blocks at once (two an SM where hv_smem_bytes at ``kwin`` lets two
+    share one, else one), or on the CPU (``sms`` 0); else as many as stay
+    resident, each walking a run of consecutive tiles (hv_runs), so that a
+    window's first copies fly during the window before it."""
+    per_sm = 2 if hv_smem_bytes(kwin, planes, table) <= two_blocks_smem(sm_smem) else 1
+    resident = per_sm * sms
+    return n_tiles if sms == 0 or n_tiles <= resident else resident
+
+
+# Cycles of the hv kernel's parts (k1_phases.py --order hv at 1920x1080 ->
+# 3840x2160 on an H100 80GB HBM3), hv_runs' estimate of a tile's cost: a
+# window's start, a first-pass step, a second-pass sub-tile, and a
+# sub-tile of a tile with no nonzero taps (its stores only).
+HV_WINDOW_CYCLES, HV_STEP_CYCLES, HV_SUB_CYCLES, HV_EMPTY_SUB_CYCLES = 1500, 2600, 5200, 3400
+
+
+def hv_runs(slice_range: np.ndarray, h_range: np.ndarray, kwin: int, rows: int,
+            blocks: int) -> np.ndarray:
+    """[blocks + 1] int32: thread block b of the hv kernel walks tiles
+    runs[b] .. runs[b + 1] - 1 of the chunk-major order of (chunk, slice)
+    pairs, cut where the tiles' estimated cycles reach equal shares of the
+    whole (per window of kwin rows of a slice's nonzero V-tap range: its
+    start, a step per 32 rows and 128-lane piece of the chunk's nonzero
+    lane range, a sub-tile per 32 output rows), so that the blocks end
+    together; one tile a block where ``blocks`` is the tiles."""
+    kw = (slice_range[..., 1] - slice_range[..., 0]).astype(np.int64).reshape(1, -1)
+    hw = (h_range[..., 1] - h_range[..., 0]).astype(np.int64).reshape(-1, 1)
+    n_tiles = kw.size * hw.size
+    if blocks >= n_tiles:
+        return np.arange(n_tiles + 1, dtype=np.int32)
+    work = (kw > 0) & (hw > 0)
+    n_win = np.where(work, -(-kw // kwin), 1)
+    steps = np.where(work, kw // 32 * -(-hw // 128), 0)
+    sub = rows // 32 * np.where(work, HV_SUB_CYCLES, HV_EMPTY_SUB_CYCLES)
+    cost = (np.where(work, n_win * HV_WINDOW_CYCLES, 0) + steps * HV_STEP_CYCLES
+            + n_win * sub).reshape(-1)
+    before = np.concatenate([[0], np.cumsum(cost)])  # cycles before each tile
+    cuts = np.abs(before[None, :] - before[-1] * np.arange(1, blocks)[:, None] / blocks).argmin(1)
+    return np.concatenate([[0], np.maximum.accumulate(cuts), [n_tiles]]).astype(np.int32)
+
+
 def issued_macs(order: str, rows: int, slice_range: np.ndarray,
                 k_range: np.ndarray, h_range: np.ndarray, first: int = 2) -> int:
     """s8 MACs the tensor-core kernel issues at slice height ``rows``:
@@ -462,19 +535,33 @@ def _slice_fields(v1: np.ndarray, v0: np.ndarray, rows: int) -> tuple[np.ndarray
     return sr, max(32, min(KWIN_MAX, int((sr[..., 1] - sr[..., 0]).max())))
 
 
+def _hv_runs(order: str, sr: np.ndarray, hr: np.ndarray, kwin: int, rows: int, device,
+             gamma: bool, gamma_pre: bool) -> torch.Tensor | None:
+    """hv_runs over hv_blocks' blocks, on ``device`` (vh: None)."""
+    if order != "hv":
+        return None
+    blocks = hv_blocks(sr[..., 0].size * hr[..., 0].size, kwin, _sm_count(device),
+                       planes=2 if gamma else 1, table=gamma and not gamma_pre,
+                       sm_smem=_sm_smem(device))
+    return torch.from_numpy(hv_runs(sr, hr, kwin, rows, blocks)).to(device)
+
+
 def at_rows(ops: FusedInt8Operands, rows: int) -> FusedInt8Operands:
     """``ops`` of the hv tensor-core kernel with its slices set to ``rows``
     rows (32, 64 or 128) in place of slice_rows' choice: the same function,
     another tiling (for the card tests and chip_smoke.py, which hold every
-    height to the plain version).  The vh kernel runs 32 rows only."""
+    height to the plain version), with its launch's runs chosen anew.
+    The vh kernel runs 32 rows only."""
     if rows not in ((_ROWS,) if ops.order == "vh" else (32, 64, 128)):
         raise ValueError(f"no {rows}-row slices in the {ops.launch_key} kernel")
     v1, v0 = ops.v1.cpu().numpy(), ops.v0.cpu().numpy()
     sr, kwin = _slice_fields(v1, v0, rows)
     if rows > 32 and (sr[..., 1] - sr[..., 0]).max() > KWIN_MAX:
         raise ValueError(f"{rows}-row slice ranges exceed {KWIN_MAX} rows")
+    runs = _hv_runs(ops.order, sr, ops.h_range.cpu().numpy(), kwin, rows, ops.device,
+                    ops.epi.gamma, ops.gamma_pre)
     return dataclasses.replace(
-        ops, rows=rows, slice_range=torch.from_numpy(sr).to(ops.device), kwin=kwin
+        ops, rows=rows, slice_range=torch.from_numpy(sr).to(ops.device), kwin=kwin, runs=runs,
     )
 
 
@@ -553,6 +640,7 @@ def prepare_fused_int8(
                       planes=2 if gamma else 1, sm_smem=_sm_smem(device),
                       table=gamma and not gamma_pre)
     sr, kwin = _slice_fields(v1, v0, rows)
+    runs = _hv_runs(order, sr, hr, kwin, rows, device, gamma, gamma_pre)
 
     return FusedInt8Operands(
         order=order,
@@ -587,6 +675,7 @@ def prepare_fused_int8(
         gamma_pre=bool(gamma_pre),
         h1t=h1t,
         h0t=h0t,
+        runs=runs,
     )
 
 
@@ -727,6 +816,7 @@ _ARGTYPES = [
     _P, _I,                # k_range, n_slices
     _I, _P, _I, _P,        # rows, slice_range, n_slices_r, h_range
     _P, _P, _I, _I,        # h1t, h0t, kwin, lane_align
+    _I, _P,                # blocks, runs (hv)
     _I, ctypes.c_float,    # sh, rec
     _I, _I, ctypes.c_float, ctypes.c_float,  # gamma, alpha_lane, in/out gamma mults
     ctypes.c_float, _I,    # scale, even
@@ -787,7 +877,7 @@ def _apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor, x_lo) -> torch.Te
     bh, n_ch, win_c, _ = ops.h1.shape
     n_slices = ops.k_range.shape[1]
     n_slices_r = ops.slice_range.shape[1]
-    if bv * n_slices_r > 65535:
+    if ops.order == "vh" and bv * n_slices_r > 65535:
         raise ValueError("too many output row blocks for one launch")
     out = torch.empty((ops.rows_out, ops.lanes_out), dtype=torch.uint8, device=x.device)
     fn = _library()
@@ -811,6 +901,7 @@ def _apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor, x_lo) -> torch.Te
             ops.k_range.data_ptr(), n_slices,
             ops.rows, ptr(ops.slice_range), n_slices_r, ptr(ops.h_range),
             ptr(ops.h1t), ptr(ops.h0t), ops.kwin, ops.lane_align,
+            ops.blocks, ptr(ops.runs),
             ops.sh, 2.0 ** ops.out_exp,
             *ops.epi.launch_args(),
             stream,
@@ -819,4 +910,6 @@ def _apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor, x_lo) -> torch.Te
     if err != 0:
         raise RuntimeError(f"fused_int8 launch failed: CUDA error {err}")
     launches[ops.launch_key] += 1
+    if ops.order == "hv":
+        hv_forms[ops.hv_form] += 1
     return out

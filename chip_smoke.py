@@ -881,6 +881,10 @@ def _int8_counts(ops) -> dict:
     lanes = int((hr[..., 1] - hr[..., 0]).sum()) / ops.lanes_in
     return {
         "slice_rows": ops.rows,
+        # The hv launch: its pipeline form, blocks and ring (a version
+        # without runs of tiles has none).
+        "hv_launch": ({"form": ops.hv_form, "blocks": ops.blocks}
+                      if ops.order == "hv" and hasattr(ops, "hv_form") else None),
         "macs_issued": fk.issued_macs(ops.order, ops.rows, sr, kr, hr, first=first),
         "macs_issued_before": int(before),
         "first_pass_reads_per_input": {
@@ -1469,10 +1473,13 @@ def _epi_shape(name, entry, sw, sh, nw, nh, c, in_dt, out_dt, kw, key,
         os.environ[GAMMA_ROUTE_ENV] = route_env
     try:
         _zero(mods)
+        forms = dict(fk.hv_forms)
         t0 = time.perf_counter()
         out = call()
         first_s = time.perf_counter() - t0
         counts = _counts(mods)
+        # hv launches by pipeline form (runs of tiles, or one tile a block).
+        forms = {k: v - forms[k] for k, v in fk.hv_forms.items() if v > forms[k]}
         fn = make(plan, device=dev)
         walls = []
         for _ in range(5):
@@ -1484,7 +1491,7 @@ def _epi_shape(name, entry, sw, sh, nw, nh, c, in_dt, out_dt, kw, key,
     ops = fn.ops
     print(json.dumps({
         "main_path": name, "launches": {k: v for k, v in counts.items() if v},
-        "route": fn.route, "order": fn.order, "variant": ops.launch_key,
+        "hv_forms": forms, "route": fn.route, "order": fn.order, "variant": ops.launch_key,
         "gamma_route_env": route_env,
     }))
     if counts[key] != 1 or sum(counts.values()) != 1 or ops.launch_key != key:

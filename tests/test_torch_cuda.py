@@ -29,6 +29,8 @@ from torch_cases import (
     GAMMA_PRE_CASES,
     GAMMA_PRE_HV_CASES,
     GAMMA_PRE_VH_CASES,
+    HV_RUN_CASES,
+    HV_RUN_MODES,
     IN_BYTES,
     LANES_CASES,
     INT8_EPI_CASES,
@@ -636,6 +638,67 @@ def test_hv_smem_bytes_match_the_kernel(planes, cuda_device):
     if "H100" in props.name:
         assert fk._sm_smem(cuda_device) == fk.H100_SM_SMEM
 
+
+def _hv_run_case(name, mode, device):
+    """(operands at slice_rows' height, u8 image, the kernel's input, the
+    in-kernel gamma operands or None) of an HV_RUN_CASES case in an input
+    mode of HV_RUN_MODES."""
+    sw, sh, nw, nh, c, alpha, _, _ = HV_RUN_CASES[name]
+    gamma = mode in ("gamma", "planes")
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=gamma,
+                             alpha_index=alpha if gamma else -1)
+    vop, lop = block_banded(plan.v.op), lane_block_banded(plan.h.op, c)
+    rm, scale = ("even", 0.75) if mode == "even_scale" else ("biased", 1.0)
+    kw = epi_kwargs(plan, rm, scale, gamma, alpha)
+    ops = fk.prepare_fused_int8(vop, lop, "hv", device, gamma_pre=mode == "planes", **kw)
+    x = torch.from_numpy(
+        np.random.default_rng(sum(map(ord, name + mode))).integers(
+            0, 256, (sh, sw * c), dtype=np.uint8)
+    ).to(device)
+    if mode != "planes":
+        return ops, x, (x,), None
+    args = gp.apply_gamma_prologue(x, ops.rows_pad, ops.lanes_pad, c, alpha, plan.in_gamma_mult)
+    return ops, x, args, fk.prepare_fused_int8(vop, lop, "hv", device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", HV_RUN_MODES)
+@pytest.mark.parametrize("name,rows", [(n, r) for n, case in HV_RUN_CASES.items()
+                                       for r in case[7]])
+def test_int8_hv_runs_match_plain_on_card(name, rows, mode, cuda_device):
+    """K1 int8 hv walking runs of tiles (or one tile a block) in every
+    input mode at every slice height it takes: bit-equal to the
+    plain version (and, from K5's limb planes, to the in-kernel gamma
+    kernel), one launch counted under its pipeline form, the form at
+    slice_rows' height the one HV_RUN_CASES records for an H100."""
+    ops, x, args, inkernel = _hv_run_case(name, mode, cuda_device)
+    if rows == ops.rows and torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count == 132:
+        assert ops.hv_form == HV_RUN_CASES[name][6]
+    ops = fk.at_rows(ops, rows)
+    assert ops.blocks == fk.hv_blocks(
+        ops.n_tiles, ops.kwin, fk._sm_count(cuda_device), planes=2 if ops.epi.gamma else 1,
+        table=ops.epi.gamma and not ops.gamma_pre, sm_smem=fk._sm_smem(cuda_device))
+    before = dict(fk.hv_forms)
+    got = fk.apply_fused_int8(ops, *args)
+    torch.cuda.synchronize()
+    assert fk.hv_forms[ops.hv_form] == before[ops.hv_form] + 1
+    assert sum(fk.hv_forms.values()) == sum(before.values()) + 1
+    assert torch.equal(got, fk.apply_fused_int8_reference(ops, *args))
+    if inkernel is not None:
+        assert torch.equal(got, fk.apply_fused_int8(fk.at_rows(inkernel, rows), x))
+
+
+@pytest.mark.cuda
+def test_int8_hv_runs_repeat_bit_equal_on_card(cuda_device):
+    """20 launches of the u8 hv kernel on runs of tiles at 1080p -> 4K give
+    the same bytes: a buffer refilled for the next window before every
+    warp is done with it would show here."""
+    ops, _, args, _ = _hv_run_case("runs_1080p_c3", "u8", cuda_device)
+    assert ops.hv_form == "runs" or fk._sm_count(cuda_device) * 2 >= ops.n_tiles
+    want = fk.apply_fused_int8(ops, *args)
+    for _ in range(20):
+        assert torch.equal(fk.apply_fused_int8(ops, *args), want)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(PLANAR_CASES))

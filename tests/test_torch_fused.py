@@ -18,7 +18,7 @@ from avir_tpu.ops.pallas.fused_kernel import apply_fused_pallas
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
 from torch_cases import FUSED_CASES as CASES
-from torch_cases import INT8_EPI_CASES, VH_RING_CASES, epi_kwargs
+from torch_cases import HV_RUN_CASES, INT8_EPI_CASES, VH_RING_CASES, epi_kwargs
 
 from avir_tpu_torch.convert import resize_plan_from_numpy
 from avir_tpu_torch.ops.banded import block_banded
@@ -413,6 +413,26 @@ def test_k1_phases_marks_the_vh_kernel():
         assert ("kStages = IN == kU8 ? 3 : 4;" in text) == (stages == 3)
 
 
+def test_k1_phases_marks_the_hv_kernel():
+    """k1_phases.py's ``--order hv`` copy applies to the shipped
+    fused_int8.cu (the block that walks runs of tiles): each phase mark
+    lands once and both step kinds are counted, and the vh kernel is left
+    unmarked."""
+    from pathlib import Path
+
+    import k1_phases
+
+    src = (Path(fk.__file__).with_name("csrc") / "fused_int8.cu").read_text()
+    text, (loop, phases, waits) = k1_phases._timed_source(src, None, "hv")
+    assert loop == "runs" and set(waits) < set(phases)
+    assert all(text.count(f"MARK({k});") == 1 for k in range(len(phases)))
+    assert text.count("STEP(true);") == text.count("STEP(false);") == 1
+    assert "fused_int8_hv_mma(const Args a) {\n  unsigned long long t0_" in text
+    assert "fused_int8_vh_mma(const Args a) {\n  unsigned long long t0_" not in text
+    with pytest.raises(RuntimeError, match="vh ring"):
+        k1_phases._timed_source(src, 3, "hv")
+
+
 def test_vh_cases_cover_every_staging_path():
     """The vh card cases (FUSED_CASES' downsizes and VH_RING_CASES) stage
     the image on each of the vh kernel's three paths: 16-byte cp.async,
@@ -556,3 +576,169 @@ def test_edge_cases_reach_their_edges():
         "rows_out", "lane_end", "c2_vh", "c2_hv", "down_gt4", "odd_lanes_in",
         "hv128_ragged", "hv_windows",
     }
+
+
+# hv_blocks' choice on an H100 (132 SMs, 233,472 bytes of shared memory an
+# SM): (tiles, kwin, SMs, planes, table) -> blocks.  The 1080p -> 4K video
+# shape at 128-row slices (1,620 tiles, kwin 128) in each input mode: 264
+# blocks (two an SM) walk runs of six or seven tiles; at 64 and 32 rows
+# more tiles share as many blocks; fewer tiles than the card holds at once
+# run one a block; a window of 256 rows lets one block an SM (132 blocks);
+# the CPU (0 SMs) takes one block a tile.
+HV_BLOCK_CHOICES = {
+    "video_u8": ((1620, 128, 132, 1, False), 264),
+    "video_planes": ((1620, 128, 132, 2, False), 264),
+    "video_gamma": ((1620, 128, 132, 2, True), 264),
+    "video_r64": ((3240, 96, 132, 1, False), 264),
+    "video_r32_gamma": ((6480, 64, 132, 2, True), 264),
+    "one_wave": ((144, 128, 132, 1, False), 144),
+    "exactly_resident": ((264, 128, 132, 1, False), 264),
+    "one_over": ((265, 128, 132, 1, False), 264),
+    "windows_u8": ((432, 256, 132, 1, False), 132),
+    "windows_gamma": ((432, 256, 132, 2, True), 132),
+    "windows_fit_the_card": ((100, 256, 132, 1, False), 100),
+    "cpu": ((1620, 128, 0, 1, False), 1620),
+}
+
+
+@pytest.mark.parametrize("name", list(HV_BLOCK_CHOICES))
+def test_hv_blocks_fill_the_card_once(name):
+    """hv_blocks at the recorded cases, and why: the tiles, or the card's
+    resident blocks (two an SM where the kernel's shared memory at kwin lets
+    two share one, else one) where there are more tiles, so that no block
+    waits for a second wave; all tiles on the CPU."""
+    (tiles, kwin, sms, planes, table), want = HV_BLOCK_CHOICES[name]
+    assert fk.hv_blocks(tiles, kwin, sms, planes, table) == want
+    two = fk.hv_smem_bytes(kwin, planes, table) <= fk.two_blocks_smem(fk.H100_SM_SMEM)
+    assert want == (tiles if sms == 0 else min(tiles, (2 if two else 1) * sms))
+
+
+def _hv_runs(ops):
+    """The kernel's runs (csrc: fused_int8_hv_mma): block b walks tiles
+    runs[b] .. runs[b + 1] - 1 of the chunk-major order, as (chunk, slice
+    index) pairs."""
+    n_y = ops.slice_range.shape[0] * ops.slice_range.shape[1]
+    r = ops.runs.tolist()
+    return [[divmod(f, n_y) for f in range(r[k], r[k + 1])] for k in range(ops.blocks)]
+
+
+def _hv_tile_cycles(ops):
+    """hv_runs' estimate of each tile's cycles, in the chunk-major order."""
+    kw = (ops.slice_range[..., 1] - ops.slice_range[..., 0]).numpy().reshape(1, -1)
+    hw = (ops.h_range[..., 1] - ops.h_range[..., 0]).numpy().reshape(-1, 1)
+    work = (kw > 0) & (hw > 0)
+    n_win = np.where(work, -(-kw // ops.kwin), 1)
+    return (np.where(work, n_win * (fk.HV_WINDOW_CYCLES + ops.rows // 32 * fk.HV_SUB_CYCLES),
+                     ops.rows // 32 * fk.HV_EMPTY_SUB_CYCLES)
+            + np.where(work, kw // 32 * -(-hw // 128), 0) * fk.HV_STEP_CYCLES).reshape(-1)
+
+
+@pytest.fixture
+def h100(monkeypatch):
+    """Operands prepared as on an H100: 132 SMs (the CPU's own count is 0)."""
+    monkeypatch.setattr(fk, "_sm_count", lambda device: H100_SMS)
+
+
+@pytest.mark.parametrize("gamma,pre", [(False, False), (True, False), (True, True)])
+def test_hv_runs_of_the_video_shape(h100, gamma, pre):
+    """1080p -> 4K u8 RGB (the video cells' hv, 128-row slices) as on an
+    H100: 264 blocks walk runs of five to seven consecutive tiles of the
+    chunk-major order, every tile once, cut at equal shares of the tiles'
+    estimated cycles (the longest run within 8% of the mean, where runs of
+    equal length reach 19%); a run reaches at most one chunk's end (one
+    restaging of the lane taps), and the pipeline form is "runs" in every
+    input mode; at_rows chooses anew for the other heights."""
+    plan = build_resize_plan(1920, 1080, 3840, 2160, 3, np.uint8, np.uint8,
+                             use_srgb_gamma=gamma)
+    ops = fk.prepare_fused_int8(
+        block_banded(plan.v.op), lane_block_banded(plan.h.op, 3), "hv", "cpu",
+        gamma=gamma, gamma_pre=pre,
+        in_gamma_mult=plan.in_gamma_mult, out_gamma_mult=plan.out_gamma_mult,
+    )
+    assert ops.rows == 128 and ops.kwin == 128 and ops.n_tiles == 1620
+    assert ops.blocks == 264 and ops.hv_form == "runs"
+    runs = _hv_runs(ops)
+    assert [f for run in runs for f in run] == [divmod(f, 18) for f in range(1620)]
+    assert {len(run) for run in runs} == {5, 6, 7}
+    assert max(len({c for c, _ in run}) for run in runs) == 2
+    cycles = _hv_tile_cycles(ops)
+    shares = np.add.reduceat(cycles, ops.runs.numpy()[:-1])
+    equal = np.add.reduceat(cycles, np.arange(264) * 1620 // 264)
+    assert shares.max() < 1.08 * shares.mean() and equal.max() > 1.18 * equal.mean()
+    for rows in (64, 32):
+        o = fk.at_rows(ops, rows)
+        assert o.blocks == 264 == fk.hv_blocks(
+            o.n_tiles, o.kwin, H100_SMS, 2 if gamma else 1, gamma and not pre)
+        assert o.hv_form == "runs" and o.n_tiles == 1620 * 128 // rows
+        assert o.runs.tolist() == fk.hv_runs(
+            o.slice_range.numpy(), o.h_range.numpy(), o.kwin, rows, 264).tolist()
+
+
+def test_hv_launch_fields_on_the_cpu_and_for_vh():
+    """The CPU's operands (no SMs) take one block a tile; vh operands carry
+    no hv launch (no runs, 0 blocks, no form)."""
+    for name in ("up_c3", "edge_up128_c3", "edge_hv_windows_c1", "down_c3"):
+        ops = _ops(name)
+        if ops.order == "vh":
+            assert (ops.runs, ops.blocks, ops.hv_form) == (None, 0, None)
+            continue
+        assert ops.blocks == ops.n_tiles == fk.hv_blocks(ops.n_tiles, ops.kwin, 0)
+        assert ops.runs.tolist() == list(range(ops.n_tiles + 1))
+        assert ops.hv_form == "one_tile"
+
+
+@pytest.mark.parametrize("name", list(HV_RUN_CASES))
+def test_hv_run_cases_reach_their_edges(h100, name):
+    """Each of torch_cases.HV_RUN_CASES takes the pipeline form it records
+    at slice_rows' height on an H100 in every input mode, and has the edge
+    its name promises: a ragged last slice inside a run, C = 4 with the
+    alpha lane (last or first), windows of the intermediate (one block an
+    SM), chunks wider than one piece, or fewer tiles than the card holds."""
+    sw, sh, nw, nh, c, alpha, form, heights = HV_RUN_CASES[name]
+    for gamma, pre in ((False, False), (True, False), (True, True)):
+        plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8,
+                                 use_srgb_gamma=gamma, alpha_index=alpha if gamma else -1)
+        ops = fk.prepare_fused_int8(
+            block_banded(plan.v.op), lane_block_banded(plan.h.op, c), "hv", "cpu",
+            **epi_kwargs(plan, "biased", 1.0, gamma, alpha), gamma_pre=pre,
+        )
+        assert ops.hv_form == form and ops.rows == heights[0]
+        for rows in heights:
+            assert fk.at_rows(ops, rows).rows == rows
+    hw = (ops.h_range[..., 1] - ops.h_range[..., 0]).numpy()
+    span = int((ops.slice_range[..., 1] - ops.slice_range[..., 0]).max())
+    runs = _hv_runs(ops)
+    n_sl, tv = ops.slice_range.shape[1], ops.v1.shape[1]
+
+    def ragged(y):  # the slice's rows end inside it (rows_out or the V block)
+        first = y // n_sl * tv + y % n_sl * ops.rows
+        return first < ops.rows_out < first + min(ops.rows, tv - y % n_sl * ops.rows)
+
+    edge = {
+        "runs_1080p_c3": any(ragged(y) and k < len(run) - 1
+                             for run in runs for k, (_, y) in enumerate(run)),
+        "runs_c4a3": c == 4 and ops.epi.alpha_lane == 3,
+        "runs_c4a0": c == 4 and ops.epi.alpha_lane == 0,
+        "runs_windows_c1": span > fk.KWIN_MAX and ops.blocks == H100_SMS,
+        "runs_pieces_c3": (hw > 128).any(),
+        "one_tile_c3": ops.n_tiles <= 2 * H100_SMS,
+    }[name]
+    assert edge
+
+
+@pytest.mark.parametrize("name", list(HV_RUN_CASES))
+def test_hv_runs_cover_every_tile_once_in_balance(h100, name):
+    """hv_runs on each HV_RUN_CASES shape as on an H100: the runs start at
+    tile 0, end at the last and are in order, every block takes one or more
+    tiles, and no block's estimated cycles exceed the mean share by more
+    than its costliest tile (one tile a block: the tiles themselves)."""
+    sw, sh, nw, nh, c, _, form, _ = HV_RUN_CASES[name]
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8)
+    ops = fk.prepare_fused_int8(
+        block_banded(plan.v.op), lane_block_banded(plan.h.op, c), "hv", "cpu")
+    runs = ops.runs.numpy()
+    assert runs[0] == 0 and runs[-1] == ops.n_tiles and (np.diff(runs) >= 1).all()
+    assert (ops.blocks == ops.n_tiles) == (form == "one_tile")
+    cycles = _hv_tile_cycles(ops)
+    shares = np.add.reduceat(cycles, runs[:-1])
+    assert shares.max() <= shares.mean() + cycles.max()

@@ -229,6 +229,26 @@ VH_RING_EPI_CASES = {
 }
 VH_RING_PRE_CASES = {n: (*case, -1) for n, case in VH_RING_CASES.items()}
 
+# The hv kernel's pipeline forms (fused_kernel.hv_blocks) on an H100's 132
+# SMs, each run in every input mode (no gamma, round-half-even with
+# LANCIR's scale, the in-kernel gamma, K5's limb planes) at every slice
+# height it takes: (src_w, src_h, new_w, new_h, c, alpha_index, the form
+# at slice_rows' height, the heights, slice_rows' first).  Runs longer
+# than one slice with a ragged last slice inside them (1080p -> 4K: 2160
+# rows), C = 4 with the alpha lane last and first, a run in windows (one
+# block an SM), chunks wider than one 128-lane piece (their taps restaged
+# every step), and one tile a block where the tiles fit the card at once.
+# test_torch_fused.py checks each case has its edge.
+HV_RUN_CASES = {
+    "runs_1080p_c3": (1920, 1080, 3840, 2160, 3, -1, "runs", (128, 64, 32)),
+    "runs_c4a3": (960, 540, 1920, 1080, 4, 3, "runs", (128, 64, 32)),
+    "runs_c4a0": (960, 540, 1920, 1080, 4, 0, "runs", (128,)),
+    "runs_windows_c1": (300, 2400, 12000, 100, 1, -1, "runs", (32,)),
+    "runs_pieces_c3": (640, 480, 1024, 768, 3, -1, "runs", (64, 32)),
+    "one_tile_c3": (320, 240, 640, 480, 3, -1, "one_tile", (32, 64, 128)),
+}
+HV_RUN_MODES = ("u8", "even_scale", "gamma", "planes")
+
 # K1 int8 vh from K5's limb planes on the tensor cores: (src_w, src_h,
 # new_w, new_h, c, lane tile, alpha_index), downsizes at the edges of the
 # tiling (FUSED_CASES' edge_* shapes: rows_out off 32, C = 2, a downsize
