@@ -23,14 +23,15 @@ max|plain| * 1e-5 in every mode, not bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..banded import BLOCKED_MODES, BlockedBandedOp, apply_blocked
 from .fused_kernel import _k_ranges
+from .launch import I, P, Entry, on_cpu
 
 # Launches of each mode of this kernel, counted by the wrapper.
 launches = {f"banded_{m}": 0 for m in ("split2", "split3", "exact")}
@@ -68,6 +69,17 @@ class BandedOperands:
     def launch_key(self) -> str:
         return f"banded_{self.mode}"
 
+    @functools.cached_property
+    def packed(self) -> tuple:
+        """The kernel's arguments fixed for these operands (LAUNCH.pack)."""
+        b, t, w = self.hi.shape
+        n_slices = self.k_range.shape[1]
+        if b * n_slices > 65535:
+            raise ValueError("too many output row blocks for one launch")
+        return LAUNCH.pack(
+            self, self.bop, mode=_MODES[self.mode], b=b, t=t, w=w, n_slices=n_slices,
+        )
+
 
 def prepare_banded(
     bop: BlockedBandedOp, mode: str, device: torch.device | str
@@ -96,39 +108,20 @@ def apply_banded_reference(ops: BandedOperands, x: torch.Tensor) -> torch.Tensor
     return apply_blocked(ops.bop, x, ops.mode, taps=taps)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [
-    _I, _I,            # mode, in_kind
-    _P, _I, _I,        # x, n_in, r
-    _P, _I,            # out, n_out
-    _P, _P, _P,        # hi, lo, offs
-    _I, _I, _I,        # b, t, w
-    _P, _I,            # k_range, n_slices
-    _P,                # stream
-]
-
-
-def _library():
-    from .build import load_library
-
-    fn = load_library("banded").avir_banded
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# avir_banded (csrc/banded.cu).
+LAUNCH = Entry("banded", "avir_banded", params=(
+    ("x", P), ("out", P), ("in_kind", I), ("r", I), ("stream", P),
+    ("mode", I), ("n_in", I), ("n_out", I), ("hi", P), ("lo", P), ("offs", P),
+    ("b", I), ("t", I), ("w", I), ("k_range", P), ("n_slices", I),
+))
 
 
 def apply_banded(ops: BandedOperands, x: torch.Tensor) -> torch.Tensor:
     """Row pass of ``x`` [n_in, R] (u8, u16 or float32) -> float32
     [n_out, R].  A CUDA tensor launches the kernel; a CPU tensor runs the
     plain version."""
-    if x.device.type == "cpu" and ops.device.type == "cpu":
+    if on_cpu(x, ops.device):
         return apply_banded_reference(ops, x)
-    if x.device.type != "cuda" or x.device != ops.device:
-        raise ValueError(
-            f"image on {x.device}, operands on {ops.device}: both must be "
-            "on one CUDA device (or both on the CPU)"
-        )
     if x.dtype not in _IN_KINDS or x.dim() != 2 or x.shape[0] != ops.bop.n_in:
         raise ValueError(
             f"expected u8/u16/f32 [{ops.bop.n_in}, R], got {x.dtype} "
@@ -136,25 +129,10 @@ def apply_banded(ops: BandedOperands, x: torch.Tensor) -> torch.Tensor:
         )
     if not x.is_contiguous():
         raise ValueError("image must be contiguous")
-    b, t, w = ops.hi.shape
-    n_slices = ops.k_range.shape[1]
     r = x.shape[1]
-    if b * n_slices > 65535:
-        raise ValueError("too many output row blocks for one launch")
     out = torch.empty((ops.bop.n_out, r), dtype=torch.float32, device=x.device)
-    fn = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            _MODES[ops.mode], _IN_KINDS[x.dtype],
-            x.data_ptr(), x.shape[0], r,
-            out.data_ptr(), ops.bop.n_out,
-            ops.hi.data_ptr(), ops.lo.data_ptr(), ops.offs.data_ptr(),
-            b, t, w,
-            ops.k_range.data_ptr(), n_slices,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"banded launch failed: CUDA error {err}")
-    launches[ops.launch_key] += 1
+    LAUNCH.launch(
+        x, launches, ops.launch_key, x.data_ptr(), out.data_ptr(), _IN_KINDS[x.dtype], r,
+        packed=ops.packed,
+    )
     return out

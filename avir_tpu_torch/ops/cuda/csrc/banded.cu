@@ -337,13 +337,11 @@ cudaError_t launch_split(int in_kind, const Args& a, dim3 grid, cudaStream_t s) 
 // k_range holds the nonzero tap rows of kRows-row (64) slices
 // (banded_kernel.py).  in_kind: 0 u8, 1 u16, 2 f32.
 extern "C" int avir_banded(
-    int mode, int in_kind,
-    const void* x, int n_in, int r,
-    void* out, int n_out,
+    const void* x, void* out, int in_kind, int r, void* stream,
+    int mode, int n_in, int n_out,
     const void* hi, const void* lo, const void* offs,
     int b, int t, int w,
-    const void* k_range, int n_slices,
-    void* stream) {
+    const void* k_range, int n_slices) {
   Args a;
   a.x = x;
   a.n_in = n_in;

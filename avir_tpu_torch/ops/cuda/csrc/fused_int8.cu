@@ -1215,9 +1215,8 @@ cudaError_t launch_mma(bool hv, int rows, int blocks, const Args& a, dim3 grid, 
 }  // namespace
 
 extern "C" int avir_fused_int8(
-    int hv,
-    const void* x, const void* x_lo, int rows_in, int lanes_in,
-    void* out, int rows_out, int lanes_out,
+    const void* x, const void* x_lo, void* out, int rows_in, int lanes_in, void* stream,
+    int hv, int rows_out, int lanes_out,
     const void* v1, const void* v0, const void* v_comp, const void* offs_v,
     int bv, int tv, int wv,
     const void* h1p, const void* h0p, const void* h_comp,
@@ -1229,8 +1228,7 @@ extern "C" int avir_fused_int8(
     int blocks, const void* runs,
     int sh, float rec,
     int gamma, int alpha_lane, float in_gamma_mult, float out_gamma_mult,
-    float scale, int even,
-    void* stream) {
+    float scale, int even) {
   Args a;
   a.x = static_cast<const uint8_t*>(x);
   a.x_lo = static_cast<const uint8_t*>(x_lo);

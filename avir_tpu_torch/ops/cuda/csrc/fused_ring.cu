@@ -505,8 +505,8 @@ extern "C" int avir_fused_ring_max_clusters(int cluster, int ring_rows, int* cou
 }
 
 extern "C" int avir_fused_ring(
-    const void* x, int rows_in, int lanes_in, int pad_top,
-    void* out, int rows_out, int lanes_out, int tc,
+    const void* x, void* out, void* stream,
+    int rows_in, int lanes_in, int pad_top, int rows_out, int lanes_out, int tc,
     const void* v1, const void* v0, const void* offs_v,
     int tv, int wv,
     const void* h1p, const void* h0p,
@@ -517,8 +517,7 @@ extern "C" int avir_fused_ring(
     const void* slices, const void* part_ptr, int parts,
     int ring_rows,
     int sh, float rec,
-    int alpha_lane, float in_gamma_mult, float out_gamma_mult,
-    void* stream) {
+    int alpha_lane, float in_gamma_mult, float out_gamma_mult) {
   const size_t bytes = smem_bytes(ring_rows);
   if (ring_rows % 32 != 0 || ring_rows <= 0 || cluster < 1 || cluster > kMaxCluster ||
       bytes > static_cast<size_t>(kMaxSmem)) {

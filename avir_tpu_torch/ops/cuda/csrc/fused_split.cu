@@ -732,10 +732,9 @@ cudaError_t launch_modes(bool hv, bool s3v, bool s3h, const Args& a, dim3 grid,
 }  // namespace
 
 extern "C" int avir_fused_split(
-    int hv, int split3_v, int split3_h,
-    int in_kind, int out_kind,
-    const void* x, int rows_in, int lanes_in,
-    void* out, int rows_out, int lanes_out,
+    const void* x, void* out, int in_kind, void* stream,
+    int hv, int split3_v, int split3_h, int out_kind,
+    int rows_in, int lanes_in, int rows_out, int lanes_out,
     const void* tvh, const void* tvl, const void* offs_v,
     int bv, int tv, int wv,
     const void* thh, const void* thl, const void* offs_l, const void* rel,
@@ -743,8 +742,7 @@ extern "C" int avir_fused_split(
     const void* k_range, int n_slices, const void* h_range,
     float out_max, float tm, int trunc_bits,
     int gamma, int alpha_lane, float in_gamma_mult, float out_gamma_mult,
-    float scale, int even,
-    void* stream) {
+    float scale, int even) {
   Args a;
   a.x = x;
   a.in_kind = in_kind;

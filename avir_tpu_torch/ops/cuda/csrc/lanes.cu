@@ -313,13 +313,11 @@ cudaError_t launch(const Args& a, int in_kind, dim3 grid, cudaStream_t s) {
 }  // namespace
 
 extern "C" int avir_lanes(
-    int split3, int in_kind,
-    const void* x, int rows, int lanes_in,
-    void* out, int lanes_out,
+    const void* x, void* out, int in_kind, int rows, void* stream,
+    int split3, int lanes_in, int lanes_out,
     const void* thh, const void* thl, const void* offs_l, const void* rel,
     const void* h_range,
-    int bh, int n_ch, int win_c, int tc,
-    void* stream) {
+    int bh, int n_ch, int win_c, int tc) {
   Args a;
   a.x = x;
   a.rows = rows;

@@ -551,10 +551,9 @@ cudaError_t launch_modes(bool s3v, bool s3h, int in_kind, const Args& a, dim3 gr
 }  // namespace
 
 extern "C" int avir_planar(
-    int interleaved, int split3_v, int split3_h,
-    int in_kind, int out_kind,
-    const void* x, int rows_in, int lanes_in, int c, int hp,
-    void* out, int out_lanes,
+    const void* x, void* out, int in_kind, int rows_in, int lanes_in, int raw_ld, void* stream,
+    int interleaved, int split3_v, int split3_h, int out_kind,
+    int c, int hp, int out_lanes,
     const void* tvh, const void* tvl, const void* offs_v,
     int bv, int tv, int wv,
     const void* thh, const void* thl, const void* offs_l, const void* rel,
@@ -562,8 +561,7 @@ extern "C" int avir_planar(
     const void* k_range, int n_slices, const void* h_range,
     float out_max, float tm, int trunc_bits,
     int gamma, int alpha_in, int alpha_out, float in_gamma_mult, float out_gamma_mult,
-    float scale, int even, int raw_ld,
-    void* stream) {
+    float scale, int even) {
   if (n_slices != (tv + kRows - 1) / kRows || win_c % kDepth != 0 ||
       static_cast<long long>(bv) * n_slices > 65535 || raw_ld % 16 != 0 ||
       (raw_ld > 0 && !interleaved)) {

@@ -36,8 +36,8 @@ recombination, so kernel and reference agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -54,6 +54,7 @@ from ..gamma import (
     gamma_q13_table,
 )
 from ..lanes import LaneBlockedOp
+from .launch import F, I, P, Entry, on_cpu
 
 ROUND_MODES = ("biased", "even")
 
@@ -120,17 +121,21 @@ class Epilogue:
     def suffix(self) -> str:
         """Launch-count key suffix of the kernel variant."""
         return ("_gamma" if self.gamma else "") + (
-            "_even" if self.round_mode == "even" else ""
+            "_even" if self.even else ""
         )
 
-    def launch_args(self) -> tuple:
-        """(gamma, alpha_lane, in_gamma_mult, out_gamma_mult, scale,
-        even) as the kernels' C entry points take them."""
-        return (
-            int(self.gamma), self.alpha_lane, f32(self.in_gamma_mult),
-            f32(self.out_gamma_mult), f32(self.scale),
-            int(self.round_mode == "even"),
-        )
+    @property
+    def even(self) -> bool:
+        """Round half to even (LANCIR) in place of the biased rounding."""
+        return self.round_mode == "even"
+
+
+# The epilogue's parameters in the kernels' C entry points, packed from
+# Epilogue's attributes of those names (launch.Entry.pack).
+EPILOGUE_PARAMS = (
+    ("gamma", I), ("alpha_lane", I), ("in_gamma_mult", F), ("out_gamma_mult", F),
+    ("scale", F), ("even", I),
+)
 
 
 def finish_reference(
@@ -255,7 +260,7 @@ class FusedInt8Operands:
     # kernel's intermediate's rows, and the largest power of two (up to 16)
     # dividing every chunk's first window lane.
     rows: int
-    slice_range: torch.Tensor  # int32 [Bv, n_slices_r, 2]
+    slice_range: torch.Tensor  # int32 [Bv, n_slices_r, 2]; k_range itself at 32 rows
     h_range: torch.Tensor      # int32 [Bh, n_ch, 2]
     kwin: int
     lane_align: int
@@ -297,6 +302,20 @@ class FusedInt8Operands:
         if self.order != "hv":
             return None
         return "runs" if self.blocks < self.n_tiles else "one_tile"
+
+    @functools.cached_property
+    def packed(self) -> tuple:
+        """The kernel's arguments fixed for these operands (LAUNCH.pack)."""
+        bv, tv, wv = self.v1.shape
+        bh, n_ch, win_c, _ = self.h1.shape
+        n_slices_r = self.slice_range.shape[1]
+        if self.order == "vh" and bv * n_slices_r > 65535:
+            raise ValueError("too many output row blocks for one launch")
+        return LAUNCH.pack(
+            self, self.epi, hv=int(self.order == "hv"), bv=bv, tv=tv, wv=wv, bh=bh,
+            n_ch=n_ch, win_c=win_c, n_slices=self.k_range.shape[1], n_slices_r=n_slices_r,
+            rec=2.0 ** self.out_exp,
+        )
 
 
 def _chunked_lane_taps(lop: LaneBlockedOp):
@@ -560,9 +579,8 @@ def at_rows(ops: FusedInt8Operands, rows: int) -> FusedInt8Operands:
         raise ValueError(f"{rows}-row slice ranges exceed {KWIN_MAX} rows")
     runs = _hv_runs(ops.order, sr, ops.h_range.cpu().numpy(), kwin, rows, ops.device,
                     ops.epi.gamma, ops.gamma_pre)
-    return dataclasses.replace(
-        ops, rows=rows, slice_range=torch.from_numpy(sr).to(ops.device), kwin=kwin, runs=runs,
-    )
+    slice_range = ops.k_range if rows == _ROWS else torch.from_numpy(sr).to(ops.device)
+    return dataclasses.replace(ops, rows=rows, slice_range=slice_range, kwin=kwin, runs=runs)
 
 
 def _lane_align(lop: LaneBlockedOp, rel) -> int:
@@ -641,6 +659,7 @@ def prepare_fused_int8(
                       table=gamma and not gamma_pre)
     sr, kwin = _slice_fields(v1, v0, rows)
     runs = _hv_runs(order, sr, hr, kwin, rows, device, gamma, gamma_pre)
+    k_range = dev(_k_ranges(v1, v0))
 
     return FusedInt8Operands(
         order=order,
@@ -666,9 +685,9 @@ def prepare_fused_int8(
         h1p=h1p,
         h0p=h0p,
         h_comp=dev(cs * 128, torch.int32),
-        k_range=dev(_k_ranges(v1, v0)),
+        k_range=k_range,
         rows=rows,
-        slice_range=dev(sr),
+        slice_range=k_range if rows == _ROWS else dev(sr),
         h_range=dev(hr),
         kwin=kwin,
         lane_align=_lane_align(lop, rel),
@@ -804,35 +823,20 @@ def _check_planes(
         )
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [
-    _I,                    # hv
-    _P, _P, _I, _I,        # x, x_lo, rows_in, lanes_in
-    _P, _I, _I,            # out, rows_out, lanes_out
-    _P, _P, _P, _P,        # v1, v0, v_comp, offs_v
-    _I, _I, _I,            # bv, tv, wv
-    _P, _P, _P, _P, _P,    # h1p, h0p, h_comp, offs_l, rel
-    _I, _I, _I, _I,        # bh, n_ch, win_c, tc
-    _P, _I,                # k_range, n_slices
-    _I, _P, _I, _P,        # rows, slice_range, n_slices_r, h_range
-    _P, _P, _I, _I,        # h1t, h0t, kwin, lane_align
-    _I, _P,                # blocks, runs (hv)
-    _I, ctypes.c_float,    # sh, rec
-    _I, _I, ctypes.c_float, ctypes.c_float,  # gamma, alpha_lane, in/out gamma mults
-    ctypes.c_float, _I,    # scale, even
-    _P,                    # stream
-]
-
-
-def _library():
-    from .build import load_library
-
-    lib = load_library("fused_int8")
-    fn = lib.avir_fused_int8
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# avir_fused_int8 (csrc/fused_int8.cu).
+LAUNCH = Entry("fused_int8", "avir_fused_int8", span="k1.launch", params=(
+    ("x", P), ("x_lo", P), ("out", P), ("rows_in", I), ("lanes_in", I), ("stream", P),
+    ("hv", I), ("rows_out", I), ("lanes_out", I),
+    ("v1", P), ("v0", P), ("v_comp", P), ("offs_v", P), ("bv", I), ("tv", I), ("wv", I),
+    ("h1p", P), ("h0p", P), ("h_comp", P), ("offs_l", P), ("rel", P),
+    ("bh", I), ("n_ch", I), ("win_c", I), ("tc", I),
+    ("k_range", P), ("n_slices", I),
+    ("rows", I), ("slice_range", P), ("n_slices_r", I), ("h_range", P),
+    ("h1t", P), ("h0t", P), ("kwin", I), ("lane_align", I),
+    ("blocks", I), ("runs", P),
+    ("sh", I), ("rec", F),
+    *EPILOGUE_PARAMS,
+))
 
 
 def apply_fused_int8(
@@ -850,18 +854,12 @@ def apply_fused_int8(
 
 
 def _apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor, x_lo) -> torch.Tensor:
-    if x.device.type == "cpu" and ops.device.type == "cpu":
+    if on_cpu(x, ops.device):
         return apply_fused_int8_reference(ops, x, x_lo)
-    if x.device.type != "cuda" or x.device != ops.device:
-        raise ValueError(
-            f"image on {x.device}, operands on {ops.device}: both must be "
-            "on one CUDA device (or both on the CPU)"
-        )
     if ops.gamma_pre:
         _check_planes(ops, x, x_lo)
         if x_lo.device != x.device or not (x.is_contiguous() and x_lo.is_contiguous()):
             raise ValueError("limb planes must be contiguous, on one device")
-        rows_in, lanes_in = x.shape
     else:
         if x_lo is not None:
             raise ValueError("x_lo is the gamma_pre operands' input")
@@ -872,44 +870,12 @@ def _apply_fused_int8(ops: FusedInt8Operands, x: torch.Tensor, x_lo) -> torch.Te
             )
         if not x.is_contiguous():
             raise ValueError("image must be contiguous")
-        rows_in, lanes_in = ops.rows_in, ops.lanes_in
-    bv, tv, wv = ops.v1.shape
-    bh, n_ch, win_c, _ = ops.h1.shape
-    n_slices = ops.k_range.shape[1]
-    n_slices_r = ops.slice_range.shape[1]
-    if ops.order == "vh" and bv * n_slices_r > 65535:
-        raise ValueError("too many output row blocks for one launch")
     out = torch.empty((ops.rows_out, ops.lanes_out), dtype=torch.uint8, device=x.device)
-    fn = _library()
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (
-            1 if ops.order == "hv" else 0,
-            x.data_ptr(), ptr(x_lo),
-            rows_in, lanes_in,
-            out.data_ptr(), ops.rows_out, ops.lanes_out,
-            ops.v1.data_ptr(), ops.v0.data_ptr(), ops.v_comp.data_ptr(),
-            ops.offs_v.data_ptr(),
-            bv, tv, wv,
-            ptr(ops.h1p), ptr(ops.h0p), ops.h_comp.data_ptr(),
-            ops.offs_l.data_ptr(), ops.rel.data_ptr(),
-            bh, n_ch, win_c, ops.tc,
-            ops.k_range.data_ptr(), n_slices,
-            ops.rows, ptr(ops.slice_range), n_slices_r, ptr(ops.h_range),
-            ptr(ops.h1t), ptr(ops.h0t), ops.kwin, ops.lane_align,
-            ops.blocks, ptr(ops.runs),
-            ops.sh, 2.0 ** ops.out_exp,
-            *ops.epi.launch_args(),
-            stream,
-        )
-        err = trace.call("k1.launch", fn, *args) if trace.on else fn(*args)
-    if err != 0:
-        raise RuntimeError(f"fused_int8 launch failed: CUDA error {err}")
-    launches[ops.launch_key] += 1
+    rows_in, lanes_in = x.shape
+    LAUNCH.launch(
+        x, launches, ops.launch_key, x.data_ptr(), None if x_lo is None else x_lo.data_ptr(),
+        out.data_ptr(), rows_in, lanes_in, packed=ops.packed,
+    )
     if ops.order == "hv":
         hv_forms[ops.hv_form] += 1
     return out

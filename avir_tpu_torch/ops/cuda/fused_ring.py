@@ -48,13 +48,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ...utils import trace
 from ..banded import BlockedBandedOp
-from ..gamma import f32
 from ..lanes import LaneBlockedOp
 from .fused_kernel import (
     _LANES,
@@ -62,6 +62,7 @@ from .fused_kernel import (
     apply_fused_int8_reference,
     prepare_fused_int8,
 )
+from .launch import F, I, P, Entry, on_cpu
 
 # Launches of the ring kernel, counted by the wrapper.
 launches = {"fused_ring_vh_gamma": 0}
@@ -154,6 +155,21 @@ class FusedRingOperands:
         """K1's epilogue, which the ring kernel shares."""
         return self.k1.epi
 
+    @functools.cached_property
+    def packed(self) -> tuple:
+        """The kernel's arguments fixed for these operands (LAUNCH.pack)."""
+        k1 = self.k1
+        _, tv, wv = k1.v1.shape
+        _, n_ch, win_c, _ = k1.h1.shape
+        parts = self.part_ptr.shape[0] - 1
+        if parts > 65535:
+            raise ValueError("too many row parts for one launch")
+        return LAUNCH.pack(
+            self, k1, k1.epi, tv=tv, wv=wv, n_ch=n_ch, win_c=win_c,
+            n_slices=k1.k_range.shape[1], n_clusters=self.chunk_of.shape[0], parts=parts,
+            rec=2.0 ** k1.out_exp,
+        )
+
 
 def _slice_rows(k1: FusedInt8Operands) -> tuple[np.ndarray, np.ndarray]:
     """Per slice vb * n_slices + sl: the absolute padded rows [lo, hi) of
@@ -205,12 +221,8 @@ def cluster_plan(k1: FusedInt8Operands):
 def resident_clusters(cluster: int, ring_rows: int, device: torch.device) -> int:
     """Clusters of ``cluster`` ring blocks the card can hold at once (0:
     it cannot launch one)."""
-    lib = _library_of("avir_fused_ring_max_clusters", [_I, _I, ctypes.POINTER(_I)])
-    count = _I(0)
-    with torch.cuda.device(device):
-        err = lib(cluster, ring_rows, ctypes.byref(count))
-    if err != 0:
-        raise RuntimeError(f"fused_ring occupancy query failed: CUDA error {err}")
+    count = ctypes.c_int(0)
+    MAX_CLUSTERS(device, cluster, ring_rows, ctypes.byref(count))
     return count.value
 
 
@@ -340,33 +352,19 @@ def apply_fused_ring_reference(
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [
-    _P, _I, _I, _I,        # x, rows_in, lanes_in, pad_top
-    _P, _I, _I, _I,        # out, rows_out, lanes_out, tc
-    _P, _P, _P,            # v1, v0, offs_v
-    _I, _I,                # tv, wv
-    _P, _P,                # h1p, h0p
-    _I, _I,                # n_ch, win_c
-    _P, _I,                # k_range, n_slices
-    _I, _I,                # cluster, n_clusters
-    _P, _P, _P,            # chunk_of, seg_of, off_of
-    _P, _P, _I,            # slices, part_ptr, parts
-    _I,                    # ring_rows
-    _I, _F,                # sh, rec
-    _I, _F, _F,            # alpha_lane, in/out gamma mults
-    _P,                    # stream
-]
-
-
-def _library_of(name: str, argtypes: list):
-    from .build import load_library
-
-    fn = getattr(load_library("fused_ring"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+# csrc/fused_ring.cu's launch and occupancy query.
+LAUNCH = Entry("fused_ring", "avir_fused_ring", span="k6.launch", params=(
+    ("x", P), ("out", P), ("stream", P),
+    ("rows_in", I), ("lanes_in", I), ("pad_top", I), ("rows_out", I), ("lanes_out", I),
+    ("tc", I), ("v1", P), ("v0", P), ("offs_v", P), ("tv", I), ("wv", I),
+    ("h1p", P), ("h0p", P), ("n_ch", I), ("win_c", I), ("k_range", P), ("n_slices", I),
+    ("cluster", I), ("n_clusters", I), ("chunk_of", P), ("seg_of", P), ("off_of", P),
+    ("slices", P), ("part_ptr", P), ("parts", I), ("ring_rows", I),
+    ("sh", I), ("rec", F), ("alpha_lane", I), ("in_gamma_mult", F), ("out_gamma_mult", F),
+))
+MAX_CLUSTERS = Entry("fused_ring", "avir_fused_ring_max_clusters", params=(
+    ("cluster", I), ("ring_rows", I), ("count", ctypes.POINTER(ctypes.c_int)),
+))
 
 
 def apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
@@ -382,13 +380,8 @@ def apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
 
 def _apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
     k1 = ops.k1
-    if x.device.type == "cpu" and ops.device.type == "cpu":
+    if on_cpu(x, ops.device):
         return apply_fused_ring_reference(ops, x)
-    if x.device.type != "cuda" or x.device != ops.device:
-        raise ValueError(
-            f"image on {x.device}, operands on {ops.device}: both must be "
-            "on one CUDA device (or both on the CPU)"
-        )
     if x.dtype != torch.uint8 or x.shape != (k1.rows_in, k1.lanes_in):
         raise ValueError(
             f"expected u8 [{k1.rows_in}, {k1.lanes_in}], got "
@@ -396,34 +389,6 @@ def _apply_fused_ring(ops: FusedRingOperands, x: torch.Tensor) -> torch.Tensor:
         )
     if not x.is_contiguous():
         raise ValueError("image must be contiguous")
-    _, tv, wv = k1.v1.shape
-    _, n_ch, win_c, _ = k1.h1.shape
-    n_clusters, parts = ops.chunk_of.shape[0], ops.part_ptr.shape[0] - 1
-    if parts > 65535:
-        raise ValueError("too many row parts for one launch")
     out = torch.empty((k1.rows_out, k1.lanes_out), dtype=torch.uint8, device=x.device)
-    epi = k1.epi
-    fn = _library_of("avir_fused_ring", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (
-            x.data_ptr(), k1.rows_in, k1.lanes_in, ops.pad_top,
-            out.data_ptr(), k1.rows_out, k1.lanes_out, k1.tc,
-            k1.v1.data_ptr(), k1.v0.data_ptr(), k1.offs_v.data_ptr(),
-            tv, wv,
-            k1.h1p.data_ptr(), k1.h0p.data_ptr(),
-            n_ch, win_c,
-            k1.k_range.data_ptr(), k1.k_range.shape[1],
-            ops.cluster, n_clusters,
-            ops.chunk_of.data_ptr(), ops.seg_of.data_ptr(), ops.off_of.data_ptr(),
-            ops.slices.data_ptr(), ops.part_ptr.data_ptr(), parts,
-            ops.ring_rows,
-            k1.sh, 2.0 ** k1.out_exp,
-            epi.alpha_lane, f32(epi.in_gamma_mult), f32(epi.out_gamma_mult),
-            stream,
-        )
-        err = trace.call("k6.launch", fn, *args) if trace.on else fn(*args)
-    if err != 0:
-        raise RuntimeError(f"fused_ring launch failed: CUDA error {err}")
-    launches[ops.launch_key] += 1
+    LAUNCH.launch(x, launches, ops.launch_key, x.data_ptr(), out.data_ptr(), packed=ops.packed)
     return out

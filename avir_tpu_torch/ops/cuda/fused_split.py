@@ -35,8 +35,8 @@ LSB), not bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -46,12 +46,14 @@ from ..gamma import _srgb_to_linear, f32
 from ..lanes import LaneBlockedOp
 from .fused_kernel import (
     _LANES,
+    EPILOGUE_PARAMS,
     Epilogue,
     _k_ranges,
     _variants,
     finish_reference,
     h_ranges,
 )
+from .launch import F, I, P, Entry, on_cpu
 
 # Launches of each kernel variant of this module, counted by the wrapper:
 # fused_split_{vh,hv}[_gamma][_even] (see Epilogue.suffix).
@@ -104,6 +106,20 @@ class FusedSplitOperands:
     @property
     def launch_key(self) -> str:
         return f"fused_split_{self.order}{self.epi.suffix}"
+
+    @functools.cached_property
+    def packed(self) -> tuple:
+        """The kernel's arguments fixed for these operands (LAUNCH.pack)."""
+        bv, tv, wv = self.tvh.shape
+        bh, n_ch, win_c, _ = self.thh.shape
+        n_slices = self.k_range.shape[1]
+        if bv * n_slices > 65535:
+            raise ValueError("too many output row blocks for one launch")
+        return LAUNCH.pack(
+            self, self.epi, hv=int(self.order == "hv"), split3_v=self.mode_v == "split3",
+            split3_h=self.mode_h == "split3", out_kind=_OUT_KINDS[self.out_dtype], bv=bv,
+            tv=tv, wv=wv, bh=bh, n_ch=n_ch, win_c=win_c, n_slices=n_slices,
+        )
 
 
 def _chunked_lane_taps(lop: LaneBlockedOp):
@@ -312,46 +328,26 @@ def apply_fused_split_reference(
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [
-    _I, _I, _I,            # hv, split3_v, split3_h
-    _I, _I,                # in_kind, out_kind
-    _P, _I, _I,            # x, rows_in, lanes_in
-    _P, _I, _I,            # out, rows_out, lanes_out
-    _P, _P, _P,            # tvh, tvl, offs_v
-    _I, _I, _I,            # bv, tv, wv
-    _P, _P, _P, _P,        # thh, thl, offs_l, rel
-    _I, _I, _I, _I,        # bh, n_ch, win_c, tc
-    _P, _I, _P,            # k_range, n_slices, h_range
-    _F, _F, _I,            # out_max, tm, trunc_bits
-    _I, _I, _F, _F,        # gamma, alpha_lane, in/out gamma mults
-    _F, _I,                # scale, even
-    _P,                    # stream
-]
-
-
-def _library():
-    from .build import load_library
-
-    lib = load_library("fused_split")
-    fn = lib.avir_fused_split
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# avir_fused_split (csrc/fused_split.cu).
+LAUNCH = Entry("fused_split", "avir_fused_split", params=(
+    ("x", P), ("out", P), ("in_kind", I), ("stream", P),
+    ("hv", I), ("split3_v", I), ("split3_h", I), ("out_kind", I),
+    ("rows_in", I), ("lanes_in", I), ("rows_out", I), ("lanes_out", I),
+    ("tvh", P), ("tvl", P), ("offs_v", P), ("bv", I), ("tv", I), ("wv", I),
+    ("thh", P), ("thl", P), ("offs_l", P), ("rel", P),
+    ("bh", I), ("n_ch", I), ("win_c", I), ("tc", I),
+    ("k_range", P), ("n_slices", I), ("h_range", P),
+    ("out_max", F), ("tm", F), ("trunc_bits", I),
+    *EPILOGUE_PARAMS,
+))
 
 
 def apply_fused_split(ops: FusedSplitOperands, x: torch.Tensor) -> torch.Tensor:
     """Fused split-bf16 resize of ``x`` [rows_in, lanes_in] (u8, u16 or
     float32) -> [rows_out, lanes_out] of ``ops.out_dtype``.  A CUDA tensor
     launches the kernel; a CPU tensor runs the plain version."""
-    if x.device.type == "cpu" and ops.device.type == "cpu":
+    if on_cpu(x, ops.device):
         return apply_fused_split_reference(ops, x)
-    if x.device.type != "cuda" or x.device != ops.device:
-        raise ValueError(
-            f"image on {x.device}, operands on {ops.device}: both must be "
-            "on one CUDA device (or both on the CPU)"
-        )
     if x.dtype not in _IN_KINDS or x.shape != (ops.rows_in, ops.lanes_in):
         raise ValueError(
             f"expected u8/u16/f32 [{ops.rows_in}, {ops.lanes_in}], got "
@@ -359,32 +355,9 @@ def apply_fused_split(ops: FusedSplitOperands, x: torch.Tensor) -> torch.Tensor:
         )
     if not x.is_contiguous():
         raise ValueError("image must be contiguous")
-    bv, tv, wv = ops.tvh.shape
-    bh, n_ch, win_c, _ = ops.thh.shape
-    n_slices = ops.k_range.shape[1]
-    if bv * n_slices > 65535:
-        raise ValueError("too many output row blocks for one launch")
     out = torch.empty((ops.rows_out, ops.lanes_out), dtype=ops.out_dtype, device=x.device)
-    fn = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            1 if ops.order == "hv" else 0,
-            int(ops.mode_v == "split3"), int(ops.mode_h == "split3"),
-            _IN_KINDS[x.dtype], _OUT_KINDS[ops.out_dtype],
-            x.data_ptr(), ops.rows_in, ops.lanes_in,
-            out.data_ptr(), ops.rows_out, ops.lanes_out,
-            ops.tvh.data_ptr(), ops.tvl.data_ptr(), ops.offs_v.data_ptr(),
-            bv, tv, wv,
-            ops.thh.data_ptr(), ops.thl.data_ptr(),
-            ops.offs_l.data_ptr(), ops.rel.data_ptr(),
-            bh, n_ch, win_c, ops.tc,
-            ops.k_range.data_ptr(), n_slices, ops.h_range.data_ptr(),
-            ops.out_max, ops.tm, ops.trunc_bits,
-            *ops.epi.launch_args(),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_split launch failed: CUDA error {err}")
-    launches[ops.launch_key] += 1
+    LAUNCH.launch(
+        x, launches, ops.launch_key, x.data_ptr(), out.data_ptr(), _IN_KINDS[x.dtype],
+        packed=ops.packed,
+    )
     return out

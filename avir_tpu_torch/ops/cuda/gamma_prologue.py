@@ -26,11 +26,10 @@ bit-equal (the same float32 steps and fused multiply-adds).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..gamma import _int8_limbs, _srgb_to_linear13_u8poly, f32
+from .launch import F, I, P, Entry
 
 # Launches of this kernel, counted by the wrapper.
 launches = {"gamma_prologue": 0}
@@ -71,24 +70,11 @@ def apply_gamma_prologue_reference(
     return hi.to(torch.int8), lo.to(torch.int8)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [
-    _P, _I, _I,          # x, rows, lanes
-    _P, _P, _I, _I,      # hi, lo, rows_p, lanes_p
-    _I, ctypes.c_float,  # alpha_lane, in_gamma_mult
-    _I,                  # vec
-    _P,                  # stream
-]
-
-
-def _library():
-    from .build import load_library
-
-    fn = load_library("gamma_prologue").avir_gamma_prologue
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# avir_gamma_prologue (csrc/gamma_prologue.cu).
+LAUNCH = Entry("gamma_prologue", "avir_gamma_prologue", params=(
+    ("x", P), ("rows", I), ("lanes", I), ("hi", P), ("lo", P), ("rows_p", I), ("lanes_p", I),
+    ("alpha_lane", I), ("in_gamma_mult", F), ("vec", I), ("stream", P),
+))
 
 
 def apply_gamma_prologue(
@@ -113,15 +99,9 @@ def apply_gamma_prologue(
     rows_p, lanes_p = plane_shape(rows, lanes, need_rows, need_lanes)
     hi = torch.empty((rows_p, lanes_p), dtype=torch.int8, device=x.device)
     lo = torch.empty_like(hi)
-    fn = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), rows, lanes, hi.data_ptr(), lo.data_ptr(),
-            rows_p, lanes_p, alpha_lane(c, alpha_index), f32(in_gamma_mult),
-            int(load_path(x) == "vector"), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"gamma_prologue launch failed: CUDA error {err}")
-    launches["gamma_prologue"] += 1
+    LAUNCH.launch(
+        x, launches, "gamma_prologue", x.data_ptr(), rows, lanes, hi.data_ptr(), lo.data_ptr(),
+        rows_p, lanes_p, alpha_lane(c, alpha_index), f32(in_gamma_mult),
+        int(load_path(x) == "vector"),
+    )
     return hi, lo

@@ -27,8 +27,8 @@ so they agree to float32 rounding, not bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from ..banded import assert_full_f32
 from ..lanes import LaneBlockedOp
 from .fused_kernel import h_ranges
 from .fused_split import _chunked_lane_taps, to_float32
+from .launch import I, P, Entry, on_cpu
 
 # Launches of each mode of this kernel, counted by the wrapper.
 launches = {f"lanes_{m}": 0 for m in ("split2", "split3")}
@@ -72,6 +73,16 @@ class LanesOperands:
     @property
     def n_ch(self) -> int:
         return self.thh.shape[1]
+
+    @functools.cached_property
+    def packed(self) -> tuple:
+        """The kernel's arguments fixed for these operands (LAUNCH.pack)."""
+        lop = self.lop
+        bh, n_ch, win_c, _ = self.thh.shape
+        return LAUNCH.pack(
+            self, split3=self.mode == "split3", lanes_in=lop.n_in * lop.c,
+            lanes_out=lop.n_out * lop.c, bh=bh, n_ch=n_ch, win_c=win_c, tc=lop.tile * lop.c,
+        )
 
 
 def prepare_lanes(
@@ -120,25 +131,13 @@ def apply_lanes_reference(ops: LanesOperands, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs, dim=1)[:, : lop.n_out * lop.c]
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [
-    _I, _I,                  # split3, in_kind
-    _P, _I, _I,              # x, rows, lanes_in
-    _P, _I,                  # out, lanes_out
-    _P, _P, _P, _P, _P,      # thh, thl, offs_l, rel, h_range
-    _I, _I, _I, _I,          # bh, n_ch, win_c, tc
-    _P,                      # stream
-]
-
-
-def _library():
-    from .build import load_library
-
-    fn = load_library("lanes").avir_lanes
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# avir_lanes (csrc/lanes.cu).
+LAUNCH = Entry("lanes", "avir_lanes", params=(
+    ("x", P), ("out", P), ("in_kind", I), ("rows", I), ("stream", P),
+    ("split3", I), ("lanes_in", I), ("lanes_out", I),
+    ("thh", P), ("thl", P), ("offs_l", P), ("rel", P), ("h_range", P),
+    ("bh", I), ("n_ch", I), ("win_c", I), ("tc", I),
+))
 
 
 def check_input(ops: LanesOperands, x: torch.Tensor) -> None:
@@ -160,32 +159,14 @@ def apply_lanes(ops: LanesOperands, x: torch.Tensor) -> torch.Tensor:
     """Lane pass of ``x`` [rows, n_in*C] (u8, u16 or float32) -> float32
     [rows, n_out*C].  A CUDA tensor launches the kernel; a CPU tensor
     runs the plain version."""
-    if x.device.type == "cpu" and ops.device.type == "cpu":
+    if on_cpu(x, ops.device):
         return apply_lanes_reference(ops, x)
-    if x.device.type != "cuda" or x.device != ops.device:
-        raise ValueError(
-            f"image on {x.device}, operands on {ops.device}: both must be "
-            "on one CUDA device (or both on the CPU)"
-        )
     check_input(ops, x)
     lop = ops.lop
     rows = x.shape[0]
-    bh, n_ch, win_c, _ = ops.thh.shape
-    lanes_out = lop.n_out * lop.c
-    out = torch.empty((rows, lanes_out), dtype=torch.float32, device=x.device)
-    fn = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            int(ops.mode == "split3"), _IN_KINDS[x.dtype],
-            x.data_ptr(), rows, x.shape[1],
-            out.data_ptr(), lanes_out,
-            ops.thh.data_ptr(), ops.thl.data_ptr(), ops.offs_l.data_ptr(),
-            ops.rel.data_ptr(), ops.h_range.data_ptr(),
-            bh, n_ch, win_c, lop.tile * lop.c,
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"lanes launch failed: CUDA error {err}")
-    launches[ops.launch_key] += 1
+    out = torch.empty((rows, lop.n_out * lop.c), dtype=torch.float32, device=x.device)
+    LAUNCH.launch(
+        x, launches, ops.launch_key, x.data_ptr(), out.data_ptr(), _IN_KINDS[x.dtype], rows,
+        packed=ops.packed,
+    )
     return out

@@ -34,8 +34,8 @@ of fused_split.py), not bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -52,6 +52,7 @@ from .fused_split import (
     to_float32,
     vh_passes,
 )
+from .launch import F, I, P, Entry, on_cpu
 
 # Launches of the kernel, counted by the wrapper.
 launches = {"planar": 0}
@@ -146,6 +147,26 @@ class PlanarOperands:
     @property
     def launch_key(self) -> str:
         return "planar2" if self.interleaved else "planar"
+
+    @functools.cached_property
+    def packed(self) -> tuple:
+        """The kernel's arguments fixed for these operands (LAUNCH.pack)."""
+        bv, tv, wv = self.tvh.shape
+        bh, n_ch, win_c, _ = self.thh.shape
+        n_slices = self.k_range.shape[1]
+        if bv * n_slices > 65535:
+            raise ValueError("too many output row blocks for one launch")
+        # The channel that skips gamma-in: K7's alpha plane; K8's only under
+        # the C = 4 interleaved lane mask (alpha 0 or 3), as the reference.
+        alpha_in = self.alpha if (
+            not self.interleaved or (self.c == 4 and self.alpha in (0, 3))
+        ) else -1
+        return LAUNCH.pack(
+            self, self.epi, split3_v=self.mode_v == "split3", split3_h=self.mode_h == "split3",
+            out_kind=_OUT_KINDS[self.out_dtype], out_lanes=self.out_shape[1], bv=bv, tv=tv,
+            wv=wv, bh=bh, n_ch=n_ch, win_c=win_c, n_slices=n_slices, alpha_in=alpha_in,
+            alpha_out=self.alpha,
+        )
 
 
 def prepare_planar(
@@ -288,82 +309,34 @@ def raw_row_bytes(ops: PlanarOperands, x: torch.Tensor) -> int:
     return ld
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [
-    _I, _I, _I,            # interleaved, split3_v, split3_h
-    _I, _I,                # in_kind, out_kind
-    _P, _I, _I, _I, _I,    # x, rows_in, lanes_in, c, hp
-    _P, _I,                # out, out_lanes
-    _P, _P, _P,            # tvh, tvl, offs_v
-    _I, _I, _I,            # bv, tv, wv
-    _P, _P, _P, _P,        # thh, thl, offs_l, rel
-    _I, _I, _I, _I,        # bh, n_ch, win_c, th
-    _P, _I, _P,            # k_range, n_slices, h_range
-    _F, _F, _I,            # out_max, tm, trunc_bits
-    _I, _I, _I, _F, _F,    # gamma, alpha_in, alpha_out, in/out gamma mults
-    _F, _I, _I,            # scale, even, raw_ld
-    _P,                    # stream
-]
-
-
-def _library():
-    from .build import load_library
-
-    lib = load_library("planar")
-    fn = lib.avir_planar
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# avir_planar (csrc/planar.cu), K7's and K8's launch.
+LAUNCH = Entry("planar", "avir_planar", params=(
+    ("x", P), ("out", P), ("in_kind", I), ("rows_in", I), ("lanes_in", I), ("raw_ld", I),
+    ("stream", P),
+    ("interleaved", I), ("split3_v", I), ("split3_h", I), ("out_kind", I),
+    ("c", I), ("hp", I), ("out_lanes", I),
+    ("tvh", P), ("tvl", P), ("offs_v", P), ("bv", I), ("tv", I), ("wv", I),
+    ("thh", P), ("thl", P), ("offs_l", P), ("rel", P),
+    ("bh", I), ("n_ch", I), ("win_c", I), ("th", I),
+    ("k_range", P), ("n_slices", I), ("h_range", P),
+    ("out_max", F), ("tm", F), ("trunc_bits", I),
+    ("gamma", I), ("alpha_in", I), ("alpha_out", I), ("in_gamma_mult", F),
+    ("out_gamma_mult", F), ("scale", F), ("even", I),
+))
 
 
 def launch_planar(ops: PlanarOperands, x: torch.Tensor, counts: dict) -> torch.Tensor:
     """Launch csrc/planar.cu on the CUDA tensor ``x`` in ``ops``' layout;
     ``counts[ops.launch_key]`` counts the launch."""
-    if x.device.type != "cuda" or x.device != ops.device:
-        raise ValueError(
-            f"image on {x.device}, operands on {ops.device}: both must be "
-            "on one CUDA device (or both on the CPU)"
-        )
     if x.dtype not in _IN_KINDS or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"expected a contiguous 2-D u8/u16/f32 image, got {x.dtype} {tuple(x.shape)}")
     if not ops.interleaved and x.shape[0] < ops.c * ops.hp:
         raise ValueError(f"planar input needs >= {ops.c * ops.hp} rows, got {x.shape[0]}")
-    bv, tv, wv = ops.tvh.shape
-    bh, n_ch, win_c, _ = ops.thh.shape
-    n_slices = ops.k_range.shape[1]
-    if bv * n_slices > 65535:
-        raise ValueError("too many output row blocks for one launch")
     out = torch.empty(ops.out_shape, dtype=ops.out_dtype, device=x.device)
-    # The channel that skips gamma-in: K7's alpha plane; K8's only under
-    # the C = 4 interleaved lane mask (alpha 0 or 3), as the reference.
-    alpha_in = ops.alpha if (
-        not ops.interleaved or (ops.c == 4 and ops.alpha in (0, 3))
-    ) else -1
-    epi = ops.epi
-    fn = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            int(ops.interleaved), int(ops.mode_v == "split3"), int(ops.mode_h == "split3"),
-            _IN_KINDS[x.dtype], _OUT_KINDS[ops.out_dtype],
-            x.data_ptr(), x.shape[0], x.shape[1], ops.c, ops.hp,
-            out.data_ptr(), ops.out_shape[1],
-            ops.tvh.data_ptr(), ops.tvl.data_ptr(), ops.offs_v.data_ptr(),
-            bv, tv, wv,
-            ops.thh.data_ptr(), ops.thl.data_ptr(),
-            ops.offs_l.data_ptr(), ops.rel.data_ptr(),
-            bh, n_ch, win_c, ops.th,
-            ops.k_range.data_ptr(), n_slices, ops.h_range.data_ptr(),
-            ops.out_max, ops.tm, ops.trunc_bits,
-            int(epi.gamma), alpha_in, ops.alpha,
-            f32(epi.in_gamma_mult), f32(epi.out_gamma_mult),
-            f32(epi.scale), int(epi.round_mode == "even"), raw_row_bytes(ops, x),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{ops.launch_key} launch failed: CUDA error {err}")
-    counts[ops.launch_key] += 1
+    LAUNCH.launch(
+        x, counts, ops.launch_key, x.data_ptr(), out.data_ptr(), _IN_KINDS[x.dtype], *x.shape,
+        raw_row_bytes(ops, x), packed=ops.packed,
+    )
     return out
 
 
@@ -373,6 +346,6 @@ def apply_planar(ops: PlanarOperands, xp: torch.Tensor) -> torch.Tensor:
     tensor runs the plain version."""
     if ops.interleaved:
         raise ValueError("interleaved operands are K8's (ops/cuda/planar2.py)")
-    if xp.device.type == "cpu" and ops.device.type == "cpu":
+    if on_cpu(xp, ops.device):
         return apply_planar_reference(ops, xp)
     return launch_planar(ops, xp, launches)

@@ -40,6 +40,7 @@ from ..banded import BlockedBandedOp
 from ..gamma import _srgb_to_linear, f32
 from ..lanes import LaneBlockedOp
 from .fused_split import to_float32
+from .launch import on_cpu
 from .planar import PlanarOperands, launch_planar, planes_reference, prepare_planar
 
 # Launches of the kernel, counted by the wrapper.
@@ -112,6 +113,6 @@ def apply_planar2(ops: PlanarOperands, x: torch.Tensor) -> torch.Tensor:
     CPU tensor runs the plain version."""
     if not ops.interleaved:
         raise ValueError("planar operands are K7's (ops/cuda/planar.py)")
-    if x.device.type == "cpu" and ops.device.type == "cpu":
+    if on_cpu(x, ops.device):
         return apply_planar2_reference(ops, x)
     return launch_planar(ops, x, launches)

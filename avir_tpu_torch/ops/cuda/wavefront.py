@@ -38,8 +38,6 @@ same order, so they agree bit for bit at any grouping.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -51,6 +49,7 @@ from ..dither import (
     round_biased,
     trunc_mul,
 )
+from .launch import F, I, P, Entry
 
 # Launches of the kernel of this module (one per image), counted by the
 # wrapper.
@@ -189,27 +188,12 @@ def errdiff_wavefront_reference(
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [
-    _P, _P, _I,            # img, out, out_kind
-    _I, _I, _I, _I,        # h, w, c, rows per group
-    _P, _P,                # noise words [groups, W*C], ticket
-    _F, _F, _F,            # tm, tmi, out_max
-    _F, _F, _F, _F,        # weights: cur right, next left, center, right
-    _I,                    # the sequential scan's sum order
-    _P,                    # stream
-]
-
-
-def _library():
-    from .build import load_library
-
-    lib = load_library("wavefront")
-    fn = lib.avir_wavefront
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+# avir_wavefront (csrc/wavefront.cu).
+LAUNCH = Entry("wavefront", "avir_wavefront", params=(
+    ("img", P), ("out", P), ("out_kind", I), ("h", I), ("w", I), ("c", I), ("rows", I),
+    ("noise", P), ("ticket", P), ("tm", F), ("tmi", F), ("out_max", F),
+    ("wr", F), ("wl", F), ("wc", F), ("wn", F), ("scan", I), ("stream", P),
+))
 
 
 def errdiff_wavefront(
@@ -257,16 +241,9 @@ def errdiff_wavefront(
         float(np.float32(v))
         for v in (W_CUR_RIGHT, W_NEXT_LEFT, W_NEXT_CENTER, W_NEXT_RIGHT)
     ]
-    fn = _library()
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(
-            img.data_ptr(), out.data_ptr(), _OUT_KINDS[out_dtype],
-            h, w, c, rb, noise.data_ptr(), ticket.data_ptr(),
-            tm, tmi, float(out_max), *weights, int(scan_order),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"wavefront launch failed: CUDA error {err}")
-    launches["wavefront"] += 1
+    LAUNCH.launch(
+        img, launches, "wavefront", img.data_ptr(), out.data_ptr(), _OUT_KINDS[out_dtype],
+        h, w, c, rb, noise.data_ptr(), ticket.data_ptr(), tm, tmi, float(out_max), *weights,
+        int(scan_order),
+    )
     return out

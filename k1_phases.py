@@ -27,8 +27,9 @@ issued during the window before's last sub-tile).
 ``--stages N`` builds the vh ring with N stages for the u8 kernel (its
 shared memory grows with N).
 
-The copy is called through DIR's own wrapper (apply_fused_int8 with the
-copy's library in place of the shipped one), checked bit-equal to the
+The copy is called through DIR's own wrapper (apply_fused_int8 inside
+fused_kernel.LAUNCH.through(copy), so DIR must have that launch entry),
+checked bit-equal to the
 shipped kernel, and both are timed with CUDA events, L2 flushed before
 each launch.  vh: at the benchmark album's 5184x3456 -> 1920x1280 and at
 7680x4320 -> 1920x1080, u8 RGB, AVIR's default parameters (the u8
@@ -288,10 +289,7 @@ def main() -> int:
     from avir_tpu_torch.ops.cuda import fused_kernel as fk
 
     lib, (loop, phases, waits) = _build(root, here, args.stages, args.order)
-    timed = lib.avir_fused_int8
-    timed.argtypes, timed.restype = fk._ARGTYPES, ctypes.c_int
     lib.k1_phases_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    shipped = fk._library
     dev = torch.device("cuda")
     gen = np.random.default_rng(SEED)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -316,11 +314,8 @@ def main() -> int:
             return fk.apply_fused_int8(ops, x)
 
         def run_timed():
-            fk._library = lambda: timed
-            try:
+            with fk.LAUNCH.through(lib):
                 return fk.apply_fused_int8(ops, x)
-            finally:
-                fk._library = shipped
 
         want = run_shipped()
         got = run_timed()

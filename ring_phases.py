@@ -9,7 +9,8 @@ build/ring_phases/ with two changes: thread 0 of every block reads clock64
 at the kernel's phase boundaries and writes its per-phase sums to a
 device array at the end (each block its own slots), and the launch can ask
 for extra dynamic shared memory (so that one block fits an SM instead of
-two).  The copy is called with the shipped wrapper's arguments, checked
+two).  The copy is called through the shipped wrapper
+(apply_fused_ring inside fused_ring.LAUNCH.through(copy)), checked
 bit-equal to the shipped kernel, and timed with CUDA events (L2 flushed)
 at 8K -> 1080p and 4K -> 720p u8 RGB gamma.  Prints one JSON line per
 shape: the mean cycles a slice spends in each phase, for the blocks that
@@ -106,8 +107,6 @@ def main() -> int:
     from avir_tpu_torch.plan.plan import build_resize_plan
 
     lib = _build(root)
-    fn = lib.avir_fused_ring
-    fn.argtypes, fn.restype = fr._ARGTYPES, ctypes.c_int
     lib.ring_phases_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.ring_phases_extra_smem.argtypes = [ctypes.c_int]
     dev = torch.device("cuda")
@@ -119,30 +118,15 @@ def main() -> int:
     for sw, sh, nw, nh in SHAPES:
         plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8, use_srgb_gamma=True)
         ops = make_avir_executor(plan, device=dev).ops
-        k1 = ops.k1
         x = torch.from_numpy(gen.integers(0, 256, (sh, sw * 3), dtype=np.uint8)).to(dev)
-        out = torch.empty((k1.rows_out, k1.lanes_out), dtype=torch.uint8, device=dev)
-        _, tv, wv = k1.v1.shape
-        _, n_ch, win_c, _ = k1.h1.shape
         n_cl, parts = ops.chunk_of.shape[0], ops.part_ptr.shape[0] - 1
 
         def call():
-            err = fn(
-                x.data_ptr(), k1.rows_in, k1.lanes_in, ops.pad_top,
-                out.data_ptr(), k1.rows_out, k1.lanes_out, k1.tc,
-                k1.v1.data_ptr(), k1.v0.data_ptr(), k1.offs_v.data_ptr(), tv, wv,
-                k1.h1p.data_ptr(), k1.h0p.data_ptr(), n_ch, win_c,
-                k1.k_range.data_ptr(), k1.k_range.shape[1], ops.cluster, n_cl,
-                ops.chunk_of.data_ptr(), ops.seg_of.data_ptr(), ops.off_of.data_ptr(),
-                ops.slices.data_ptr(), ops.part_ptr.data_ptr(), parts, ops.ring_rows,
-                k1.sh, 2.0 ** k1.out_exp, k1.epi.alpha_lane, k1.epi.in_gamma_mult,
-                k1.epi.out_gamma_mult, torch.cuda.current_stream().cuda_stream,
-            )
-            if err:
-                raise RuntimeError(f"timed ring kernel failed: CUDA error {err}")
+            with fr.LAUNCH.through(lib):
+                return fr.apply_fused_ring(ops, x)
 
         want = fr.apply_fused_ring(ops, x)
-        call()
+        out = call()
         torch.cuda.synchronize()
         bit_equal = bool(torch.equal(out, want))
         blocks = n_cl * ops.cluster * parts

@@ -12,7 +12,8 @@ with ``kHvRows`` set to each height (one nvcc each, all started
 together), prints ptxas's registers and spills of their hv kernels, and
 at chip_smoke.py's KT_SPLIT_HV_CELLS (1080p_to_4k_errdiff, the route its
 resize takes; 1080p_to_4k_u16_gamma_rgba, a direct hv call) runs each
-copy through the shipped wrapper on operands whose k_range is built at
+copy through the shipped wrapper (apply_fused_split inside
+fused_split.LAUNCH.through(copy)) on operands whose k_range is built at
 its height.  Each is held to the plain version within the split gate
 and timed with CUDA events (L2 flushed) in TURNS turns that alternate
 the heights.  Prints one JSON line per cell: per height, the ms of each
@@ -68,13 +69,6 @@ def _build() -> dict[int, ctypes.CDLL]:
     return libs
 
 
-def _entry(lib: ctypes.CDLL):
-    fn = lib.avir_fused_split
-    fn.argtypes = fs._ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _at(ops, rows: int):
     """``ops`` with its k_range at ``rows``-row slices."""
     kr = _k_ranges((ops.tvh != 0).cpu().numpy(), (ops.tvl != 0).cpu().numpy(), rows)
@@ -89,43 +83,39 @@ def main() -> int:
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    fns = {rows: _entry(lib) for rows, lib in _build().items()}
+    libs = _build()
     ptxas = {rows: cs._ptxas(f"r{rows}", "fused_split_hv") for rows in HEIGHTS}
     dev = torch.device("cuda")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     gen = np.random.default_rng(cs.SEED)
-    shipped = fs._library
     ok = True
-    try:
-        for cell in cs.KT_SPLIT_HV_CELLS:
-            plan, hv, _, x, in_b, out_b = cs._split_hv_setup(cell, gen, dev)
-            recs, tiled = {}, {}
-            for rows in HEIGHTS:
-                ops = _at(hv, rows)
-                fs._library = lambda rows=rows: fns[rows]
+    for cell in cs.KT_SPLIT_HV_CELLS:
+        plan, hv, _, x, in_b, out_b = cs._split_hv_setup(cell, gen, dev)
+        recs, tiled = {}, {}
+        for rows in HEIGHTS:
+            ops = _at(hv, rows)
+            with fs.LAUNCH.through(libs[rows]):
                 got = fs.apply_fused_split(ops, x)
-                want = fs.apply_fused_split_reference(ops, x)
-                torch.cuda.synchronize()
-                err = float((got.double() - want.double()).abs().max())
-                tol = cs._split_gate(ops, want, float(x.double().abs().max()))
-                ok = ok and err <= tol
-                tiled[rows] = ops
-                recs[rows] = {"ms": [], "max_abs_err_vs_plain": err, "tol": tol,
-                              "blocks": int(ops.k_range[..., 0].numel() * ops.h_range[..., 0].numel()),
-                              **cs._split_counts(ops)}
-            for _ in range(TURNS):
-                for rows, ops in tiled.items():
-                    fs._library = lambda rows=rows: fns[rows]
+            want = fs.apply_fused_split_reference(ops, x)
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            tol = cs._split_gate(ops, want, float(x.double().abs().max()))
+            ok = ok and err <= tol
+            tiled[rows] = ops
+            recs[rows] = {"ms": [], "max_abs_err_vs_plain": err, "tol": tol,
+                          "blocks": int(ops.k_range[..., 0].numel() * ops.h_range[..., 0].numel()),
+                          **cs._split_counts(ops)}
+        for _ in range(TURNS):
+            for rows, ops in tiled.items():
+                with fs.LAUNCH.through(libs[rows]):
                     recs[rows]["ms"].append(
                         cs._time_ms(lambda: fs.apply_fused_split(ops, x), 20, flush))
-            print(json.dumps({
-                "cell": cell[0], "kernel": hv.launch_key, "mode_v": hv.mode_v,
-                "mode_h": hv.mode_h, "shipped_rows": fs.HV_ROWS,
-                "bound_ms": cs._split_bound(plan, cell[5], hv, in_b, out_b)[0],
-                "heights": recs, "card": card,
-            }))
-    finally:
-        fs._library = shipped
+        print(json.dumps({
+            "cell": cell[0], "kernel": hv.launch_key, "mode_v": hv.mode_v,
+            "mode_h": hv.mode_h, "shipped_rows": fs.HV_ROWS,
+            "bound_ms": cs._split_bound(plan, cell[5], hv, in_b, out_b)[0],
+            "heights": recs, "card": card,
+        }))
     print(json.dumps({"ptxas": ptxas}))
     return 0 if ok else 1
 

@@ -4,7 +4,9 @@ own blocked operators and on the JAX package's plans carried across by
 ``avir_tpu_torch.convert``.  The kernel itself is held against the plain
 version on the card only (tests/test_torch_cuda.py)."""
 
+import ctypes
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -18,13 +20,33 @@ from avir_tpu.ops.pallas.fused_kernel import apply_fused_pallas
 from avir_tpu.plan.plan import build_resize_plan as jax_build_resize_plan
 
 from torch_cases import FUSED_CASES as CASES
-from torch_cases import HV_RUN_CASES, INT8_EPI_CASES, VH_RING_CASES, epi_kwargs
+from torch_cases import (
+    BANDED_CASES,
+    HV_RUN_CASES,
+    IN_BYTES,
+    INT8_EPI_CASES,
+    LANES_CASES,
+    NP_TYPES,
+    PLANAR_CASES,
+    RING_CASES,
+    SPLIT_CASES,
+    VH_RING_CASES,
+    epi_kwargs,
+)
 
 from avir_tpu_torch.convert import resize_plan_from_numpy
 from avir_tpu_torch.ops.banded import block_banded
+from avir_tpu_torch.ops.cuda import banded_kernel as bk
+from avir_tpu_torch.ops.cuda import build
 from avir_tpu_torch.ops.cuda import fused_kernel as fk
 from avir_tpu_torch.ops.cuda import fused_ring as fr
-from avir_tpu_torch.ops.lanes import lane_block_banded
+from avir_tpu_torch.ops.cuda import fused_split as fs
+from avir_tpu_torch.ops.cuda import gamma_prologue as gp
+from avir_tpu_torch.ops.cuda import lanes_kernel as lk
+from avir_tpu_torch.ops.cuda import planar as pk
+from avir_tpu_torch.ops.cuda import planar2 as p2
+from avir_tpu_torch.ops.cuda import wavefront as wf
+from avir_tpu_torch.ops.lanes import lane_block_banded, narrow_lop
 from avir_tpu_torch.plan.plan import build_resize_plan
 
 torch.set_num_threads(1)
@@ -201,7 +223,8 @@ def test_slice_range_covers_every_nonzero_tap(name, rows):
     32-aligned; the 32-row k_range (which K6 and the hv kernel's second
     pass read) is the same at every R, with gamma (the in-kernel route) as
     without.  The vh kernel takes 32-row slices only (at_rows refuses the
-    others), so there the ranges are _k_ranges'."""
+    others), so there the ranges are _k_ranges': its slice_range is the
+    k_range tensor itself, one array on the device."""
     ops = _ops(name)
     v1, v0 = ops.v1.numpy(), ops.v0.numpy()
     nz = (v1 != 0) | (v0 != 0)  # [Bv, Tv, Wv]
@@ -223,6 +246,10 @@ def test_slice_range_covers_every_nonzero_tap(name, rows):
     assert (sr % 32 == 0).all()
     np.testing.assert_array_equal(ops.k_range.numpy(), fk._k_ranges(v1, v0, 32))
     assert ops.k_range.shape[1] == -(-tv // 32)
+    if ops.order == "vh":
+        assert ops.slice_range is ops.k_range
+    elif rows == 32:
+        np.testing.assert_array_equal(ops.slice_range.numpy(), ops.k_range.numpy())
 
 
 def test_k_range_of_the_gamma_kernels_and_k6_unchanged():
@@ -742,3 +769,116 @@ def test_hv_runs_cover_every_tile_once_in_balance(h100, name):
     cycles = _hv_tile_cycles(ops)
     shares = np.add.reduceat(cycles, runs[:-1])
     assert shares.max() <= shares.mean() + cycles.max()
+
+
+_TORCH = {"u8": torch.uint8, "u16": torch.uint16, "f32": torch.float32}
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "float": ctypes.c_float, "int*": ctypes.POINTER(ctypes.c_int)}
+
+
+def _c_params(entry):
+    """[(name, ctypes type)] of ``entry.symbol``'s parameters as its source
+    in csrc/ defines them."""
+    src = (build.CSRC / build.SOURCES[entry.library]).read_text()
+    params = re.search(rf'extern "C" int {entry.symbol}\((.*?)\)\s*\{{', src, re.S).group(1)
+    return [(name, _C_TYPES[ty]) for ty, name in (p.strip().rsplit(None, 1) for p in params.split(","))]
+
+
+def _split_ops(name):
+    sw, sh, nw, nh, c, tile, order, mv, mh, tin, tout, tb = SPLIT_CASES[name]
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout])
+    ib = IN_BYTES[tin]
+    return fs.prepare_fused_split(
+        block_banded(plan.v.op, in_bytes=ib), lane_block_banded(plan.h.op, c, tile=tile, in_bytes=ib),
+        order, mv, mh, "cpu", out_dtype=_TORCH[tout], out_max=255.0 if tout == "u8" else 65535.0,
+        trunc_bits=tb,
+    )
+
+
+def _planar_ops(name, interleaved):
+    sw, sh, nw, nh, c, tin, tout, mv, mh, tb, g, alpha = PLANAR_CASES[name]
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], NP_TYPES[tout],
+                             use_srgb_gamma=g, alpha_index=alpha)
+    return pk.prepare_planar(
+        block_banded(plan.v.op), lane_block_banded(plan.h.op, 1), c, "cpu", mode_v=mv, mode_h=mh,
+        out_dtype=_TORCH[tout], out_max=255.0 if tout == "u8" else 65535.0, trunc_bits=tb,
+        gamma=g, alpha_plane=alpha, in_gamma_mult=plan.in_gamma_mult,
+        out_gamma_mult=plan.out_gamma_mult, interleaved=interleaved,
+    )
+
+
+def _ring_ops(name):
+    sw, sh, nw, nh, c, alpha, tile, uniform = RING_CASES[name]
+    plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True,
+                             alpha_index=alpha)
+    return fr.prepare_fused_ring(
+        block_banded(plan.v.op, tile=tile, uniform=uniform), lane_block_banded(plan.h.op, c), "cpu",
+        alpha_index=alpha, in_gamma_mult=plan.in_gamma_mult, out_gamma_mult=plan.out_gamma_mult,
+    )
+
+
+def _pass_ops(name, cases, lanes):
+    sw, sh, nw, nh, c, tin, mode = cases[name]
+    plan = build_resize_plan(sw, sh, nw, nh, c, NP_TYPES[tin], np.float32)
+    ib = IN_BYTES[tin]
+    if lanes:
+        lop = narrow_lop(plan.h.op, lane_block_banded(plan.h.op, c, in_bytes=ib), c, in_bytes=ib)
+        return lk.prepare_lanes(lop, mode, "cpu")
+    return bk.prepare_banded(block_banded(plan.v.op, in_bytes=ib), mode, "cpu")
+
+
+# Each C entry point: (its Entry, operands prepared on the CPU at a small
+# case of the kernel, or None where it has no operand set).
+_ENTRIES = {
+    "fused_int8_vh": lambda: (fk.LAUNCH, _ops("down_c3")),
+    "fused_int8_hv": lambda: (fk.LAUNCH, _ops("edge_up128_c3")),
+    "fused_int8_hv_gamma": lambda: (fk.LAUNCH, _ops("gamma_up_c4a")),
+    "fused_ring": lambda: (fr.LAUNCH, _ring_ops("uniform_2x_c4a")),
+    "fused_ring_max_clusters": lambda: (fr.MAX_CLUSTERS, None),
+    "fused_split_vh": lambda: (fs.LAUNCH, _split_ops("down_c4_u16_u16_tb4")),
+    "fused_split_hv": lambda: (fs.LAUNCH, _split_ops("up_c4_u16_u8")),
+    "planar": lambda: (pk.LAUNCH, _planar_ops("up_c4_u16_gamma_a3", False)),
+    "planar2": lambda: (pk.LAUNCH, _planar_ops("down_c4_u8_gamma_a0_tb2", True)),
+    "banded": lambda: (bk.LAUNCH, _pass_ops("up_c3_u16_split3", BANDED_CASES, False)),
+    "lanes": lambda: (lk.LAUNCH, _pass_ops("up_c4_u16_split3", LANES_CASES, True)),
+    "gamma_prologue": lambda: (gp.LAUNCH, None),
+    "wavefront": lambda: (wf.LAUNCH, None),
+}
+
+
+def _held_ptrs(ops) -> set:
+    """data_ptr() of every tensor the operands hold (K6's: and its K1
+    operands')."""
+    held = [getattr(ops, f.name) for f in dataclasses.fields(ops)]
+    ptrs = {t.data_ptr() for t in held if isinstance(t, torch.Tensor)}
+    return ptrs | (_held_ptrs(ops.k1) if isinstance(ops, fr.FusedRingOperands) else set())
+
+
+@pytest.mark.parametrize("name", list(_ENTRIES))
+def test_launch_entry_packs_what_its_c_definition_takes(name):
+    """Each C entry point's parameter table (launch.Entry) is its csrc/
+    definition's, names, order and C types; an operand set's packed values,
+    after placeholders for one call's own and the stream, are one for each
+    parameter and convert under its type; every packed pointer is that of
+    a tensor the operands hold; at_rows operands pack their own slice
+    ranges and runs."""
+    entry, ops = _ENTRIES[name]()
+    assert list(entry.params) == _c_params(entry)
+    if ops is None:
+        assert entry.fixed == ()
+        return
+    args = [0] * (len(entry.params) - len(entry.fixed)) + list(ops.packed)
+    assert len(args) == len(entry.params)
+    for (_, ctype), value in zip(entry.params, args):
+        ctype.from_param(value)
+    held = _held_ptrs(ops)
+    for (param, ctype), value in zip(entry.fixed, ops.packed):
+        assert ctype is not ctypes.c_void_p or value is None or value in held, param
+    if name == "fused_int8_hv":
+        slot = {param: i for i, (param, _) in enumerate(entry.fixed)}
+        assert ops.rows == 128
+        for rows in (64, 32):
+            other = fk.at_rows(ops, rows)
+            assert other.packed[slot["rows"]] == rows
+            assert other.packed[slot["slice_range"]] == other.slice_range.data_ptr()
+            assert other.packed[slot["runs"]] == other.runs.data_ptr() != ops.packed[slot["runs"]]
