@@ -270,12 +270,11 @@ class ImageResizer:
         the kernel); ``alpha_index`` 0 or 3 of 4-channel data passes that
         channel through the gamma stages unchanged.  The environment
         variable ``AVIR_TPU_GAMMA_ROUTE`` picks the int8 gamma route (all
-        bit-equal; see models/runtime.py): unset or "auto" runs the
-        shift-ring kernel K6 where it is viable (uniform-stride
-        downsizes) and otherwise K1 with the in-kernel linearization;
-        "inkernel" always runs K1 that way; "prologue" linearizes the
-        image once (kernel K5) before K1; "ring" runs K6, and warns and
-        takes the in-kernel route where K6 is not viable.
+        bit-equal; see models/runtime.py): unset, "auto" or "inkernel"
+        runs K1 with the in-kernel linearization; "prologue" linearizes
+        the image once (kernel K5) before K1; "ring" runs the shift-ring
+        kernel K6 where it is viable (uniform-stride downsizes), and
+        warns and takes the in-kernel route elsewhere.
         """
         src = np.asarray(src)
         squeeze = src.ndim == 2

@@ -52,18 +52,17 @@ then the dither stage.
 
 The int8 gamma route reads ``AVIR_TPU_GAMMA_ROUTE`` when the executor is
 built (``models/runtime.py:402-449`` there):
-  - unset or "auto": the shift-ring kernel K6 (``ops/cuda/fused_ring.py``)
-    on the V operator's uniform blocking when ``ring_viable`` holds (a
-    uniform-stride downsize) and its cluster plan fits (no chunk window of
-    more than 16 segments; launch key ``fused_ring_vh_gamma``,
-    ``run.order`` "vh"), else K1 with the in-kernel linearization.  This
-    differs from the JAX package, whose "auto" is always the in-kernel
-    route: on the H100 the ring route is the faster one where it runs
-    (PERF.md §7);
-  - "inkernel": K1 with the in-kernel linearization;
+  - unset, "auto" or "inkernel": K1 with the in-kernel linearization, as
+    the JAX package's "auto".  On an H100 80GB HBM3 at 700 W it is the
+    fastest of the three routes at every shape where K6 runs
+    (``gamma_routes.py``, PERF.md §6);
   - "prologue": K5 (``ops/cuda/gamma_prologue.py``) linearizes the image
     once and K1 reads its two limb planes;
-  - "ring": K6 when viable, and otherwise a warning, as the JAX package
+  - "ring": the shift-ring kernel K6 (``ops/cuda/fused_ring.py``) on the
+    V operator's uniform blocking when ``ring_viable`` holds (a
+    uniform-stride downsize) and its cluster plan fits (no chunk window of
+    more than 16 segments; launch key ``fused_ring_vh_gamma``,
+    ``run.order`` "vh"), and otherwise a warning, as the JAX package
     gives, and the in-kernel route;
   - anything else: the in-kernel route.
 All routes are bit-equal.
@@ -120,9 +119,10 @@ from ..plan.lancir_plan import LancirPlan
 from ..plan.plan import ResizePlan
 from ..utils import trace
 
-# Environment variable that selects the int8 gamma route: "auto" (K6
-# where viable, else the in-kernel K1), "inkernel", "prologue" (K5 + K1)
-# or "ring" (K6); read when an executor is built, part of the resizers'
+# Environment variable that selects the int8 gamma route: "auto" and
+# "inkernel" (K1 with the in-kernel linearization, the fastest of the
+# three on an H100 wherever K6 runs: PERF.md §6), "prologue" (K5 + K1) or
+# "ring" (K6); read when an executor is built, part of the resizers'
 # cache keys.
 GAMMA_ROUTE_ENV = "AVIR_TPU_GAMMA_ROUTE"
 
@@ -247,17 +247,17 @@ def separable_pass_lanes(x: torch.Tensor, ops: UnfusedOperands) -> torch.Tensor:
 def gamma_route() -> str:
     """The int8 gamma route ``AVIR_TPU_GAMMA_ROUTE`` asks for: "auto"
     (unset), "inkernel", "prologue" or "ring"; anything else is
-    "inkernel"."""
+    "inkernel", and the executor runs "auto" as "inkernel"."""
     route = os.environ.get(GAMMA_ROUTE_ENV, "auto")
     return route if route in ("auto", "prologue", "ring") else "inkernel"
 
 
 def _ring_operands(plan: ResizePlan, lop: LaneBlockedOp, order: str, device):
-    """K6's operands for an int8 gamma plan, or None when the ring route is
-    not viable (``models/runtime.py:414-423`` there): the V operator by
-    uniform blocking, with limbs, and ``ring_viable``; and K6's cluster plan
-    fits the card (``prepare_fused_ring`` refuses a chunk window of more
-    than 16 segments)."""
+    """K6's operands for an int8 gamma plan on the "ring" route, or None
+    when that route is not viable (``models/runtime.py:414-423`` there):
+    the V operator by uniform blocking, with limbs, and ``ring_viable``;
+    and K6's cluster plan fits the card (``prepare_fused_ring`` refuses a
+    chunk window of more than 16 segments)."""
     if order != "vh":
         return None
     try:
@@ -410,7 +410,7 @@ def make_avir_executor(
 
     if int8_ok:
         route = gamma_route() if gamma else "inkernel"
-        if route in ("auto", "ring"):
+        if route == "ring":
             with trace.span("setup.ring_operands"):
                 ring = _ring_operands(plan, lop, order, device)
             if ring is not None:
@@ -419,12 +419,11 @@ def make_avir_executor(
 
                 run.route, run.order, run.ops = "int8", "vh", ring
                 return run
-            if route == "ring":
-                warnings.warn(
-                    f"{GAMMA_ROUTE_ENV}=ring not viable for this config (needs a "
-                    "uniform-stride int8 downsize whose lane windows span at most "
-                    "16 segments); falling back to the in-kernel route"
-                )
+            warnings.warn(
+                f"{GAMMA_ROUTE_ENV}=ring not viable for this config (needs a "
+                "uniform-stride int8 downsize whose lane windows span at most "
+                "16 segments); falling back to the in-kernel route"
+            )
         pre = route == "prologue"
         ops = prepare_fused_int8(vop, lop, order, device, gamma_pre=pre, **gamma_kw)
 

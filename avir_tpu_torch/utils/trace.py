@@ -26,10 +26,11 @@ The port's spans: ``setup.make_fn`` (a ``make_resize_fn`` or
 ``make_lancir_resize_fn`` call) around ``setup.plan`` (the plan) and
 ``setup.operands`` (the executor: operators, routing, operands on the
 device), which holds ``setup.ring_operands`` where an int8 gamma plan
-tries the ring kernel K6 (its viability and cluster plan); ``frame`` (a
-device function's call) around ``k1.call`` (``apply_fused_int8``) or
-``k6.call`` (``apply_fused_ring``), each around its ``k1.launch`` or
-``k6.launch`` (the kernel's ``ctypes`` call, on the card only).
+on the "ring" route tries the ring kernel K6 (its viability and cluster
+plan); ``frame`` (a device function's call) around ``k1.call``
+(``apply_fused_int8``) or ``k6.call`` (``apply_fused_ring``), each around
+its ``k1.launch`` or ``k6.launch`` (the kernel's ``ctypes`` call, on the
+card only).
 """
 
 from __future__ import annotations

@@ -86,7 +86,7 @@ Phases (any failure exits non-zero before the last line):
          from its table): bit-equal to the plain version, within 1 LSB /
          >= 60 dB of the float64 gamma oracle, its bound, the MACs it
          issues against the band's and its stagings per input element;
-         the "auto" route (K6) timed beside it, bit-equal;
+         the "auto" route (the same kernel) timed beside it, bit-equal;
        - 1080p_to_4k_u16_gamma_rgba, 1920x1080 -> 3840x2160 u16 RGBA,
          ``alpha_index=3``, ``res_bit_depth=16`` (K1 split3/split3 vh with
          the degree-9 linearization): within the split gate of the plain
@@ -99,8 +99,8 @@ Phases (any failure exits non-zero before the last line):
          its counts as at 8k_to_1080p_gamma, every slice height (bit-equal,
          timed in turns) and ptxas's registers and spills of fused_int8;
        - 640x480_gamma_down, 1000x700 -> 640x480 u8 RGB with sRGB gamma on
-         the default route (K6 cannot take a downsize without a uniform row
-         stride, so "auto" runs K1 int8 vh with the in-kernel gamma): the
+         the default route ("auto": K1 int8 vh with the in-kernel gamma;
+         K6 cannot take a downsize without a uniform row stride): the
          gates and counts of 1080p_to_4k_gamma;
        - the unfused shapes (K4 checked as at 8k_to_1080p_errdiff; K3 with
          its bound, its load path, the MACs its MMAs issue against the band
@@ -115,9 +115,9 @@ Phases (any failure exits non-zero before the last line):
          its hv, also at every slice height: bit-equal, timed in
          alternating turns), then
          the ring route at 8k_to_1080p_gamma_ring and
-         4k_to_720p_gamma_ring (one K6 launch on the default route,
-         AVIR_TPU_GAMMA_ROUTE unset; bit-equal to its plain version and
-         to the "ring", in-kernel and prologue routes; the cluster size,
+         4k_to_720p_gamma_ring (one K6 launch with
+         AVIR_TPU_GAMMA_ROUTE=ring; bit-equal to its plain version and
+         to the "auto", in-kernel and prologue routes; the cluster size,
          the linearizations per input element, the shared memory a block,
          the clusters the card holds at once, ptxas's registers and spills
          and a sweep of the row parts), and K7/K8 called
@@ -204,8 +204,8 @@ Phases (any failure exits non-zero before the last line):
 
 ``python3 chip_smoke.py --kernel-times DIR`` times K1 int8 without gamma
 (vh, vh even, hv) at its four main-path cells, K6 at
-8k_to_1080p_gamma_ring and 4k_to_720p_gamma_ring, K5 and K1 int8 from
-its limb planes at 8k_to_1080p_gamma_prologue (vh) and
+8k_to_1080p_gamma_ring and 4k_to_720p_gamma_ring ("ring"), K5 and K1
+int8 from its limb planes at 8k_to_1080p_gamma_prologue (vh) and
 1080p_to_4k_gamma_prologue (hv), K1 int8 with the in-kernel gamma at
 8k_to_1080p_gamma ("inkernel"), 1080p_to_4k_gamma and 640x480_gamma_down
 (both "auto"; with their bounds, MACs, stagings and, for hv, every slice
@@ -542,7 +542,8 @@ EPI_SHAPES = (
      np.uint8, {}, "fused_int8_vh_even", 1, None, None),
     ("lancir_4k_u16_to_1080p_u8", "lancir", 3840, 2160, 1920, 1080, 3,
      np.uint16, np.uint8, {}, "fused_split_vh_even", 1, None, None),
-    # In-kernel K1 (unset, "auto" runs K6 here; its time is printed beside).
+    # In-kernel K1, named; "auto" (the variable unset) is timed beside it
+    # and takes the same route.
     ("8k_to_1080p_gamma", "avir", 7680, 4320, 1920, 1080, 3, np.uint8,
      np.uint8, {"use_srgb_gamma": True}, "fused_int8_vh_gamma", 1, "inkernel",
      None),
@@ -637,8 +638,8 @@ RING_CASES = (
 )
 # The ring shapes' sweep of row parts a column is cut into.
 RING_PARTS = (1, 2, 4, 8, 16, 32)
-# K6 at full size through ImageResizer.resize(use_srgb_gamma=True) on the
-# default gamma route, u8 RGB: (name, src_w, src_h, new_w, new_h).
+# K6 at full size through ImageResizer.resize(use_srgb_gamma=True) with
+# AVIR_TPU_GAMMA_ROUTE=ring, u8 RGB: (name, src_w, src_h, new_w, new_h).
 RING_SHAPES = (
     ("8k_to_1080p_gamma_ring", 7680, 4320, 1920, 1080),
     ("4k_to_720p_gamma_ring", 3840, 2160, 1280, 720),
@@ -709,13 +710,13 @@ KT_INT8_CELLS = (
     ("640x480_to_1024x768", "avir", 640, 480, 1024, 768),
 )
 # --kernel-times' gamma cells, u8 RGB with sRGB gamma: (name, route of
-# AVIR_TPU_GAMMA_ROUTE, src_w, src_h, new_w, new_h): K6 on the default
-# route, K5 + K1 int8 from the limb planes on "prologue", and K1 int8 with
-# the in-kernel gamma ("inkernel" at 8K; "auto" where K6 cannot run: the
-# upsize, and the downsize without a uniform row stride).
+# AVIR_TPU_GAMMA_ROUTE, src_w, src_h, new_w, new_h): K6 on "ring", K5 +
+# K1 int8 from the limb planes on "prologue", and K1 int8 with the
+# in-kernel gamma ("inkernel" at 8K; "auto", which is that route, at the
+# upsize and at the downsize without a uniform row stride).
 KT_GAMMA_CELLS = (
-    ("8k_to_1080p_gamma_ring", "auto", 7680, 4320, 1920, 1080),
-    ("4k_to_720p_gamma_ring", "auto", 3840, 2160, 1280, 720),
+    ("8k_to_1080p_gamma_ring", "ring", 7680, 4320, 1920, 1080),
+    ("4k_to_720p_gamma_ring", "ring", 3840, 2160, 1280, 720),
     ("8k_to_1080p_gamma_prologue", "prologue", 7680, 4320, 1920, 1080),
     ("1080p_to_4k_gamma_prologue", "prologue", 1920, 1080, 3840, 2160),
     ("8k_to_1080p_gamma", "inkernel", 7680, 4320, 1920, 1080),
@@ -2466,10 +2467,10 @@ def _planar_tol(ops, tout, ref_max, xmax, out_max, tb, g) -> float:
 
 def _ring_shape(name, sw, sh, nw, nh, gen, dev, flush, smi, mods) -> list[dict]:
     """One full-size shape of the ring route: ImageResizer.resize with sRGB
-    gamma under the default route (AVIR_TPU_GAMMA_ROUTE unset, "auto") runs
-    one K6 launch, bit-equal to K6's plain version and to the "ring",
-    in-kernel and prologue routes on the same image; K6 timed beside the
-    in-kernel and prologue routes in the same run."""
+    gamma under AVIR_TPU_GAMMA_ROUTE=ring runs one K6 launch, bit-equal to
+    K6's plain version and to the "auto", in-kernel and prologue routes on
+    the same image; K6 timed beside the in-kernel and prologue routes in
+    the same run."""
     import os
 
     import avir_tpu_torch
@@ -2484,30 +2485,31 @@ def _ring_shape(name, sw, sh, nw, nh, gen, dev, flush, smi, mods) -> list[dict]:
     src = gen.integers(0, 256, (sh, sw, c), dtype=np.uint8)
     api = avir_tpu_torch.ImageResizer()
     plan = build_resize_plan(sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True)
-    os.environ.pop(GAMMA_ROUTE_ENV, None)  # the default route
-    _zero(mods)
-    t0 = time.perf_counter()
-    out = api.resize(src, nw, nh, use_srgb_gamma=True, device=dev)
-    first_s = time.perf_counter() - t0
-    counts = _counts(mods)
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        api.resize(src, nw, nh, use_srgb_gamma=True, device=dev)
-        walls.append(1e3 * (time.perf_counter() - t0))
-    auto = make_avir_executor(plan, device=dev)
-    routes = {}
+    os.environ[GAMMA_ROUTE_ENV] = "ring"
     try:
-        for route in ("ring", "prologue", "inkernel"):
+        _zero(mods)
+        t0 = time.perf_counter()
+        out = api.resize(src, nw, nh, use_srgb_gamma=True, device=dev)
+        first_s = time.perf_counter() - t0
+        counts = _counts(mods)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            api.resize(src, nw, nh, use_srgb_gamma=True, device=dev)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        ring_fn = make_avir_executor(plan, device=dev)
+        routes = {}
+        for route in ("prologue", "inkernel"):
             os.environ[GAMMA_ROUTE_ENV] = route
             routes[route] = make_avir_executor(plan, device=dev)
     finally:
         del os.environ[GAMMA_ROUTE_ENV]
+    routes["auto"] = make_avir_executor(plan, device=dev)
     ink = routes["inkernel"]
-    ops = auto.ops
+    ops = ring_fn.ops
     key = ops.launch_key
     print(json.dumps({"main_path": name, "launches": {k: v for k, v in counts.items() if v},
-                      "route": auto.route, "order": auto.order, "variant": key}))
+                      "route": ring_fn.route, "order": ring_fn.order, "variant": key}))
     if key != "fused_ring_vh_gamma" or counts[key] != 1 or sum(counts.values()) != 1:
         _fail(f"{name}: launches {counts}, variant {key}")
 
@@ -2516,10 +2518,10 @@ def _ring_shape(name, sw, sh, nw, nh, gen, dev, flush, smi, mods) -> list[dict]:
     want = fr.apply_fused_ring_reference(ops, x)
     base = fk.apply_fused_int8(ink.ops, x)
     pre = routes["prologue"](x)
-    ring = routes["ring"](x)
+    auto = routes["auto"](x)
     torch.cuda.synchronize()
     errs = {k: int((got.int() - v.int()).abs().max())
-            for k, v in (("plain", want), ("ring_route", ring), ("inkernel_route", base),
+            for k, v in (("plain", want), ("auto_route", auto), ("inkernel_route", base),
                          ("prologue_route", pre))}
     same_as_resize = bool(np.array_equal(got.cpu().numpy().reshape(nh, nw, c), out))
     ok = not any(errs.values()) and same_as_resize
@@ -2563,7 +2565,7 @@ def _ring_shape(name, sw, sh, nw, nh, gen, dev, flush, smi, mods) -> list[dict]:
         "clusters_resident": fr.resident_clusters(ops.cluster, ops.ring_rows, dev),
         "ptxas": _ptxas("fused_ring", "fused_ring_vh"),
         "parts": ops.part_ptr.shape[0] - 1, "slices": ops.slices.shape[0],
-        "parts_sweep": sweep, "ring_route_variant": routes["ring"].ops.launch_key,
+        "parts_sweep": sweep, "auto_route_variant": routes["auto"].ops.launch_key,
         "launches_per_resize": {k: v for k, v in counts.items() if v},
         "resize_first_call_s": first_s,
         "resize_cached_wall_ms": sorted(walls)[len(walls) // 2],

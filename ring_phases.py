@@ -114,10 +114,13 @@ def main() -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
                            capture_output=True, text=True, check=True).stdout.strip()
-    os.environ.pop(GAMMA_ROUTE_ENV, None)
     for sw, sh, nw, nh in SHAPES:
         plan = build_resize_plan(sw, sh, nw, nh, 3, np.uint8, np.uint8, use_srgb_gamma=True)
-        ops = make_avir_executor(plan, device=dev).ops
+        os.environ[GAMMA_ROUTE_ENV] = "ring"
+        try:
+            ops = make_avir_executor(plan, device=dev).ops
+        finally:
+            del os.environ[GAMMA_ROUTE_ENV]
         x = torch.from_numpy(gen.integers(0, 256, (sh, sw * 3), dtype=np.uint8)).to(dev)
         n_cl, parts = ops.chunk_of.shape[0], ops.part_ptr.shape[0] - 1
 

@@ -296,8 +296,8 @@ def test_gamma_route_env(route, monkeypatch):
     """"prologue" runs K5 and K1's limb-plane variant (launch key
     ``*_gamma_pre``), bit-equal to the in-kernel route; "ring" (K6) is not
     viable on this upsize, so it warns, as the JAX package does, and takes
-    the in-kernel route; unset, "auto" (K6 only where viable, silently)
-    or anything else is the in-kernel route here."""
+    the in-kernel route; unset, "auto" or anything else is the in-kernel
+    route, silently."""
     if route is None:
         monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
     else:

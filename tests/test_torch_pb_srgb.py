@@ -136,13 +136,13 @@ def make_on_route(cell, src, dst, route, monkeypatch, device="cpu"):
 
 def test_gamma_routes_are_bit_equal_and_within_the_limits(monkeypatch):
     """At 1280x720 -> 320x180 the ring, in-kernel and prologue routes give
-    the same bits, "auto" takes the ring, and the readings pass the
-    cell's limits."""
+    the same bits, "auto" takes the in-kernel route, and the readings pass
+    the cell's limits."""
     cell, src, dst, ref, pool = small_copy(GAMMA_CELL)
     outs = {}
     for route in (None, *GAMMA_ROUTES):
         fn, how = make_on_route(cell, src, dst, route, monkeypatch)
-        assert how["launch_key"] == ROUTE_KEYS[route or "ring"]
+        assert how["launch_key"] == ROUTE_KEYS[route or "inkernel"]
         outs[route] = [fn(pool[i]) for i in range(pool.shape[0])]
     for route in GAMMA_ROUTES:
         assert all(torch.equal(a, b) for a, b in zip(outs[route], outs[None]))
@@ -206,11 +206,12 @@ def tracer():
 
 
 def test_ring_route_spans(tracer, monkeypatch):
-    """Set-up holds ``setup.ring_operands`` inside ``setup.operands``; a
-    traced frame on the ring route is ``frame`` > ``k6.call``, with no
+    """Under ``AVIR_TPU_GAMMA_ROUTE=ring``, set-up holds
+    ``setup.ring_operands`` inside ``setup.operands``; a traced frame on
+    the ring route is ``frame`` > ``k6.call``, with no
     ``k6.launch`` on the CPU (the plain version runs); untraced, nothing
     is recorded."""
-    monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "ring")
     (w, h), (nw, nh) = harness.geometry(spec.load_cell(
         spec.load_benchmark(), GAMMA_CELL).traffic, SCALE)
     x = harness.make_pool(5, 1, (h, w, 3), "cpu")[0]
@@ -281,7 +282,7 @@ def test_a_rehearsal_of_the_new_cell_on_the_cpu(name):
     rec = harness.measure(cell, 2**31 + 5, 0.2, False, torch.device("cpu"), time.time(),
                           scale=SCALE)
     assert rec["correct"], rec["checks"]
-    assert rec["route"]["launch_key"] == ("fused_ring_vh_gamma" if name == GAMMA_CELL
+    assert rec["route"]["launch_key"] == ("fused_int8_vh_gamma" if name == GAMMA_CELL
                                           else "fused_int8_hv")
     assert rec["bound"]["bound_s"] > 0 and rec["checked_frames"] == 2
     for metric in ("mpix_per_s", "setup_s", "plan_s", "dispatch_us"):
@@ -290,8 +291,9 @@ def test_a_rehearsal_of_the_new_cell_on_the_cpu(name):
 
 @pytest.mark.cuda
 def test_gamma_routes_bit_equal_at_the_cells_size_on_card(monkeypatch):
-    """7680x4320 -> 1920x1080 u8 RGB with gamma: K6 ("auto"), K1's
-    in-kernel linearization and K5's prologue give the same bits."""
+    """7680x4320 -> 1920x1080 u8 RGB with gamma: K6 ("ring"), K1's
+    in-kernel linearization ("inkernel", and "auto" with the variable
+    unset) and K5's prologue give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA CUDA card")
     dev = torch.device("cuda", 0)
@@ -301,7 +303,7 @@ def test_gamma_routes_bit_equal_at_the_cells_size_on_card(monkeypatch):
     outs = {}
     for route in (None, *GAMMA_ROUTES):
         fn, how = make_on_route(cell, src, dst, route, monkeypatch, dev)
-        assert how["launch_key"] == ROUTE_KEYS[route or "ring"]
+        assert how["launch_key"] == ROUTE_KEYS[route or "inkernel"]
         outs[route] = [fn(pool[i]).cpu() for i in range(pool.shape[0])]
         del fn
     for route in GAMMA_ROUTES:

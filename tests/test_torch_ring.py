@@ -42,8 +42,9 @@ FULL_SIZE = {"8k_to_1080p": (7680, 4320, 1920, 1080), "4k_to_720p": (3840, 2160,
 
 # K6's cluster plan at full size, on the host (u8 RGB unless C says;
 # RGBA with alpha 3): (src_w, src_h, new_w, new_h, c) -> (blocks a
-# cluster, ring rows, shared memory bytes a block).  "auto" runs K6 at
-# the first five and at RGBA 8K -> 1080p.
+# cluster, ring rows, shared memory bytes a block).  K6 is viable ("ring"
+# runs it) at the first five and at RGBA 8K -> 1080p, the shapes
+# gamma_routes.py times on the card.
 FULL_SIZE_PLANS = {
     "8k_to_1080p": ((7680, 4320, 1920, 1080, 3), (6, 192, 112_640)),
     "4k_to_720p": ((3840, 2160, 1280, 720, 3), (5, 160, 101_888)),
@@ -371,23 +372,50 @@ def test_cluster_plan_full_size(name):
 
 @pytest.mark.parametrize("name", AUTO_RING)
 def test_auto_gamma_route_runs_k6_at_full_size(name, monkeypatch):
-    """Unset ``AVIR_TPU_GAMMA_ROUTE`` ("auto") builds K6's executor at the
-    full-size ring shapes (on the host: operands only, no image)."""
+    """At the full-size ring shapes ``AVIR_TPU_GAMMA_ROUTE=ring`` builds
+    K6's executor, and unset ("auto") builds K1's with the in-kernel
+    linearization, the faster route on the card at each of them (PERF.md
+    §6); on the host: operands only, no image."""
     (sw, sh, nw, nh, c), _ = FULL_SIZE_PLANS[name]
     _, plan = _plans(sw, sh, nw, nh, c, 3 if c == 4 else -1)
-    monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "ring")
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         fn = runtime.make_avir_executor(plan, device="cpu")
-    assert (fn.route, fn.order, fn.ops.launch_key) == ("int8", "vh", "fused_ring_vh_gamma")
+        assert (fn.route, fn.order, fn.ops.launch_key) == ("int8", "vh", "fused_ring_vh_gamma")
+        monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV)
+        auto = runtime.make_avir_executor(plan, device="cpu")
+    assert (auto.route, auto.order, auto.ops.launch_key) == ("int8", "vh", "fused_int8_vh_gamma")
+
+
+@pytest.mark.parametrize("route", [None, "auto"])
+@pytest.mark.parametrize("name", AUTO_RING)
+def test_auto_gamma_route_builds_no_ring_operands(name, route, monkeypatch):
+    """Wherever K6 is viable, "auto" (or the variable unset) names the
+    in-kernel route, as the JAX package's does, and builds none of K6's
+    operands: set-up never reaches ``_ring_operands``."""
+    (sw, sh, nw, nh, c), _ = FULL_SIZE_PLANS[name]
+    _, plan = _plans(sw, sh, nw, nh, c, 3 if c == 4 else -1)
+    if route is None:
+        monkeypatch.delenv(runtime.GAMMA_ROUTE_ENV, raising=False)
+    else:
+        monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, route)
+
+    def refuse(*_):
+        pytest.fail("auto built K6's operands")
+
+    monkeypatch.setattr(runtime, "_ring_operands", refuse)
+    fn = runtime.make_avir_executor(plan, device="cpu")
+    assert (fn.route, fn.order, fn.ops.launch_key) == ("int8", "vh", "fused_int8_vh_gamma")
 
 
 @pytest.mark.parametrize("size, c", [((4096, 640, 128, 160), 1), ((2561, 768, 128, 192), 1)])
 def test_ring_refuses_windows_over_16_segments(size, c, monkeypatch):
     """A chunk window of more than 16 segments needs a larger cluster than
-    the card has: ``prepare_fused_ring`` refuses it, "auto" takes the
-    in-kernel K1 quietly and "ring" warns, and both give the ring's
-    function (K1's in-kernel bits)."""
+    the card has: ``prepare_fused_ring`` refuses it, "ring" warns and
+    takes the in-kernel K1, and "auto" takes that route quietly, as it
+    does at every shape; both give the ring's function (K1's in-kernel
+    bits)."""
     sw, sh, nw, nh = size
     _, plan = _plans(sw, sh, nw, nh, c, -1)
     vop, lop = block_banded(plan.v.op, uniform=True), lane_block_banded(plan.h.op, c)

@@ -1,7 +1,8 @@
 """The port's routing choices that the JAX package does not share, on the
 CPU: the int8 gamma table against the JAX package's linearization, the
-"auto" gamma route (the ring kernel K6 where viable, else K1 with the
-in-kernel linearization), the pass order of u16 upsizes, the u8 upsizes
+"auto" gamma route (K1 with the in-kernel linearization, as in the JAX
+package; the ring kernel K6 only when named), the pass order of u16
+upsizes, the u8 upsizes
 that fuse H pass first, and the K4 wrapper's row groups.  The port runs its kernels' plain versions; every
 comparison of outputs is bit-equal."""
 
@@ -75,8 +76,11 @@ def test_gamma_q13_table_matches_jax_poly(out_dtype, alpha):
     ((256, 960, 128, 480), 4, 3),
 ])
 def test_auto_gamma_route_takes_the_ring_where_viable(route, size, c, alpha, monkeypatch):
-    """Unset or "auto" on a ring-viable downsize runs K6 (one
-    ``fused_ring_vh_gamma`` launch), bit-equal to "inkernel"."""
+    """Unset or "auto" on a ring-viable downsize runs K1 int8 vh with the
+    in-kernel linearization (one ``fused_int8_vh_gamma`` launch), the
+    fastest of the three routes on the card wherever K6 runs (PERF.md §6),
+    and quietly; it is bit-equal to "ring", which runs K6 there, and to
+    "inkernel"."""
     sw, sh, nw, nh = size
     plan = build_resize_plan(
         sw, sh, nw, nh, c, np.uint8, np.uint8, use_srgb_gamma=True, alpha_index=alpha
@@ -88,13 +92,19 @@ def test_auto_gamma_route_takes_the_ring_where_viable(route, size, c, alpha, mon
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         fn = runtime.make_avir_executor(plan, device="cpu")
-    assert (fn.route, fn.order, fn.ops.launch_key) == ("int8", "vh", "fused_ring_vh_gamma")
+    assert (fn.route, fn.order, fn.ops.launch_key) == ("int8", "vh", "fused_int8_vh_gamma")
     assert fn.ops.epi.gamma and fn.ops.epi.alpha_lane == (3 if alpha == 3 else -1)
+    monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "ring")
+    ring = runtime.make_avir_executor(plan, device="cpu")
+    assert (ring.route, ring.order, ring.ops.launch_key) == ("int8", "vh", "fused_ring_vh_gamma")
+    assert ring.ops.epi.gamma and ring.ops.epi.alpha_lane == fn.ops.epi.alpha_lane
     monkeypatch.setenv(runtime.GAMMA_ROUTE_ENV, "inkernel")
     base = runtime.make_avir_executor(plan, device="cpu")
     assert base.ops.launch_key == "fused_int8_vh_gamma"
     x = torch.from_numpy(xorshift128_fill((sh, sw * c), np.uint8, 17))
-    np.testing.assert_array_equal(fn(x).numpy(), base(x).numpy())
+    got = fn(x).numpy()
+    np.testing.assert_array_equal(got, ring(x).numpy())
+    np.testing.assert_array_equal(got, base(x).numpy())
 
 
 @pytest.mark.parametrize("size, c, alpha", [
