@@ -60,14 +60,20 @@ def geometry(traffic: dict, scale: int = 1) -> tuple[tuple[int, int], tuple[int,
     return cut(traffic["src"]), cut(traffic["dst"])
 
 
-def make_pool(seed: int, frames: int, shape: tuple, device) -> torch.Tensor:
-    """``frames`` distinct uniform u8 frames of ``shape``, made on
+def make_pool(seed: int, frames: int, shape: tuple, device, dtype: str = "uint8") -> torch.Tensor:
+    """``frames`` distinct uniform frames of ``shape`` and ``dtype``
+    ("uint8" or "uint16", a configuration's ``in_dtype``), made on
     ``device`` from ``seed`` in one call."""
+    dt = getattr(torch, dtype)
+    if dt not in (torch.uint8, torch.uint16):
+        raise ValueError(f"the pool holds uint8 or uint16 frames, not {dtype}")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    # u16 values are drawn as int32: not every build draws uint16 itself.
+    draw = dt if dt == torch.uint8 else torch.int32
     return torch.randint(
-        0, 256, (frames, *shape), dtype=torch.uint8, device=device, generator=gen
-    )
+        0, torch.iinfo(dt).max + 1, (frames, *shape), dtype=draw, device=device, generator=gen
+    ).to(dt)
 
 
 class Client:
@@ -178,7 +184,7 @@ def measure(
     log(f"route {cell.name}: {route} src {src} dst {dst}")
     if fault is not None:
         fn = fault(fn)
-    pool = make_pool(seed, mix["pool_frames"], (src[1], src[0], channels), device)
+    pool = make_pool(seed, mix["pool_frames"], (src[1], src[0], channels), device, cfg["in_dtype"])
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     client = Client(fn, pool, mix["frames_per_request"], sync)
     sync()
@@ -200,12 +206,11 @@ def measure(
     if cuda:
         torch.cuda.empty_cache()
     ref = spec.reference(cfg["resizer"]).build(cfg, src, dst)
-    readings = check.Readings()
+    readings = check.Readings(getattr(torch, cfg["out_dtype"]))
     readings.bad_frames += sum(r.frames for r in requests if not r.ok)
     for k, outs in sample.kept:
         readings.bad_frames += mix["frames_per_request"] - len(outs)
-        for j, out in enumerate(outs):
-            readings.add(out, ref, ref.forward(client.frame(k, j)))
+        readings.add_all(outs, ref, (ref.forward(client.frame(k, j)) for j in range(len(outs))))
     correct, checks = check.judge(readings.result(), cell.limits)
     in_size, out_size = (np.dtype(cfg[k]).itemsize for k in ("in_dtype", "out_dtype"))
     return {

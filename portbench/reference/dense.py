@@ -2,9 +2,10 @@
 
 ``Reference.forward`` takes an input frame [H, W, C] and returns the
 resized frame [new_h, new_w, C] before rounding, in the output's units;
-``finish`` rounds and clamps it as the configuration states.  In float64
-it is the yardstick; in bfloat16 it is the control that the check has to
-refuse.
+``finish`` rounds and clamps it as the configuration states, or, with
+``errdiff`` set, diffuses the error by AVIR's rule (``errdiff.py``).  In
+float64 it is the yardstick; in bfloat16 it is the control that the check
+has to refuse.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from . import errdiff as _errdiff
 
 
 def dense(op) -> np.ndarray:
@@ -32,6 +35,9 @@ class Reference:
     out_mul: float  # applied after both passes
     clamp: float  # largest output value
     rounding: str  # "half_up" or "half_even"
+    # AVIR's error-diffusion weights (errdiff.AVIR_WEIGHTS: current row
+    # right, next row left, centre, right); None rounds each value alone.
+    errdiff: tuple[float, float, float, float] | None = None
 
     def __post_init__(self):
         if self.rounding not in ("half_up", "half_even"):
@@ -70,7 +76,14 @@ class Reference:
         return y * self.out_mul if self.out_mul != 1.0 else y
 
     def finish(self, y: torch.Tensor) -> torch.Tensor:
-        """Round (half up, or half to even) and clamp to [0, clamp]."""
+        """Round (half up, or half to even) and clamp to [0, clamp]; with
+        ``errdiff``, the float64 error diffusion of ``y`` [..., H, W, C]
+        to 1 LSB, each frame and channel alone."""
+        if self.errdiff is not None:
+            h, w, c = y.shape[-3:]
+            lanes = _errdiff.lanes(y.to(torch.float64))
+            out = _errdiff.diffuse(lanes, self.errdiff, 1.0, self.clamp)
+            return out.reshape(h, w, -1, c).permute(2, 0, 1, 3).reshape(y.shape)
         r = torch.floor(y + 0.5) if self.rounding == "half_up" else torch.round(y)
         return r.clamp(0.0, self.clamp)
 

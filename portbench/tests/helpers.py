@@ -30,4 +30,5 @@ def small_cell(name: str, scale: int = 32):
     return cell, harness.geometry(cell.traffic, scale)
 
 
-CELLS = ("avir_def_u8_rgb.photo_album_down", "lancir_u8_rgb.video_segment_up")
+# Every cell of BENCHMARK.json, in its order.
+CELLS = tuple(w["name"] for w in spec.load_benchmark()["workloads"])

@@ -6,7 +6,7 @@ from __future__ import annotations
 import json
 import shutil
 
-from portbench import spec
+from portbench import check, harness, spec
 
 from .helpers import CELLS
 
@@ -17,6 +17,8 @@ def test_benchmark_parts_are_found_by_name():
     for name in CELLS:
         cell = spec.load_cell(bench, name)
         assert cell.chips == 1
+        ref = spec.reference(cell.config["resizer"]).build(cell.config, *harness.geometry(cell.traffic, 32))
+        assert set(check.judged(ref.errdiff is not None)) <= set(cell.limits or ())
         assert cell.traffic["loop"] == "closed"
         assert spec.program(cell.config["resizer"]).make
         assert spec.reference(cell.config["resizer"]).build
@@ -27,6 +29,7 @@ def test_benchmark_parts_are_found_by_name():
             if group == "per_layer":
                 assert reader.LAYER == m["layer"]
                 assert reader.MOVES == m["moves"]
+                assert set(m["workloads"]) <= set(CELLS)
 
 
 def test_metrics_for_a_cell():
