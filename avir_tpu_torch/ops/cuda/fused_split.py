@@ -41,6 +41,7 @@ import functools
 import numpy as np
 import torch
 
+from ...utils import trace
 from ..banded import BlockedBandedOp, assert_full_f32
 from ..gamma import _srgb_to_linear, f32
 from ..lanes import LaneBlockedOp
@@ -329,7 +330,7 @@ def apply_fused_split_reference(
 # ---------------------------------------------------------------------------
 
 # avir_fused_split (csrc/fused_split.cu).
-LAUNCH = Entry("fused_split", "avir_fused_split", params=(
+LAUNCH = Entry("fused_split", "avir_fused_split", span="split.launch", params=(
     ("x", P), ("out", P), ("in_kind", I), ("stream", P),
     ("hv", I), ("split3_v", I), ("split3_h", I), ("out_kind", I),
     ("rows_in", I), ("lanes_in", I), ("rows_out", I), ("lanes_out", I),
@@ -345,7 +346,15 @@ LAUNCH = Entry("fused_split", "avir_fused_split", params=(
 def apply_fused_split(ops: FusedSplitOperands, x: torch.Tensor) -> torch.Tensor:
     """Fused split-bf16 resize of ``x`` [rows_in, lanes_in] (u8, u16 or
     float32) -> [rows_out, lanes_out] of ``ops.out_dtype``.  A CUDA tensor
-    launches the kernel; a CPU tensor runs the plain version."""
+    launches the kernel; a CPU tensor runs the plain version.  While the
+    tracer (utils/trace.py) is on, a call is a ``split.call`` span and its
+    ``ctypes`` call a ``split.launch`` span inside it."""
+    if trace.on:
+        return trace.call("split.call", _apply_fused_split, ops, x)
+    return _apply_fused_split(ops, x)
+
+
+def _apply_fused_split(ops: FusedSplitOperands, x: torch.Tensor) -> torch.Tensor:
     if on_cpu(x, ops.device):
         return apply_fused_split_reference(ops, x)
     if x.dtype not in _IN_KINDS or x.shape != (ops.rows_in, ops.lanes_in):

@@ -30,10 +30,16 @@ single-block runs give the same bits.
 ``errdiff_wavefront`` launches the kernel (``csrc/wavefront.cu``) once per
 image on a CUDA tensor: ``block_rows`` rows form a group, one thread block
 each, and all groups run at once, each reading the last-row noise of the
-group above from device memory as it is written.  On a CPU tensor it runs
-``errdiff_wavefront_reference``, whose ``block_rows`` is the rows of a
-block run one after another.  Both do the same float32 operations in the
-same order, so they agree bit for bit at any grouping.
+group above from device memory as it is written.  Before each launch the
+host allocates three tensors with ``torch.empty``: ``out``, the groups'
+last-row ``noise`` words (int64 [groups, W*C]) and the one-word
+``ticket``; the kernel's entry point zeroes the last two on the stream.
+On a CPU tensor it runs ``errdiff_wavefront_reference``, whose
+``block_rows`` is the rows of a block run one after another.  Both do the
+same float32 operations in the same order, so they agree bit for bit at
+any grouping.  While the tracer (utils/trace.py) is on, a call is a
+``k4.call`` span, which holds those allocations, and the ``ctypes`` call
+a ``k4.launch`` span inside it.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...utils import trace
 from ..dither import (
     W_CUR_RIGHT,
     W_NEXT_CENTER,
@@ -189,7 +196,7 @@ def errdiff_wavefront_reference(
 # ---------------------------------------------------------------------------
 
 # avir_wavefront (csrc/wavefront.cu).
-LAUNCH = Entry("wavefront", "avir_wavefront", params=(
+LAUNCH = Entry("wavefront", "avir_wavefront", span="k4.launch", params=(
     ("img", P), ("out", P), ("out_kind", I), ("h", I), ("w", I), ("c", I), ("rows", I),
     ("noise", P), ("ticket", P), ("tm", F), ("tmi", F), ("out_max", F),
     ("wr", F), ("wl", F), ("wc", F), ("wn", F), ("scan", I), ("stream", P),
@@ -210,6 +217,15 @@ def errdiff_wavefront(
     A CUDA tensor launches the kernel once, with ``block_rows`` rows per
     group (``group_rows_for``); a CPU tensor runs the plain version with
     ``block_rows`` rows per block."""
+    if trace.on:
+        return trace.call(
+            "k4.call", _errdiff_wavefront, img, trunc_bits, out_max, out_dtype,
+            block_rows, scan_order,
+        )
+    return _errdiff_wavefront(img, trunc_bits, out_max, out_dtype, block_rows, scan_order)
+
+
+def _errdiff_wavefront(img, trunc_bits, out_max, out_dtype, block_rows, scan_order):
     if out_dtype not in _OUT_KINDS:
         raise ValueError(f"unsupported output dtype {out_dtype}")
     if img.device.type == "cpu":

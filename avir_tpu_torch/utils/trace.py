@@ -28,9 +28,11 @@ The port's spans: ``setup.make_fn`` (a ``make_resize_fn`` or
 device), which holds ``setup.ring_operands`` where an int8 gamma plan
 on the "ring" route tries the ring kernel K6 (its viability and cluster
 plan); ``frame`` (a device function's call) around ``k1.call``
-(``apply_fused_int8``) or ``k6.call`` (``apply_fused_ring``), each around
-its ``k1.launch`` or ``k6.launch`` (the kernel's ``ctypes`` call, on the
-card only).
+(``apply_fused_int8``) or ``k6.call`` (``apply_fused_ring``), or on the
+split route ``split.call`` (``apply_fused_split``) and, for an
+error-diffused output, then ``k4.call`` (``errdiff_wavefront``); each
+call around its ``k1.launch``, ``k6.launch``, ``split.launch`` or
+``k4.launch`` (the kernel's ``ctypes`` call, on the card only).
 """
 
 from __future__ import annotations

@@ -41,7 +41,9 @@ TRACE_FRAMES = 960  # frames in each slice, rounded up to whole requests
 SPAN_REQUESTS = 16  # requests in the span slice, at least
 SETUP_PAIRS = 2  # make() with the tracer off, then on, this many times
 ALTERNATING_PAIRS = 5  # blocks of requests with the tracer off and on, after the window
-KERNELS = ("k1", "k6")  # the kernels whose host call and launch the port spans
+# The kernels whose host call and launch the port spans: K1 int8, K6, K1
+# split and K4.
+KERNELS = ("k1", "k6", "split", "k4")
 # A frame's parts: its own time, then each kernel's call (self) and launch.
 PARTS = ("fn_self_us",) + tuple(f"{k}_{p}_us" for k in KERNELS for p in ("prep", "launch"))
 LAUNCHES = {f"{k}.launch" for k in KERNELS}
@@ -60,9 +62,10 @@ def children_ns(spans) -> collections.Counter:
 def per_frame(spans) -> dict:
     """The span slice's means over its frames, in us: ``frame``'s self
     time (``fn_self_us``), each kernel's ``<k>.call`` self time
-    (``k1_prep_us``, ``k6_prep_us``) and ``<k>.launch`` duration
-    (``k1_launch_us``, ``k6_launch_us``), None for a kernel no frame
-    calls; launches a frame; and the garbage collector's spans."""
+    (``k1_prep_us``, ``k6_prep_us``, ``split_prep_us``, ``k4_prep_us``)
+    and ``<k>.launch`` duration (``k1_launch_us`` and so on), None for a
+    kernel no frame calls; launches a frame; and the garbage collector's
+    spans."""
     parts = frame_parts(spans)
     n = len(parts)
     if not n:
@@ -190,8 +193,8 @@ def _request_of(name: str) -> int:
 
 def turnaround(spans) -> dict:
     """Medians over the span slice's requests after its first, in us: from
-    the end of ``pb.sync.<k-1>`` to the end of request k's first
-    ``k1.launch`` or ``k6.launch`` (``turnaround_us``: host time in which
+    the end of ``pb.sync.<k-1>`` to the end of request k's first kernel
+    launch, ``<k>.launch`` of KERNELS (``turnaround_us``: host time in which
     the card has no work of the loop's), and its parts: ``pb.finish.<k-1>``,
     from there to ``pb.dispatch.<k>``, and from there to the first launch's
     end."""
@@ -348,10 +351,12 @@ def window(client, seconds: float, sample, cuda: bool,
 
 
 def host_parts(split: dict) -> list:
-    """[fn_self_us, prep, launch] of the kernel the frames call (K1's
-    where they call none)."""
-    k = next((k for k in KERNELS if split.get(f"{k}_prep_us") is not None), KERNELS[0])
-    return [split.get(name) for name in ("fn_self_us", f"{k}_prep_us", f"{k}_launch_us")]
+    """[fn_self_us, then prep and launch of each kernel the frames call]
+    (K1's where they call none)."""
+    called = [k for k in KERNELS if split.get(f"{k}_prep_us") is not None] or [KERNELS[0]]
+    return [split.get("fn_self_us")] + [
+        split.get(f"{k}_{p}_us") for k in called for p in ("prep", "launch")
+    ]
 
 
 def dispatch_per_frame_us(reqs):
