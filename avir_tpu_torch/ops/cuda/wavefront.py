@@ -29,17 +29,23 @@ single-block runs give the same bits.
 
 ``errdiff_wavefront`` launches the kernel (``csrc/wavefront.cu``) once per
 image on a CUDA tensor: ``block_rows`` rows form a group, one thread block
-each, and all groups run at once, each reading the last-row noise of the
-group above from device memory as it is written.  Before each launch the
-host allocates three tensors with ``torch.empty``: ``out``, the groups'
-last-row ``noise`` words (int64 [groups, W*C]) and the one-word
-``ticket``; the kernel's entry point zeroes the last two on the stream.
-On a CPU tensor it runs ``errdiff_wavefront_reference``, whose
-``block_rows`` is the rows of a block run one after another.  Both do the
-same float32 operations in the same order, so they agree bit for bit at
-any grouping.  While the tracer (utils/trace.py) is on, a call is a
-``k4.call`` span, which holds those allocations, and the ``ctypes`` call
-a ``k4.launch`` span inside it.
+each (one thread per (row, channel), in whole warps), and all groups run
+at once, each reading the last-row noise of the group above from device
+memory as it is written.  Inside a group no step waits on a block
+barrier: a row takes the row above from the lane C before it by a warp
+shuffle, or, where that lane lies in the warp before, from a ring of
+tagged words in shared memory that it reads once a chunk of steps.  The
+kernel has two instantiations by the block's threads (``launch_bound``:
+up to 256, the default groups', or up to 1024), counted in ``forms``.
+Before each launch the host allocates three tensors with ``torch.empty``:
+``out``, the groups' last-row ``noise`` words (int64 [groups, W*C]) and
+the one-word ``ticket``; the kernel's entry point zeroes the last two on
+the stream.  On a CPU tensor it runs ``errdiff_wavefront_reference``,
+whose ``block_rows`` is the rows of a block run one after another.  Both
+do the same float32 operations in the same order, so they agree bit for
+bit at any grouping.  While the tracer (utils/trace.py) is on, a call is
+a ``k4.call`` span, which holds those allocations, and the ``ctypes``
+call a ``k4.launch`` span inside it.
 """
 
 from __future__ import annotations
@@ -58,16 +64,19 @@ from ..dither import (
 )
 from .launch import F, I, P, Entry
 
-# Launches of the kernel of this module (one per image), counted by the
-# wrapper.
-launches = {"wavefront": 0}
-
 _MAX_THREADS = 1024  # csrc: kMaxThreads, one thread per (row, channel)
+_SMALL_THREADS = 256  # csrc: kSmallThreads, the default groups' instantiation
 # Warps of one row group of the kernel when ``block_rows`` is None (see
 # group_rows_for): the fastest of chip_smoke.py's sweep at the errdiff
 # cells (PERF.md §6).
 _GROUP_WARPS = 4
 _OUT_KINDS = {torch.float32: 0, torch.uint8: 1, torch.uint16: 2}
+
+# Launches of the kernel of this module (one per image), counted by the
+# wrapper, and the same launches by instantiation (its launch bound in
+# threads, ``launch_bound``).
+launches = {"wavefront": 0}
+forms = {_SMALL_THREADS: 0, _MAX_THREADS: 0}
 
 
 def quant_steps(trunc_bits: int, out_max: float) -> tuple[float, float]:
@@ -75,6 +84,14 @@ def quant_steps(trunc_bits: int, out_max: float) -> tuple[float, float]:
     (a float64 reciprocal flips pixels at half-step boundaries)."""
     tm = np.float32(trunc_mul(trunc_bits, float(out_max)))
     return float(tm), float(np.float32(1.0) / tm)
+
+
+def launch_bound(threads: int) -> int:
+    """The kernel instantiation that holds a block of ``threads`` (row,
+    channel) threads: its launch bound, 256 or 1024."""
+    if not 1 <= threads <= _MAX_THREADS:
+        raise ValueError(f"{threads} threads: a group takes 1 to {_MAX_THREADS}")
+    return _SMALL_THREADS if threads <= _SMALL_THREADS else _MAX_THREADS
 
 
 def block_rows_for(h: int, c: int, block_rows: int | None) -> int:
@@ -199,7 +216,7 @@ def errdiff_wavefront_reference(
 LAUNCH = Entry("wavefront", "avir_wavefront", span="k4.launch", params=(
     ("img", P), ("out", P), ("out_kind", I), ("h", I), ("w", I), ("c", I), ("rows", I),
     ("noise", P), ("ticket", P), ("tm", F), ("tmi", F), ("out_max", F),
-    ("wr", F), ("wl", F), ("wc", F), ("wn", F), ("scan", I), ("stream", P),
+    ("wr", F), ("wl", F), ("wc", F), ("wn", F), ("scan", I), ("bound", I), ("stream", P),
 ))
 
 
@@ -257,9 +274,11 @@ def _errdiff_wavefront(img, trunc_bits, out_max, out_dtype, block_rows, scan_ord
         float(np.float32(v))
         for v in (W_CUR_RIGHT, W_NEXT_LEFT, W_NEXT_CENTER, W_NEXT_RIGHT)
     ]
+    bound = launch_bound(rb * c)
     LAUNCH.launch(
         img, launches, "wavefront", img.data_ptr(), out.data_ptr(), _OUT_KINDS[out_dtype],
         h, w, c, rb, noise.data_ptr(), ticket.data_ptr(), tm, tmi, float(out_max), *weights,
-        int(scan_order),
+        int(scan_order), bound,
     )
+    forms[bound] += 1
     return out

@@ -192,7 +192,8 @@ Phases (any failure exits non-zero before the last line):
      version's time, plus the host wall time of a cached resize and its
      two copies (and, for the shapes of the split and epilogue variants,
      the ``precision="exact"`` route as a yardstick), sweeps K4's row
-     groups (K4_GROUP_WARPS) at the errdiff cells, and prints one
+     groups (K4_GROUP_WARPS, with the instantiation each runs, and the
+     default groups' in ``k4_forms``) at the errdiff cells, and prints one
      JSON line per shape; at the K1 split cells (and their direct calls
      in the other pass order) that line also holds the dense MACs the
      kernel issues beside the band MACs of its bound, and the image
@@ -694,7 +695,7 @@ KT_SPLIT_HV_CELLS = (
 )
 # K4's row groups swept at each errdiff cell: warps of (row, channel)
 # threads per group (rows per group = warps * 32 // C).
-K4_GROUP_WARPS = (1, 2, 4, 8, 32)
+K4_GROUP_WARPS = (1, 2, 3, 4, 8, 32)
 # K4 runs compared with its plain version at each errdiff cell (a race
 # between groups would show only sometimes).
 K4_REPEATS = 10
@@ -1208,9 +1209,10 @@ def _other_order(ops, vop, lop, x, oracle, gate, counts, bound,
 def _k4_cell(pre3: torch.Tensor, out_max: float, want: torch.Tensor,
              flush) -> tuple[dict, bool]:
     """K4 at a full-size errdiff cell: bit-equal to its plain version's
-    output ``want`` (u8) in K4_REPEATS runs at the default row groups and
-    once at every group size of K4_GROUP_WARPS, each timed; (report, every
-    run bit-equal)."""
+    output ``want`` (u8) in K4_REPEATS runs at the default row groups (the
+    instantiation they ran, ``wf.forms``) and once at every group size of
+    K4_GROUP_WARPS, each timed; (report, every run bit-equal in the
+    instantiation its threads pick)."""
     from avir_tpu_torch.ops.cuda import wavefront as wf
 
     h, w, c = pre3.shape
@@ -1220,17 +1222,19 @@ def _k4_cell(pre3: torch.Tensor, out_max: float, want: torch.Tensor,
                                     block_rows=rows)
 
     equal = 0
+    forms = dict(wf.forms)
     for _ in range(K4_REPEATS):
         got = k4()
         torch.cuda.synchronize()
         equal += int(torch.equal(got, want))
+    forms = {k: v - forms[k] for k, v in wf.forms.items() if v > forms[k]}
     sweep = {}
     for warps in K4_GROUP_WARPS:
         rows = wf.group_rows_for(h, c, warps * 32 // c)
         got = k4(rows)
         torch.cuda.synchronize()
         sweep[warps] = {
-            "rows": rows, "groups": -(-h // rows),
+            "rows": rows, "groups": -(-h // rows), "form": wf.launch_bound(rows * c),
             "bit_equal": bool(torch.equal(got, want)),
             "ms": _time_ms(lambda: k4(rows), 5, flush),
         }
@@ -1241,10 +1245,11 @@ def _k4_cell(pre3: torch.Tensor, out_max: float, want: torch.Tensor,
         "k4_ms": ms, "k4_group_rows": rows, "k4_groups": -(-h // rows),
         "k4_critical_steps": crit, "k4_us_per_critical_step": 1e3 * ms / crit,
         "k4_chain_steps_blocks_in_sequence": wf.chain_steps(h, w, c),
-        "k4_runs_bit_equal": f"{equal}/{K4_REPEATS}",
+        "k4_runs_bit_equal": f"{equal}/{K4_REPEATS}", "k4_forms": forms,
         "k4_group_sweep": sweep,
     }
-    ok = equal == K4_REPEATS and all(v["bit_equal"] for v in sweep.values())
+    ok = equal == K4_REPEATS and all(v["bit_equal"] for v in sweep.values()) \
+        and forms == {wf.launch_bound(rows * c): K4_REPEATS}
     return report, ok
 
 

@@ -47,6 +47,8 @@ from torch_cases import (
     WAVEFRONT_CASES,
     WAVEFRONT_GROUP_CASES,
     WAVEFRONT_GROUP_WARPS,
+    WAVEFRONT_WARP_CASES,
+    WAVEFRONT_WARP_OUTS,
     epi_kwargs,
     float_image,
     order_of,
@@ -300,17 +302,55 @@ def test_wavefront_groups_match_plain_on_card(name, warps, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("warps", [1, 4])
+@pytest.mark.parametrize("warps", [1, 4, 32, None])
 def test_wavefront_groups_agree_over_repeats_on_card(warps, cuda_device):
-    """A race between groups would show only sometimes: 20 runs of one
-    image of many groups, each bit-equal to the plain version."""
+    """A race between groups or between the warps of a group would show
+    only sometimes: 20 runs of one image of many groups (groups of 1, 4
+    and 32 warps, and the default), each bit-equal to the plain version."""
     h, w, c, tb, om, _ = WAVEFRONT_GROUP_CASES["c3_tall_u8"]
     img = torch.from_numpy(float_image(h, w, c, om, 11)).to(cuda_device)
     want = wf.errdiff_wavefront_reference(img, tb, om)
+    rows = None if warps is None else warps * 32 // c
     for _ in range(20):
-        got = wf.errdiff_wavefront(img, tb, om, block_rows=warps * 32 // c)
+        got = wf.errdiff_wavefront(img, tb, om, block_rows=rows)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tout", list(WAVEFRONT_WARP_OUTS))
+@pytest.mark.parametrize("scan", [False, True])
+@pytest.mark.parametrize("name", list(WAVEFRONT_WARP_CASES))
+def test_wavefront_warp_edges_match_plain_on_card(name, scan, tout, cuda_device):
+    """K4's exchange at its edges (torch_cases.WAVEFRONT_WARP_CASES): the
+    shuffle inside a warp, the ring between warps, the hand-off between
+    groups, in both sum orders and every output type, bit-equal to the
+    plain version."""
+    h, w, c, rows = WAVEFRONT_WARP_CASES[name]
+    om, tb = WAVEFRONT_WARP_OUTS[tout]
+    img = torch.from_numpy(float_image(h, w, c, om, h * 5 + w + c)).to(cuda_device)
+    got = wf.errdiff_wavefront(
+        img, tb, om, out_dtype=_TORCH[tout], block_rows=rows, scan_order=scan
+    )
+    torch.cuda.synchronize()
+    want = wf.errdiff_wavefront_reference(img, tb, om, scan_order=scan).to(_TORCH[tout])
+    assert got.dtype == _TORCH[tout] and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wavefront_forms_at_the_cell_shape_on_card(cuda_device):
+    """The errdiff cell's K4 (3840x2160x3 into u8) runs the 256-thread
+    instantiation at the default groups, and groups of 32 warps the
+    1024-thread one; both give the same bits."""
+    h, w, c = 2160, 3840, 3
+    img = torch.from_numpy(float_image(h, w, c, 255.0, 29)).to(cuda_device)
+    before = dict(wf.forms)
+    small = wf.errdiff_wavefront(img, 0, 255.0, out_dtype=torch.uint8)
+    assert wf.forms == {**before, 256: before[256] + 1}
+    large = wf.errdiff_wavefront(img, 0, 255.0, out_dtype=torch.uint8, block_rows=32 * 32 // c)
+    torch.cuda.synchronize()
+    assert wf.forms == {256: before[256] + 1, 1024: before[1024] + 1}
+    assert torch.equal(small, large)
 
 
 @pytest.mark.cuda

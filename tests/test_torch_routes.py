@@ -20,7 +20,13 @@ from avir_tpu.ops.pallas.fused_kernel import (
     _srgb_to_linear13_u8poly as jax_srgb_to_linear13_u8poly,
 )
 
-from torch_cases import WAVEFRONT_GROUP_CASES, WAVEFRONT_GROUP_WARPS, float_image
+from torch_cases import (
+    WAVEFRONT_GROUP_CASES,
+    WAVEFRONT_GROUP_WARPS,
+    WAVEFRONT_WARP_CASES,
+    WAVEFRONT_WARP_OUTS,
+    float_image,
+)
 
 import avir_tpu_torch
 from avir_tpu_torch.models import runtime
@@ -206,6 +212,55 @@ def test_group_rows_and_critical_steps():
     assert wf.critical_steps(1080, 1920) == 1920 + 2 * 1079 == 4078
     assert wf.critical_steps(2160, 3840) == 8158
     assert wf.critical_steps(0, 5) == 0
+
+
+@pytest.mark.parametrize("threads, bound", [
+    (1, 256), (126, 256), (256, 256), (257, 1024), (1023, 1024), (1024, 1024),
+])
+def test_launch_bound_by_threads(threads, bound):
+    """K4's instantiation is the one whose launch bound holds the block."""
+    assert wf.launch_bound(threads) == bound
+
+
+@pytest.mark.parametrize("threads", [0, 1025])
+def test_launch_bound_rejects_what_no_block_holds(threads):
+    with pytest.raises(ValueError, match="threads"):
+        wf.launch_bound(threads)
+
+
+def test_cell_shape_takes_the_small_instantiation():
+    """The errdiff cell's K4 (3840x2160x3) at the default groups fills
+    126 threads: the 256-thread instantiation; groups of 8 warps still
+    take it, groups of 32 the 1024-thread one."""
+    c = 3
+    assert wf.launch_bound(wf.group_rows_for(2160, c, None) * c) == 256
+    assert wf.launch_bound(wf.group_rows_for(2160, c, 8 * 32 // c) * c) == 256
+    assert wf.launch_bound(wf.group_rows_for(2160, c, 32 * 32 // c) * c) == 1024
+    assert set(wf.forms) == {256, 1024}
+
+
+def test_plain_wavefront_counts_no_launch():
+    """The plain version (a CPU tensor) launches nothing and counts no
+    form."""
+    before, forms = dict(wf.launches), dict(wf.forms)
+    img = torch.from_numpy(float_image(5, 7, 3, 255.0, 1))
+    wf.errdiff_wavefront(img, 0, 255.0, out_dtype=torch.uint8)
+    assert wf.launches == before and wf.forms == forms
+
+
+@pytest.mark.parametrize("name", list(WAVEFRONT_WARP_CASES))
+def test_plain_wavefront_at_the_warp_cases(name):
+    """The plain version blocked as the kernel groups rows at each of K4's
+    exchange edges gives the single block's bits, in both sum orders."""
+    h, w, c, rows = WAVEFRONT_WARP_CASES[name]
+    om, tb = WAVEFRONT_WARP_OUTS["u16"]
+    img = torch.from_numpy(float_image(h, w, c, om, h * 5 + w + c))
+    for scan in (False, True):
+        one = wf.errdiff_wavefront_reference(img, tb, om, block_rows=h, scan_order=scan)
+        got = wf.errdiff_wavefront(
+            img, tb, om, block_rows=wf.group_rows_for(h, c, rows), scan_order=scan
+        )
+        assert torch.equal(got, one), scan
 
 
 @pytest.mark.parametrize("name", list(WAVEFRONT_GROUP_CASES))

@@ -419,6 +419,38 @@ WAVEFRONT_GROUP_CASES = {
 }
 WAVEFRONT_GROUP_WARPS = (1, 4, 32)
 
+# K4's exchange between lanes, warps and groups: (h, w, c, rows per group
+# or None for the default), each run in both sum orders and into u8, u16
+# and float32 (WAVEFRONT_WARP_OUTS).  Within a warp the row above is the
+# lane C before; lanes whose row above lies in the warp before read a
+# shared ring a chunk of steps at a time; rows whose channels straddle two
+# warps (C = 3, 5), C that divide 32 (1, 2, 4, 8) and C above a warp (33,
+# 40: every lane reads the ring, two warps read one warp's words), a
+# group's last warp partial, W = 1 and W = 5 (below a chunk of 8 steps),
+# H = 1, groups of one warp and of 32 (the 1024-thread
+# instantiation; at C = 8 its ring needs more than 48 KB of shared memory).
+WAVEFRONT_WARP_CASES = {
+    "c1_two_warps": (70, 37, 1, 64),
+    "c2_three_warps": (90, 29, 2, 48),
+    "c3_straddle": (100, 41, 3, 20),
+    "c4_three_warps": (66, 23, 4, 24),
+    "c5_straddle": (80, 30, 5, 25),
+    "c8_three_warps": (64, 19, 8, 12),
+    "c3_partial_last_warp": (47, 33, 3, 15),
+    "w1": (60, 1, 3, 21),
+    "w5": (50, 5, 3, 16),
+    "h1": (1, 45, 3, None),
+    "h1_c8": (1, 20, 8, None),
+    "one_warp": (90, 31, 3, 10),
+    "warps32_c3": (700, 20, 3, 341),
+    "warps32_c8": (300, 17, 8, 128),
+    "warps32_c1": (1100, 9, 1, 1024),
+    "c33": (10, 12, 33, 5),
+    "c40": (9, 13, 40, 3),
+}
+# (out_max, trunc_bits) of each output type in WAVEFRONT_WARP_CASES.
+WAVEFRONT_WARP_OUTS = {"u8": (255.0, 0), "u16": (65535.0, 4), "f32": (255.0, 2)}
+
 NP_TYPES = {"u8": np.uint8, "u16": np.uint16, "f32": np.float32}
 IN_BYTES = {"u8": 1, "u16": 2, "f32": 4}
 
