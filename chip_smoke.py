@@ -87,9 +87,13 @@ Phases (any failure exits non-zero before the last line):
          >= 60 dB of the float64 gamma oracle, its bound, the MACs it
          issues against the band's and its stagings per input element;
          the "auto" route (the same kernel) timed beside it, bit-equal;
-       - 1080p_to_4k_u16_gamma_rgba, 1920x1080 -> 3840x2160 u16 RGBA,
-         ``alpha_index=3``, ``res_bit_depth=16`` (K1 split3/split3 vh with
-         the degree-9 linearization): within the split gate of the plain
+       - 4k_to_8k_u16_gamma_rgba, 3840x2160 -> 7680x4320 u16 RGBA,
+         ``alpha_index=3``, ``res_bit_depth=16``, the benchmark's 16-bit
+         cell (K1 split3/split3 vh with the degree-9 linearization): within
+         the split gate of the plain version and 16 LSB / >= 60 dB of the
+         oracle (the cell's ``excess_lsb`` limit); hv beside it, as above;
+       - 1080p_to_4k_u16_gamma_rgba, 1920x1080 -> 3840x2160, the same
+         keywords and kernel: within the split gate of the plain
          version and 5 LSB / >= 60 dB of the oracle (the JAX package's
          gate for its fused u16 gamma route); hv beside it, as above;
        - 1080p_to_4k_gamma, 1920x1080 -> 3840x2160 u8 RGB with sRGB gamma
@@ -217,8 +221,8 @@ the image as u16), K3 at those two and
 lancir_720p_to_1080p_f32 (KT_K3_CELLS), K7 and K8 at the two planar
 shapes (KT_PLANAR_CELLS, with K1 split of the same resize beside them) and
 K1 split hv at 1080p_to_4k_errdiff and, with gamma,
-1080p_to_4k_u16_gamma_rgba (KT_SPLIT_HV_CELLS, K1 split vh of the same
-resize beside them) on the package under DIR instead (one JSON line, with
+1080p_to_4k_u16_gamma_rgba and 4k_to_8k_u16_gamma_rgba (KT_SPLIT_HV_CELLS,
+K1 split vh of the same resize beside them) on the package under DIR instead (one JSON line, with
 output hashes, K1 split hv's, K3's, K5's, K7's and K8's bounds, ptxas's
 registers and spills of the fused_int8, planar, fused_split and banded
 libraries and, at the two int8 downsizes, the split route beside it), so
@@ -548,6 +552,16 @@ EPI_SHAPES = (
     ("8k_to_1080p_gamma", "avir", 7680, 4320, 1920, 1080, 3, np.uint8,
      np.uint8, {"use_srgb_gamma": True}, "fused_int8_vh_gamma", 1, "inkernel",
      None),
+    # The benchmark's 16-bit RGBA flagship (avir_def_u16_rgba_srgb's cell,
+    # 15,360 input and 30,720 output lanes), before 1080p_to_4k_u16_gamma_rgba
+    # so that the kernels line holds K1 split vh gamma (and hv gamma) at the
+    # size the cell runs.  Oracle gate: the cell's excess_lsb limit, 16 (the
+    # port reads up to ~6 LSB from the float64 reference over a whole 8K
+    # frame, beyond 1080p's 5).
+    ("4k_to_8k_u16_gamma_rgba", "avir", 3840, 2160, 7680, 4320, 4,
+     np.uint16, np.uint16,
+     {"use_srgb_gamma": True, "alpha_index": 3, "res_bit_depth": 16},
+     "fused_split_vh_gamma", 16, None, "fused_split_hv_gamma"),
     ("1080p_to_4k_u16_gamma_rgba", "avir", 1920, 1080, 3840, 2160, 4,
      np.uint16, np.uint16,
      {"use_srgb_gamma": True, "alpha_index": 3, "res_bit_depth": 16},
@@ -686,11 +700,14 @@ KT_PLANAR_CELLS = PLANAR_SHAPES
 # --kernel-times' K1 split hv cells (and split_hv_heights.py's): (name,
 # src_w, src_h, new_w, new_h, c, in dtype, plan keywords, errdiff).  The
 # errdiff upsize on the route its resize takes (hv), and the u16 RGBA gamma
-# upsize in the hv order by a direct call (no gamma resize runs hv); K1
-# split vh of the same resize beside each.
+# upsizes (1080p -> 4K, and 4K -> 8K, the benchmark's 16-bit cell) in the
+# hv order by a direct call (no gamma resize runs hv); K1 split vh of the
+# same resize beside each.
 KT_SPLIT_HV_CELLS = (
     ("1080p_to_4k_errdiff", 1920, 1080, 3840, 2160, 3, np.uint8, {}, True),
     ("1080p_to_4k_u16_gamma_rgba", 1920, 1080, 3840, 2160, 4, np.uint16,
+     {"use_srgb_gamma": True, "alpha_index": 3, "res_bit_depth": 16}, False),
+    ("4k_to_8k_u16_gamma_rgba", 3840, 2160, 7680, 4320, 4, np.uint16,
      {"use_srgb_gamma": True, "alpha_index": 3, "res_bit_depth": 16}, False),
 )
 # K4's row groups swept at each errdiff cell: warps of (row, channel)

@@ -14,7 +14,8 @@ places:
 - a quarter into the window: whole requests of at least 960 frames under
   ``torch.profiler``, as the benchmark's traced slice, with the tracer on;
   each idle gap of the card is named by the benchmark's request span and
-  the innermost port span open at its middle;
+  the innermost port span open at its middle, and the kernels' launches
+  in the slice are counted by form (``forms_now``);
 - half way in: the first whole requests of at least 960 frames and 16
   requests with the tracer on and no profiler (the span slice): the
   per-frame split and the turnaround between requests.
@@ -47,6 +48,30 @@ KERNELS = ("k1", "k6", "split", "k4")
 # A frame's parts: its own time, then each kernel's call (self) and launch.
 PARTS = ("fn_self_us",) + tuple(f"{k}_{p}_us" for k in KERNELS for p in ("prep", "launch"))
 LAUNCHES = {f"{k}.launch" for k in KERNELS}
+
+
+def forms_now() -> dict:
+    """The port's launch counters by form, copied: K1 split's by
+    instantiation (``fused_split.forms``), K1 int8 hv's by pipeline form
+    (``fused_kernel.hv_forms``) and K4's by launch bound
+    (``wavefront.forms``)."""
+    from avir_tpu_torch.ops.cuda import fused_kernel, fused_split, wavefront
+
+    return {
+        "split": dict(fused_split.forms),
+        "hv": dict(fused_kernel.hv_forms),
+        "k4": {str(k): v for k, v in wavefront.forms.items()},
+    }
+
+
+def forms_since(before: dict) -> dict:
+    """The launches by form counted since ``forms_now`` gave ``before``,
+    the forms that took none left out."""
+    return {
+        kind: {k: v - before[kind].get(k, 0) for k, v in counts.items()
+               if v > before[kind].get(k, 0)}
+        for kind, counts in forms_now().items()
+    }
 
 
 def children_ns(spans) -> collections.Counter:
@@ -328,8 +353,10 @@ def window(client, seconds: float, sample, cuda: bool,
                 slice_requests(k0, n_prof, span, profiled=True)
 
             t0 = time.perf_counter()
+            before = forms_now()
             _, sl = tracing.traced(run, n_prof * client.frames, cuda)
             got["prof_wall_s"] = time.perf_counter() - t0
+            got["prof_forms"] = forms_since(before)
             raw = holder[0].spans[0][1]
             got["prof"] = sl, trace.drain()[0], raw - round(sl.host_spans[0][1] * 1e3)
             k += n_prof
@@ -387,7 +414,9 @@ def measure(cell, seed: int, seconds: float, device, scale: int = 1,
     trace.disable()
     setup, _ = trace.drain()
     dur = {s.name: (s.end_ns - s.start_ns) * 1e-9 for s in setup}
-    pool = harness.make_pool(seed, mix["pool_frames"], (src[1], src[0], cfg["channels"]), device)
+    pool = harness.make_pool(
+        seed, mix["pool_frames"], (src[1], src[0], cfg["channels"]), device, cfg["in_dtype"]
+    )
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     client = harness.Client(fn, pool, mix["frames_per_request"], sync)
     sync()
@@ -457,6 +486,8 @@ def measure(cell, seed: int, seconds: float, device, scale: int = 1,
             "dispatch_us": dispatch_per_frame_us(profiled),
             **{k: prof_split.get(k) for k in PARTS},
             "sync_tail_us": statistics.median(tails) if tails else None,
+            "frames": sl.frames,
+            "forms": got["prof_forms"],
         },
         **turnaround(spans),
         "frame_parts_us": first_and_later(spans),

@@ -11,7 +11,8 @@ This script builds copies of that source into build/split_hv_heights/
 with ``kHvRows`` set to each height (one nvcc each, all started
 together), prints ptxas's registers and spills of their hv kernels, and
 at chip_smoke.py's KT_SPLIT_HV_CELLS (1080p_to_4k_errdiff, the route its
-resize takes; 1080p_to_4k_u16_gamma_rgba, a direct hv call) runs each
+resize takes; 1080p_to_4k_u16_gamma_rgba and 4k_to_8k_u16_gamma_rgba,
+direct hv calls) runs each
 copy through the shipped wrapper (apply_fused_split inside
 fused_split.LAUNCH.through(copy)) on operands whose k_range is built at
 its height.  Each is held to the plain version within the split gate
